@@ -1,0 +1,41 @@
+"""open_provence_tpu_torch — the PyTorch/CUDA port of open_provence_tpu.
+
+The same Provence-style reranker–pruner (a cross-encoder that scores a
+query–context pair and emits per-token keep probabilities used to delete
+irrelevant sentences from RAG context), on PyTorch with hand-written CUDA
+kernels for NVIDIA Hopper (``kernels/csrc``). On a CPU the kernels' plain
+PyTorch versions run instead. The JAX package ``open_provence_tpu`` is the
+numerics reference; this package imports neither it nor jax.
+"""
+
+from .configs import (
+    DEFAULT_PROCESS_THRESHOLD,
+    ModernBertBackboneConfig,
+    OpenProvenceConfig,
+    PruningHeadConfig,
+)
+from .inference import OpenProvenceModel
+from .models.model import (
+    OpenProvenceModule,
+    build_module,
+    keep_probs_from_logits,
+    ranking_score_from_logits,
+)
+from .utils.convert import init_params, state_dict_from_flax
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DEFAULT_PROCESS_THRESHOLD",
+    "ModernBertBackboneConfig",
+    "OpenProvenceConfig",
+    "PruningHeadConfig",
+    "OpenProvenceModel",
+    "OpenProvenceModule",
+    "build_module",
+    "keep_probs_from_logits",
+    "ranking_score_from_logits",
+    "init_params",
+    "state_dict_from_flax",
+    "__version__",
+]

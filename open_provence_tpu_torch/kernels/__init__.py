@@ -1,0 +1,180 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, which is loaded
+with ``ctypes``: no ninja and no libtorch headers, so a build takes seconds.
+The library lands in ``_build/`` (listed in ``.gitignore``) under a name
+that carries the hash of the sources, so an edited source rebuilds; a file
+lock keeps concurrent processes from building the same library twice.
+
+Importing this module builds nothing and needs neither ``nvcc`` nor a card.
+
+Every wrapper in ``ops/`` adds one to its kernel's launch count right after
+a successful launch, and nowhere else, so a run can show that the main path
+went through the kernels (``reset_launch_counts`` / ``launch_counts``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+SOURCES = ("layer_norm.cu", "ln_gemm.cu", "flash_attention.cu")
+HEADERS = ("common.cuh",)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+# The kernels' names, in the order the forward first reaches them; the C
+# entry point of each is ``opt_<name>``.
+KERNELS = ("layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu")
+
+_launches = dict.fromkeys(KERNELS, 0)
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_launches)
+
+
+def count_launch(name: str) -> None:
+    _launches[name] += 1
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from CUDA_HOME, then PATH, then /usr/local/cuda."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for cand in candidates:
+        if cand.is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _source_digest() -> str:
+    h = hashlib.sha256()
+    for name in (*HEADERS, *SOURCES):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libopt_kernels_{_source_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    Returns its path; the ptxas report is kept beside it as ``.log``."""
+    lib_path = library_path()
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():  # built by another process while we waited
+            return lib_path
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            *(str(CSRC / s) for s in SOURCES), "-o", str(tmp),
+        ]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+            )
+        os.replace(tmp, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    signatures = {
+        "layer_norm": [p, p, p, i, i, f, i, p],
+        "ln_matmul": [p, p, p, p, i, i, i, f, i, p],
+        "ln_geglu": [p, p, p, p, i, i, i, f, i, i, p],
+        "flash_attention_packed": [p, p, p, p, p, i, i, i, i, ll, ll, i, f, i, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, f"opt_{name}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.opt_error_string.argtypes = [ctypes.c_int]
+    lib.opt_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return _DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}") from None
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (take the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def require_16_byte_rows(*tensors: torch.Tensor) -> None:
+    """The bf16 kernels move rows in 16-byte vectors: each tensor must start
+    on a 16-byte boundary with every stride but the last a multiple of 8."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]) or t.stride(-1) != 1:
+            raise ValueError(
+                f"bf16 kernels need 16-byte aligned rows of 8k elements; got shape "
+                f"{tuple(t.shape)}, strides {t.stride()}"
+            )
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error; count the launch if not."""
+    if code != 0:
+        msg = library().opt_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({code})")
+    count_launch(name)

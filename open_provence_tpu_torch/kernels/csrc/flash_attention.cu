@@ -1,0 +1,457 @@
+// Flash-attention forward on the packed Wqkv output: kernel 3 of the
+// forward path.
+//
+// Replaces ops/flash_attention.py::_flash_kernel_packed. q, k and v are read
+// through strides of one [B, S, 3*H*D] buffer in HF lane order (qkv, head,
+// dim): q at h*D, k at H*D + h*D, v at 2*H*D + h*D of each row. The output is
+// [B, S, H*D], ready for Wo. Rotary runs in-kernel from [S, D] cos/sin tables
+// given in the storage type, rounding as the plain composition does
+// (x*cos and rotate_half(x)*sin each rounded to T, then their sum), so the
+// rotated q/k never reach device memory.
+//
+// One CTA per (q tile of 64 rows, head, batch row) walks the key tiles of 64.
+// For local layers the walk is bounded by the band |i - j| <= window, so a
+// CTA visits at most ceil((64 + 2*window) / 64) + 1 key tiles; this is the
+// TPU's separate banded kernel folded into a loop bound. Scores, the online
+// softmax (running max, rescale, running sum) and the P.V accumulator are
+// fp32; P is rounded to T before the P.V product and summed unrounded, as
+// the TPU kernel does. Masking is one additive bias per score: key padding
+// and the band each add -FLT_MAX, clamped so two stacked biases stay finite.
+// Keys past S (a ragged last tile) get -inf and so weigh exactly 0. Rows
+// whose running sum is 0 write 0.
+//
+// bf16 (the serving dtype): both products on tensor cores (mma.sync
+// m16n8k16, fp32 accumulation), FlashAttention-2 style: each of 4 warps owns
+// 16 query rows and keeps its scores, softmax state and output accumulator
+// in registers; P goes from the score accumulators to the P.V operand
+// without touching shared memory. fp32: the same walk with fp32 FMA from
+// shared memory (true fp32). The work is 4*S*S*D FLOPs a head for global
+// layers, so the tensor-core rate bounds it; overlapping the K/V loads
+// (cp.async/TMA) and wgmma are later work.
+#include "common.cuh"
+
+#include <math.h>
+
+namespace {
+
+constexpr int BQ = 64, BK = 64;
+
+template <typename T, int D>
+__device__ __forceinline__ float rope_elem(const T* row, int d, const T* cos_t,
+                                           const T* sin_t, int pos) {
+  const float x = to_f32(row[d]);
+  if (cos_t == nullptr) return x;
+  constexpr int half = D / 2;
+  const float rot = d < half ? -to_f32(row[d + half]) : to_f32(row[d - half]);
+  const float c = to_f32(cos_t[(size_t)pos * D + d]);
+  const float s = to_f32(sin_t[(size_t)pos * D + d]);
+  return round_to<T>(round_to<T>(x * c) + round_to<T>(rot * s));
+}
+
+// Scaled score plus the additive mask bias; -inf for keys past S.
+__device__ __forceinline__ float biased_score(float s, float scale, int qi, int kj, int S,
+                                              const int* mrow, int window) {
+  if (kj >= S) return -INFINITY;
+  float bias = 0.f;
+  if (mrow != nullptr && mrow[kj] == 0) bias = OPT_NEG_BIG;
+  if (window >= 0 && abs(qi - kj) > window) bias = fmaxf(bias + OPT_NEG_BIG, OPT_NEG_BIG);
+  return s * scale + bias;
+}
+
+// First key tile and last key of the walk for the q tile at q0.
+__device__ __forceinline__ void key_range(int q0, int S, int window, int* k_first, int* k_last) {
+  int lo = 0, hi = S - 1;
+  if (window >= 0) {
+    lo = max(0, q0 - window);
+    hi = min(S - 1, q0 + BQ - 1 + window);
+  }
+  *k_first = (lo / BK) * BK;
+  *k_last = hi;
+}
+
+struct Args {
+  const void* qkv;
+  const int* mask;
+  const void* cos_t;
+  const void* sin_t;
+  void* out;
+  int S, H;
+  long long stride_b, stride_s;
+  int window;
+  float scale;
+};
+
+// ---- fp32: FMA ------------------------------------------------------------
+
+namespace simt {
+constexpr int THREADS = 256;
+template <int D>
+constexpr size_t smem_bytes() {
+  return (size_t)(2 * BQ * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ) * sizeof(float);
+}
+}  // namespace simt
+
+template <int D>
+__global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
+  using T = float;
+  constexpr int THREADS = simt::THREADS;
+  extern __shared__ float smem[];
+  float* Qs = smem;                   // [BQ][D + 1]
+  float* Ks = Qs + BQ * (D + 1);      // [BK][D + 1]
+  float* Vs = Ks + BK * (D + 1);      // [BK][D]
+  float* Ps = Vs + BK * D;            // [BQ][BK + 1]
+  float* m_run = Ps + BQ * (BK + 1);  // [BQ]
+  float* l_run = m_run + BQ;          // [BQ]
+  float* alpha = l_run + BQ;          // [BQ]
+
+  const int S = args.S, HD = args.H * D;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const T* base = static_cast<const T*>(args.qkv) + (size_t)b * args.stride_b;
+  const T* cos_t = static_cast<const T*>(args.cos_t);
+  const T* sin_t = static_cast<const T*>(args.sin_t);
+  const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
+
+  for (int idx = tid; idx < BQ * D; idx += THREADS) {
+    const int r = idx / D, d = idx % D, pos = q0 + r;
+    Qs[r * (D + 1) + d] =
+        pos < S ? rope_elem<T, D>(base + pos * args.stride_s + h * D, d, cos_t, sin_t, pos) : 0.f;
+  }
+  if (tid < BQ) {
+    m_run[tid] = OPT_NEG_BIG;
+    l_run[tid] = 0.f;
+  }
+
+  const int tx = tid & 15, ty = tid >> 4;
+  constexpr int DJ = D / 16;
+  float acc[4][DJ] = {};
+
+  int k_first, k_last;
+  key_range(q0, S, args.window, &k_first, &k_last);
+  for (int k0 = k_first; k0 <= k_last; k0 += BK) {
+    __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
+    for (int idx = tid; idx < BK * D; idx += THREADS) {
+      const int r = idx / D, d = idx % D, pos = k0 + r;
+      float kv = 0.f, vv = 0.f;
+      if (pos < S) {
+        const T* row = base + pos * args.stride_s;
+        kv = rope_elem<T, D>(row + HD + h * D, d, cos_t, sin_t, pos);
+        vv = row[2 * HD + h * D + d];
+      }
+      Ks[r * (D + 1) + d] = kv;
+      Vs[r * D + d] = vv;
+    }
+    __syncthreads();
+
+    // Scores for rows ty + 16i, keys tx + 16j, with the additive bias.
+    float s[4][4] = {};
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = biased_score(
+            s[i][j], args.scale, q0 + ty + 16 * i, k0 + tx + 16 * j, S, mrow, args.window);
+    __syncthreads();
+
+    // Online softmax: warp w owns rows 8w .. 8w+7, two keys per lane.
+    const int lane = tid & 31, warp = tid >> 5;
+    constexpr int ROWS_PER_WARP = BQ / (THREADS / 32);
+#pragma unroll
+    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
+      const int r = warp * ROWS_PER_WARP + rr;
+      float* prow = Ps + r * (BK + 1);
+      const float v0 = prow[lane], v1 = prow[lane + 32];
+      const float m_prev = m_run[r];
+      const float m_new = fmaxf(m_prev, warp_max(fmaxf(v0, v1)));
+      const float p0 = expf(v0 - m_new), p1 = expf(v1 - m_new);
+      const float row_sum = warp_sum(p0 + p1);
+      prow[lane] = p0;
+      prow[lane + 32] = p1;
+      if (lane == 0) {
+        const float a = expf(m_prev - m_new);
+        alpha[r] = a;
+        l_run[r] = l_run[r] * a + row_sum;
+        m_run[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P . V for rows ty + 16i, dims tx + 16j.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = alpha[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= a;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float vv[DJ];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = Ps[(ty + 16 * i) * (BK + 1) + kk];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();
+
+  T* out = static_cast<T*>(args.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i, pos = q0 + r;
+    if (pos >= S) continue;
+    const float l = l_run[r];
+    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    T* orow = out + ((size_t)b * S + pos) * HD + h * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
+  }
+}
+
+// ---- bf16: mma.sync -------------------------------------------------------
+
+namespace tc {
+constexpr int THREADS = 128;  // 4 warps x 16 query rows
+template <int D>
+constexpr size_t smem_bytes() {
+  return (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+}
+}  // namespace tc
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rope_elem for the 8 values d0 .. d0+7 of a row (d0 % 8 == 0), 16-byte loads.
+template <int D>
+__device__ __forceinline__ uint4 rope_chunk(const __nv_bfloat16* row, int d0,
+                                            const __nv_bfloat16* cos_t,
+                                            const __nv_bfloat16* sin_t, int pos) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(row + d0);
+  if (cos_t == nullptr) return raw;
+  constexpr int half = D / 2;
+  const bool first_half = d0 < half;
+  float xs[8], ps[8], cs[8], ss[8], v[8];
+  unpack8(raw, xs);
+  unpack8(*reinterpret_cast<const uint4*>(row + (first_half ? d0 + half : d0 - half)), ps);
+  unpack8(*reinterpret_cast<const uint4*>(cos_t + (size_t)pos * D + d0), cs);
+  unpack8(*reinterpret_cast<const uint4*>(sin_t + (size_t)pos * D + d0), ss);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float rot = first_half ? -ps[i] : ps[i];
+    v[i] = round_to<__nv_bfloat16>(xs[i] * cs[i]) + round_to<__nv_bfloat16>(rot * ss[i]);
+  }
+  return pack8(v);  // rounds the sum
+}
+
+// 16-byte rows throughout: D % 8 == 0 and 16-byte aligned rows (the wrapper
+// checks the strides and pointers).
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
+  using T = __nv_bfloat16;
+  constexpr int THREADS = tc::THREADS, LD = D + 8, CH = D / 8;
+  constexpr int DC = D / 16;  // k-chunks of Q.K^T and d-pairs of the output
+  constexpr int KN = BK / 8;  // n-tiles of the scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* Ks = Qs + BQ * LD;                    // [BK][LD], rotated
+  T* Vs = Ks + BK * LD;                    // [BK][LD]
+
+  const int S = args.S, HD = args.H * D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const T* base = static_cast<const T*>(args.qkv) + (size_t)b * args.stride_b;
+  const T* cos_t = static_cast<const T*>(args.cos_t);
+  const T* sin_t = static_cast<const T*>(args.sin_t);
+  const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  for (int c = tid; c < BQ * CH; c += THREADS) {
+    const int r = c / CH, d0 = (c % CH) * 8, pos = q0 + r;
+    *reinterpret_cast<uint4*>(Qs + r * LD + d0) =
+        pos < S ? rope_chunk<D>(base + pos * args.stride_s + h * D, d0, cos_t, sin_t, pos) : zero;
+  }
+  __syncthreads();
+
+  // This warp's query rows: qrow = 16*warp + g, and qrow + 8. ldmatrix row
+  // addresses: lane l points at row l % 8 (+8 for lanes 8-15 and 24-31) and
+  // column +8 for lanes 16-31 (A operand order).
+  const int qrow = warp * 16 + g;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  uint32_t qa[DC][4];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) ldmatrix_x4(qa[c], Qs + (warp * 16 + a_row) * LD + c * 16 + a_col);
+
+  float o[2 * DC][4] = {};
+  float m_run[2] = {OPT_NEG_BIG, OPT_NEG_BIG}, l_run[2] = {0.f, 0.f};
+
+  int k_first, k_last;
+  key_range(q0, S, args.window, &k_first, &k_last);
+  for (int k0 = k_first; k0 <= k_last; k0 += BK) {
+    __syncthreads();  // every warp is done with the previous Ks/Vs
+    for (int c = tid; c < BK * CH; c += THREADS) {
+      const int r = c / CH, d0 = (c % CH) * 8, pos = k0 + r;
+      uint4 kv = zero, vv = zero;
+      if (pos < S) {
+        const T* row = base + pos * args.stride_s;
+        kv = rope_chunk<D>(row + HD + h * D, d0, cos_t, sin_t, pos);
+        vv = *reinterpret_cast<const uint4*>(row + 2 * HD + h * D + d0);
+      }
+      *reinterpret_cast<uint4*>(Ks + r * LD + d0) = kv;
+      *reinterpret_cast<uint4*>(Vs + r * LD + d0) = vv;
+    }
+    __syncthreads();
+
+    // Scores: 16 rows x 64 keys per warp. B operand = K rows (keys) read
+    // 16 keys x 16 dims per ldmatrix.x4: r0/r1 key tile 2p, r2/r3 tile 2p+1.
+    float s[KN][4] = {};
+#pragma unroll
+    for (int p = 0; p < KN / 2; ++p) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        uint32_t r[4];
+        ldmatrix_x4(r, Ks + (p * 16 + a_col + (lane & 7)) * LD + c * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[2 * p], qa[c], r);
+        mma_bf16_16816(s[2 * p + 1], qa[c], r + 2);
+      }
+    }
+
+    // Bias, then the online softmax of rows qrow (i = 0) and qrow + 8
+    // (i = 1); a row's 64 scores live in the 4 lanes of a quad.
+    float m_new[2], alpha[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + qrow + 8 * i;
+      float mx = OPT_NEG_BIG;
+#pragma unroll
+      for (int nt = 0; nt < KN; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float& v = s[nt][2 * i + j];
+          v = biased_score(v, args.scale, qi, k0 + nt * 8 + 2 * t + j, S, mrow, args.window);
+          mx = fmaxf(mx, v);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      m_new[i] = fmaxf(m_run[i], mx);
+      alpha[i] = expf(m_run[i] - m_new[i]);
+    }
+    // P straight from the score accumulators into the A operand of P.V,
+    // rounded to bf16: key tile nt fills half of key chunk nt / 2.
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < KN; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[nt][e] - m_new[e >> 1]);
+        row_sum[e >> 1] += p[e];
+      }
+      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float rs = row_sum[i];
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l_run[i] = l_run[i] * alpha[i] + rs;
+      m_run[i] = m_new[i];
+    }
+#pragma unroll
+    for (int dn = 0; dn < 2 * DC; ++dn) {
+      o[dn][0] *= alpha[0];
+      o[dn][1] *= alpha[0];
+      o[dn][2] *= alpha[1];
+      o[dn][3] *= alpha[1];
+    }
+    // O += P.V. B operand = V read transposed, 16 keys x 16 dims per
+    // ldmatrix.x4.trans: r0/r1 dim tile 2q, r2/r3 dim tile 2q+1.
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+      for (int q = 0; q < DC; ++q) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, Vs + (kc * 16 + a_row) * LD + q * 16 + a_col);
+        mma_bf16_16816(o[2 * q], pa[kc], r);
+        mma_bf16_16816(o[2 * q + 1], pa[kc], r + 2);
+      }
+    }
+  }
+
+  T* out = static_cast<T*>(args.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = q0 + qrow + 8 * i;
+    if (pos >= S) continue;
+    const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
+    T* orow = out + ((size_t)b * S + pos) * HD + h * D;
+#pragma unroll
+    for (int dn = 0; dn < 2 * DC; ++dn) {
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
+      *reinterpret_cast<__nv_bfloat162*>(&orow[dn * 8 + 2 * t]) = v;
+    }
+  }
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const Args& args, int batch, int threads, size_t smem,
+           cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((args.S + BQ - 1) / BQ, args.H, batch);
+  kernel<<<grid, threads, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int by_dtype(const Args& args, int batch, int dtype, cudaStream_t stream) {
+  if (dtype == DTYPE_F32)
+    return launch(flash_fma_kernel<D>, args, batch, simt::THREADS, simt::smem_bytes<D>(),
+                  stream);
+  if (dtype == DTYPE_BF16)
+    return launch(flash_mma_kernel<D>, args, batch, tc::THREADS, tc::smem_bytes<D>(), stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// window < 0 means a global layer; cos_t/sin_t may be null (no rotary) and
+// mask may be null (no key padding). Strides are in elements; the bf16
+// output is written two values at a time, so D is even and out is aligned.
+extern "C" int opt_flash_attention_packed(const void* qkv, const int* mask, const void* cos_t,
+                                          const void* sin_t, void* out, int batch, int seq,
+                                          int heads, int head_dim, long long stride_b,
+                                          long long stride_s, int window, float scale,
+                                          int dtype, void* stream) {
+  if (batch <= 0 || seq <= 0) return 0;
+  const Args args{qkv, mask, cos_t, sin_t, out, seq, heads, stride_b, stride_s, window, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // ModernBERT's head dim (base and large); the wrapper refuses others.
+  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  return by_dtype<64>(args, batch, dtype, s);
+}
+
+// The message of a CUDA error code, for the Python wrappers.
+extern "C" const char* opt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

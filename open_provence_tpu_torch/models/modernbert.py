@@ -1,0 +1,198 @@
+"""ModernBERT encoder in PyTorch, on the port's kernels.
+
+The counterpart of the JAX package's ``models/modernbert.py`` on its default
+fused path:
+
+* token embeddings, then LayerNorm (kernel 1); no positional embeddings;
+* pre-norm layers; layer 0's attn_norm is the identity (the embeddings are
+  already normalized), later layers fold attn_norm into the Wqkv GEMM
+  (kernel 2); layer 0's Wqkv is a plain ``nn.Linear``;
+* attention on the packed Wqkv output (kernel 3) with rotary in-kernel,
+  theta and window per layer: every ``global_attn_every_n_layers``-th layer
+  is global (160k theta), the others see keys within ±local_attention//2
+  (10k theta);
+* mlp_norm deferred past the residual add and folded into the Wi GEMM with
+  the GeGLU epilogue (kernel 4); Wo stays a plain ``nn.Linear``;
+* both the last hidden state before ``final_norm`` (read by the pruning
+  head) and after it (read by the ranking head).
+
+Attribute names follow the HF / reference state-dict names
+(``embeddings.tok_embeddings``, ``layers.{i}.attn.Wqkv``, ``…mlp.Wi``,
+``…mlp_norm``, ``final_norm``, ``head.dense``, ``classifier``), so a
+reference-layout state dict loads with ``load_state_dict`` as is.
+
+Inference only: dropout is not applied. Checkpoints with norm, attention or
+MLP biases need kernels that are not ported yet and are refused.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs import ModernBertBackboneConfig
+from ..ops.flash_attention import flash_attention_packed
+from ..ops.geglu import ln_geglu, ln_matmul, lookup_activation
+from ..ops.layer_norm import layer_norm
+from ..ops.rotary import rope_tables
+
+
+def _require_ported(cfg: ModernBertBackboneConfig) -> None:
+    unported = [n for n in ("norm_bias", "attention_bias", "mlp_bias") if getattr(cfg, n)]
+    if unported:
+        raise NotImplementedError(
+            f"{', '.join(unported)}=True needs kernels that are not ported yet "
+            "(the bias-carrying GeGLU and LayerNorm variants)"
+        )
+
+
+class LayerNorm(nn.Module):
+    """Bias-free LayerNorm holding ``weight`` (the HF name for the scale)."""
+
+    def __init__(self, hidden: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.eps)
+
+
+class ModernBertEmbeddings(nn.Module):
+    def __init__(self, cfg: ModernBertBackboneConfig):
+        super().__init__()
+        self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.norm = LayerNorm(cfg.hidden_size, cfg.norm_eps)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.tok_embeddings(input_ids))
+
+
+class ModernBertAttention(nn.Module):
+    """Fused-QKV attention with per-layer rotary theta and window."""
+
+    def __init__(self, cfg: ModernBertBackboneConfig, layer_id: int):
+        super().__init__()
+        self.num_heads = cfg.num_attention_heads
+        self.head_dim = cfg.head_dim
+        self.theta = cfg.layer_rope_theta(layer_id)
+        self.window = cfg.layer_window(layer_id)
+        self.Wqkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, bias=False)
+        self.Wo = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=False)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        padding_mask: torch.Tensor | None,
+        ln_scale: torch.Tensor | None = None,
+        ln_eps: float = 1e-5,
+    ) -> torch.Tensor:
+        """``ln_scale`` (a deferred attn_norm) folds the norm into Wqkv."""
+        batch, seq_len, hidden = x.shape
+        if ln_scale is None:
+            qkv = self.Wqkv(x)
+        else:
+            qkv = ln_matmul(
+                x.reshape(batch * seq_len, hidden), ln_scale, self.Wqkv.weight, ln_eps
+            ).reshape(batch, seq_len, 3 * hidden)
+        rope = rope_tables(seq_len, self.head_dim, self.theta, qkv.dtype, qkv.device)
+        out = flash_attention_packed(
+            qkv, num_heads=self.num_heads, padding_mask=padding_mask,
+            window=self.window, rope=rope,
+        )
+        return self.Wo(out)
+
+
+class ModernBertMLP(nn.Module):
+    """GeGLU MLP: mlp_norm → Wi → act(input)·gate in one kernel, then Wo."""
+
+    def __init__(self, cfg: ModernBertBackboneConfig):
+        super().__init__()
+        self.activation = cfg.hidden_activation
+        self.Wi = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=False)
+        self.Wo = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+
+    def forward(self, x: torch.Tensor, ln_scale: torch.Tensor, ln_eps: float) -> torch.Tensor:
+        x2d = x.reshape(-1, x.shape[-1])
+        hidden = ln_geglu(x2d, ln_scale, self.Wi.weight, self.activation, ln_eps)
+        return self.Wo(hidden).reshape(x.shape)
+
+
+class ModernBertEncoderLayer(nn.Module):
+    def __init__(self, cfg: ModernBertBackboneConfig, layer_id: int):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        # Layer 0 has no attn_norm parameter: its input is the normalized
+        # embedding output (HF uses nn.Identity there).
+        self.attn_norm = None if layer_id == 0 else LayerNorm(cfg.hidden_size, cfg.norm_eps)
+        self.attn = ModernBertAttention(cfg, layer_id)
+        self.mlp_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps)
+        self.mlp = ModernBertMLP(cfg)
+
+    def forward(self, x: torch.Tensor, padding_mask: torch.Tensor | None) -> torch.Tensor:
+        attn_scale = None if self.attn_norm is None else self.attn_norm.weight
+        x = x + self.attn(x, padding_mask, attn_scale, self.eps)
+        return x + self.mlp(x, self.mlp_norm.weight, self.eps)
+
+
+class ModernBertModel(nn.Module):
+    """Backbone returning the last hidden state before and after final_norm."""
+
+    def __init__(self, cfg: ModernBertBackboneConfig):
+        super().__init__()
+        _require_ported(cfg)
+        self.embeddings = ModernBertEmbeddings(cfg)
+        self.layers = nn.ModuleList(
+            ModernBertEncoderLayer(cfg, i) for i in range(cfg.num_hidden_layers)
+        )
+        self.final_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps)
+
+    def forward(
+        self, input_ids: torch.Tensor, padding_mask: torch.Tensor | None = None
+    ) -> dict[str, torch.Tensor]:
+        x = self.embeddings(input_ids)
+        for layer in self.layers:
+            x = layer(x, padding_mask)
+        return {"last_hidden_pre_norm": x, "last_hidden_state": self.final_norm(x)}
+
+
+class ModernBertPredictionHead(nn.Module):
+    """dense → act → norm (HF ModernBertPredictionHead)."""
+
+    def __init__(self, cfg: ModernBertBackboneConfig):
+        super().__init__()
+        self.act = lookup_activation(cfg.classifier_activation)[1]
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=cfg.classifier_bias)
+        self.norm = LayerNorm(cfg.hidden_size, cfg.norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.act(self.dense(x)))
+
+
+class ModernBertForSequenceClassification(nn.Module):
+    """Backbone + pooled classification head (ranking logits): pool (cls or
+    masked mean) → prediction head → classifier."""
+
+    def __init__(self, cfg: ModernBertBackboneConfig):
+        super().__init__()
+        if cfg.classifier_pooling not in ("cls", "mean"):
+            raise ValueError(f"Unknown classifier_pooling: {cfg.classifier_pooling!r}")
+        self.pooling = cfg.classifier_pooling
+        self.model = ModernBertModel(cfg)
+        self.head = ModernBertPredictionHead(cfg)
+        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+
+    def forward(
+        self, input_ids: torch.Tensor, padding_mask: torch.Tensor | None = None
+    ) -> dict[str, torch.Tensor]:
+        outputs = self.model(input_ids, padding_mask)
+        hidden = outputs["last_hidden_state"]
+        if self.pooling == "cls":
+            pooled = hidden[:, 0]
+        elif padding_mask is None:
+            pooled = hidden.mean(dim=1)
+        else:
+            mask = padding_mask[..., None].to(hidden.dtype)
+            pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1)
+        logits = self.classifier(self.head(pooled))
+        return {"logits": logits, **outputs}

@@ -1,0 +1,46 @@
+"""Plain attention: the numerics reference for the packed kernel.
+
+Einsum attention with an additive mask and fp32 softmax, as the JAX
+package's ``ops/attention.py::xla_attention`` (which matches HF eager
+attention, the path the published checkpoints were evaluated with). The
+probabilities are cast to the q dtype before the product with v.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_BIG = float(torch.finfo(torch.float32).min)
+
+
+def attention_bias(
+    padding_mask: torch.Tensor | None,
+    seq_len: int,
+    window: int | None,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor | None:
+    """Additive fp32 bias, [B, 1, S, S] (or [1, 1, S, S] for a window
+    alone), or None: key padding and |i − j| > window each add
+    −finfo(f32).max. padding_mask: [B, S], 1 for valid tokens."""
+    bias = None
+    if padding_mask is not None:
+        key_ok = padding_mask[:, None, None, :].to(device=device, dtype=torch.bool)
+        bias = torch.where(key_ok, 0.0, NEG_BIG).to(torch.float32)
+    if window is not None:
+        pos = torch.arange(seq_len, device=device)
+        ok = (pos[:, None] - pos[None, :]).abs() <= window
+        band = torch.where(ok, 0.0, NEG_BIG).to(torch.float32)[None, None]
+        bias = band if bias is None else bias + band
+    return bias
+
+
+def attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None
+) -> torch.Tensor:
+    """q/k/v: [B, H, S, D] → [B, H, S, D]; scores and softmax in fp32."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if bias is not None:
+        scores = scores + bias.to(acc)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
