@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, which is loaded
+``sm_90a``, one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, which is loaded
 with ``ctypes``: no ninja and no libtorch headers, so a build takes seconds.
 The library lands in ``_build/`` (listed in ``.gitignore``) under a name
 that carries the hash of the sources, so an edited source rebuilds; a file
@@ -11,7 +12,9 @@ Importing this module builds nothing and needs neither ``nvcc`` nor a card.
 
 Every wrapper in ``ops/`` adds one to its kernel's launch count right after
 a successful launch, and nowhere else, so a run can show that the main path
-went through the kernels (``reset_launch_counts`` / ``launch_counts``).
+went through the kernels (``reset_launch_counts`` / ``launch_counts``). A
+wrapper that takes its plain version (a CPU tensor) adds one to that
+kernel's plain count instead (``plain_counts``).
 """
 
 from __future__ import annotations
@@ -29,29 +32,58 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("layer_norm.cu", "ln_gemm.cu", "flash_attention.cu")
-HEADERS = ("common.cuh",)
+SOURCES = (
+    "layer_norm.cu", "ln_gemm.cu", "flash_attention.cu", "ln_gemm_bwd.cu",
+    "flash_attention_bwd.cu",
+)
+HEADERS = (
+    "common.cuh", "activation.cuh", "attention_common.cuh", "gemm.cuh", "ln_adjoint.cuh",
+)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-# The kernels' names, in the order the forward first reaches them; the C
-# entry point of each is ``opt_<name>``.
-KERNELS = ("layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu")
+# The kernels' names, in the order a training step first reaches them (the
+# forward, then the backward from the heads down); the C entry point of
+# each is ``opt_<name>``.
+KERNELS = (
+    "layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu",
+    "layer_norm_bwd", "ln_geglu_bwd", "flash_attention_packed_bwd", "ln_matmul_bwd",
+)
+
+# Rows of x per fp32 partial row of dscale in the LN-adjoint kernels
+# (ln_adjoint.cuh: ROWS).
+LN_ADJOINT_ROWS = 64
 
 _launches = dict.fromkeys(KERNELS, 0)
+_plain_calls = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _plain_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return dict(_launches)
 
 
+def plain_counts() -> dict[str, int]:
+    return dict(_plain_calls)
+
+
 def count_launch(name: str) -> None:
     _launches[name] += 1
+
+
+def count_plain(name: str) -> None:
+    _plain_calls[name] += 1
+
+
+def ln_adjoint_partial(rows: int, hidden: int, device: torch.device) -> torch.Tensor:
+    """fp32 scratch for the fixed-order dscale sum of an LN-adjoint launch."""
+    parts = (rows + LN_ADJOINT_ROWS - 1) // LN_ADJOINT_ROWS
+    return torch.empty((parts, hidden), dtype=torch.float32, device=device)
 
 
 def nvcc_path() -> str:
@@ -94,18 +126,32 @@ def build() -> Path:
         if lib_path.exists():  # built by another process while we waited
             return lib_path
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            *(str(CSRC / s) for s in SOURCES), "-o", str(tmp),
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+        objects = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o") for src in SOURCES]
+        compiles = [
+            subprocess.Popen(
+                [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", str(CSRC / src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
+            for src, obj in zip(SOURCES, objects)
+        ]
+        logs = [proc.communicate()[0] for proc in compiles]
+        log = "".join(logs)
+        failed = [src for src, proc in zip(SOURCES, compiles) if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc_path(), *ARCH_FLAGS, "-shared", *map(str, objects), "-o", str(tmp)],
+                capture_output=True, text=True, check=False,
+            )
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["link"]
+        lib_path.with_suffix(".log").write_text(log)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log[-6000:]}")
         os.replace(tmp, lib_path)
     return lib_path
 
@@ -119,9 +165,13 @@ def library() -> ctypes.CDLL:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     signatures = {
         "layer_norm": [p, p, p, i, i, f, i, p],
-        "ln_matmul": [p, p, p, p, i, i, i, f, i, p],
-        "ln_geglu": [p, p, p, p, i, i, i, f, i, i, p],
-        "flash_attention_packed": [p, p, p, p, p, i, i, i, i, ll, ll, i, f, i, p],
+        "ln_matmul": [p] * 5 + [i, i, i, f, i, p],
+        "ln_geglu": [p] * 5 + [i, i, i, f, i, i, p],
+        "flash_attention_packed": [p, p, p, p, p, p, i, i, i, i, ll, ll, i, f, i, p],
+        "layer_norm_bwd": [p, p, p, p, p, p, i, i, f, i, p],
+        "ln_matmul_bwd": [p] * 10 + [i, i, i, f, i, p],
+        "ln_geglu_bwd": [p] * 11 + [i, i, i, f, i, i, p],
+        "flash_attention_packed_bwd": [p] * 9 + [i, i, i, i, ll, ll, i, f, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, f"opt_{name}")
@@ -151,6 +201,14 @@ def on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd would record an op on these tensors. The wrappers
+    then go through their autograd Function; otherwise (serving under
+    ``inference_mode``) they call the same forward directly, without the
+    Function's per-call cost."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

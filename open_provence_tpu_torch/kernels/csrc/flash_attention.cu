@@ -20,6 +20,13 @@
 // Keys past S (a ragged last tile) get -inf and so weigh exactly 0. Rows
 // whose running sum is 0 write 0.
 //
+// For training the kernel also writes the fp32 log-sum-exp m + log(l) of
+// each (batch, head, query row) into lse [B, H, S], which the backward
+// (flash_attention_bwd.cu) needs to rebuild P. Serving passes a null lse:
+// the kernel then skips the store, and nothing else changes. A row whose
+// keys are all masked has every score at -FLT_MAX, so its lse is -FLT_MAX
+// too (log l vanishes beside it) and stays finite.
+//
 // bf16 (the serving dtype): both products on tensor cores (mma.sync
 // m16n8k16, fp32 accumulation), FlashAttention-2 style: each of 4 warps owns
 // 16 query rows and keeps its scores, softmax state and output accumulator
@@ -28,46 +35,16 @@
 // shared memory (true fp32). The work is 4*S*S*D FLOPs a head for global
 // layers, so the tensor-core rate bounds it; overlapping the K/V loads
 // (cp.async/TMA) and wgmma are later work.
-#include "common.cuh"
-
-#include <math.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BK = 64;
-
-template <typename T, int D>
-__device__ __forceinline__ float rope_elem(const T* row, int d, const T* cos_t,
-                                           const T* sin_t, int pos) {
-  const float x = to_f32(row[d]);
-  if (cos_t == nullptr) return x;
-  constexpr int half = D / 2;
-  const float rot = d < half ? -to_f32(row[d + half]) : to_f32(row[d - half]);
-  const float c = to_f32(cos_t[(size_t)pos * D + d]);
-  const float s = to_f32(sin_t[(size_t)pos * D + d]);
-  return round_to<T>(round_to<T>(x * c) + round_to<T>(rot * s));
-}
-
-// Scaled score plus the additive mask bias; -inf for keys past S.
-__device__ __forceinline__ float biased_score(float s, float scale, int qi, int kj, int S,
-                                              const int* mrow, int window) {
-  if (kj >= S) return -INFINITY;
-  float bias = 0.f;
-  if (mrow != nullptr && mrow[kj] == 0) bias = OPT_NEG_BIG;
-  if (window >= 0 && abs(qi - kj) > window) bias = fmaxf(bias + OPT_NEG_BIG, OPT_NEG_BIG);
-  return s * scale + bias;
-}
-
-// First key tile and last key of the walk for the q tile at q0.
-__device__ __forceinline__ void key_range(int q0, int S, int window, int* k_first, int* k_last) {
-  int lo = 0, hi = S - 1;
-  if (window >= 0) {
-    lo = max(0, q0 - window);
-    hi = min(S - 1, q0 + BQ - 1 + window);
-  }
-  *k_first = (lo / BK) * BK;
-  *k_last = hi;
-}
+using attn::BK;
+using attn::BQ;
+using attn::biased_score;
+using attn::pack_bf16;
+using attn::rope_chunk;
+using attn::rope_elem;
 
 struct Args {
   const void* qkv;
@@ -75,6 +52,7 @@ struct Args {
   const void* cos_t;
   const void* sin_t;
   void* out;
+  float* lse;  // [B, H, S] or null
   int S, H;
   long long stride_b, stride_s;
   int window;
@@ -127,7 +105,7 @@ __global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
   float acc[4][DJ] = {};
 
   int k_first, k_last;
-  key_range(q0, S, args.window, &k_first, &k_last);
+  attn::band_range(q0, BQ, BK, S, args.window, &k_first, &k_last);
   for (int k0 = k_first; k0 <= k_last; k0 += BK) {
     __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
     for (int idx = tid; idx < BK * D; idx += THREADS) {
@@ -210,6 +188,8 @@ __global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
   }
   __syncthreads();
 
+  if (args.lse != nullptr && tid < BQ && q0 + tid < S)
+    args.lse[((size_t)b * args.H + h) * S + q0 + tid] = m_run[tid] + logf(l_run[tid]);
   T* out = static_cast<T*>(args.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -232,33 +212,6 @@ constexpr size_t smem_bytes() {
   return (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 }  // namespace tc
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rope_elem for the 8 values d0 .. d0+7 of a row (d0 % 8 == 0), 16-byte loads.
-template <int D>
-__device__ __forceinline__ uint4 rope_chunk(const __nv_bfloat16* row, int d0,
-                                            const __nv_bfloat16* cos_t,
-                                            const __nv_bfloat16* sin_t, int pos) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(row + d0);
-  if (cos_t == nullptr) return raw;
-  constexpr int half = D / 2;
-  const bool first_half = d0 < half;
-  float xs[8], ps[8], cs[8], ss[8], v[8];
-  unpack8(raw, xs);
-  unpack8(*reinterpret_cast<const uint4*>(row + (first_half ? d0 + half : d0 - half)), ps);
-  unpack8(*reinterpret_cast<const uint4*>(cos_t + (size_t)pos * D + d0), cs);
-  unpack8(*reinterpret_cast<const uint4*>(sin_t + (size_t)pos * D + d0), ss);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float rot = first_half ? -ps[i] : ps[i];
-    v[i] = round_to<__nv_bfloat16>(xs[i] * cs[i]) + round_to<__nv_bfloat16>(rot * ss[i]);
-  }
-  return pack8(v);  // rounds the sum
-}
 
 // 16-byte rows throughout: D % 8 == 0 and 16-byte aligned rows (the wrapper
 // checks the strides and pointers).
@@ -303,7 +256,7 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
   float m_run[2] = {OPT_NEG_BIG, OPT_NEG_BIG}, l_run[2] = {0.f, 0.f};
 
   int k_first, k_last;
-  key_range(q0, S, args.window, &k_first, &k_last);
+  attn::band_range(q0, BQ, BK, S, args.window, &k_first, &k_last);
   for (int k0 = k_first; k0 <= k_last; k0 += BK) {
     __syncthreads();  // every warp is done with the previous Ks/Vs
     for (int c = tid; c < BK * CH; c += THREADS) {
@@ -401,6 +354,8 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
   for (int i = 0; i < 2; ++i) {
     const int pos = q0 + qrow + 8 * i;
     if (pos >= S) continue;
+    if (args.lse != nullptr && t == 0)
+      args.lse[((size_t)b * args.H + h) * S + pos] = m_run[i] + logf(l_run[i]);
     const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
     T* orow = out + ((size_t)b * S + pos) * HD + h * D;
 #pragma unroll
@@ -435,16 +390,17 @@ int by_dtype(const Args& args, int batch, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// window < 0 means a global layer; cos_t/sin_t may be null (no rotary) and
-// mask may be null (no key padding). Strides are in elements; the bf16
-// output is written two values at a time, so D is even and out is aligned.
+// window < 0 means a global layer; cos_t/sin_t may be null (no rotary),
+// mask may be null (no key padding) and lse may be null (serving). Strides
+// are in elements; the bf16 output is written two values at a time, so D is
+// even and out is aligned.
 extern "C" int opt_flash_attention_packed(const void* qkv, const int* mask, const void* cos_t,
-                                          const void* sin_t, void* out, int batch, int seq,
-                                          int heads, int head_dim, long long stride_b,
+                                          const void* sin_t, void* out, float* lse, int batch,
+                                          int seq, int heads, int head_dim, long long stride_b,
                                           long long stride_s, int window, float scale,
                                           int dtype, void* stream) {
   if (batch <= 0 || seq <= 0) return 0;
-  const Args args{qkv, mask, cos_t, sin_t, out, seq, heads, stride_b, stride_s, window, scale};
+  const Args args{qkv, mask, cos_t, sin_t, out, lse, seq, heads, stride_b, stride_s, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // ModernBERT's head dim (base and large); the wrapper refuses others.
   if (head_dim != 64) return (int)cudaErrorInvalidValue;

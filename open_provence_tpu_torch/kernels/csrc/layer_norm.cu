@@ -6,6 +6,7 @@
 // E[x] and E[x^2] exactly as the TPU kernel takes them. A warp per row keeps
 // the reduction in shuffles, with no shared memory and no block barrier.
 #include "common.cuh"
+#include "ln_adjoint.cuh"
 
 namespace {
 
@@ -48,4 +49,25 @@ extern "C" int opt_layer_norm(const void* x, const void* scale, void* out, int r
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// ---- backward: kernel 10 -----------------------------------------------------
+//
+// Replaces ops/layer_norm.py::_ln_bwd_kernel (the adjoint of the embedding
+// norm, final_norm and the prediction head's norm): the LN-adjoint row body
+// of ln_adjoint.cuh with dy = g. dx comes back in x's type, dscale in the
+// scale's (the same as x's here); partial holds ceil(rows / 64) * hidden
+// floats of scratch for the fixed-order dscale sum. Any rows (the head norm
+// has B), any hidden.
+extern "C" int opt_layer_norm_bwd(const void* x, const void* scale, const void* g, void* dx,
+                                  void* dscale, float* partial, int rows, int hidden, float eps,
+                                  int dtype, void* stream) {
+  if (rows <= 0 || hidden <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32)
+    return ln_adjoint::launch<float, float>(x, scale, g, dx, dscale, partial, rows, hidden, eps, s);
+  if (dtype == DTYPE_BF16)
+    return ln_adjoint::launch<__nv_bfloat16, __nv_bfloat16>(x, scale, g, dx, dscale, partial,
+                                                            rows, hidden, eps, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -7,6 +7,10 @@ modeling_open_provence_standalone.py:1666-1739):
    hidden state (score = sigmoid of logits[..., 0]), and
 2. pruning logits — the token-classification head on the *pre-final-norm*
    last hidden states ([B, S, 2]; keep-prob = softmax[..., 1]).
+
+In ``train()`` mode the same forward is the JAX module's
+``deterministic=False`` call: both classifier dropouts apply, their masks
+drawn from the ``generator`` the caller passes (the ranking head's first).
 """
 
 from __future__ import annotations
@@ -30,12 +34,16 @@ class OpenProvenceModule(nn.Module):
         self.pruning_head = PruningHead(pruning_config)
 
     def forward(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor | None = None,
+        *,
+        generator: torch.Generator | None = None,
     ) -> dict[str, torch.Tensor]:
-        outputs = self.ranking_model(input_ids, attention_mask)
+        outputs = self.ranking_model(input_ids, attention_mask, generator=generator)
         return {
             "ranking_logits": outputs["logits"],
-            "pruning_logits": self.pruning_head(outputs["last_hidden_pre_norm"]),
+            "pruning_logits": self.pruning_head(outputs["last_hidden_pre_norm"], generator),
             "last_hidden_pre_norm": outputs["last_hidden_pre_norm"],
             "last_hidden_state": outputs["last_hidden_state"],
         }

@@ -21,20 +21,29 @@ Attribute names follow the HF / reference state-dict names
 ``…mlp_norm``, ``final_norm``, ``head.dense``, ``classifier``), so a
 reference-layout state dict loads with ``load_state_dict`` as is.
 
-Inference only: dropout is not applied. Checkpoints with norm, attention or
-MLP biases need kernels that are not ported yet and are refused.
+Training: in ``train()`` mode the classifier dropout applies before the
+ranking classifier, with masks drawn from a ``torch.Generator`` the caller
+passes in (never the global RNG); a nonzero backbone dropout
+(``attention_dropout``, ``embedding_dropout``, ``mlp_dropout``; 0.0 in
+ModernBERT-base) raises ``NotImplementedError``. ``gradient_checkpointing``
+recomputes each layer in the backward (``torch.utils.checkpoint``), as
+``remat`` does in the JAX package. Checkpoints with norm, attention or MLP
+biases need kernels that are not ported yet and are refused.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModernBertBackboneConfig
 from ..ops.flash_attention import flash_attention_packed
 from ..ops.geglu import ln_geglu, ln_matmul, lookup_activation
 from ..ops.layer_norm import layer_norm
 from ..ops.rotary import rope_tables
+from .heads import dropout
 
 
 def _require_ported(cfg: ModernBertBackboneConfig) -> None:
@@ -135,12 +144,22 @@ class ModernBertEncoderLayer(nn.Module):
         return x + self.mlp(x, self.mlp_norm.weight, self.eps)
 
 
+def _layer_call(layer, names, x, padding_mask, *tensors):
+    return functional_call(layer, dict(zip(names, tensors)), (x, padding_mask))
+
+
 class ModernBertModel(nn.Module):
     """Backbone returning the last hidden state before and after final_norm."""
 
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
         _require_ported(cfg)
+        self.backbone_dropouts = {
+            n: getattr(cfg, n)
+            for n in ("attention_dropout", "embedding_dropout", "mlp_dropout")
+            if getattr(cfg, n)
+        }
+        self.gradient_checkpointing = False
         self.embeddings = ModernBertEmbeddings(cfg)
         self.layers = nn.ModuleList(
             ModernBertEncoderLayer(cfg, i) for i in range(cfg.num_hidden_layers)
@@ -150,9 +169,23 @@ class ModernBertModel(nn.Module):
     def forward(
         self, input_ids: torch.Tensor, padding_mask: torch.Tensor | None = None
     ) -> dict[str, torch.Tensor]:
+        if self.training and self.backbone_dropouts:
+            raise NotImplementedError(
+                f"backbone dropout {self.backbone_dropouts} is not ported yet; "
+                "ModernBERT-base trains with 0.0"
+            )
+        remat = self.gradient_checkpointing and self.training and torch.is_grad_enabled()
         x = self.embeddings(input_ids)
         for layer in self.layers:
-            x = layer(x, padding_mask)
+            if remat:
+                # The layer's parameters go in as inputs, so the recompute in
+                # the backward sees the tensors this forward saw, also when
+                # they were swapped in by torch.func.functional_call.
+                names, tensors = zip(*layer.named_parameters())
+                x = checkpoint(_layer_call, layer, names, x, padding_mask, *tensors,
+                               use_reentrant=False)
+            else:
+                x = layer(x, padding_mask)
         return {"last_hidden_pre_norm": x, "last_hidden_state": self.final_norm(x)}
 
 
@@ -171,20 +204,26 @@ class ModernBertPredictionHead(nn.Module):
 
 class ModernBertForSequenceClassification(nn.Module):
     """Backbone + pooled classification head (ranking logits): pool (cls or
-    masked mean) → prediction head → classifier."""
+    masked mean) → prediction head → dropout (training) → classifier."""
 
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
         if cfg.classifier_pooling not in ("cls", "mean"):
             raise ValueError(f"Unknown classifier_pooling: {cfg.classifier_pooling!r}")
         self.pooling = cfg.classifier_pooling
+        self.classifier_dropout = cfg.classifier_dropout
         self.model = ModernBertModel(cfg)
         self.head = ModernBertPredictionHead(cfg)
         self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
 
     def forward(
-        self, input_ids: torch.Tensor, padding_mask: torch.Tensor | None = None
+        self,
+        input_ids: torch.Tensor,
+        padding_mask: torch.Tensor | None = None,
+        *,
+        generator: torch.Generator | None = None,
     ) -> dict[str, torch.Tensor]:
+        """``generator`` draws the classifier dropout mask in training mode."""
         outputs = self.model(input_ids, padding_mask)
         hidden = outputs["last_hidden_state"]
         if self.pooling == "cls":
@@ -194,5 +233,7 @@ class ModernBertForSequenceClassification(nn.Module):
         else:
             mask = padding_mask[..., None].to(hidden.dtype)
             pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1)
-        logits = self.classifier(self.head(pooled))
-        return {"logits": logits, **outputs}
+        pooled = self.head(pooled)
+        if self.training:
+            pooled = dropout(pooled, self.classifier_dropout, generator)
+        return {"logits": self.classifier(pooled), **outputs}

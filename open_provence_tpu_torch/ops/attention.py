@@ -34,13 +34,20 @@ def attention_bias(
     return bias
 
 
-def attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None
+def attention_scores(
+    q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor | None
 ) -> torch.Tensor:
-    """q/k/v: [B, H, S, D] → [B, H, S, D]; scores and softmax in fp32."""
+    """Scaled, biased scores [B, H, S, S] in at least fp32."""
     acc = torch.promote_types(q.dtype, torch.float32)
     scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * q.shape[-1] ** -0.5
     if bias is not None:
         scores = scores + bias.to(acc)
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return scores
+
+
+def attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None
+) -> torch.Tensor:
+    """q/k/v: [B, H, S, D] → [B, H, S, D]; scores and softmax in fp32."""
+    probs = torch.softmax(attention_scores(q, k, bias), dim=-1).to(q.dtype)
     return torch.matmul(probs, v)

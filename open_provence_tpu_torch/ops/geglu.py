@@ -1,5 +1,6 @@
 """LayerNorm folded into its GEMM: kernels 2 and 4
-(``kernels/csrc/ln_gemm.cu``) and their plain versions.
+(``kernels/csrc/ln_gemm.cu``), their backward kernels 12 and 11
+(``kernels/csrc/ln_gemm_bwd.cu``) and the plain versions of all four.
 
 * ``ln_matmul``: LN(x)·scale @ Wᵀ — attn_norm → Wqkv in layers 1 and up
   (JAX: ``ops/geglu.py::fused_ln_matmul``).
@@ -11,6 +12,16 @@ kernels: the normalized x is rounded to the storage dtype before the
 product, products accumulate in fp32, and GeGLU rounds each half to the
 storage dtype, applies the activation in fp32, rounds again and takes the
 gate product in the storage dtype.
+
+``ln_matmul`` and ``ln_geglu`` are autograd Functions: on CUDA tensors the
+forward and backward launch the kernels, on CPU tensors they run the plain
+versions; where autograd records nothing (serving) the wrappers call the
+same forward without the Function. The backward saves what the JAX ``custom_vjp`` saves (x, the LN
+scale and the weight) and recomputes the normalized rows. The plain
+backwards write out what the JAX Pallas backwards compute: the normalized
+rows rounded at the forward's point, the cotangent of the LN output dy in
+fp32, and for GeGLU the rounding chain of ``_ln_geglu_bwd_kernel``; in fp32
+that is exactly ``jax.vjp`` of the reference composition.
 """
 
 from __future__ import annotations
@@ -19,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .layer_norm import layer_norm_plain
+from .layer_norm import layer_norm_plain, ln_adjoint, ln_rows
 
 # HF activation name -> (kernel code, plain fp32 function).
 ACTIVATIONS = {
@@ -29,6 +40,38 @@ ACTIVATIONS = {
     "relu": (2, F.relu),
     "silu": (3, F.silu),
     "swish": (3, F.silu),
+}
+
+
+_INV_SQRT_2PI = 0.39894228040143268
+_SQRT_2_OVER_PI = 0.79788456080286536
+
+
+def _gelu_grad(x):
+    cdf = 0.5 * (1.0 + torch.erf(x * 0.70710678118654752))
+    return cdf + x * _INV_SQRT_2PI * torch.exp(-0.5 * x * x)
+
+
+def _gelu_tanh_grad(x):
+    t = torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x)))
+    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * (x * x))
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * du
+
+
+def _silu_grad(x):
+    s = torch.sigmoid(x)
+    return s * (1.0 + x * (1.0 - s))
+
+
+# HF activation name -> its derivative, written out as the JAX package's
+# ops/geglu.py::_KERNEL_ACTIVATION_GRADS writes it.
+ACTIVATION_GRADS = {
+    "gelu": _gelu_grad,
+    "gelu_new": _gelu_tanh_grad,
+    "gelu_pytorch_tanh": _gelu_tanh_grad,
+    "relu": lambda x: (x > 0).to(x.dtype),
+    "silu": _silu_grad,
+    "swish": _silu_grad,
 }
 
 
@@ -54,13 +97,52 @@ def ln_geglu_plain(
     """LN(x2d)·scale [M, K] @ wi[2I, K]ᵀ → act(first half) · second half, [M, I]."""
     act = lookup_activation(activation)[1]
     inp, gate = F.linear(layer_norm_plain(x2d, scale, eps), wi).chunk(2, dim=-1)
-    return act(inp.float()).to(x2d.dtype) * gate
+    acc = torch.promote_types(x2d.dtype, torch.float32)
+    return act(inp.to(acc)).to(x2d.dtype) * gate
 
 
-# The bf16 kernel keeps a CTA's normalized [64, K + 8] slab beside a 3-stage
-# [128, 72] weight ring in shared memory, all bf16; the card gives a CTA at
-# most 227 KB of it, less the 512 bytes of row statistics, so K <= 1368.
-BF16_MAX_K = 1368
+def _normalized(x2d, scale, eps):
+    """(xn, h, rstd): xn = LN(x)·s rounded to x's dtype (the forward's
+    rounding point), promoted back to the statistics' dtype."""
+    h, rstd = ln_rows(x2d, eps)
+    xn = (h * scale.to(h.dtype)).to(x2d.dtype).to(h.dtype)
+    return xn, h, rstd
+
+
+def ln_matmul_bwd_plain(
+    x2d: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+    eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dw) of ``ln_matmul_plain`` for the cotangent g [M, N]:
+    dw = gᵀ·xn rounded once to w's dtype, dy = g·w in fp32, then the
+    LN adjoint."""
+    xn, h, rstd = _normalized(x2d, scale, eps)
+    gf = g.to(h.dtype)
+    dw = (gf.t() @ xn).to(w.dtype)
+    dx, dscale = ln_adjoint(h, rstd, scale, gf @ w.to(h.dtype))
+    return dx.to(x2d.dtype), dscale.to(scale.dtype), dw
+
+
+def ln_geglu_bwd_plain(
+    x2d: torch.Tensor, scale: torch.Tensor, wi: torch.Tensor, g: torch.Tensor,
+    activation: str, eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dwi) of ``ln_geglu_plain`` for the cotangent g [M, I]:
+    recompute [inp | gate] rounded to x's dtype, then a = act(inp) rounded,
+    da = act′(inp), gi = g·da·gate and gg = g·a, each rounded; dwi =
+    [gi | gg]ᵀ·xn rounded once, dy = [gi | gg]·wi in fp32, the LN adjoint."""
+    act = lookup_activation(activation)[1]
+    act_grad = ACTIVATION_GRADS[activation]
+    dtype = x2d.dtype
+    xn, h, rstd = _normalized(x2d, scale, eps)
+    inp, gate = (xn @ wi.to(h.dtype).t()).to(dtype).to(h.dtype).chunk(2, dim=-1)
+    a = act(inp).to(dtype).to(h.dtype)
+    gf = g.to(h.dtype)
+    cot = torch.cat([(gf * act_grad(inp) * gate).to(dtype), (gf * a).to(dtype)], dim=-1)
+    cot = cot.to(h.dtype)
+    dwi = (cot.t() @ xn).to(wi.dtype)
+    dx, dscale = ln_adjoint(h, rstd, scale, cot @ wi.to(h.dtype))
+    return dx.to(dtype), dscale.to(scale.dtype), dwi
 
 
 def _check_operands(x2d, scale, w, rows_of_w_per_out):
@@ -73,31 +155,186 @@ def _check_operands(x2d, scale, w, rows_of_w_per_out):
         if t.dtype != x2d.dtype or t.device != x2d.device:
             raise ValueError(f"operands must share x's dtype {x2d.dtype} and device {x2d.device}")
     if x2d.dtype == torch.bfloat16:
-        if k % 8 or k > BF16_MAX_K:
-            raise ValueError(f"the bf16 kernel takes K % 8 == 0 and K <= {BF16_MAX_K}, not {k}")
+        if k % 8:
+            raise ValueError(f"the bf16 kernel takes K % 8 == 0, not {k}")
         kernels.require_16_byte_rows(x2d, scale, w)
+
+
+def _matmul_kernel(x2d, scale, w, eps):
+    m, k = x2d.shape
+    out = torch.empty((m, w.shape[0]), dtype=x2d.dtype, device=x2d.device)
+    xn = torch.empty_like(x2d)  # scratch: the normalized rows
+    with torch.cuda.device(x2d.device):
+        code = kernels.library().opt_ln_matmul(
+            kernels.ptr(x2d), kernels.ptr(scale), kernels.ptr(w), kernels.ptr(out),
+            kernels.ptr(xn), m, k, w.shape[0], float(eps), kernels.dtype_code(x2d),
+            kernels.stream(x2d),
+        )
+    kernels.check(code, "ln_matmul")
+    return out
+
+
+def _geglu_kernel(x2d, scale, wi, act_code, eps):
+    m, k = x2d.shape
+    intermediate = wi.shape[0] // 2
+    out = torch.empty((m, intermediate), dtype=x2d.dtype, device=x2d.device)
+    xn = torch.empty_like(x2d)  # scratch: the normalized rows
+    with torch.cuda.device(x2d.device):
+        code = kernels.library().opt_ln_geglu(
+            kernels.ptr(x2d), kernels.ptr(scale), kernels.ptr(wi), kernels.ptr(out),
+            kernels.ptr(xn), m, k, intermediate, float(eps), act_code,
+            kernels.dtype_code(x2d), kernels.stream(x2d),
+        )
+    kernels.check(code, "ln_geglu")
+    return out
+
+
+def _matmul_forward(x2d, scale, w, eps):
+    """(out, x2d, scale, w): kernel 2 on CUDA tensors, the plain version on
+    CPU tensors; the operands as the backward takes them."""
+    if kernels.on_cuda(x2d):
+        x2d, scale, w = x2d.contiguous(), scale.contiguous(), w.contiguous()
+        _check_operands(x2d, scale, w, 1)
+        return _matmul_kernel(x2d, scale, w, eps), x2d, scale, w
+    kernels.count_plain("ln_matmul")
+    return ln_matmul_plain(x2d, scale, w, eps), x2d, scale, w
+
+
+def _geglu_forward(x2d, scale, wi, activation, eps):
+    """(out, x2d, scale, wi): kernel 4 on CUDA tensors, the plain version on
+    CPU tensors; the operands as the backward takes them."""
+    act_code = lookup_activation(activation)[0]
+    if kernels.on_cuda(x2d):
+        x2d, scale, wi = x2d.contiguous(), scale.contiguous(), wi.contiguous()
+        _check_operands(x2d, scale, wi, 2)
+        return _geglu_kernel(x2d, scale, wi, act_code, eps), x2d, scale, wi
+    kernels.count_plain("ln_geglu")
+    return ln_geglu_plain(x2d, scale, wi, activation, eps), x2d, scale, wi
+
+
+def _bwd_scratch(x2d):
+    """xn (x's dtype), dy (fp32) and the dscale partial rows."""
+    m, k = x2d.shape
+    return (
+        torch.empty_like(x2d),
+        torch.empty((m, k), dtype=torch.float32, device=x2d.device),
+        kernels.ln_adjoint_partial(m, k, x2d.device),
+    )
+
+
+def _check_bwd(x2d, g, n):
+    if g.shape != (x2d.shape[0], n) or g.dtype != x2d.dtype:
+        raise ValueError(f"cotangent must be [{x2d.shape[0]}, {n}] {x2d.dtype}")
+    if x2d.dtype == torch.bfloat16:
+        if n % 8:
+            raise ValueError(f"the bf16 backward takes output widths % 8 == 0, not {n}")
+        kernels.require_16_byte_rows(g)
+
+
+def _matmul_bwd_kernel(x2d, scale, w, g, eps):
+    m, k = x2d.shape
+    n = w.shape[0]
+    _check_bwd(x2d, g, n)
+    dx, dw, dscale = torch.empty_like(x2d), torch.empty_like(w), torch.empty_like(scale)
+    xn, dy, partial = _bwd_scratch(x2d)
+    with torch.cuda.device(x2d.device):
+        code = kernels.library().opt_ln_matmul_bwd(
+            *(kernels.ptr(t) for t in (x2d, scale, w, g, dx, dw, dscale, xn, dy, partial)),
+            m, k, n, float(eps), kernels.dtype_code(x2d), kernels.stream(x2d),
+        )
+    kernels.check(code, "ln_matmul_bwd")
+    return dx, dscale, dw
+
+
+def _geglu_bwd_kernel(x2d, scale, wi, g, act_code, eps):
+    m, k = x2d.shape
+    intermediate = wi.shape[0] // 2
+    _check_bwd(x2d, g, intermediate)
+    dx, dwi, dscale = torch.empty_like(x2d), torch.empty_like(wi), torch.empty_like(scale)
+    xn, dy, partial = _bwd_scratch(x2d)
+    pre = torch.empty((m, 2 * intermediate), dtype=x2d.dtype, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        code = kernels.library().opt_ln_geglu_bwd(
+            *(kernels.ptr(t) for t in (x2d, scale, wi, g, dx, dwi, dscale, xn, pre, dy, partial)),
+            m, k, intermediate, float(eps), act_code, kernels.dtype_code(x2d),
+            kernels.stream(x2d),
+        )
+    kernels.check(code, "ln_geglu_bwd")
+    return dx, dscale, dwi
+
+
+def ln_matmul_bwd(
+    x2d: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+    eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dw) of ``ln_matmul``: kernel 12 for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not kernels.on_cuda(x2d):
+        kernels.count_plain("ln_matmul_bwd")
+        return ln_matmul_bwd_plain(x2d, scale, w, g, eps)
+    x2d, scale, w = x2d.contiguous(), scale.contiguous(), w.contiguous()
+    _check_operands(x2d, scale, w, 1)
+    return _matmul_bwd_kernel(x2d, scale, w, g.contiguous(), eps)
+
+
+def ln_geglu_bwd(
+    x2d: torch.Tensor, scale: torch.Tensor, wi: torch.Tensor, g: torch.Tensor,
+    activation: str, eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dwi) of ``ln_geglu``: kernel 11 for CUDA tensors, the
+    plain version for CPU tensors."""
+    act_code = lookup_activation(activation)[0]
+    if not kernels.on_cuda(x2d):
+        kernels.count_plain("ln_geglu_bwd")
+        return ln_geglu_bwd_plain(x2d, scale, wi, g, activation, eps)
+    x2d, scale, wi = x2d.contiguous(), scale.contiguous(), wi.contiguous()
+    _check_operands(x2d, scale, wi, 2)
+    return _geglu_bwd_kernel(x2d, scale, wi, g.contiguous(), act_code, eps)
+
+
+class LnMatmulFunction(torch.autograd.Function):
+    """LN(x2d)·scale @ wᵀ with its adjoint: kernels 2 and 12 for CUDA
+    tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x2d, scale, w, eps):
+        out, *operands = _matmul_forward(x2d, scale, w, eps)
+        ctx.save_for_backward(*operands)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, scale, w = ctx.saved_tensors
+        return (*ln_matmul_bwd(x2d, scale, w, g, ctx.eps), None)
+
+
+class LnGegluFunction(torch.autograd.Function):
+    """act(LN(x2d)·scale @ wi[:I]ᵀ)·(LN(x2d)·scale @ wi[I:]ᵀ) with its
+    adjoint: kernels 4 and 11 for CUDA tensors, the plain versions for CPU
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, x2d, scale, wi, activation, eps):
+        out, *operands = _geglu_forward(x2d, scale, wi, activation, eps)
+        ctx.save_for_backward(*operands)
+        ctx.activation, ctx.eps = activation, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, scale, wi = ctx.saved_tensors
+        return (*ln_geglu_bwd(x2d, scale, wi, g, ctx.activation, ctx.eps), None, None)
 
 
 def ln_matmul(
     x2d: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
-    """LN(x2d)·scale @ wᵀ: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if not kernels.on_cuda(x2d):
-        return ln_matmul_plain(x2d, scale, w, eps)
-    x2d, scale, w = x2d.contiguous(), scale.contiguous(), w.contiguous()
-    _check_operands(x2d, scale, w, 1)
-    m, k = x2d.shape
-    n = w.shape[0]
-    out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
-    with torch.cuda.device(x2d.device):
-        code = kernels.library().opt_ln_matmul(
-            kernels.ptr(x2d), kernels.ptr(scale), kernels.ptr(w),
-            kernels.ptr(out), m, k, n, float(eps), kernels.dtype_code(x2d),
-            kernels.stream(x2d),
-        )
-    kernels.check(code, "ln_matmul")
-    return out
+    """LN(x2d)·scale @ wᵀ: the CUDA kernels for CUDA tensors, the plain
+    versions for CPU tensors; differentiable in x2d, scale and w."""
+    if kernels.records_grad(x2d, scale, w):
+        return LnMatmulFunction.apply(x2d, scale, w, eps)
+    return _matmul_forward(x2d, scale, w, eps)[0]
 
 
 def ln_geglu(
@@ -105,20 +342,8 @@ def ln_geglu(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """act(LN(x2d)·scale @ wi[:I]ᵀ) · (LN(x2d)·scale @ wi[I:]ᵀ): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    if not kernels.on_cuda(x2d):
-        return ln_geglu_plain(x2d, scale, wi, activation, eps)
-    act_code = lookup_activation(activation)[0]
-    x2d, scale, wi = x2d.contiguous(), scale.contiguous(), wi.contiguous()
-    _check_operands(x2d, scale, wi, 2)
-    m, k = x2d.shape
-    intermediate = wi.shape[0] // 2
-    out = torch.empty((m, intermediate), dtype=x2d.dtype, device=x2d.device)
-    with torch.cuda.device(x2d.device):
-        code = kernels.library().opt_ln_geglu(
-            kernels.ptr(x2d), kernels.ptr(scale), kernels.ptr(wi),
-            kernels.ptr(out), m, k, intermediate, float(eps), act_code,
-            kernels.dtype_code(x2d), kernels.stream(x2d),
-        )
-    kernels.check(code, "ln_geglu")
-    return out
+    kernels for CUDA tensors, the plain versions for CPU tensors;
+    differentiable in x2d, scale and wi."""
+    if kernels.records_grad(x2d, scale, wi):
+        return LnGegluFunction.apply(x2d, scale, wi, activation, eps)
+    return _geglu_forward(x2d, scale, wi, activation, eps)[0]

@@ -1,10 +1,19 @@
-"""Bias-free LayerNorm: kernel 1 (``kernels/csrc/layer_norm.cu``) and its
-plain version.
+"""Bias-free LayerNorm: kernel 1 (``kernels/csrc/layer_norm.cu``), its
+backward kernel 10 (the same file) and their plain versions.
 
 ModernBERT's norms are all bias-free (norm_bias=false). Statistics are fp32
 E[x] and E[x²] with var = max(E[x²] − E[x]², 0), as the JAX package's
 ``ops/layer_norm.py`` takes them; ``torch.nn.functional.layer_norm`` takes
-them another way, so the plain version spells the formula out.
+them another way, so the plain versions spell the formula out.
+
+``layer_norm`` is an autograd Function: on a CUDA tensor its forward and
+backward launch the kernels, on a CPU tensor they run the plain versions,
+so the module (not the caller) picks the path and ``grad_fn`` is set
+whenever autograd records. Where it records nothing (``torch.no_grad``,
+``inference_mode``, inputs that need no gradient, as in serving) the
+wrapper calls the same forward without the Function. The backward saves
+what the JAX ``custom_vjp`` saves (``_ln_fwd``: x and the scale) and
+recomputes the statistics.
 """
 
 from __future__ import annotations
@@ -24,20 +33,118 @@ def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) ->
     return (y * scale.to(stat)).to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last dim: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
-    if not kernels.on_cuda(x):
-        return layer_norm_plain(x, scale, eps)
-    hidden = x.shape[-1]
-    if scale.shape != (hidden,) or scale.dtype != x.dtype or scale.device != x.device:
-        raise ValueError(f"scale must be [{hidden}] {x.dtype} on {x.device}")
-    x2d = x.reshape(-1, hidden).contiguous()
+def ln_rows(x2d: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(h, rstd) of each row in at least fp32: h = (x − mean)·rstd."""
+    xf = x2d.to(torch.promote_types(x2d.dtype, torch.float32))
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    rstd = torch.rsqrt(var + eps)
+    return (xf - mean) * rstd, rstd
+
+
+def ln_adjoint(
+    h: torch.Tensor, rstd: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The LN-adjoint row body, in h's dtype: dy is the cotangent of
+    LN(x)·scale; returns dx = rstd·(dy·s − mean(dy·s) − h·mean(dy·s·h)) and
+    dscale = Σ_rows dy·h."""
+    ds = dy.to(h.dtype) * scale.to(h.dtype)
+    dx = rstd * (
+        ds - ds.mean(dim=-1, keepdim=True) - h * (ds * h).mean(dim=-1, keepdim=True)
+    )
+    return dx, (dy.to(h.dtype) * h).sum(dim=0)
+
+
+def layer_norm_bwd_plain(
+    x2d: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale) of LayerNorm, as the JAX package's ``_ln_bwd_xla``
+    writes it: dx in x's dtype, dscale in the scale's."""
+    h, rstd = ln_rows(x2d, eps)
+    dx, dscale = ln_adjoint(h, rstd, scale, g)
+    return dx.to(x2d.dtype), dscale.to(scale.dtype)
+
+
+def _check_scale(x2d: torch.Tensor, scale: torch.Tensor) -> None:
+    hidden = x2d.shape[-1]
+    if scale.shape != (hidden,) or scale.dtype != x2d.dtype or scale.device != x2d.device:
+        raise ValueError(f"scale must be [{hidden}] {x2d.dtype} on {x2d.device}")
+
+
+def _forward_kernel(x2d: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    _check_scale(x2d, scale)
     out = torch.empty_like(x2d)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x2d.device):
         code = kernels.library().opt_layer_norm(
-            kernels.ptr(x2d), kernels.ptr(scale.contiguous()), kernels.ptr(out),
-            x2d.shape[0], hidden, float(eps), kernels.dtype_code(x), kernels.stream(x),
+            kernels.ptr(x2d), kernels.ptr(scale), kernels.ptr(out),
+            x2d.shape[0], x2d.shape[1], float(eps), kernels.dtype_code(x2d),
+            kernels.stream(x2d),
         )
     kernels.check(code, "layer_norm")
-    return out.reshape(x.shape)
+    return out
+
+
+def _backward_kernel(
+    x2d: torch.Tensor, scale: torch.Tensor, g2d: torch.Tensor, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    rows, hidden = x2d.shape
+    dx = torch.empty_like(x2d)
+    dscale = torch.empty_like(scale)
+    partial = kernels.ln_adjoint_partial(rows, hidden, x2d.device)
+    with torch.cuda.device(x2d.device):
+        code = kernels.library().opt_layer_norm_bwd(
+            kernels.ptr(x2d), kernels.ptr(scale), kernels.ptr(g2d), kernels.ptr(dx),
+            kernels.ptr(dscale), kernels.ptr(partial), rows, hidden, float(eps),
+            kernels.dtype_code(x2d), kernels.stream(x2d),
+        )
+    kernels.check(code, "layer_norm_bwd")
+    return dx, dscale
+
+
+def layer_norm_bwd(
+    x2d: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale) of LayerNorm over rows of x2d: kernel 10 for CUDA
+    tensors, the plain version for CPU tensors."""
+    if not kernels.on_cuda(x2d):
+        kernels.count_plain("layer_norm_bwd")
+        return layer_norm_bwd_plain(x2d, scale, g, eps)
+    x2d, scale = x2d.contiguous(), scale.contiguous()
+    _check_scale(x2d, scale)
+    return _backward_kernel(x2d, scale, g.reshape(x2d.shape).to(x2d.dtype).contiguous(), eps)
+
+
+def _forward(x2d: torch.Tensor, scale: torch.Tensor, eps: float):
+    """(out, x2d, scale): kernel 1 on a CUDA tensor, the plain version on a
+    CPU tensor; x2d and scale as the backward takes them."""
+    if kernels.on_cuda(x2d):
+        x2d, scale = x2d.contiguous(), scale.contiguous()
+        return _forward_kernel(x2d, scale, eps), x2d, scale
+    kernels.count_plain("layer_norm")
+    return layer_norm_plain(x2d, scale, eps), x2d, scale
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm over the last dim with its adjoint: kernels 1 and 10 for
+    CUDA tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+        out, x2d, scale = _forward(x.reshape(-1, x.shape[-1]), scale, eps)
+        ctx.save_for_backward(x2d, scale)
+        ctx.eps = eps
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2d, scale = ctx.saved_tensors
+        dx, dscale = layer_norm_bwd(x2d, scale, g.reshape(x2d.shape), ctx.eps)
+        return dx.reshape(g.shape), dscale, None
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim: the CUDA kernels for a CUDA tensor, the
+    plain versions for a CPU tensor; differentiable in x and the scale."""
+    if kernels.records_grad(x, scale):
+        return LayerNormFunction.apply(x, scale, eps)
+    return _forward(x.reshape(-1, x.shape[-1]), scale, eps)[0].reshape(x.shape)

@@ -32,12 +32,15 @@ def rope_tables(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin), each [seq_len, head_dim], fp32 math cast to ``dtype`` on
     ``device``. Cached: one upload per (shape, theta, dtype, device), not
-    one per layer call."""
+    one per layer call. Made outside inference mode even when first asked
+    for inside it (serving), so a later training step may save them for
+    its backward."""
     cos, sin = _rope_tables_np(int(seq_len), int(head_dim), float(theta))
-    return (
-        torch.from_numpy(cos).to(device=device, dtype=dtype),
-        torch.from_numpy(sin).to(device=device, dtype=dtype),
-    )
+    with torch.inference_mode(False):
+        return (
+            torch.from_numpy(cos).to(device=device, dtype=dtype),
+            torch.from_numpy(sin).to(device=device, dtype=dtype),
+        )
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -52,3 +55,12 @@ def apply_rotary(
     cos = cos.to(q.dtype)
     sin = sin.to(q.dtype)
     return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+
+
+def rotary_adjoint(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The adjoint of ``apply_rotary`` for one of q/k: g·cos −
+    rotate_half(g·sin), each product in g's dtype (the JAX package's
+    ``_rope_adjoint_mx``). g: [..., S, D]; cos, sin: [S, D]."""
+    cos = cos.to(g.dtype)
+    sin = sin.to(g.dtype)
+    return g * cos - rotate_half(g * sin)

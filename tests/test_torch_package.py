@@ -27,7 +27,8 @@ def test_port_imports_no_jax_stack():
         "import open_provence_tpu_torch, open_provence_tpu_torch.inference.engine\n"
         "import open_provence_tpu_torch.ops, open_provence_tpu_torch.kernels\n"
         "import open_provence_tpu_torch.utils.convert\n"
-        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        "import open_provence_tpu_torch.train, open_provence_tpu_torch.utils.safetensors_io\n"
+        f"bad = [m for m in {FORBIDDEN + ('yaml',)!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -64,15 +65,52 @@ def test_wrappers_refuse_other_devices():
         layer_norm(x, torch.ones(4, device="meta"))
 
 
+def test_wrappers_skip_the_function_when_autograd_records_nothing():
+    """Recording: each wrapper goes through its autograd Function. Under
+    no_grad, or on inputs that need no gradient (serving), the same forward
+    runs without it, with the same result."""
+    from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.ops import (
+        flash_attention_packed, layer_norm, ln_geglu, ln_matmul, rope_tables,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    x, s = torch.randn(32, 128, generator=gen), torch.rand(128, generator=gen) + 0.5
+    w, qkv = torch.randn(384, 128, generator=gen), torch.randn(2, 16, 384, generator=gen)
+    mask = torch.ones(2, 16, dtype=torch.int32)
+    mask[1, 10:] = 0
+    rope = rope_tables(16, 64, 10000.0, torch.float32, torch.device("cpu"))
+    calls = {
+        "LayerNormFunction": lambda x, s, w, qkv: layer_norm(x, s),
+        "LnMatmulFunction": lambda x, s, w, qkv: ln_matmul(x, s, w),
+        "LnGegluFunction": lambda x, s, w, qkv: ln_geglu(x, s, w, "gelu"),
+        "FlashAttentionPackedFunction": lambda x, s, w, qkv: flash_attention_packed(
+            qkv, num_heads=2, padding_mask=mask, window=4, rope=rope),
+    }
+    for name, call in calls.items():
+        leaves = [t.clone().requires_grad_() for t in (x, s, w, qkv)]
+        recorded = call(*leaves)
+        assert type(recorded.grad_fn).__name__ == f"{name}Backward", name
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            direct = call(*leaves)
+        assert direct.grad_fn is None and sum(kernels.plain_counts().values()) == 1, name
+        torch.testing.assert_close(direct, recorded.detach(), rtol=0, atol=0)
+        torch.testing.assert_close(call(x, s, w, qkv), direct, rtol=0, atol=0)
+
+
 def test_build_names_library_by_source_hash():
     from open_provence_tpu_torch import kernels
 
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path.suffix == ".so"
     assert path == kernels.library_path()  # stable for unchanged sources
-    assert set(kernels.KERNELS) == {
+    assert kernels.KERNELS == (
         "layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu",
-    }
+        "layer_norm_bwd", "ln_geglu_bwd", "flash_attention_packed_bwd", "ln_matmul_bwd",
+    )
+    for name in (*kernels.SOURCES, *kernels.HEADERS):
+        assert (kernels.CSRC / name).is_file(), name
 
 
 def test_unported_bias_configs_raise():
@@ -125,11 +163,16 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype):
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     x, scale = t(77, 768), t(768, s=0.1) + 1
     w, wi = t(2304, 768, s=0.03), t(2304, 768, s=0.03)
+    # A width past a whole tile (I = 100) and a K past the base model's.
+    wi_ragged, x_wide, s_wide = t(200, 768, s=0.03), t(77, 1536), t(1536, s=0.1) + 1
+    w_wide = t(200, 1536, s=0.03)
     kernels.reset_launch_counts()
     pairs = [
         (layer_norm(x, scale), layer_norm_plain(x, scale)),
         (ln_matmul(x, scale, w), ln_matmul_plain(x, scale, w)),
+        (ln_matmul(x_wide, s_wide, w_wide), ln_matmul_plain(x_wide, s_wide, w_wide)),
         (ln_geglu(x, scale, wi, "gelu"), ln_geglu_plain(x, scale, wi, "gelu")),
+        (ln_geglu(x, scale, wi_ragged, "silu"), ln_geglu_plain(x, scale, wi_ragged, "silu")),
     ]
     qkv, mask = t(3, 200, 2304), torch.ones(3, 200, dtype=torch.int32, device=cuda_device)
     mask[1, 150:] = 0
@@ -144,5 +187,95 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype):
     for got, want in pairs:
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert kernels.launch_counts() == {
-        "layer_norm": 1, "ln_matmul": 1, "flash_attention_packed": 2, "ln_geglu": 1,
+        **dict.fromkeys(kernels.KERNELS, 0),
+        "layer_norm": 1, "ln_matmul": 2, "flash_attention_packed": 2, "ln_geglu": 2,
     }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_on_cuda(cuda_device, dtype):
+    """Each backward kernel against its plain version on the card at ragged
+    sizes (77 rows: partial GEMM and row tiles; S = 200: partial attention
+    tiles), the tolerance a share of each output's largest value."""
+    from open_provence_tpu_torch import kernels, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rng.normal(size=shape) * s, dtype=dtype, device=cuda_device)
+
+    def close(got, want):
+        rel = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=rel,
+                                   atol=rel * want.float().abs().max().item())
+
+    x, scale = t(77, 768, s=2.0), t(768, s=0.1) + 1
+    w, wi = t(2304, 768, s=0.03), t(2304, 768, s=0.03)
+    kernels.reset_launch_counts()
+    g_ln, g_mm, g_mlp = t(77, 768), t(77, 2304, s=0.1), t(77, 1152, s=0.1)
+    cases = [
+        (ops.layer_norm_bwd(x, scale, g_ln), ops.layer_norm_bwd_plain(x, scale, g_ln)),
+        (ops.ln_matmul_bwd(x, scale, w, g_mm), ops.ln_matmul_bwd_plain(x, scale, w, g_mm)),
+        (ops.ln_geglu_bwd(x, scale, wi, g_mlp, "gelu"),
+         ops.ln_geglu_bwd_plain(x, scale, wi, g_mlp, "gelu")),
+    ]
+    qkv, mask = t(3, 200, 2304), torch.ones(3, 200, dtype=torch.int32, device=cuda_device)
+    mask[1, 150:] = 0
+    g = t(3, 200, 768) * mask[..., None].to(dtype)
+    rope = ops.rope_tables(200, 64, 10000.0, dtype, cuda_device)
+    for window in (None, 64):
+        kw = dict(num_heads=12, padding_mask=mask, window=window, rope=rope)
+        out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+        cases.append(((ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),),
+                      (ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw),)))
+    torch.cuda.synchronize()
+    for got, want in cases:
+        for a, b in zip(got, want):
+            close(a, b)
+    counts = kernels.launch_counts()
+    assert counts["layer_norm_bwd"] == counts["ln_matmul_bwd"] == counts["ln_geglu_bwd"] == 1
+    assert counts["flash_attention_packed_bwd"] == 2
+    assert not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+def test_trainer_keeps_cuda_params_on_the_card(cuda_device, tmp_path):
+    """Parameters on the card and no device=: the trainer steps there,
+    through all eight kernels and no plain version. (Here, not beside the
+    JAX parity tests, so that it runs where only torch is installed.)"""
+    import importlib.util
+
+    from open_provence_tpu_torch import (
+        ModernBertBackboneConfig, OpenProvenceConfig, init_params, kernels,
+    )
+    from open_provence_tpu_torch.train import OpenProvenceDataCollator, OpenProvenceTrainer
+
+    spec = importlib.util.spec_from_file_location(
+        "dummy_tokenizers", REPO / "tests" / "dummy_tokenizers.py")
+    tokenizers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tokenizers)
+    bb = ModernBertBackboneConfig(
+        vocab_size=256, hidden_size=128, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=2, local_attention=64, pad_token_id=0, num_labels=1,
+    )
+    config = OpenProvenceConfig(base_model_config=bb.to_dict(), num_labels=1, max_length=128,
+                                pruning_config={"hidden_size": 128, "classifier_dropout": 0.1})
+    rows = [{"query": "q", "texts": ["abc def. ghi."], "context_spans": [[[0, 8], [9, 13]]],
+             "context_spans_relevance": [[1, 0]], "labels": [1], "teacher_score": [0.8]}]
+    batch = OpenProvenceDataCollator(
+        tokenizer=tokenizers.PairDummyTokenizer(), max_length=128,
+        scores_column="teacher_score", chunks_pos_column="context_spans",
+        relevant_chunks_column="context_spans_relevance", pad_pairs_to=2,
+    )(rows)
+    params = {k: v.to(cuda_device) for k, v in
+              init_params(config, torch.Generator().manual_seed(0)).items()}
+    trainer = OpenProvenceTrainer(config, params, tokenizers.PairDummyTokenizer(),
+                                  output_dir=tmp_path, bf16=False)
+    assert trainer.device.type == "cuda"
+    assert all(p.is_cuda for p in trainer.params.values())
+    kernels.reset_launch_counts()
+    assert np.isfinite(trainer.train_one_step(batch)["loss"])
+    assert min(kernels.launch_counts().values()) > 0, kernels.launch_counts()
+    assert not any(kernels.plain_counts().values())
