@@ -3,13 +3,21 @@
 card and check it, in phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the eight hand-written kernels from kernels/csrc with nvcc;
+2. build the ten hand-written kernels from kernels/csrc with nvcc, and the
+   host library of native/;
 3. each forward kernel against its plain PyTorch version on the card, at
    the ModernBERT-base shapes the engine dispatches (M = B·S for B in 1/8/32
    and S in 64/192/512, ragged padding, global and ±64 windows), fp32 and
-   bf16;
+   bf16; the kernels of the bias-carrying layouts (GeGLU without a norm,
+   add + LayerNorm) at M = 16384 and a ragged M;
 3b. each backward kernel against its plain version at the training shapes
-   (B=32, S=512), fp32 and bf16, with kernel and plain times;
+   (B=32, S=512), fp32 and bf16, with kernel and plain times; the LayerNorm
+   adjoint with the residual cotangent gh;
+3c. the attention kernels, forward and backward, at S = 1024, 2048, 4096
+   and a ragged 1100 (window ±64 and global, ragged masks, a padding row),
+   fp32 and bf16, with times at B=8, S=2048; the one-call PyTorch
+   counterparts (F.layer_norm, scaled_dot_product_attention and their
+   autograd backwards) timed beside the kernels, and each kernel's bound;
 4. the whole model at base width on seeded random weights: fp32 on the card
    against fp32 on the CPU (plain versions), and bf16 on the card against
    the same CPU result;
@@ -27,7 +35,19 @@ card and check it, in phases:
    pairs — the eval loss on them falls, all eight kernels launch and no
    plain version runs — then train pairs/s on the kernels and on the plain versions, a
    profile of a step, a checkpoint resume that reproduces the next step,
-   and ``process()`` served from the trained weights.
+   and ``process()`` served from the trained weights;
+9. long context: ``process()`` at max_length 2048 in bf16 on pairs that
+   fill the 2048 bucket (launch counts, threshold 0 and 1, pairs/s and
+   tokens/s), fp32 card against CPU on a few pairs; then a trainer at B=8,
+   S=2048: one fp32 step card against CPU at 3 layers, and bf16 steps at
+   22 layers with train pairs/s and tokens/s;
+10. the bias-carrying checkpoint layouts (norm_bias; mlp_bias with
+   attention_bias) at base width: fp32 card against CPU, ``process()`` and
+   20 training steps each, with the launch counts of their kernels.
+
+``python3 chip_smoke.py --rates [TREE]`` measures only the serving and
+training rates at B=32, S=512 of the package under TREE (default: this
+checkout), so that two trees can be compared inside one call.
 
 Every phase prints a line; any failure raises and the script exits
 non-zero without printing a result. The line before the last is the JSON
@@ -51,24 +71,38 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 HIDDEN, HEADS, HEAD_DIM, INTER = 768, 12, 64, 1152
-# Kernel -> (source, the TPU kernel it replaces), in the order a training
-# step first reaches them: the forward, then the backward.
+# Kernel -> (source, the TPU kernels it replaces as file:line, their rows in
+# the table of TPU kernels), the default layout's eight in the order a
+# training step first reaches them, then the two of the bias layouts.
+_JAX_OPS = "open_provence_tpu/ops"
 KERNEL_INFO = {
-    "layer_norm": ("layer_norm.cu", "open_provence_tpu/ops/layer_norm.py:36"),
-    "ln_matmul": ("ln_gemm.cu", "open_provence_tpu/ops/geglu.py:790"),
-    "flash_attention_packed": ("flash_attention.cu", "open_provence_tpu/ops/flash_attention.py:856"),
-    "ln_geglu": ("ln_gemm.cu", "open_provence_tpu/ops/geglu.py:152"),
-    "layer_norm_bwd": ("layer_norm.cu", "open_provence_tpu/ops/layer_norm.py:91"),
-    "ln_geglu_bwd": ("ln_gemm_bwd.cu", "open_provence_tpu/ops/geglu.py:353"),
-    "flash_attention_packed_bwd": ("flash_attention_bwd.cu",
-                                   "open_provence_tpu/ops/flash_attention.py:1579"),
-    "ln_matmul_bwd": ("ln_gemm_bwd.cu", "open_provence_tpu/ops/geglu.py:886"),
+    "layer_norm": ("layer_norm.cu", [f"{_JAX_OPS}/layer_norm.py:36"], [1]),
+    "ln_matmul": ("ln_gemm.cu", [f"{_JAX_OPS}/geglu.py:790"], [2]),
+    "flash_attention_packed": (
+        "flash_attention.cu",
+        [f"{_JAX_OPS}/flash_attention.py:856", f"{_JAX_OPS}/flash_attention.py:1007"], [3, 5]),
+    "ln_geglu": ("ln_gemm.cu", [f"{_JAX_OPS}/geglu.py:152"], [4]),
+    "layer_norm_bwd": ("layer_norm.cu", [f"{_JAX_OPS}/layer_norm.py:91"], [10]),
+    "ln_geglu_bwd": ("ln_gemm_bwd.cu", [f"{_JAX_OPS}/geglu.py:353"], [11]),
+    "flash_attention_packed_bwd": (
+        "flash_attention_bwd.cu",
+        [f"{_JAX_OPS}/flash_attention.py:1579", f"{_JAX_OPS}/flash_attention.py:1346",
+         f"{_JAX_OPS}/flash_attention.py:1453"], [14, 15]),
+    "ln_matmul_bwd": ("ln_gemm_bwd.cu", [f"{_JAX_OPS}/geglu.py:886"], [12]),
+    "add_layer_norm": ("layer_norm.cu", [f"{_JAX_OPS}/layer_norm.py:233"], [7]),
+    "geglu": ("ln_gemm.cu", [f"{_JAX_OPS}/geglu.py:148"], [6]),
 }
 FORWARD = ("layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu")
 BACKWARD = ("layer_norm_bwd", "ln_geglu_bwd", "flash_attention_packed_bwd", "ln_matmul_bwd")
+DEFAULT_EIGHT = FORWARD + BACKWARD
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the full
+# 700 W limit): a kernel's bound is the larger of its operations over the
+# bf16 tensor-core rate and its bytes over the memory rate.
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # |kernel - plain| <= atol + rtol·|plain|. fp32: both sides compute in true
 # fp32 and differ only in summation order (K = 768 sums, online softmax).
 # bf16: both round at the same points, but a sum that lands beside a bf16
@@ -112,6 +146,65 @@ def paired_ms(kernel_fn, plain_fn) -> tuple[float, float]:
     """Time kernel and plain in turns (plain, kernel, kernel, plain)."""
     p1, k1, k2, p2 = cuda_ms(plain_fn), cuda_ms(kernel_fn), cuda_ms(kernel_fn), cuda_ms(plain_fn)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: each input byte read once and
+    each output byte written once over the memory rate, or the operations
+    over the bf16 peak, whichever is larger."""
+    by_ops, by_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def scored_pairs(mask: torch.Tensor, window: int | None) -> int:
+    """(query, key) pairs this batch's data needs scored: valid queries
+    against valid keys (rows are valid from position 0 to their length; a
+    padding row has none), all of them or those with |i - j| <= window."""
+    total = 0
+    for length in mask.sum(dim=1).tolist():
+        if window is None or window >= length - 1:
+            total += length * length
+        else:
+            total += length * (2 * window + 1) - window * (window + 1)
+    return total
+
+
+def attention_bound(mask: torch.Tensor, window: int | None, backward: bool) -> dict:
+    """bf16 packed attention at base width under the [B, S] key mask of this
+    run. Forward: Q.K^T and P.V, 4·D operations a scored pair and head;
+    backward: the five products (S, dP, dV, dK, dQ), 10·D. Bytes: qkv and
+    out (and for the backward g, lse and d(qkv)), the int32 mask and the
+    rope tables."""
+    batch, seq = mask.shape
+    tokens = batch * seq
+    nbytes = tokens * 4 * HIDDEN * 2 + tokens * 4 + 2 * seq * HEAD_DIM * 2
+    if backward:
+        nbytes += tokens * (HIDDEN + 3 * HIDDEN) * 2 + batch * HEADS * seq * 4
+    return bound((10 if backward else 4) * HEAD_DIM * HEADS * scored_pairs(mask, window), nbytes)
+
+
+def gemm_bounds(rows: int) -> dict[str, dict]:
+    """Bounds of the row-wise and GEMM kernels at M = rows, base width, bf16."""
+    m, k, n, i, e = rows, HIDDEN, 3 * HIDDEN, INTER, 2
+    return {
+        "layer_norm": bound(8 * m * k, (2 * m * k + k) * e),
+        "add_layer_norm": bound(9 * m * k, (4 * m * k + k) * e),
+        "layer_norm_bwd": bound(16 * m * k, (3 * m * k + 2 * k) * e),
+        "ln_matmul": bound(2 * m * k * n, (m * k + k + n * k + m * n) * e),
+        "ln_geglu": bound(4 * m * k * i, (m * k + k + 2 * i * k + m * i) * e),
+        "geglu": bound(4 * m * k * i, (m * k + 2 * i * k + m * i) * e),
+        # dW and dy (and for GeGLU the recomputed projection): 2·M·K·N each.
+        "ln_matmul_bwd": bound(4 * m * k * n, (2 * m * k + 2 * k + 2 * n * k + m * n) * e),
+        "ln_geglu_bwd": bound(12 * m * k * i, (2 * m * k + 2 * k + 4 * i * k + m * i) * e),
+    }
+
+
+def library_note(name: str, ms: float | None) -> str:
+    """How a timing line names the one-call PyTorch counterpart."""
+    if ms is not None:
+        return f"{ms:.4f} ms"
+    return "timed in phase 3c" if name.startswith("flash_attention") else "none"
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
@@ -160,7 +253,8 @@ def phase3_kernels(dev) -> dict[str, dict]:
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=gen) * scale).to(device=dev, dtype=dtype)
 
-    stats = {name: {"max_abs_err": {}, "cases": 0} for name in FORWARD}
+    stats = {name: {"max_abs_err": {}, "cases": 0}
+             for name in (*FORWARD, "add_layer_norm", "geglu")}
 
     def record(name, dtype, got, want):
         err = check_close(f"{name} {dtype}", got, want, dtype)
@@ -191,6 +285,18 @@ def phase3_kernels(dev) -> dict[str, dict]:
                            ops.flash_attention_packed(qkv, **kw)[valid],
                            ops.attention_packed_plain(qkv, **kw)[valid])
                 torch.cuda.synchronize()
+        # The bias layouts' kernels at the training and serving row count and
+        # at a ragged one. add + LN must equal an add followed by kernel 1.
+        for m in (16384, 16384 - 37):
+            x, y = randn(m, HIDDEN, scale=2.0, dtype=dtype), randn(m, HIDDEN, dtype=dtype)
+            record("geglu", dtype, ops.geglu(x, w_i, "gelu"), ops.geglu_plain(x, w_i, "gelu"))
+            h, normed = ops.add_layer_norm(x, y, scale)
+            h_plain, normed_plain = ops.add_layer_norm_plain(x, y, scale)
+            record("add_layer_norm", dtype, normed, normed_plain)
+            if not (torch.equal(h, h_plain) and torch.equal(normed, ops.layer_norm(x + y, scale))):
+                raise AssertionError(f"add_layer_norm {dtype} M={m}: h or LN(h) differs from "
+                                     "an add followed by the LayerNorm kernel")
+            torch.cuda.synchronize()
         for name, st in stats.items():
             atol, rtol = TOL[dtype]
             phase(f"phase 3 {name} {str(dtype)[6:]}: max_abs_err {st['max_abs_err'][dtype]:.3e} "
@@ -199,6 +305,7 @@ def phase3_kernels(dev) -> dict[str, dict]:
     # Times at the main path's largest bucket: B=32, S=512, bf16.
     dtype, batch, seq = torch.bfloat16, 32, 512
     x = randn(batch * seq, HIDDEN, scale=2.0, dtype=dtype)
+    y = randn(batch * seq, HIDDEN, dtype=dtype)
     scale = randn(HIDDEN, scale=0.1, dtype=dtype) + 1
     w_qkv = randn(3 * HIDDEN, HIDDEN, scale=HIDDEN**-0.5, dtype=dtype)
     w_i = randn(2 * INTER, HIDDEN, scale=HIDDEN**-0.5, dtype=dtype)
@@ -216,14 +323,34 @@ def phase3_kernels(dev) -> dict[str, dict]:
                                             lambda: ops.attention_packed_plain(qkv, **attn_g)),
         "ln_geglu": paired_ms(lambda: ops.ln_geglu(x, scale, w_i, "gelu"),
                               lambda: ops.ln_geglu_plain(x, scale, w_i, "gelu")),
+        "add_layer_norm": paired_ms(lambda: ops.add_layer_norm(x, y, scale),
+                                    lambda: ops.add_layer_norm_plain(x, y, scale)),
+        "geglu": paired_ms(lambda: ops.geglu(x, w_i, "gelu"),
+                           lambda: ops.geglu_plain(x, w_i, "gelu")),
     }
     local = paired_ms(lambda: ops.flash_attention_packed(qkv, **attn_l),
                       lambda: ops.attention_packed_plain(qkv, **attn_l))
+    bounds = gemm_bounds(batch * seq)
+    bounds["flash_attention_packed"] = attention_bound(mask, None, False)
+    # The one PyTorch call that computes the same function, where there is
+    # one: timed here, used nowhere in the port.
+    library = dict.fromkeys(timings)
+    library["layer_norm"] = cuda_ms(lambda: F.layer_norm(x, (HIDDEN,), scale, None, 1e-5))
     for name, (ms, plain_ms) in timings.items():
-        stats[name]["ms"], stats[name]["plain_ms"] = ms, plain_ms
-        phase(f"phase 3 time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=library[name], **bounds[name])
+        phase(f"phase 3 time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']}, one "
+              f"PyTorch call {library_note(name, library[name])}")
+    local_bound = attention_bound(mask, 64, False)
+    stats["flash_attention_packed"].update(ms_window64=local[0], plain_ms_window64=local[1],
+                                           bound_ms_window64=local_bound["bound_ms"])
     phase(f"phase 3 time flash_attention_packed window=64: kernel {local[0]:.4f} ms, "
-          f"plain {local[1]:.4f} ms")
+          f"plain {local[1]:.4f} ms, bound {local_bound['bound_ms']:.4f} ms by "
+          f"{local_bound['bound_by']}")
+    add_then_ln = cuda_ms(lambda: ops.layer_norm(x + y, scale))
+    stats["add_layer_norm"]["add_then_layer_norm_ms"] = add_then_ln
+    phase(f"phase 3 time add_layer_norm against an add followed by kernel 1: "
+          f"{timings['add_layer_norm'][0]:.4f} ms vs {add_then_ln:.4f} ms")
     return stats
 
 
@@ -257,12 +384,20 @@ def phase3b_backward(dev) -> dict[str, dict]:
         scale = randn(HIDDEN, scale=0.1, dtype=dtype) + 1
         w_qkv = randn(3 * HIDDEN, HIDDEN, scale=HIDDEN**-0.5, dtype=dtype)
         w_i = randn(2 * INTER, HIDDEN, scale=HIDDEN**-0.5, dtype=dtype)
-        for m in (rows, batch):  # the embedding / final norms, the head norm
-            g = randn(m, HIDDEN, dtype=dtype)
-            errs = record("layer_norm_bwd", dtype, ("dx", "dscale"),
-                          ops.layer_norm_bwd(x[:m], scale, g),
+        for m in (rows, rows - 37, batch):  # the embedding / final norms, ragged, the head norm
+            g, gh = randn(m, HIDDEN, dtype=dtype), randn(m, HIDDEN, dtype=dtype)
+            without = ops.layer_norm_bwd(x[:m], scale, g)
+            errs = record("layer_norm_bwd", dtype, ("dx", "dscale"), without,
                           ops.layer_norm_bwd_plain(x[:m], scale, g))
             report("layer_norm_bwd", dtype, f"M={m}", errs)
+            # The add + LN form: the residual cotangent gh goes into dx.
+            errs = record("layer_norm_bwd", dtype, ("dx", "dscale"),
+                          ops.layer_norm_bwd(x[:m], scale, g, 1e-5, gh),
+                          ops.layer_norm_bwd_plain(x[:m], scale, g, 1e-5, gh))
+            report("layer_norm_bwd", dtype, f"M={m} with gh", errs)
+            null_gh = ops.layer_norm_bwd(x[:m], scale, g, 1e-5, None)
+            if not all(torch.equal(a, b) for a, b in zip(null_gh, without)):
+                raise AssertionError("layer_norm_bwd with a null gh changed its bits")
         g_qkv = randn(rows, 3 * HIDDEN, scale=0.1, dtype=dtype)
         errs = record("ln_matmul_bwd", dtype, ("dx", "dscale", "dw"),
                       ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
@@ -311,24 +446,144 @@ def phase3b_backward(dev) -> dict[str, dict]:
         timings["flash_attention_packed_bwd"] = paired_ms(
             lambda: ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),
             lambda: ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw))
-        phase(f"phase 3b time flash_attention_packed_bwd window={window}: kernel "
-              f"{timings['flash_attention_packed_bwd'][0]:.4f} ms, plain "
-              f"{timings['flash_attention_packed_bwd'][1]:.4f} ms")
+        if window is not None:
+            window_ms = timings["flash_attention_packed_bwd"]
+    stats["flash_attention_packed_bwd"].update(
+        ms_window64=window_ms[0], plain_ms_window64=window_ms[1],
+        bound_ms_window64=attention_bound(mask, 64, True)["bound_ms"])
+    phase(f"phase 3b time flash_attention_packed_bwd window=64: kernel {window_ms[0]:.4f} ms, "
+          f"plain {window_ms[1]:.4f} ms, bound "
+          f"{stats['flash_attention_packed_bwd']['bound_ms_window64']:.4f} ms")
+    bounds = gemm_bounds(rows)
+    bounds["flash_attention_packed_bwd"] = attention_bound(mask, None, True)
+    library = dict.fromkeys(timings)
+    xl, sl = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    ln_out = F.layer_norm(xl, (HIDDEN,), sl, None, 1e-5)
+    library["layer_norm_bwd"] = cuda_ms(
+        lambda: torch.autograd.grad(ln_out, (xl, sl), x, retain_graph=True))
     for name, (ms, plain_ms) in timings.items():
-        stats[name]["ms"], stats[name]["plain_ms"] = ms, plain_ms
-        if name != "flash_attention_packed_bwd":
-            phase(f"phase 3b time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms")
+        stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=library[name], **bounds[name])
+        phase(f"phase 3b time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']}, one "
+              f"PyTorch call {library_note(name, library[name])}")
+    with_gh = paired_ms(lambda: ops.layer_norm_bwd(x, scale, x, 1e-5, x),
+                        lambda: ops.layer_norm_bwd_plain(x, scale, x, 1e-5, x))
+    stats["layer_norm_bwd"].update(ms_with_gh=with_gh[0], plain_ms_with_gh=with_gh[1])
+    phase(f"phase 3b time layer_norm_bwd with gh: kernel {with_gh[0]:.4f} ms, plain "
+          f"{with_gh[1]:.4f} ms")
     return stats
 
 
-def base_config():
+def library_attention_ms(qkv, rope, mask, g) -> tuple[float, float]:
+    """Milliseconds of ``F.scaled_dot_product_attention`` and of its autograd
+    backward on the same problem as a global layer: q and k rotated
+    beforehand (the library call has no rope, so it does less than the
+    kernels), [B, H, S, D] contiguous, the key padding as a boolean mask.
+    Timed as a yardstick only; the port never calls it."""
+    from open_provence_tpu_torch import ops
+
+    batch, seq, _ = qkv.shape
+    q, k, v = qkv.reshape(batch, seq, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
+    q, k = ops.apply_rotary(q, k, *rope)
+    q, k, v = (t.contiguous().requires_grad_() for t in (q, k, v))
+    keys = mask.bool().clone()
+    keys[keys.sum(dim=1) == 0] = True  # a padding row would give the library NaNs
+    keys = keys[:, None, None, :]
+    g_heads = g.reshape(batch, seq, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keys))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=keys)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g_heads, retain_graph=True))
+    return fwd, bwd
+
+
+def phase3c_long_context(dev, stats: dict[str, dict]) -> None:
+    """The attention kernels where the JAX package routes to its banded
+    forward (window layers, 1024 <= S <= 4096) and to its split backward
+    (S > 1024): S = 1024, 2048 and 4096, and 1100 for a ragged last tile;
+    the batch is what the plain version's fp32 [B, H, S, S] scores allow.
+    Every batch ends in a padding row (all keys masked). Errors go into the
+    two attention kernels' stats under the tolerances of phases 3 and 3b;
+    times at B=8, S=2048, bf16, beside those at B=32, S=512."""
+    from open_provence_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(35)
+    fwd, bwd = stats["flash_attention_packed"], stats["flash_attention_packed_bwd"]
+
+    def case(batch, seq, dtype):
+        qkv = torch.randn(batch, seq, 3 * HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+        mask = ragged_mask(batch, seq, gen, dev)
+        mask[-1] = 0
+        g = (torch.randn(batch, seq, HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+             * mask[..., None].to(dtype))
+        return qkv, mask, g
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for seq, batch in ((1024, 8), (1100, 4), (2048, 8), (4096, 2)):
+            qkv, mask, g = case(batch, seq, dtype)
+            valid = mask.bool()
+            for window, theta in ((None, 160000.0), (64, 10000.0)):
+                rope = ops.rope_tables(seq, HEAD_DIM, theta, dtype, dev)
+                if rope[0].shape != (seq, HEAD_DIM):
+                    raise AssertionError(f"rope table for S={seq} has shape {tuple(rope[0].shape)}")
+                kw = dict(num_heads=HEADS, padding_mask=mask, window=window, rope=rope)
+                out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+                out_p, lse_p = ops.attention_packed_plain(qkv, **kw, return_lse=True)
+                if not (torch.isfinite(lse).all() and torch.isfinite(out).all()):
+                    raise AssertionError(f"attention S={seq} {dtype}: out or lse is not finite")
+                out_err = check_close(f"attention out S={seq} window={window} {dtype}",
+                                      out[valid], out_p[valid], dtype)
+                lse_err = check_close(f"attention lse S={seq} window={window} {dtype}",
+                                      lse.transpose(1, 2)[valid], lse_p.transpose(1, 2)[valid],
+                                      torch.float32)
+                grad_err = check_grad(f"attention dqkv S={seq} window={window} {dtype}",
+                                      ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),
+                                      ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw), dtype)
+                for st, err in ((fwd, out_err), (bwd, grad_err)):
+                    st["max_abs_err"][dtype] = max(st["max_abs_err"].get(dtype, 0.0), err)
+                phase(f"phase 3c attention {str(dtype)[6:]} B={batch} S={seq} window={window}: "
+                      f"max_abs_err out {out_err:.3e}, lse {lse_err:.3e}, dqkv {grad_err:.3e}")
+                del out_p, lse_p
+            torch.cuda.synchronize()
+
+    # Times at the long-context training and serving shape, and the library
+    # call beside the kernels at both shapes (global layers only).
+    dtype = torch.bfloat16
+    for label, batch, seq in (("", 32, 512), ("_b8_s2048", 8, 2048)):
+        qkv, mask, g = case(batch, seq, dtype)
+        for window, theta in ((64, 10000.0), (None, 160000.0)):
+            rope = ops.rope_tables(seq, HEAD_DIM, theta, dtype, dev)
+            kw = dict(num_heads=HEADS, padding_mask=mask, window=window, rope=rope)
+            out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+            if label:
+                suffix = label + ("" if window is None else "_window64")
+                f_ms = paired_ms(lambda: ops.flash_attention_packed(qkv, **kw),
+                                 lambda: ops.attention_packed_plain(qkv, **kw))
+                b_ms = paired_ms(lambda: ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),
+                                 lambda: ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw))
+                for st, (ms, plain_ms), backward in ((fwd, f_ms, False), (bwd, b_ms, True)):
+                    b = attention_bound(mask, window, backward)
+                    st.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                               f"bound_ms{suffix}": b["bound_ms"]})
+                    phase(f"phase 3c time attention {'backward' if backward else 'forward'} "
+                          f"B={batch} S={seq} window={window} bf16: kernel {ms:.4f} ms, plain "
+                          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+        lib_f, lib_b = library_attention_ms(qkv, rope, mask, g)
+        fwd[f"library_ms{label}"], bwd[f"library_ms{label}"] = lib_f, lib_b
+        phase(f"phase 3c time scaled_dot_product_attention (no rope) B={batch} S={seq} global "
+              f"bf16: forward {lib_f:.4f} ms, autograd backward {lib_b:.4f} ms")
+
+
+def base_config(max_length: int = 512, **backbone_overrides):
+    """ModernBERT-base widths and depth unless overridden (a cut in depth
+    for a CPU comparison, a bias layout)."""
     from open_provence_tpu_torch import ModernBertBackboneConfig, OpenProvenceConfig
 
-    backbone = ModernBertBackboneConfig(pad_token_id=0, num_labels=1)  # base widths
+    backbone = ModernBertBackboneConfig(pad_token_id=0, num_labels=1, **backbone_overrides)
     return OpenProvenceConfig(
         base_model_config=backbone.to_dict(), num_labels=1,
-        pruning_config={"hidden_size": HIDDEN, "classifier_dropout": 0.0}, max_length=512,
+        pruning_config={"hidden_size": HIDDEN, "classifier_dropout": 0.0},
+        max_length=max_length,
     )
 
 
@@ -460,10 +715,63 @@ def plain_ops():
             setattr(modernbert, n, fn)
 
 
-def phase6_timings(model, pairs, card: str) -> dict:
+# Device time by kernel under torch.profiler: the port's own kernels under
+# these names, the rest by the first words of theirs (cuBLAS, torch's
+# elementwise and reductions).
+OUR_KERNELS = {
+    ("flash_mma_kernel",): "attention fwd", ("dkv_mma_kernel",): "attention bwd dK/dV",
+    ("dq_mma_kernel",): "attention bwd dQ", ("delta_kernel",): "attention bwd delta",
+    ("gemm_mma_kernel",): "GEMM engine (LN->GEMM, GeGLU; fwd and bwd)",
+    ("ln_adjoint", "row_kernel"): "LN adjoint rows",
+    ("ln_adjoint", "reduce_kernel"): "LN adjoint dscale",
+    ("normalize_kernel",): "LN->GEMM normalize",
+    ("geglu_grad_kernel",): "GeGLU bwd chain",
+    ("add_layer_norm_kernel",): "add + LayerNorm fwd",
+    ("layer_norm_kernel",): "LayerNorm fwd",
+}
+
+
+def profile_by_kernel(label: str, fn, reps: int) -> None:
+    """Print where the device time of ``reps`` calls of ``fn`` goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        began = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - began
+    device_us: dict[str, float] = {}
+    launches = 0.0
+    for evt in prof.key_averages():  # kernel rows only, so nothing counts twice
+        if getattr(evt.device_type, "name", "") != "CUDA":
+            continue
+        us = getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "device_time_total", 0.0)
+        name = next((v for keys, v in OUR_KERNELS.items() if all(k in evt.key for k in keys)),
+                    evt.key.split("<")[0][:48])
+        device_us[name] = device_us.get(name, 0.0) + us
+        launches += evt.count / reps
+    total_us = sum(device_us.values())
+    if not total_us:
+        phase(f"{label}: wall {wall * 1e3:.1f} ms; the profiler saw no device time")
+        return
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:14]
+    shares = "; ".join(f"{g} {100 * us / total_us:.1f} %" for g, us in top)
+    phase(f"{label}: wall {wall * 1e3:.1f} ms, device busy {total_us / 1e3:.1f} ms "
+          f"({total_us / 1e6 / wall:.3f} of wall), {launches:.0f} kernel launches a call; "
+          f"by kernel: {shares}")
+
+
+def forward_ms(model, batch: int, seq: int, label: str, card: str, with_plain: bool = True,
+               profile: bool = True) -> float:
+    """Milliseconds of one bf16 forward of ``model.module`` at [batch, seq]."""
+    from open_provence_tpu_torch import kernels
+
     gen = torch.Generator().manual_seed(6)
-    ids = torch.randint(3, 50000, (32, 512), generator=gen).to(model.device)
-    mask = torch.ones(32, 512, dtype=torch.int32, device=model.device)
+    ids = torch.randint(3, 50000, (batch, seq), generator=gen).to(model.device)
+    mask = torch.ones(batch, seq, dtype=torch.int32, device=model.device)
 
     def forward():
         with torch.inference_mode():
@@ -473,10 +781,25 @@ def phase6_timings(model, pairs, card: str) -> dict:
         with plain_ops():
             forward()
 
-    fwd_ms, plain_fwd_ms = paired_ms(forward, forward_plain)
-    phase(f"phase 6 forward B=32 S=512 bf16: {32e3 / fwd_ms:.1f} pairs/s ({fwd_ms:.2f} ms/batch) "
-          f"on kernels; {32e3 / plain_fwd_ms:.1f} pairs/s ({plain_fwd_ms:.2f} ms/batch) on plain "
-          f"versions [{card}]")
+    kernels.reset_launch_counts()
+    forward()
+    per_forward = {k: n for k, n in kernels.launch_counts().items() if n}
+    if with_plain:
+        fwd_ms, plain_fwd_ms = paired_ms(forward, forward_plain)
+        plain_note = (f"; {batch * 1e3 / plain_fwd_ms:.1f} pairs/s ({plain_fwd_ms:.2f} ms/batch) "
+                      "on plain versions")
+    else:
+        fwd_ms, plain_note = (cuda_ms(forward) + cuda_ms(forward)) / 2, ""
+    phase(f"{label} forward B={batch} S={seq} bf16: {batch * 1e3 / fwd_ms:.1f} pairs/s, "
+          f"{batch * seq * 1e3 / fwd_ms:.0f} tokens/s ({fwd_ms:.2f} ms/batch) on kernels"
+          f"{plain_note}; launches a forward {json.dumps(per_forward)} [{card}]")
+    if profile:
+        profile_by_kernel(f"{label} profile of 5 forwards B={batch} S={seq} bf16", forward, 5)
+    return fwd_ms
+
+
+def phase6_timings(model, pairs, card: str, with_plain: bool = True) -> dict:
+    fwd_ms = forward_ms(model, 32, 512, "phase 6", card, with_plain, profile=with_plain)
 
     questions, contexts = pairs
     for _ in range(2):
@@ -493,10 +816,13 @@ def phase6_timings(model, pairs, card: str) -> dict:
     return {"forward_pairs_per_s": 32e3 / fwd_ms, "process_pairs_per_s": 256 / median}
 
 
-def training_batch(tokenizer, n_real: int, seq: int, seed: int) -> dict:
+def training_batch(tokenizer, n_real: int, seq: int, seed: int,
+                   n_sentences: tuple[int, int] = (6, 16)) -> dict:
     """n_real synthetic (question, document) pairs with sentence spans, a
     relevance label per sentence and a teacher score, collated to [n_real +
-    1, seq]: the last pair is padding, as the collator adds it."""
+    1, seq]: the last pair is padding, as the collator adds it. A document
+    has ``n_sentences[0]`` to ``n_sentences[1] - 1`` sentences of about 38
+    characters (one token each)."""
     from open_provence_tpu_torch.train import OpenProvenceDataCollator
 
     rng = np.random.default_rng(seed)
@@ -505,7 +831,7 @@ def training_batch(tokenizer, n_real: int, seq: int, seed: int) -> dict:
     for _ in range(n_real):
         topic = str(rng.choice(words))
         sentences, spans, relevance, pos = [], [], [], 0
-        for i in range(int(rng.integers(6, 16))):
+        for i in range(int(rng.integers(*n_sentences))):
             a, b = rng.choice(words, 2)
             text = f"sentence {i} about {a} and {b} ."
             sentences.append(text)
@@ -549,28 +875,32 @@ def max_rel_err(got: dict, want: dict) -> float:
 STEP_GRAD_TOL, STEP_UPDATE_TOL = 1e-4, 1e-3
 
 
-def phase7_train_step(config, sd, tokenizer, dev, out_dir: Path) -> None:
-    """Two fp32 steps of the trainer on the card and on the CPU. The warmup
-    gives the first step a learning rate of 0, so both devices take sd's
-    parameters into the second, whose rate is 1e-2. Held per step: the loss
-    and every gradient tensor, card against CPU; and the card's update
-    (parameters after minus before) against the update the CPU's optimizer
-    makes from the card's own gradients, optimizer state and parameters. A
-    zeroed, negated or 5x update must fail that check."""
+def phase7_train_step(config, sd, tokenizer, dev, out_dir: Path, batch=None,
+                      steps: tuple[int, ...] = (1, 2), label: str = "phase 7") -> None:
+    """fp32 steps of the trainer on the card and on the CPU (two, on a B=2,
+    S=512 batch, unless told otherwise). The warmup gives the first step a
+    learning rate of 0, so both devices take sd's parameters into the
+    second, whose rate is 1e-2. Held per step: the loss and every gradient
+    tensor, card against CPU; and the card's update (parameters after minus
+    before) against the update the CPU's optimizer makes from the card's own
+    gradients, optimizer state and parameters. A zeroed, negated or 5x
+    update must fail that check."""
     from open_provence_tpu_torch.train import OpenProvenceTrainer
     from open_provence_tpu_torch.train.optim import global_norm
 
     def cpu_copy(tree):
         return {k: v.detach().cpu().clone() for k, v in tree.items()}
 
-    batch = training_batch(tokenizer, 1, 512, seed=7)
+    if batch is None:
+        batch = training_batch(tokenizer, 1, 512, seed=7)
+    shape = "B={} S={}".format(*batch["input_ids"].shape)
     card, host = (
         OpenProvenceTrainer(config, sd, tokenizer, output_dir=out_dir / d.type, bf16=False,
                             learning_rate=1e-2, total_steps=10, device=d)
         for d in (dev, torch.device("cpu"))
     )
     layers = config.backbone().num_hidden_layers
-    for step in (1, 2):
+    for step in steps:
         params_before, state_before = cpu_copy(card.params), cpu_copy(card.opt_state)
         loss_c, _, grads_c = card.loss_and_grads(batch)
         card.apply_gradients(grads_c)
@@ -593,7 +923,7 @@ def phase7_train_step(config, sd, tokenizer, dev, out_dir: Path) -> None:
             name: max_rel_err({k: f * d for k, d in delta_card.items()}, delta_ref)
             for name, f in faults.items()
         }
-        phase(f"phase 7 fp32 train step {step}, {layers} layers, B=2 S=512, card vs cpu: loss "
+        phase(f"{label} fp32 train step {step}, {layers} layers, {shape}, card vs cpu: loss "
               f"{float(loss_c):.6f} vs {float(loss_h):.6f} (rel err {loss_err:.3e}), grad norm "
               f"{norm_c:.6f} vs {norm_h:.6f}; gradients: largest error {grad_errs[worst_grad]:.3e} "
               f"of the tensor's largest ({worst_grad}; tol {STEP_GRAD_TOL}); update (largest "
@@ -611,44 +941,80 @@ def train_steps(trainer, batches, n: int) -> list[float]:
     return [trainer.train_one_step(batches[i % len(batches)])["loss"] for i in range(n)]
 
 
-def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str,
-                            out_dir: Path) -> dict[str, int]:
-    from open_provence_tpu_torch import OpenProvenceModel, kernels
-    from open_provence_tpu_torch.train import OpenProvenceTrainer
-    from open_provence_tpu_torch.utils import safetensors_io
-
-    batch_size, seq, n_steps = 32, 512, 20
-    batches = [training_batch(pair_tokenizer, batch_size - 1, seq, seed=s) for s in (80, 81)]
+def training_config(config):
+    """``config`` with the pruning head's default dropout: masks on."""
     train_config = copy.deepcopy(config)
-    train_config.pruning_config["classifier_dropout"] = 0.1  # the head's default: masks on
+    train_config.pruning_config["classifier_dropout"] = 0.1
+    return train_config
 
-    # Weights already on the card and no device= argument: the trainer
-    # stays where its parameters lie.
-    sd_card = {k: v.to(dev) for k, v in sd.items()}
 
-    def make(directory):
-        made = OpenProvenceTrainer(train_config, sd_card, pair_tokenizer, output_dir=directory,
-                                   learning_rate=3e-4, total_steps=n_steps + 10)
-        if made.device != dev or any(p.device != dev for p in made.params.values()):
-            raise AssertionError(f"a trainer given parameters on {dev} runs on {made.device}")
-        return made
+def make_trainer(train_config, sd_card, tokenizer, dev, directory, n_steps: int, **kwargs):
+    """A trainer from weights that already lie on the card and no device=
+    argument: it must stay where its parameters lie."""
+    from open_provence_tpu_torch.train import OpenProvenceTrainer
 
-    trainer = make(out_dir / "run")
+    made = OpenProvenceTrainer(train_config, sd_card, tokenizer, output_dir=directory,
+                               learning_rate=3e-4, total_steps=n_steps + 10, **kwargs)
+    if made.device != dev or any(p.device != dev for p in made.params.values()):
+        raise AssertionError(f"a trainer given parameters on {dev} runs on {made.device}")
+    return made
+
+
+def train_and_check(label: str, trainer, batches, n_steps: int, required) -> dict[str, int]:
+    """``n_steps`` bf16 steps with the launch counts read around them: the
+    eval loss on the same pairs (no dropout) must fall, every kernel in
+    ``required`` must have launched and no plain version may have run."""
+    from open_provence_tpu_torch import kernels
+
+    shape = "B={} S={}".format(*batches[0]["input_ids"].shape)
     eval_before = trainer.evaluate(iter(batches))["eval_loss"]
     kernels.reset_launch_counts()
     losses = train_steps(trainer, batches, n_steps)
     torch.cuda.synchronize()
     launches, plain = kernels.launch_counts(), kernels.plain_counts()
     eval_after = trainer.evaluate(iter(batches))["eval_loss"]
-    phase(f"phase 8 bf16 training, B={batch_size} S={seq}, {n_steps} steps: train loss "
+    phase(f"{label} bf16 training, {shape}, {n_steps} steps: train loss "
           f"first {losses[0]:.4f}, last {losses[-1]:.4f} (all: "
           f"{', '.join(f'{v:.4f}' for v in losses)}); eval loss on the same pairs, no dropout: "
           f"{eval_before:.4f} -> {eval_after:.4f}; launches {json.dumps(launches)}; "
           f"plain versions {json.dumps(plain)}")
     if not all(np.isfinite(losses)) or not eval_after < eval_before:
-        raise AssertionError(f"the training loss did not fall: {losses}")
-    if min(launches.values()) == 0 or any(plain.values()):
-        raise AssertionError("the training path skipped a kernel or ran a plain version")
+        raise AssertionError(f"{label}: the training loss did not fall: {losses}")
+    missing = [name for name in required if launches[name] == 0]
+    if missing or any(plain.values()):
+        raise AssertionError(f"{label}: the training path never launched {missing} or ran a "
+                             "plain version")
+    return launches
+
+
+def train_rate(trainer, batches, steps: int = 5) -> tuple[float, float]:
+    """(real pairs/s, real tokens/s) over ``steps`` synchronized steps."""
+    real_pairs = float(np.mean([b["pair_mask"].sum() for b in batches]))
+    real_tokens = float(np.mean([b["attention_mask"].sum() for b in batches]))
+    train_steps(trainer, batches, 1)
+    torch.cuda.synchronize()
+    began = time.perf_counter()
+    train_steps(trainer, batches, steps)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - began) / steps
+    return real_pairs / per_step, real_tokens / per_step
+
+
+def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str,
+                            out_dir: Path) -> dict[str, int]:
+    from open_provence_tpu_torch import OpenProvenceModel
+    from open_provence_tpu_torch.utils import safetensors_io
+
+    batch_size, seq, n_steps = 32, 512, 20
+    batches = [training_batch(pair_tokenizer, batch_size - 1, seq, seed=s) for s in (80, 81)]
+    train_config = training_config(config)
+    sd_card = {k: v.to(dev) for k, v in sd.items()}
+
+    def make(directory):
+        return make_trainer(train_config, sd_card, pair_tokenizer, dev, directory, n_steps)
+
+    trainer = make(out_dir / "run")
+    launches = train_and_check("phase 8", trainer, batches, n_steps, DEFAULT_EIGHT)
 
     # Resume: the step after the checkpoint, with and without a reload.
     ckpt = trainer.save_checkpoint()
@@ -668,12 +1034,7 @@ def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card
 
     def rate(plain_path: bool, steps: int = 5) -> float:
         with plain_ops() if plain_path else contextlib.nullcontext():
-            train_steps(trainer, batches, 1)
-            torch.cuda.synchronize()
-            began = time.perf_counter()
-            train_steps(trainer, batches, steps)
-            torch.cuda.synchronize()
-        return real_pairs * steps / (time.perf_counter() - began)
+            return train_rate(trainer, batches, steps)[0]
 
     p1, k1, k2, p2 = rate(True, 2), rate(False), rate(False), rate(True, 2)
     kernel_rate, plain_rate = (k1 + k2) / 2, (p1 + p2) / 2
@@ -681,43 +1042,8 @@ def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card
           f"({real_pairs / kernel_rate * 1e3:.1f} ms/step) on kernels; {plain_rate:.1f} "
           f"pairs/s ({real_pairs / plain_rate * 1e3:.1f} ms/step) on plain versions [{card}]")
 
-    # Where a step's time goes: torch.profiler over 3 steps.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        began = time.perf_counter()
-        train_steps(trainer, batches, 3)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - began
-    # Device time by kernel: the port's own under their names, the rest by
-    # the first words of theirs (cuBLAS, torch's elementwise and reductions).
-    ours = {("flash_mma_kernel",): "attention fwd", ("dkv_mma_kernel",): "attention bwd dK/dV",
-            ("dq_mma_kernel",): "attention bwd dQ", ("delta_kernel",): "attention bwd delta",
-            ("gemm_mma_kernel",): "LN->GEMM GEMMs (fwd and bwd)",
-            ("ln_adjoint", "row_kernel"): "LN adjoint rows",
-            ("ln_adjoint", "reduce_kernel"): "LN adjoint dscale",
-            ("normalize_kernel",): "LN->GEMM normalize",
-            ("geglu_grad_kernel",): "GeGLU bwd chain", ("layer_norm_kernel",): "LayerNorm fwd"}
-    device_us: dict[str, float] = {}
-    launches_per_step = 0.0
-    for evt in prof.key_averages():  # kernel rows only, so nothing counts twice
-        if getattr(evt.device_type, "name", "") != "CUDA":
-            continue
-        us = getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "device_time_total", 0.0)
-        name = next((v for keys, v in ours.items() if all(k in evt.key for k in keys)),
-                    evt.key.split("<")[0][:48])
-        device_us[name] = device_us.get(name, 0.0) + us
-        launches_per_step += evt.count / 3
-    total_us = sum(device_us.values())
-    if total_us:
-        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:14]
-        shares = "; ".join(f"{g} {100 * us / total_us:.1f} %" for g, us in top)
-        phase(f"phase 8 profile of 3 bf16 steps: wall {wall * 1e3:.1f} ms, device busy "
-              f"{total_us / 1e3:.1f} ms ({total_us / 1e6 / wall:.3f} of wall), "
-              f"{launches_per_step:.0f} kernel launches a step; by kernel: {shares}")
-    else:
-        phase(f"phase 8 profile of 3 bf16 steps: wall {wall * 1e3:.1f} ms; the profiler saw "
-              "no device time")
+    profile_by_kernel("phase 8 profile of 3 bf16 steps B=32 S=512",
+                      lambda: train_steps(trainer, batches, 1), 3)
 
     # Serve the trained weights.
     weights = safetensors_io.load_file(ckpt / "model.safetensors")
@@ -730,6 +1056,263 @@ def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card
     phase(f"phase 8 process() on the trained weights, 8 pairs: scores "
           f"{', '.join(f'{r:.4f}' for r in ranks)}")
     return launches
+
+
+def count_forwards(model):
+    """Wrap the engine's bucketed forward to count what it is given: rows,
+    valid tokens and rows by bucket length. Returns the counters."""
+    seen = {"rows": 0, "tokens": 0, "by_length": {}}
+    inner = model._forward
+
+    def counted(input_ids, attention_mask):
+        rows = int((attention_mask.sum(axis=1) > 0).sum())
+        seen["rows"] += rows
+        seen["tokens"] += int(attention_mask.sum())
+        by = seen["by_length"]
+        by[input_ids.shape[1]] = by.get(input_ids.shape[1], 0) + rows
+        return inner(input_ids, attention_mask)
+
+    model._forward = counted
+    return seen
+
+
+def phase9_long_context(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
+                        out_dir: Path) -> dict[str, dict[str, int]]:
+    """Long context through the entry points: ``process()`` at max_length
+    2048, then a trainer at B=8, S=2048. Returns the launch counts of the
+    serving and the training run."""
+    from open_provence_tpu_torch import OpenProvenceModel, kernels
+
+    max_length = 2048
+    config = base_config(max_length)
+    # 48 sentences of ~38 characters (one token each): a pair fills 1700 to
+    # 1950 tokens, so it lands in the 2048 bucket as one block.
+    questions, contexts = synthetic_pairs(64, sentences_per_doc=48, seed=9)
+    model = OpenProvenceModel(config, sd, tokenizer_cls(), device=dev)  # bf16 on the card
+    shapes = model.warmup(batch_size=1, lengths=[1024, max_length])
+    seen = count_forwards(model)
+
+    kernels.reset_launch_counts()
+    result = model.process(questions, contexts, threshold=0.1, show_progress=False)
+    torch.cuda.synchronize()
+    serve_launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    ranks = np.asarray(result["reranking_score"], dtype=np.float64)
+    blocks_per_pair = seen["rows"] / len(questions)
+    phase(f"phase 9 process() bf16 max_length={max_length}, {len(questions)} pairs (warm-up "
+          f"ran {shapes}): {seen['rows']} blocks ({blocks_per_pair:.2f} a pair), rows by bucket "
+          f"{json.dumps(seen['by_length'])}, {seen['tokens']} tokens; launches "
+          f"{json.dumps(serve_launches)}; plain versions {json.dumps(plain)}")
+    missing = [name for name in FORWARD if serve_launches[name] == 0]
+    if missing or any(plain.values()):
+        raise AssertionError(f"long-context serving never launched {missing} or ran a plain version")
+    if seen["by_length"].get(max_length, 0) < len(questions) // 2 or blocks_per_pair > 1.25:
+        raise AssertionError("the pairs did not go out as one 2048-token block each")
+    if len(result["pruned_context"]) != len(questions) or not np.all(np.isfinite(ranks)):
+        raise AssertionError("long-context process() gave the wrong length or non-finite scores")
+    if not np.all((ranks >= 0) & (ranks <= 1)):
+        raise AssertionError("scores outside [0, 1]")
+    keep_all = model.process(questions[:4], contexts[:4], threshold=0.0, show_progress=False)
+    if keep_all["pruned_context"] != contexts[:4]:
+        raise AssertionError("threshold 0.0 did not reproduce the long input")
+    drop_all = model.process(questions[:4], contexts[:4], threshold=1.0, show_progress=False)
+    if any(drop_all["pruned_context"]) or any(v != 0.0 for v in drop_all["reranking_score"]):
+        raise AssertionError("threshold 1.0 did not prune everything and zero the score")
+    kept = sum(len(c) for c in result["pruned_context"]) / sum(len(c) for c in contexts)
+    phase(f"phase 9 process() checks: scores finite in [{ranks.min():.4f}, {ranks.max():.4f}], "
+          f"kept {kept:.3f} of the text at threshold 0.1; threshold 0 exact, threshold 1 empty")
+
+    times = []
+    for _ in range(4):  # the first call is a warm-up
+        seen.update(rows=0, tokens=0, by_length={})
+        began = time.perf_counter()
+        model.process(questions, contexts, threshold=0.1, show_progress=False)
+        times.append(time.perf_counter() - began)
+    median = statistics.median(times[1:])
+    phase(f"phase 9 process() {len(questions)} pairs bf16 max_length={max_length}: "
+          f"{len(questions) / median:.1f} pairs/s, {seen['tokens'] / median:.0f} tokens/s "
+          f"(median of 3 calls: {median:.3f} s) [{card}]")
+    forward_ms(model, 8, max_length, "phase 9", card, with_plain=False)
+    del model
+
+    # fp32 on the card against fp32 on the CPU, 3 pairs.
+    th, margin = 0.1, 1e-4
+    kw = dict(threshold=th, show_progress=False, return_sentence_metrics=True)
+    outs = [
+        OpenProvenceModel(config, sd, tokenizer_cls(), device=d, dtype=torch.float32).process(
+            questions[:3], contexts[:3], **kw)
+        for d in (dev, "cpu")
+    ]
+    on_card, on_cpu = (np.concatenate([np.asarray(p) for p in o["sentence_probabilities"]])
+                       for o in outs)
+    decided = np.abs(on_cpu - th) > margin
+    flips = int(np.sum((on_card > th)[decided] != (on_cpu > th)[decided]))
+    score_err = float(np.max(np.abs(np.subtract(outs[0]["reranking_score"],
+                                                outs[1]["reranking_score"]))))
+    phase(f"phase 9 fp32 card vs cpu, 3 pairs at max_length={max_length}: {flips} keep/drop "
+          f"flips among {int(decided.sum())} sentences decided by > {margin}, sentence-prob "
+          f"max_abs_err {np.max(np.abs(on_card - on_cpu)):.3e}, score max_abs_err {score_err:.3e}")
+    if flips:
+        raise AssertionError("fp32 keep/drop decisions differ between card and CPU at 2048")
+
+    # Training at B=8, S=2048: 7 real pairs of 1500 to 1950 tokens and a
+    # padding pair. One fp32 step, card against CPU, at 3 layers (one global,
+    # two local: what the CPU's fp32 [B, H, S, S] scores let it finish).
+    batch_size, seq, n_steps = 8, max_length, 20
+    batches = [training_batch(pair_tokenizer, batch_size - 1, seq, seed=s, n_sentences=(40, 50))
+               for s in (90, 91)]
+    filled = [int(n) for n in batches[0]["attention_mask"].sum(axis=1)]
+    if max(filled) <= 1024 or batches[0]["input_ids"].shape != (batch_size, seq):
+        raise AssertionError(f"the long training batch is not long: {filled}")
+    cut = base_config(max_length, num_hidden_layers=3)
+    from open_provence_tpu_torch import init_params
+
+    phase7_train_step(cut, init_params(cut, torch.Generator().manual_seed(1)), pair_tokenizer,
+                      dev, out_dir / "long_fp32", batch=batches[0], steps=(1,), label="phase 9")
+
+    train_config = training_config(config)
+    sd_card = {k: v.to(dev) for k, v in sd.items()}
+    trainer = make_trainer(train_config, sd_card, pair_tokenizer, dev, out_dir / "long", n_steps)
+    train_launches = train_and_check("phase 9", trainer, batches, n_steps, DEFAULT_EIGHT)
+    rates = [train_rate(trainer, batches) for _ in range(2)]
+    pairs_s, tokens_s = (float(np.mean(v)) for v in zip(*rates))
+    phase(f"phase 9 train step B={batch_size} S={seq} bf16, rows filled {filled}: "
+          f"{pairs_s:.1f} pairs/s, {tokens_s:.0f} tokens/s "
+          f"({(batch_size - 1) / pairs_s * 1e3:.1f} ms/step) on kernels [{card}]")
+    profile_by_kernel(f"phase 9 profile of 3 bf16 steps B={batch_size} S={seq}",
+                      lambda: train_steps(trainer, batches, 1), 3)
+    del trainer
+    # What a step holds on the card, with and without per-layer recompute.
+    for remat in (False, True):
+        probe = make_trainer(train_config, sd_card, pair_tokenizer, dev,
+                             out_dir / f"long_remat_{remat}", n_steps,
+                             gradient_checkpointing=remat)
+        train_steps(probe, batches, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = train_steps(probe, batches, 1)[0]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        phase(f"phase 9 step memory B={batch_size} S={seq} bf16, gradient_checkpointing={remat}: "
+              f"peak {peak / 2**20:.0f} MiB, {(peak - base) / 2**20:.0f} MiB above the "
+              f"parameters and optimizer state; loss {loss:.4f}")
+        if not np.isfinite(loss):
+            raise AssertionError("a long-context step gave a non-finite loss")
+        del probe
+    return {"serve_2048": serve_launches, "train_2048": train_launches}
+
+
+# The bias-carrying checkpoint layouts: which kernels each must launch when
+# serving and when training, beside the attention pair every layout runs.
+BIAS_LAYOUTS = {
+    "norm_bias": (
+        dict(norm_bias=True),
+        ("flash_attention_packed", "geglu"),
+        ("flash_attention_packed", "geglu", "flash_attention_packed_bwd"),
+    ),
+    "mlp_bias+attention_bias": (
+        dict(mlp_bias=True, attention_bias=True),
+        ("layer_norm", "flash_attention_packed", "add_layer_norm"),
+        ("layer_norm", "flash_attention_packed", "add_layer_norm", "layer_norm_bwd",
+         "flash_attention_packed_bwd"),
+    ),
+}
+
+
+def phase10_bias_layouts(tokenizer_cls, pair_tokenizer, dev, out_dir: Path):
+    """Each layout at base width and 22 layers, its biases drawn at random
+    (init leaves them 0): the model on the card against the CPU in fp32,
+    ``process()`` on 16 pairs and 20 training steps, with the launch counts
+    of the layout's kernels."""
+    from open_provence_tpu_torch import OpenProvenceModel, build_module, init_params, kernels
+
+    all_launches = {}
+    for name, (flags, serve_required, train_required) in BIAS_LAYOUTS.items():
+        config = base_config(512, **flags)
+        gen = torch.Generator().manual_seed(10)
+        sd = init_params(config, gen)
+        n_bias = 0
+        for key, value in sd.items():
+            if key.endswith(".bias"):
+                sd[key] = torch.randn(value.shape, generator=gen) * 0.05
+                n_bias += 1
+
+        cpu = build_module(config)
+        cpu.load_state_dict(sd)
+        cpu.eval()
+        ids = torch.randint(3, 50000, (2, 512), generator=gen)
+        mask = torch.ones(2, 512, dtype=torch.int32)
+        mask[1, 300:] = 0
+        ids[mask == 0] = 0
+        rank_ref, keep_ref = scores(cpu, ids, mask)
+        card_module = copy.deepcopy(cpu).to(device=dev)
+        rank, keep = (t.cpu() for t in scores(card_module, ids.to(dev), mask.to(dev)))
+        rank_err = (rank - rank_ref).abs().max().item()
+        keep_err = (keep - keep_ref)[mask.bool()].abs().max().item()
+        phase(f"phase 10 {name}: {n_bias} bias tensors; fp32 card vs cpu, B=2 S=512, 22 layers: "
+              f"ranking max_abs_err {rank_err:.3e}, keep-prob max_abs_err {keep_err:.3e} (tol 1e-3)")
+        if not (rank_err <= 1e-3 and keep_err <= 1e-3):
+            raise AssertionError(f"the {name} model on the card disagrees with the CPU")
+        del card_module, cpu
+
+        model = OpenProvenceModel(config, sd, tokenizer_cls(), device=dev)
+        questions, contexts = synthetic_pairs(16, seed=10)
+        kernels.reset_launch_counts()
+        result = model.process(questions, contexts, threshold=0.1, show_progress=False)
+        torch.cuda.synchronize()
+        serve, plain = kernels.launch_counts(), kernels.plain_counts()
+        ranks = np.asarray(result["reranking_score"], dtype=np.float64)
+        keep_all = model.process(questions[:4], contexts[:4], threshold=0.0, show_progress=False)
+        phase(f"phase 10 {name} process() bf16, 16 pairs: scores in [{ranks.min():.4f}, "
+              f"{ranks.max():.4f}]; launches {json.dumps(serve)}; plain {json.dumps(plain)}")
+        missing = [k for k in serve_required if serve[k] == 0]
+        if missing or any(plain.values()) or not np.all(np.isfinite(ranks)):
+            raise AssertionError(f"{name} serving never launched {missing}, ran a plain version "
+                                 "or gave non-finite scores")
+        if keep_all["pruned_context"] != contexts[:4]:
+            raise AssertionError(f"{name}: threshold 0.0 did not reproduce the input")
+        del model
+
+        batches = [training_batch(pair_tokenizer, 31, 512, seed=s) for s in (100, 101)]
+        trainer = make_trainer(training_config(config), {k: v.to(dev) for k, v in sd.items()},
+                               pair_tokenizer, dev, out_dir / f"bias_{len(all_launches)}", 20)
+        train = train_and_check(f"phase 10 {name}", trainer, batches, 20, train_required)
+        pairs_s, _ = train_rate(trainer, batches)
+        phase(f"phase 10 {name} train step B=32 S=512 bf16: {pairs_s:.1f} pairs/s")
+        moved = max(float(v.detach().abs().max()) for k, v in trainer.params.items()
+                    if k.endswith(".bias"))
+        if not np.isfinite(moved):
+            raise AssertionError(f"{name}: a bias is not finite after training")
+        del trainer
+        all_launches[f"serve_{name}"], all_launches[f"train_{name}"] = serve, train
+    return all_launches
+
+
+def rates_main(tree: Path) -> int:
+    """Serving and training rates at B=32, S=512 of the package under
+    ``tree``: the forward, ``process()`` on 256 pairs and the bf16 training
+    step. One JSON line."""
+    sys.path.insert(0, str(tree))
+    from open_provence_tpu_torch import OpenProvenceModel, init_params, kernels
+
+    DummyTokenizer, PairDummyTokenizer = load_dummy_tokenizers()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kernels.library()
+    config = base_config()
+    sd = init_params(config, torch.Generator().manual_seed(0))
+    model = OpenProvenceModel(config, sd, DummyTokenizer(), device=dev)
+    rates = phase6_timings(model, synthetic_pairs(256), card, with_plain=False)
+    del model
+    batches = [training_batch(PairDummyTokenizer(), 31, 512, seed=s) for s in (80, 81)]
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = make_trainer(training_config(config), {k: v.to(dev) for k, v in sd.items()},
+                               PairDummyTokenizer(), dev, Path(tmp), 20)
+        train_steps(trainer, batches, 3)
+        rates["train_pairs_per_s"] = float(np.mean([train_rate(trainer, batches)[0]
+                                                    for _ in range(3)]))
+    print(json.dumps({"tree": str(tree), "card": card, **rates}), flush=True)
+    return 0
 
 
 def load_dummy_tokenizers():
@@ -751,15 +1334,23 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
-    from open_provence_tpu_torch import init_params, kernels
-
-    DummyTokenizer, PairDummyTokenizer = load_dummy_tokenizers()
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if len(sys.argv) > 1:
+        if sys.argv[1] != "--rates" or len(sys.argv) > 3:
+            print("usage: chip_smoke.py [--rates [TREE]]", file=sys.stderr)
+            return 2
+        return rates_main(Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else REPO)
+    sys.path.insert(0, str(REPO))
+    from open_provence_tpu_torch import init_params, kernels, native
+
+    DummyTokenizer, PairDummyTokenizer = load_dummy_tokenizers()
     dev = torch.device("cuda", 0)
+    started = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        phase(f"elapsed after {what}: {time.perf_counter() - started:.0f} s")
 
     card = card_line()
     phase(card)  # name, power limit: nvidia-smi's own line
@@ -781,35 +1372,68 @@ def main() -> int:
             spills = line.strip()
         elif "Used" in line:
             phase(f"phase 2 ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+    host_built = native.is_available()
+    phase(f"phase 2 native host library built from {native._SOURCE.relative_to(REPO)}: {host_built}")
+    if not host_built:
+        raise AssertionError("native/ did not build its host library")
 
     stats = phase3_kernels(dev)
     stats.update(phase3b_backward(dev))
+    phase3c_long_context(dev, stats)
+    elapsed("the kernel checks")
 
     config = base_config()
     sd = init_params(config, torch.Generator().manual_seed(0))
     phase4_model(config, sd, dev)
-    model, _, pairs = phase5_process(config, sd, DummyTokenizer, dev)
+    model, serve_launches, pairs = phase5_process(config, sd, DummyTokenizer, dev)
     phase6_timings(model, pairs, card)
     del model
+    elapsed("serving at 512")
+    by_path = {"serve_512": serve_launches}
     with tempfile.TemporaryDirectory() as tmp:
         phase7_train_step(config, sd, PairDummyTokenizer(), dev, Path(tmp))
-        launches = phase8_train_then_serve(
+        by_path["train_512"] = phase8_train_then_serve(
             config, sd, DummyTokenizer, PairDummyTokenizer(), dev, card, Path(tmp)
         )
+        elapsed("training at 512")
+        by_path.update(phase9_long_context(sd, DummyTokenizer, PairDummyTokenizer(), dev, card,
+                                           Path(tmp)))
+        elapsed("long context")
+        by_path.update(phase10_bias_layouts(DummyTokenizer, PairDummyTokenizer(), dev, Path(tmp)))
+        elapsed("the bias layouts")
 
-    table = [
-        {
+    # Every kernel must have launched on a main path (the comparisons of
+    # phase 3 are outside every count), rows 5 and 15 on the long ones.
+    table = []
+    for name, (source, replaces, rows) in KERNEL_INFO.items():
+        launches = {path: counts[name] for path, counts in by_path.items()}
+        if sum(launches.values()) == 0:
+            raise AssertionError(f"no main path launched {name}")
+        long_paths = {"flash_attention_packed": ("serve_2048", "train_2048"),
+                      "flash_attention_packed_bwd": ("train_2048",)}.get(name, ())
+        if any(launches[path] == 0 for path in long_paths):
+            raise AssertionError(f"a long-context path never launched {name}")
+        extras = {k: v for k, v in stats[name].items()
+                  if k not in ("max_abs_err", "cases", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}
+        table.append({
             "name": name,
             "route": "cuda",
             "source": f"open_provence_tpu_torch/kernels/csrc/{source}",
-            "replaces": replaces,
-            "launches": launches[name],
+            "replaces": replaces[0],
+            "launches": sum(launches.values()),
             "max_abs_err": stats[name]["max_abs_err"][torch.bfloat16],
             "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"],
-        }
-        for name, (source, replaces) in KERNEL_INFO.items()
-    ]
+            "bound_ms": stats[name]["bound_ms"],
+            "bound_by": stats[name]["bound_by"],
+            "library_ms": stats[name]["library_ms"],
+            "also_replaces": replaces[1:],
+            "tpu_rows": rows,
+            "launches_by_path": launches,
+            **extras,
+        })
+    elapsed("everything")
     print(json.dumps({"kernels": table}))
     print(json.dumps({
         "ok": True,

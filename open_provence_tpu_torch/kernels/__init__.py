@@ -41,13 +41,18 @@ HEADERS = (
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-# The kernels' names, in the order a training step first reaches them (the
-# forward, then the backward from the heads down); the C entry point of
+# The kernels' names: the default layout's eight in the order a training
+# step first reaches them (the forward, then the backward from the heads
+# down), then the two of the bias-carrying layouts; the C entry point of
 # each is ``opt_<name>``.
 KERNELS = (
     "layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu",
     "layer_norm_bwd", "ln_geglu_bwd", "flash_attention_packed_bwd", "ln_matmul_bwd",
+    "add_layer_norm", "geglu",
 )
+# The eight the bias-free default layout runs; ``add_layer_norm`` and
+# ``geglu`` run only for checkpoints that carry biases (mlp_bias, norm_bias).
+DEFAULT_PATH_KERNELS = KERNELS[:8]
 
 # Rows of x per fp32 partial row of dscale in the LN-adjoint kernels
 # (ln_adjoint.cuh: ROWS).
@@ -168,7 +173,9 @@ def library() -> ctypes.CDLL:
         "ln_matmul": [p] * 5 + [i, i, i, f, i, p],
         "ln_geglu": [p] * 5 + [i, i, i, f, i, i, p],
         "flash_attention_packed": [p, p, p, p, p, p, i, i, i, i, ll, ll, i, f, i, p],
-        "layer_norm_bwd": [p, p, p, p, p, p, i, i, f, i, p],
+        "layer_norm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
+        "add_layer_norm": [p, p, p, p, p, i, i, f, i, p],
+        "geglu": [p, p, p, i, i, i, i, i, p],
         "ln_matmul_bwd": [p] * 10 + [i, i, i, f, i, p],
         "ln_geglu_bwd": [p] * 11 + [i, i, i, f, i, i, p],
         "flash_attention_packed_bwd": [p] * 9 + [i, i, i, i, ll, ll, i, f, i, p],

@@ -7,7 +7,9 @@
 // takes one row at a time and
 //   1. recomputes mean and rstd from E[x^2] - E[x]^2 in fp32;
 //   2. forms h = (x - mean) * rstd;
-//   3. writes dx = rstd * (dy*s - mean(dy*s) - h * mean(dy*s*h)) in x's type;
+//   3. writes dx = rstd * (dy*s - mean(dy*s) - h * mean(dy*s*h)) in x's type,
+//      plus, for the add+LN form (ops/layer_norm.py::_add_ln_bwd), the
+//      residual stream's cotangent gh, added in fp32 before the one round;
 //   4. adds dy*h to its own fp32 row of dscale partial sums.
 // dscale sums in a fixed order, with no atomics, so two runs give the same
 // bits: each lane owns the same columns of every row it visits, a CTA sums
@@ -33,10 +35,13 @@ constexpr int WARPS = 8, ROWS_PER_WARP = 8, ROWS = WARPS * ROWS_PER_WARP;
 // Partial dscale rows a launch over M rows writes ([parts(M), K] fp32).
 inline int parts(int M) { return (M + ROWS - 1) / ROWS; }
 
-template <typename T, typename DY>
+// ADD_GH is a template argument, so the form without gh compiles to the
+// code it was before gh existed and gives the same bits.
+template <typename T, typename DY, bool ADD_GH>
 __global__ void __launch_bounds__(WARPS * 32)
     row_kernel(const T* __restrict__ x, const T* __restrict__ scale, const DY* __restrict__ dy,
-               T* __restrict__ dx, float* __restrict__ partial, int M, int K, float eps) {
+               const T* __restrict__ gh, T* __restrict__ dx, float* __restrict__ partial, int M,
+               int K, float eps) {
   extern __shared__ float ds_warp[];  // [WARPS][K]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* mine = ds_warp + (size_t)warp * K;
@@ -63,7 +68,9 @@ __global__ void __launch_bounds__(WARPS * 32)
     for (int c = lane; c < K; c += 32) {
       const float h = (to_f32(xr[c]) - mean) * rstd;
       const float ds = to_f32(dyr[c]) * to_f32(scale[c]);
-      dxr[c] = from_f32<T>(rstd * (ds - s1 - h * s2));
+      float v = rstd * (ds - s1 - h * s2);
+      if constexpr (ADD_GH) v += to_f32(gh[off + c]);
+      dxr[c] = from_f32<T>(v);
     }
   }
   __syncthreads();
@@ -97,20 +104,31 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Both launches on `stream`; partial holds parts(M) * K floats.
+template <typename T, typename DY, bool ADD_GH>
+int launch_rows(const void* x, const void* scale, const void* dy, const void* gh, void* dx,
+                float* partial, int M, int K, float eps, cudaStream_t stream) {
+  const size_t smem = (size_t)WARPS * K * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      row_kernel<T, DY, ADD_GH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  row_kernel<T, DY, ADD_GH><<<parts(M), WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const DY*>(dy),
+      static_cast<const T*>(gh), static_cast<T*>(dx), partial, M, K, eps);
+  return (int)cudaGetLastError();
+}
+
+// Both launches on `stream`; partial holds parts(M) * K floats; gh [M, K] in
+// x's type, or null.
 template <typename T, typename DY>
 int launch(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
-           float* partial, int M, int K, float eps, cudaStream_t stream) {
+           float* partial, int M, int K, float eps, cudaStream_t stream,
+           const void* gh = nullptr) {
   const int n_parts = parts(M);
-  const size_t smem = (size_t)WARPS * K * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(row_kernel<T, DY>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  row_kernel<T, DY><<<n_parts, WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const DY*>(dy),
-      static_cast<T*>(dx), partial, M, K, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int rows_err =
+      gh == nullptr
+          ? launch_rows<T, DY, false>(x, scale, dy, gh, dx, partial, M, K, eps, stream)
+          : launch_rows<T, DY, true>(x, scale, dy, gh, dx, partial, M, K, eps, stream);
+  if (rows_err != 0) return rows_err;
   reduce_kernel<T><<<(K + 31) / 32, 256, 0, stream>>>(partial, n_parts, K,
                                                       static_cast<T*>(dscale));
   return (int)cudaGetLastError();

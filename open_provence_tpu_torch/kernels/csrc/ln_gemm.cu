@@ -1,5 +1,5 @@
 // LayerNorm folded into the GEMM that consumes it: kernels 2 and 4 of the
-// forward path.
+// forward path, and kernel 6, the GEGLU GEMM without a norm.
 //
 // opt_ln_matmul replaces ops/geglu.py::_ln_matmul_kernel (attn_norm -> Wqkv,
 //   layers 1 and up): out[M, N] = LN(x)[M, K] . W[N, K]^T.
@@ -7,7 +7,12 @@
 //   act * gate): out[M, I] = act(LN(x) . Wi[:I]^T) * (LN(x) . Wi[I:]^T),
 //   with Wi [2I, K] in torch's [out, in] layout.
 //
-// Two launches on the caller's stream, both from gemm.cuh, which the
+// opt_geglu replaces ops/geglu.py::_geglu_kernel (a norm with a bias cannot
+//   fold into the GEMM, so the MLP gets rows that are normalized already):
+//   out[M, I] = act(x . Wi[:I]^T) * (x . Wi[I:]^T), one launch of the GEMM
+//   engine with the GEGLU epilogue, x read as it lies.
+//
+// Kernels 2 and 4: two launches on the caller's stream, both from gemm.cuh, which the
 // backward (ln_gemm_bwd.cu) shares: the normalized rows xn = T(LN(x) * s),
 // rounded to the storage type at the TPU kernel's rounding point (_ln_rows),
 // into a scratch [M, K] the wrapper allocates; then xn . W^T on the GEMM
@@ -47,6 +52,21 @@ int dispatch(const void* x, const void* scale, const void* w, void* out, void* x
 extern "C" int opt_ln_matmul(const void* x, const void* scale, const void* w, void* out,
                              void* xn, int m, int k, int n, float eps, int dtype, void* stream) {
   return dispatch<Epi::STORE>(x, scale, w, out, xn, m, k, n, eps, 0, dtype, stream);
+}
+
+extern "C" int opt_geglu(const void* x, const void* wi, void* out, int m, int k,
+                         int intermediate, int act, int dtype, void* stream) {
+  if (m <= 0 || intermediate <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32)
+    return gemm_engine::gemm<false, false, Epi::GEGLU>(
+        static_cast<const float*>(x), k, static_cast<const float*>(wi), k,
+        static_cast<float*>(out), intermediate, m, intermediate, k, s, act);
+  if (dtype == DTYPE_BF16)
+    return gemm_engine::gemm<false, false, Epi::GEGLU>(
+        static_cast<const __nv_bfloat16*>(x), k, static_cast<const __nv_bfloat16*>(wi), k,
+        static_cast<__nv_bfloat16*>(out), intermediate, m, intermediate, k, s, act);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int opt_ln_geglu(const void* x, const void* scale, const void* wi, void* out,

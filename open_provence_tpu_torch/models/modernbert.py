@@ -1,7 +1,7 @@
 """ModernBERT encoder in PyTorch, on the port's kernels.
 
-The counterpart of the JAX package's ``models/modernbert.py`` on its default
-fused path:
+The counterpart of the JAX package's ``models/modernbert.py`` on its fused
+path. The default, bias-free layout:
 
 * token embeddings, then LayerNorm (kernel 1); no positional embeddings;
 * pre-norm layers; layer 0's attn_norm is the identity (the embeddings are
@@ -16,10 +16,23 @@ fused path:
 * both the last hidden state before ``final_norm`` (read by the pruning
   head) and after it (read by the ranking head).
 
+Checkpoints that carry biases route as the JAX module routes them:
+
+* ``norm_bias``: every norm is the plain LayerNorm with a bias (tensor ops,
+  as it is XLA ops in JAX); no norm folds into a GEMM, so Wqkv is a plain
+  linear and the MLP gets normalized rows and runs Wi → act·gate as the
+  GeGLU GEMM without a norm (kernel 6), unless ``mlp_bias``;
+* ``attention_bias`` (norms bias-free): attn_norm runs alone (kernel 1) and
+  Wqkv and Wo are plain linears with biases; the MLP side is unchanged;
+* ``mlp_bias`` (norms bias-free): the attention side is unchanged; the
+  residual add fuses into mlp_norm (kernel 7, which returns the sum and its
+  norm), and Wi with its bias, act·gate and Wo are plain tensor ops.
+
 Attribute names follow the HF / reference state-dict names
 (``embeddings.tok_embeddings``, ``layers.{i}.attn.Wqkv``, ``…mlp.Wi``,
-``…mlp_norm``, ``final_norm``, ``head.dense``, ``classifier``), so a
-reference-layout state dict loads with ``load_state_dict`` as is.
+``…mlp_norm``, ``final_norm``, ``head.dense``, ``classifier``; a bias is
+``….bias`` beside ``….weight``), so a reference-layout state dict loads with
+``load_state_dict`` as is.
 
 Training: in ``train()`` mode the classifier dropout applies before the
 ranking classifier, with masks drawn from a ``torch.Generator`` the caller
@@ -27,8 +40,7 @@ passes in (never the global RNG); a nonzero backbone dropout
 (``attention_dropout``, ``embedding_dropout``, ``mlp_dropout``; 0.0 in
 ModernBERT-base) raises ``NotImplementedError``. ``gradient_checkpointing``
 recomputes each layer in the backward (``torch.utils.checkpoint``), as
-``remat`` does in the JAX package. Checkpoints with norm, attention or MLP
-biases need kernels that are not ported yet and are refused.
+``remat`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,38 +52,41 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModernBertBackboneConfig
 from ..ops.flash_attention import flash_attention_packed
-from ..ops.geglu import ln_geglu, ln_matmul, lookup_activation
-from ..ops.layer_norm import layer_norm
+from ..ops.geglu import geglu, ln_geglu, ln_matmul, lookup_activation
+from ..ops.layer_norm import add_layer_norm, layer_norm, layer_norm_plain
 from ..ops.rotary import rope_tables
 from .heads import dropout
 
 
-def _require_ported(cfg: ModernBertBackboneConfig) -> None:
-    unported = [n for n in ("norm_bias", "attention_bias", "mlp_bias") if getattr(cfg, n)]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}=True needs kernels that are not ported yet "
-            "(the bias-carrying GeGLU and LayerNorm variants)"
-        )
-
-
 class LayerNorm(nn.Module):
-    """Bias-free LayerNorm holding ``weight`` (the HF name for the scale)."""
+    """LayerNorm holding ``weight`` (the HF name for the scale) and, for
+    norm_bias checkpoints, ``bias``. Bias-free it runs on the kernels; with
+    a bias it is the plain LayerNorm on either device."""
 
-    def __init__(self, hidden: int, eps: float):
+    def __init__(self, hidden: int, eps: float, bias: bool = False):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(hidden))
+        self.bias = nn.Parameter(torch.zeros(hidden)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.eps)
+        if self.bias is None:
+            return layer_norm(x, self.weight, self.eps)
+        return layer_norm_plain(x, self.weight, self.eps, self.bias)
+
+    def add(self, residual: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(residual + x, LN(residual + x)): one kernel when bias-free."""
+        if self.bias is None:
+            return add_layer_norm(residual, x, self.weight, self.eps)
+        h = residual + x
+        return h, layer_norm_plain(h, self.weight, self.eps, self.bias)
 
 
 class ModernBertEmbeddings(nn.Module):
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
         self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.norm = LayerNorm(cfg.hidden_size, cfg.norm_eps)
+        self.norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.norm(self.tok_embeddings(input_ids))
@@ -86,8 +101,8 @@ class ModernBertAttention(nn.Module):
         self.head_dim = cfg.head_dim
         self.theta = cfg.layer_rope_theta(layer_id)
         self.window = cfg.layer_window(layer_id)
-        self.Wqkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, bias=False)
-        self.Wo = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=False)
+        self.Wqkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, bias=cfg.attention_bias)
+        self.Wo = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=cfg.attention_bias)
 
     def forward(
         self,
@@ -96,7 +111,8 @@ class ModernBertAttention(nn.Module):
         ln_scale: torch.Tensor | None = None,
         ln_eps: float = 1e-5,
     ) -> torch.Tensor:
-        """``ln_scale`` (a deferred attn_norm) folds the norm into Wqkv."""
+        """``ln_scale`` (a deferred, bias-free attn_norm) folds the norm into a
+        bias-free Wqkv; without it x goes through Wqkv as a plain linear."""
         batch, seq_len, hidden = x.shape
         if ln_scale is None:
             qkv = self.Wqkv(x)
@@ -113,17 +129,29 @@ class ModernBertAttention(nn.Module):
 
 
 class ModernBertMLP(nn.Module):
-    """GeGLU MLP: mlp_norm → Wi → act(input)·gate in one kernel, then Wo."""
+    """GeGLU MLP: Wi → act(input)·gate, then Wo. Bias-free, Wi and the gate
+    run in one kernel, with mlp_norm folded in when its scale is passed."""
 
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
         self.activation = cfg.hidden_activation
-        self.Wi = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=False)
-        self.Wo = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        self.act = lookup_activation(cfg.hidden_activation)[1]
+        self.Wi = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=cfg.mlp_bias)
+        self.Wo = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=cfg.mlp_bias)
 
-    def forward(self, x: torch.Tensor, ln_scale: torch.Tensor, ln_eps: float) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, ln_scale: torch.Tensor | None = None, ln_eps: float = 1e-5
+    ) -> torch.Tensor:
+        """``ln_scale`` (a deferred, bias-free mlp_norm) folds the norm into
+        the Wi GEMM; without it x is normalized already."""
+        if self.Wi.bias is not None:
+            inp, gate = self.Wi(x).chunk(2, dim=-1)
+            return self.Wo(self.act(inp) * gate)
         x2d = x.reshape(-1, x.shape[-1])
-        hidden = ln_geglu(x2d, ln_scale, self.Wi.weight, self.activation, ln_eps)
+        if ln_scale is None:
+            hidden = geglu(x2d, self.Wi.weight, self.activation)
+        else:
+            hidden = ln_geglu(x2d, ln_scale, self.Wi.weight, self.activation, ln_eps)
         return self.Wo(hidden).reshape(x.shape)
 
 
@@ -131,17 +159,32 @@ class ModernBertEncoderLayer(nn.Module):
     def __init__(self, cfg: ModernBertBackboneConfig, layer_id: int):
         super().__init__()
         self.eps = cfg.norm_eps
+        # A norm folds into the GEMM it feeds only when neither carries a
+        # bias (the JAX package's attn_ln_fusable / fuse_mlp_ln).
+        self.fold_attn_norm = not (cfg.attention_bias or cfg.norm_bias)
+        self.fold_mlp_norm = not (cfg.mlp_bias or cfg.norm_bias)
         # Layer 0 has no attn_norm parameter: its input is the normalized
         # embedding output (HF uses nn.Identity there).
-        self.attn_norm = None if layer_id == 0 else LayerNorm(cfg.hidden_size, cfg.norm_eps)
+        self.attn_norm = (
+            None if layer_id == 0 else LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
+        )
         self.attn = ModernBertAttention(cfg, layer_id)
-        self.mlp_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps)
+        self.mlp_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
         self.mlp = ModernBertMLP(cfg)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor | None) -> torch.Tensor:
-        attn_scale = None if self.attn_norm is None else self.attn_norm.weight
-        x = x + self.attn(x, padding_mask, attn_scale, self.eps)
-        return x + self.mlp(x, self.mlp_norm.weight, self.eps)
+        if self.attn_norm is None:
+            attn_in, attn_scale = x, None
+        elif self.fold_attn_norm:
+            attn_in, attn_scale = x, self.attn_norm.weight
+        else:
+            attn_in, attn_scale = self.attn_norm(x), None
+        attn_out = self.attn(attn_in, padding_mask, attn_scale, self.eps)
+        if self.fold_mlp_norm:
+            x = x + attn_out
+            return x + self.mlp(x, self.mlp_norm.weight, self.eps)
+        x, mlp_in = self.mlp_norm.add(x, attn_out)
+        return x + self.mlp(mlp_in)
 
 
 def _layer_call(layer, names, x, padding_mask, *tensors):
@@ -153,7 +196,6 @@ class ModernBertModel(nn.Module):
 
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
-        _require_ported(cfg)
         self.backbone_dropouts = {
             n: getattr(cfg, n)
             for n in ("attention_dropout", "embedding_dropout", "mlp_dropout")
@@ -164,7 +206,7 @@ class ModernBertModel(nn.Module):
         self.layers = nn.ModuleList(
             ModernBertEncoderLayer(cfg, i) for i in range(cfg.num_hidden_layers)
         )
-        self.final_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps)
+        self.final_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
 
     def forward(
         self, input_ids: torch.Tensor, padding_mask: torch.Tensor | None = None
@@ -196,7 +238,7 @@ class ModernBertPredictionHead(nn.Module):
         super().__init__()
         self.act = lookup_activation(cfg.classifier_activation)[1]
         self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=cfg.classifier_bias)
-        self.norm = LayerNorm(cfg.hidden_size, cfg.norm_eps)
+        self.norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.act(self.dense(x)))

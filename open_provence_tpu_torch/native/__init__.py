@@ -1,12 +1,12 @@
 """ctypes bindings for the native host ops, with auto-build and pure-Python
 fallbacks.
 
-The C++ source is the JAX package's ``open_provence_tpu/native/host_ops.cpp``
-— one source for both packages; it is read as a file, never imported. The
-shared library is compiled from it at first use into this directory; when no
-C++ toolchain is available the Python fallbacks are used — they are
-behavior-identical (tests/test_native_ops.py asserts parity on randomized
-cases).
+The C++ source is ``host_ops.cpp`` beside this file, the port's own copy of
+the JAX package's ``native/host_ops.cpp`` (a test holds the two byte for
+byte), so the port opens nothing outside its package. The shared library is
+compiled from it at first use into this directory; when no C++ toolchain is
+available the Python fallbacks are used — they are behavior-identical
+(tests/test_native_ops.py asserts parity on randomized cases).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 _HERE = Path(__file__).resolve().parent
-_SOURCE = _HERE.parent.parent / "open_provence_tpu" / "native" / "host_ops.cpp"
+_SOURCE = _HERE / "host_ops.cpp"
 _LIB_PATH = _HERE / "libhost_ops.so"
 
 _lib: ctypes.CDLL | None = None

@@ -1,11 +1,18 @@
 """LayerNorm folded into its GEMM: kernels 2 and 4
 (``kernels/csrc/ln_gemm.cu``), their backward kernels 12 and 11
-(``kernels/csrc/ln_gemm_bwd.cu``) and the plain versions of all four.
+(``kernels/csrc/ln_gemm_bwd.cu``), the GeGLU GEMM without a norm (kernel 6,
+``ln_gemm.cu``) and the plain versions of all five.
 
 * ``ln_matmul``: LN(x)·scale @ Wᵀ — attn_norm → Wqkv in layers 1 and up
   (JAX: ``ops/geglu.py::fused_ln_matmul``).
 * ``ln_geglu``: act(LN(x)·scale @ Wi[:I]ᵀ) · (LN(x)·scale @ Wi[I:]ᵀ) —
   mlp_norm → Wi → act·gate (JAX: ``ops/geglu.py::fused_ln_geglu``).
+* ``geglu``: act(x @ Wi[:I]ᵀ) · (x @ Wi[I:]ᵀ) on rows that are normalized
+  already — the MLP of a norm_bias=true checkpoint, whose norm cannot fold
+  into the GEMM (JAX: ``ops/geglu.py::fused_geglu``). Its backward is no
+  kernel in the JAX package either (``_geglu_bwd`` is ``jax.vjp`` of the
+  plain composition), so here it is autograd through ``geglu_plain`` on both
+  devices, ``torch.matmul`` and all.
 
 Weights are in torch's ``[out, in]`` layout. Numerics follow the JAX
 kernels: the normalized x is rounded to the storage dtype before the
@@ -101,6 +108,15 @@ def ln_geglu_plain(
     return act(inp.to(acc)).to(x2d.dtype) * gate
 
 
+def geglu_plain(x2d: torch.Tensor, wi: torch.Tensor, activation: str) -> torch.Tensor:
+    """x2d [M, K] @ wi[2I, K]ᵀ rounded to x's dtype → act(first half) in at
+    least fp32, rounded, · second half: [M, I]."""
+    act = lookup_activation(activation)[1]
+    inp, gate = F.linear(x2d, wi).chunk(2, dim=-1)
+    acc = torch.promote_types(x2d.dtype, torch.float32)
+    return act(inp.to(acc)).to(x2d.dtype) * gate
+
+
 def _normalized(x2d, scale, eps):
     """(xn, h, rstd): xn = LN(x)·s rounded to x's dtype (the forward's
     rounding point), promoted back to the statistics' dtype."""
@@ -146,18 +162,23 @@ def ln_geglu_bwd_plain(
 
 
 def _check_operands(x2d, scale, w, rows_of_w_per_out):
+    """``scale`` is None for the GEMM without a norm."""
     m, k = x2d.shape
-    if scale.shape != (k,) or w.dim() != 2 or w.shape[1] != k:
-        raise ValueError(f"shapes: x {tuple(x2d.shape)}, scale {tuple(scale.shape)}, w {tuple(w.shape)}")
+    if (scale is not None and scale.shape != (k,)) or w.dim() != 2 or w.shape[1] != k:
+        raise ValueError(
+            f"shapes: x {tuple(x2d.shape)}, scale {None if scale is None else tuple(scale.shape)}, "
+            f"w {tuple(w.shape)}"
+        )
     if w.shape[0] % rows_of_w_per_out:
         raise ValueError(f"w rows {w.shape[0]} not divisible by {rows_of_w_per_out}")
-    for t in (scale, w):
+    others = [t for t in (scale, w) if t is not None]
+    for t in others:
         if t.dtype != x2d.dtype or t.device != x2d.device:
             raise ValueError(f"operands must share x's dtype {x2d.dtype} and device {x2d.device}")
     if x2d.dtype == torch.bfloat16:
         if k % 8:
             raise ValueError(f"the bf16 kernel takes K % 8 == 0, not {k}")
-        kernels.require_16_byte_rows(x2d, scale, w)
+        kernels.require_16_byte_rows(x2d, *others)
 
 
 def _matmul_kernel(x2d, scale, w, eps):
@@ -187,6 +208,30 @@ def _geglu_kernel(x2d, scale, wi, act_code, eps):
         )
     kernels.check(code, "ln_geglu")
     return out
+
+
+def _bare_geglu_kernel(x2d, wi, act_code):
+    m, k = x2d.shape
+    intermediate = wi.shape[0] // 2
+    out = torch.empty((m, intermediate), dtype=x2d.dtype, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        code = kernels.library().opt_geglu(
+            kernels.ptr(x2d), kernels.ptr(wi), kernels.ptr(out), m, k, intermediate,
+            act_code, kernels.dtype_code(x2d), kernels.stream(x2d),
+        )
+    kernels.check(code, "geglu")
+    return out
+
+
+def _bare_geglu_forward(x2d, wi, activation):
+    """Kernel 6 on CUDA tensors, its plain version on CPU tensors."""
+    act_code = lookup_activation(activation)[0]
+    if kernels.on_cuda(x2d):
+        x2d, wi = x2d.contiguous(), wi.contiguous()
+        _check_operands(x2d, None, wi, 2)
+        return _bare_geglu_kernel(x2d, wi, act_code)
+    kernels.count_plain("geglu")
+    return geglu_plain(x2d, wi, activation)
 
 
 def _matmul_forward(x2d, scale, w, eps):
@@ -347,3 +392,32 @@ def ln_geglu(
     if kernels.records_grad(x2d, scale, wi):
         return LnGegluFunction.apply(x2d, scale, wi, activation, eps)
     return _geglu_forward(x2d, scale, wi, activation, eps)[0]
+
+
+class GegluFunction(torch.autograd.Function):
+    """act(x2d @ wi[:I]ᵀ)·(x2d @ wi[I:]ᵀ): kernel 6 for CUDA tensors, the
+    plain version for CPU tensors. The backward differentiates the plain
+    composition on either device, as the JAX package's ``_geglu_bwd`` takes
+    ``jax.vjp`` of its reference composition."""
+
+    @staticmethod
+    def forward(ctx, x2d, wi, activation):
+        ctx.save_for_backward(x2d, wi)
+        ctx.activation = activation
+        return _bare_geglu_forward(x2d, wi, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, wi = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = geglu_plain(x2d, wi, ctx.activation)
+        return (*torch.autograd.grad(out, (x2d, wi), g.to(out.dtype)), None)
+
+
+def geglu(x2d: torch.Tensor, wi: torch.Tensor, activation: str) -> torch.Tensor:
+    """act(x2d @ wi[:I]ᵀ) · (x2d @ wi[I:]ᵀ): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors; differentiable in x2d and
+    wi."""
+    if kernels.records_grad(x2d, wi):
+        return GegluFunction.apply(x2d, wi, activation)
+    return _bare_geglu_forward(x2d, wi, activation)

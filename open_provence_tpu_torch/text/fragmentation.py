@@ -8,7 +8,7 @@ fragments and packing fragments into blocks (SURVEY §5.7).
 Device-facing difference vs the reference: blocks are later padded to
 *bucketed* fixed shapes (inference/engine.py) instead of pad-to-batch-max, so
 XLA compiles a small, fixed set of programs. The packing plan itself is
-computed by the native C++ op (open_provence_tpu/native).
+computed by the native C++ op (open_provence_tpu_torch/native).
 """
 
 from __future__ import annotations
@@ -551,7 +551,7 @@ def assemble_blocks(
     """Greedy packing of fragments into ≤max_length blocks
     (standalone:2222-2259): available = max_length − 2 specials; oversize
     fragments truncated to the remaining capacity. The packing plan is
-    computed by the native op (open_provence_tpu/native); truncation text
+    computed by the native op (open_provence_tpu_torch/native); truncation text
     decoding stays host-Python (it needs the tokenizer)."""
     if not fragments:
         return []

@@ -136,3 +136,90 @@ def test_process_shape_errors_match(engines, args):
 def test_warmup_runs_every_bucket(engines):
     _jax_model, torch_model = engines
     assert torch_model.warmup(batch_size=2) == [(2, n) for n in (16, 32, 48, 64)]
+
+
+# --- long context: max_length past 1024 --------------------------------------
+#
+# Buckets past 1024 double, and max_length itself is appended whatever it is:
+# 1536 with a step of 512 gives 512, 1024, 1536. One document fills the 1536
+# bucket and spills 500-odd tokens into a second block (the 1024 bucket), one
+# fits a single long block, one is short. Three JAX compiles.
+
+LONG_MAX = 1536
+DOC_2_BLOCKS = " ".join(f"Sentence number {i} talks about topic {i} at length." for i in range(40))
+DOC_1_BLOCK = " ".join(f"Line {i} is about plants and rivers." for i in range(35))
+
+
+@pytest.fixture(scope="module")
+def long_engines():
+    def config(cls, backbone_cls):
+        backbone = dict(BACKBONE, max_position_embeddings=2048)
+        return cls(
+            base_model_config=backbone_cls(**backbone).to_dict(), num_labels=1,
+            pruning_config={"hidden_size": 32, "classifier_dropout": 0.0}, max_length=LONG_MAX,
+        )
+
+    jax_config = config(JaxConfig, JaxBackboneConfig)
+    params = build_jax_module(jax_config).init(
+        jax.random.PRNGKey(2), np.zeros((1, 8), np.int32), np.ones((1, 8), np.int32),
+        attention_impl="xla",
+    )["params"]
+    jax_model = JaxModel(
+        jax_config, params, DummyTokenizer(), attention_impl="xla", bucket_step=512
+    )
+    torch_config = config(OpenProvenceConfig, ModernBertBackboneConfig)
+    torch_model = OpenProvenceModel(
+        torch_config, state_dict_from_flax(jax.device_get(params), torch_config),
+        DummyTokenizer(), device="cpu", bucket_step=512,
+    )
+    return jax_model, torch_model
+
+
+def test_long_context_buckets():
+    from open_provence_tpu.inference.batching import length_buckets as jax_buckets
+    from open_provence_tpu_torch.inference.batching import length_buckets
+
+    for max_length, step in ((LONG_MAX, 512), (2048, 64), (3000, 128), (8192, 64)):
+        buckets = length_buckets(max_length, step)
+        assert buckets == jax_buckets(max_length, step)
+        assert buckets[-1] == max_length and buckets == sorted(set(buckets))
+    assert length_buckets(2048, 64)[-2:] == [1024, 2048]
+    assert length_buckets(3000, 128)[-3:] == [1024, 2048, 3000]
+
+
+@pytest.mark.parametrize("threshold", [None, 0.0, 0.5])
+def test_process_past_1024_matches_jax(long_engines, threshold):
+    jax_model, torch_model = long_engines
+    assert len(DOC_2_BLOCKS) > LONG_MAX > len(DOC_1_BLOCK) > 1024
+    seen = []
+    forward = torch_model._forward_pooled
+
+    def spy(ids, mask, *rest):
+        seen.append((ids.shape[1], mask.sum(axis=1).tolist()))
+        return forward(ids, mask, *rest)
+
+    torch_model._forward_pooled = spy
+    kwargs = dict(show_progress=False, return_sentence_metrics=True, return_sentence_texts=True)
+    if threshold is not None:
+        kwargs["threshold"] = threshold
+    args = ("what about plants?", [DOC_2_BLOCKS, DOC_1_BLOCK, CONTEXT])
+    try:
+        out = torch_model.process(*args, **kwargs)
+    finally:
+        del torch_model._forward_pooled
+    ref = jax_model.process(*args, **kwargs)
+    _assert_same(ref, out)
+    if threshold == 0.0:
+        assert out["pruned_context"] == args[1]
+    # The long buckets were really run, with rows filled past 1024 tokens,
+    # and the document that fits max_length went out as one block.
+    by_len = {seq: sorted(n for n in rows if n) for seq, rows in seen}
+    assert set(by_len) == {512, 1024, LONG_MAX}
+    assert len(by_len[LONG_MAX]) == 2 and by_len[LONG_MAX][0] > 1024
+    assert by_len[LONG_MAX][1] > LONG_MAX - 16  # filled to the last sentence that fits
+    assert len(by_len[1024]) == 1 and len(by_len[512]) == 1  # the spill, the short document
+
+
+def test_warmup_walks_the_long_buckets(long_engines):
+    _jax_model, torch_model = long_engines
+    assert torch_model.warmup(batch_size=1) == [(1, 512), (1, 1024), (1, LONG_MAX)]

@@ -117,3 +117,151 @@ def test_init_params_shapes_and_distributions():
     assert torch.equal(sd["pruning_head.classifier.bias"], torch.zeros(2))
     again = init_params(config, torch.Generator().manual_seed(0))
     assert all(torch.equal(sd[k], again[k]) for k in sd)
+
+
+# --- the bias-carrying checkpoint layouts ------------------------------------
+#
+# Each of norm_bias, attention_bias and mlp_bias (and all three) against the
+# JAX module with its weights carried over by state_dict_from_flax; the
+# biases are drawn at random, since init leaves them 0. Each side has its own
+# config object and the JAX oracle of a layout is built once. Logits and both
+# hidden states within 1e-4; gradients within 1e-4 of each tensor's largest.
+
+LAYOUTS = {
+    "norm_bias": dict(norm_bias=True),
+    "attention_bias": dict(attention_bias=True),
+    "mlp_bias": dict(mlp_bias=True),
+    "all_three": dict(norm_bias=True, attention_bias=True, mlp_bias=True),
+}
+
+
+def _layout_config_dict(flags):
+    cfg = _config_dict()
+    cfg["base_model_config"].update(flags)
+    return cfg
+
+
+def _randomize_biases(tree, rng):
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = _randomize_biases(value, rng)
+        elif key == "bias":
+            out[key] = rng.normal(size=value.shape).astype(np.float32) * 0.1
+        else:
+            out[key] = np.asarray(value)
+    return out
+
+
+@pytest.fixture(scope="module", params=list(LAYOUTS))
+def layout_sides(request):
+    flags = LAYOUTS[request.param]
+    jax_config = JaxConfig(**_layout_config_dict(flags))
+    jax_module = build_jax_module(jax_config)
+    params = jax_module.init(
+        jax.random.PRNGKey(1), np.zeros((1, 8), np.int32), np.ones((1, 8), np.int32),
+        attention_impl="xla",
+    )["params"]
+    params = _randomize_biases(jax.device_get(params), np.random.default_rng(7))
+    config = OpenProvenceConfig(**_layout_config_dict(flags))
+    module = build_module(config)
+    sd = state_dict_from_flax(params, config)
+    hf = flax_params_to_hf(params, jax_config)
+    assert set(sd) == set(hf) == set(module.state_dict())
+    for key, value in hf.items():
+        np.testing.assert_array_equal(sd[key].numpy(), value, err_msg=key)
+    module.load_state_dict(sd)
+    return request.param, flags, jax_module, params, config, module.eval()
+
+
+def test_bias_layouts_carry_their_bias_leaves(layout_sides):
+    name, flags, _jm, _params, _config, module = layout_sides
+    keys = set(module.state_dict())
+    pre = "ranking_model.model.layers.1."
+    assert (pre + "attn_norm.bias" in keys) == bool(flags.get("norm_bias"))
+    assert ("ranking_model.model.final_norm.bias" in keys) == bool(flags.get("norm_bias"))
+    assert ("ranking_model.head.norm.bias" in keys) == bool(flags.get("norm_bias"))
+    assert (pre + "attn.Wqkv.bias" in keys) == (pre + "attn.Wo.bias" in keys) == bool(
+        flags.get("attention_bias"))
+    assert (pre + "mlp.Wi.bias" in keys) == (pre + "mlp.Wo.bias" in keys) == bool(
+        flags.get("mlp_bias"))
+    assert any(float(v.abs().max()) > 0 for k, v in module.state_dict().items()
+               if k.endswith(".bias") and "classifier" not in k and "dense" not in k), name
+
+
+def test_bias_layouts_route_to_their_kernels(layout_sides):
+    """Which wrappers a forward goes through (on the CPU: their plain
+    versions), layout by layout, as the JAX module routes them."""
+    from open_provence_tpu_torch import kernels
+
+    name, flags, _jm, _params, _config, module = layout_sides
+    ids, mask = _inputs(128, seed=3)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        module(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    used = {k for k, n in kernels.plain_counts().items() if n}
+    expect = {
+        "norm_bias": {"flash_attention_packed", "geglu"},
+        "attention_bias": {"layer_norm", "flash_attention_packed", "ln_geglu"},
+        "mlp_bias": {"layer_norm", "ln_matmul", "flash_attention_packed", "add_layer_norm"},
+        "all_three": {"flash_attention_packed"},
+    }[name]
+    assert used == expect, (name, used)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas_interpret"])
+def test_bias_layouts_match_jax(layout_sides, monkeypatch, pallas):
+    name, _flags, jax_module, params, _config, module = layout_sides
+    if pallas:
+        # Every Pallas kernel interpreted, the fused add + LN one included
+        # (it is behind a switch in the JAX package; the port always takes it).
+        monkeypatch.setenv("OPEN_PROVENCE_TPU_PALLAS_INTERPRET", "1")
+        monkeypatch.setenv("OPEN_PROVENCE_TPU_ADD_LN", "1")
+    ids, mask = _inputs(128, seed=11 + int(pallas))
+    run = jax.jit(lambda p, i, m: jax_module.apply({"params": p}, i, m))  # fresh trace
+    ref = jax.device_get(run(params, ids, mask))
+    with torch.inference_mode():
+        out = module(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    valid = mask.astype(bool)
+    np.testing.assert_allclose(
+        out["ranking_logits"].numpy(), ref["ranking_logits"], atol=1e-4, rtol=1e-4, err_msg=name)
+    for key in ("pruning_logits", "last_hidden_pre_norm", "last_hidden_state"):
+        np.testing.assert_allclose(
+            out[key].numpy()[valid], ref[key][valid], atol=1e-4, rtol=1e-4, err_msg=f"{name} {key}")
+
+
+def test_bias_layouts_gradients_match_jax_grad(layout_sides):
+    name, _flags, jax_module, params, config, module = layout_sides
+    import jax.numpy as jnp
+
+    ids, mask = _inputs(128, seed=13)
+    rng = np.random.default_rng(14)
+    w_rank = rng.normal(size=(2, 1)).astype(np.float32)
+    w_prune = rng.normal(size=(2, 128, 2)).astype(np.float32) * mask[..., None]
+    w_hidden = rng.normal(size=(2, 128, 128)).astype(np.float32) * mask[..., None] * 0.1
+
+    def jax_loss(p):
+        out = jax_module.apply({"params": p}, ids, mask)
+        return ((out["ranking_logits"] * w_rank).sum() + (out["pruning_logits"] * w_prune).sum()
+                + (out["last_hidden_state"] * w_hidden).sum())
+
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jax_loss))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    want = state_dict_from_flax(jax.device_get(j_grads), config)
+
+    module.train()  # dropout rates are 0: the training graph, no masks
+    out = module(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    loss = ((out["ranking_logits"] * torch.from_numpy(w_rank)).sum()
+            + (out["pruning_logits"] * torch.from_numpy(w_prune)).sum()
+            + (out["last_hidden_state"] * torch.from_numpy(w_hidden)).sum())
+    named = dict(module.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    module.eval()
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-4)
+    assert set(grads) == set(want)
+    for key, w in want.items():
+        w = w.numpy()
+        np.testing.assert_allclose(
+            grads[key].numpy(), w, rtol=0, atol=1e-4 * max(np.abs(w).max(), 1e-12),
+            err_msg=f"{name} {key}")

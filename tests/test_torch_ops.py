@@ -251,3 +251,200 @@ def test_plain_functions_gradcheck_fp64(which):
             # fast_mode checks random projections of the Jacobian, not all
             # of its 288 columns: the full check costs a forward each.
             assert torch.autograd.gradcheck(f, (qkv,), fast_mode=True)
+
+
+# --- long context: the banded forward and the split backward ----------------
+#
+# At 1024 <= S <= 4096 the JAX package routes window layers to its banded
+# forward kernel, and past S = 1024 every layer's backward to the split dq and
+# dk/dv kernels. The port has one forward and one backward kernel for all S;
+# their plain versions are held against those JAX kernels here.
+
+
+def _rope_stack(seq, dim, theta):
+    cos, sin = jax_rope_tables(seq, dim, theta)
+    return jnp.stack([cos, sin])
+
+
+@pytest.mark.parametrize("heads", [2, 4])
+def test_attention_plain_matches_banded_pallas_at_1024(heads, monkeypatch):
+    """The static banded kernel (active at S = 1024, window 64), ragged mask:
+    out and lse on valid rows within 2e-5 (the JAX package's own tolerance
+    between its banded and grid kernels)."""
+    from open_provence_tpu.ops.flash_attention import _flash_forward_packed, banded_sub_blocks
+
+    monkeypatch.setenv("OPEN_PROVENCE_TPU_BANDED", "1")
+    seq, dim, window = 1024, 64, 64
+    assert banded_sub_blocks(seq, seq, window) is not None
+    rng = np.random.default_rng(40 + heads)
+    qkv = rng.normal(size=(1, seq, 3 * heads * dim)).astype(np.float32)
+    mask = np.ones((1, seq), np.int32)
+    mask[0, 900:] = 0
+    with pltpu.force_tpu_interpret_mode():
+        ref_out, ref_lse = _flash_forward_packed(
+            jnp.asarray(qkv), heads, jnp.asarray(mask), _rope_stack(seq, dim, 10000.0),
+            window, seq, 256, emit_lse=True,
+        )
+    ref_lse = np.asarray(ref_lse).reshape(1, heads, seq)
+    valid = mask.astype(bool)
+    kw = dict(num_heads=heads, padding_mask=_t(mask), window=window,
+              rope=rope_tables(seq, dim, 10000.0))
+    out, lse = flash_attention_packed_lse(_t(qkv), **kw)
+    np.testing.assert_allclose(out.numpy()[valid], np.asarray(ref_out)[valid], atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        lse.numpy().transpose(0, 2, 1)[valid], ref_lse.transpose(0, 2, 1)[valid],
+        atol=2e-5, rtol=2e-5,
+    )
+    # A padding row: every in-band key masked. The plain lse stays finite.
+    assert np.isfinite(lse.numpy()).all()
+
+
+@pytest.mark.parametrize("seq", [256, 512])
+@pytest.mark.parametrize("window", [None, 64])
+def test_attention_bwd_plain_matches_split_pallas(seq, window, monkeypatch):
+    """The split dq and dk/dv kernels (what S > 1024 runs), called with
+    128-blocks at a size interpret mode can finish: d(qkv) within 1e-5 of
+    the largest gradient."""
+    from open_provence_tpu.ops.flash_attention import (
+        _flash_backward_packed, _flash_forward_packed, _fused_bwd_sub_blocks,
+    )
+
+    monkeypatch.setenv("OPEN_PROVENCE_TPU_BWD_FUSED", "0")
+    assert _fused_bwd_sub_blocks(seq, window) is None  # the split path
+    batch, heads, dim = 1, 2, 64
+    rng = np.random.default_rng(50 + seq)
+    qkv = rng.normal(size=(batch, seq, 3 * heads * dim)).astype(np.float32)
+    mask = np.ones((batch, seq), np.int32)
+    mask[0, seq - 61:] = 0
+    g = rng.normal(size=(batch, seq, heads * dim)).astype(np.float32) * mask[..., None]
+    rope = _rope_stack(seq, dim, 160000.0)
+    with pltpu.force_tpu_interpret_mode():
+        j_out, j_lse = _flash_forward_packed(
+            jnp.asarray(qkv), heads, jnp.asarray(mask), rope, window, 128, 128, emit_lse=True
+        )
+        ref = np.asarray(_flash_backward_packed(
+            jnp.asarray(qkv), heads, jnp.asarray(mask), rope, j_out, j_lse, jnp.asarray(g),
+            window, 128, 128,
+        ))
+    kw = dict(num_heads=heads, padding_mask=_t(mask), window=window,
+              rope=rope_tables(seq, dim, 160000.0))
+    out, lse = flash_attention_packed_lse(_t(qkv), **kw)
+    dqkv = attention_packed_bwd_plain(_t(qkv), _t(g), out, lse, **kw).numpy()
+    np.testing.assert_allclose(dqkv, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def test_rope_tables_are_cached_per_length():
+    """A table made for S = 512 is never handed out for 2048: the cache key
+    holds the length, and the values are the fp32 tables cast once."""
+    short = rope_tables(512, 64, 10000.0, torch.bfloat16)
+    long = rope_tables(2048, 64, 10000.0, torch.bfloat16)
+    assert short[0].shape == (512, 64) and long[0].shape == (2048, 64)
+    assert rope_tables(512, 64, 10000.0, torch.bfloat16)[0] is short[0]
+    cos, _ = jax_rope_tables(2048, 64, 10000.0)
+    assert torch.equal(long[0], _t(np.array(cos)).to(torch.bfloat16))
+    assert torch.equal(long[0][:512], short[0])
+
+
+# --- the bias-carrying layouts: GeGLU without a norm, add + LayerNorm --------
+
+
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+def test_geglu_plain_matches_pallas_and_its_gradient(act):
+    from open_provence_tpu.ops.geglu import fused_geglu
+    from open_provence_tpu_torch.ops import geglu, geglu_plain
+
+    rng = np.random.default_rng(60)
+    x = rng.normal(size=(128, 128)).astype(np.float32)
+    wi_kn = (rng.normal(size=(128, 128)) * 0.1).astype(np.float32)
+    g = (rng.normal(size=(128, 64)) * 0.1).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(fused_geglu(jnp.asarray(x), jnp.asarray(wi_kn), act))
+    ref_dx, ref_dwi = _vjp_pallas(lambda a, w: fused_geglu(a, w, act), (x, wi_kn), g)
+    wi = _t(wi_kn.T)
+    np.testing.assert_allclose(geglu_plain(_t(x), wi, act).numpy(), ref, **TOL)
+    xt, wt = _t(x).requires_grad_(), wi.clone().requires_grad_()
+    out = geglu(xt, wt, act)
+    assert type(out.grad_fn).__name__ == "GegluFunctionBackward"
+    np.testing.assert_allclose(out.detach().numpy(), ref, **TOL)
+    dx, dwi = torch.autograd.grad(out, (xt, wt), _t(g))
+    np.testing.assert_allclose(dx.numpy(), ref_dx, **TOL)
+    np.testing.assert_allclose(dwi.numpy(), ref_dwi.T, **TOL)
+
+
+def test_add_layer_norm_plain_matches_both_jax_routes():
+    """(h, LN(h)) against the fused add + LN kernel and against an add
+    followed by the LN kernel: the kernel normalizes the rounded sum, so the
+    three agree."""
+    from open_provence_tpu.ops.layer_norm import fused_add_layer_norm
+    from open_provence_tpu_torch.ops import add_layer_norm, add_layer_norm_plain
+
+    x, scale = _ln_inputs(64, 128, seed=61)
+    y = np.random.default_rng(62).normal(size=x.shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref_h, ref_n = (np.asarray(t) for t in fused_add_layer_norm(
+            jnp.asarray(x), jnp.asarray(y), jnp.asarray(scale), 1e-5))
+        ref_n2 = np.asarray(fused_layer_norm(jnp.asarray(x) + jnp.asarray(y),
+                                             jnp.asarray(scale), 1e-5))
+    for fn in (add_layer_norm_plain, add_layer_norm):
+        h, n = fn(_t(x), _t(y), _t(scale))
+        np.testing.assert_allclose(h.numpy(), ref_h, **TOL)
+        np.testing.assert_allclose(n.numpy(), ref_n, **TOL)
+        np.testing.assert_allclose(n.numpy(), ref_n2, **TOL)
+    h3, n3 = add_layer_norm(_t(x).reshape(4, 16, 128), _t(y).reshape(4, 16, 128), _t(scale))
+    assert h3.shape == n3.shape == (4, 16, 128)
+
+
+def test_add_layer_norm_bwd_with_gh_matches_pallas():
+    """The add + LN adjoint: kernel 10 with the residual cotangent gh, via
+    jax.vjp of _add_ln_core; and without gh the adjoint is what it was."""
+    from open_provence_tpu.ops.layer_norm import _add_ln_core
+    from open_provence_tpu_torch.ops import add_layer_norm
+
+    x, scale = _ln_inputs(256, 128, seed=63)
+    rng = np.random.default_rng(64)
+    y, gh, gn = (rng.normal(size=x.shape).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda a, b, s: _add_ln_core(a, b, s, 1e-5),
+                         jnp.asarray(x), jnp.asarray(y), jnp.asarray(scale))
+        ref_dx, ref_dy, ref_ds = (np.asarray(t) for t in vjp((jnp.asarray(gh), jnp.asarray(gn))))
+    np.testing.assert_array_equal(ref_dx, ref_dy)
+    h = _t(x) + _t(y)
+    for fn in (layer_norm_bwd_plain, layer_norm_bwd):
+        dh, ds = fn(h, _t(scale), _t(gn), 1e-5, _t(gh))
+        np.testing.assert_allclose(dh.numpy(), ref_dx, **TOL)
+        np.testing.assert_allclose(ds.numpy(), ref_ds, **TOL)
+        # gh = None: bit for bit what the two-argument form gives.
+        none = fn(h, _t(scale), _t(gn), 1e-5, None)
+        plain = fn(h, _t(scale), _t(gn))
+        assert all(torch.equal(a, b) for a, b in zip(none, plain))
+        assert torch.equal(dh, (none[0] + _t(gh)))
+    # Through the autograd Function, both outputs used.
+    xt, yt, st = _t(x).requires_grad_(), _t(y).requires_grad_(), _t(scale).requires_grad_()
+    ht, nt = add_layer_norm(xt, yt, st)
+    assert type(ht.grad_fn).__name__ == "AddLayerNormFunctionBackward"
+    dx, dy, ds = torch.autograd.grad((ht, nt), (xt, yt, st), (_t(gh), _t(gn)))
+    np.testing.assert_allclose(dx.numpy(), ref_dx, **TOL)
+    assert torch.equal(dx, dy)
+    np.testing.assert_allclose(ds.numpy(), ref_ds, **TOL)
+
+
+def test_layer_norm_plain_with_bias_matches_jax_reference():
+    from open_provence_tpu.ops.layer_norm import layer_norm_reference
+
+    x, scale = _ln_inputs(32, 128, seed=65)
+    bias = np.random.default_rng(66).normal(size=(128,)).astype(np.float32)
+    ref = np.asarray(layer_norm_reference(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), 1e-5))
+    np.testing.assert_allclose(
+        layer_norm_plain(_t(x), _t(scale), 1e-5, _t(bias)).numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("which", ["geglu", "add_layer_norm"])
+def test_bias_layout_functions_gradcheck_fp64(which):
+    from open_provence_tpu_torch.ops import add_layer_norm, geglu
+
+    x, s, w = _gradcheck_inputs(21)
+    if which == "geglu":
+        assert torch.autograd.gradcheck(lambda a, b: geglu(a, b, "gelu"), (x, w))
+    else:
+        y = torch.randn(6, 16, dtype=torch.float64).requires_grad_()
+        assert torch.autograd.gradcheck(lambda a, b, c: add_layer_norm(a, b, c), (x, y, s))

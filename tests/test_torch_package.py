@@ -108,22 +108,51 @@ def test_build_names_library_by_source_hash():
     assert kernels.KERNELS == (
         "layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu",
         "layer_norm_bwd", "ln_geglu_bwd", "flash_attention_packed_bwd", "ln_matmul_bwd",
+        "add_layer_norm", "geglu",
     )
+    assert kernels.DEFAULT_PATH_KERNELS == kernels.KERNELS[:8]
     for name in (*kernels.SOURCES, *kernels.HEADERS):
         assert (kernels.CSRC / name).is_file(), name
 
 
 def test_unported_bias_configs_raise():
+    """The bias-carrying layouts build and run (they were refused until their
+    kernels were ported); what is still unported, backbone dropout in
+    training, is what raises."""
     from open_provence_tpu_torch import ModernBertBackboneConfig, OpenProvenceConfig, build_module
 
+    ids = torch.arange(1, 9).reshape(1, 8)
     for flag in ("norm_bias", "attention_bias", "mlp_bias"):
         bb = ModernBertBackboneConfig(
-            vocab_size=64, hidden_size=32, intermediate_size=48, num_hidden_layers=1,
+            vocab_size=64, hidden_size=32, intermediate_size=48, num_hidden_layers=2,
             num_attention_heads=2, **{flag: True},
         )
         config = OpenProvenceConfig(base_model_config=bb.to_dict(), max_length=32)
-        with pytest.raises(NotImplementedError, match=flag):
-            build_module(config)
+        module = build_module(config).eval()
+        assert any(k.endswith(".bias") and "layers.1" in k for k in module.state_dict()), flag
+        with torch.inference_mode():
+            out = module(ids, torch.ones(1, 8, dtype=torch.int32))
+        assert torch.isfinite(out["pruning_logits"]).all()
+    bb = ModernBertBackboneConfig(
+        vocab_size=64, hidden_size=32, intermediate_size=48, num_hidden_layers=1,
+        num_attention_heads=2, mlp_dropout=0.1,
+    )
+    module = build_module(OpenProvenceConfig(base_model_config=bb.to_dict(), max_length=32))
+    with pytest.raises(NotImplementedError, match="mlp_dropout"):
+        module.train()(ids, torch.ones(1, 8, dtype=torch.int32))
+
+
+def test_host_ops_source_is_the_ports_own_copy():
+    """The port builds its host library from a file inside its own package,
+    byte for byte the JAX package's, so the two cannot drift unnoticed."""
+    from open_provence_tpu_torch import native
+
+    own = REPO / "open_provence_tpu_torch" / "native" / "host_ops.cpp"
+    assert native._SOURCE == own
+    assert own.read_bytes() == (REPO / "open_provence_tpu" / "native" / "host_ops.cpp").read_bytes()
+    sources = list((REPO / "open_provence_tpu_torch").rglob("*.py"))
+    opened = [p.name for p in sources if '"open_provence_tpu"' in p.read_text()]
+    assert not opened, f"the port builds a path into the JAX package: {opened}"
 
 
 def test_profiler_trace_writes_chrome_trace(tmp_path):
@@ -190,6 +219,83 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype):
         **dict.fromkeys(kernels.KERNELS, 0),
         "layer_norm": 1, "ln_matmul": 2, "flash_attention_packed": 2, "ln_geglu": 2,
     }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_layout_kernels_match_plain_on_cuda(cuda_device, dtype):
+    """Kernels 6 and 7 and kernel 10 with gh against their plain versions on
+    the card at ragged sizes; add + LN equals an add followed by kernel 1
+    bit for bit, and gh = None gives kernel 10's bits."""
+    from open_provence_tpu_torch import kernels, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rng.normal(size=shape) * s, dtype=dtype, device=cuda_device)
+
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    x, y, scale = t(77, 768), t(77, 768), t(768, s=0.1) + 1
+    wi, wi_ragged = t(2304, 768, s=0.03), t(200, 768, s=0.03)
+    kernels.reset_launch_counts()
+    for w, act in ((wi, "gelu"), (wi_ragged, "silu")):
+        torch.testing.assert_close(ops.geglu(x, w, act).float(), ops.geglu_plain(x, w, act).float(),
+                                   atol=tol, rtol=tol)
+    h, n = ops.add_layer_norm(x, y, scale)
+    h_plain, n_plain = ops.add_layer_norm_plain(x, y, scale)
+    assert torch.equal(h, h_plain)
+    torch.testing.assert_close(n.float(), n_plain.float(), atol=tol, rtol=tol)
+    assert torch.equal(n, ops.layer_norm(x + y, scale))
+    g, gh = t(77, 768), t(77, 768)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(ops.layer_norm_bwd(h, scale, g, 1e-5, gh),
+                         ops.layer_norm_bwd_plain(h, scale, g, 1e-5, gh)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=rel,
+                                   atol=rel * want.float().abs().max().item())
+    assert all(torch.equal(a, b) for a, b in zip(ops.layer_norm_bwd(h, scale, g, 1e-5, None),
+                                                 ops.layer_norm_bwd(h, scale, g)))
+    # Through autograd: the Functions launch the kernels in both directions.
+    xg, yg, sg, wg = (v.clone().requires_grad_() for v in (x, y, scale, wi))
+    hh, nn = ops.add_layer_norm(xg, yg, sg)
+    (ops.geglu(nn, wg, "gelu").float().sum() + hh.float().sum()).backward()
+    assert all(v.grad is not None and torch.isfinite(v.grad).all() for v in (xg, yg, sg, wg))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["geglu"] == 3 and counts["add_layer_norm"] == 2
+    assert counts["layer_norm_bwd"] == 4 and counts["layer_norm"] == 1
+    assert not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,batch", [(1024, 2), (2048, 1), (1100, 1)])
+def test_attention_kernels_match_plain_at_long_context(cuda_device, seq, batch):
+    """Kernels 3 and 14 past S = 512, window 64 and global, a ragged mask and
+    (S = 1100) a ragged last tile, a padding row included, fp32."""
+    from open_provence_tpu_torch import ops
+
+    rng = np.random.default_rng(seq)
+    dtype = torch.float32
+    qkv = torch.tensor(rng.normal(size=(batch + 1, seq, 2304)), dtype=dtype, device=cuda_device)
+    mask = torch.ones(batch + 1, seq, dtype=torch.int32, device=cuda_device)
+    mask[0, seq - 333:] = 0
+    mask[-1] = 0  # a padding pair
+    valid = mask.bool()
+    g = torch.tensor(rng.normal(size=(batch + 1, seq, 768)), dtype=dtype,
+                     device=cuda_device) * mask[..., None]
+    for window, theta in ((None, 160000.0), (64, 10000.0)):
+        kw = dict(num_heads=12, padding_mask=mask, window=window,
+                  rope=ops.rope_tables(seq, 64, theta, dtype, cuda_device))
+        out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+        out_p, lse_p = ops.attention_packed_plain(qkv, **kw, return_lse=True)
+        assert torch.isfinite(lse).all() and torch.isfinite(out).all()
+        torch.testing.assert_close(out[valid], out_p[valid], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(lse.transpose(1, 2)[valid], lse_p.transpose(1, 2)[valid],
+                                   atol=1e-4, rtol=1e-4)
+        got = ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw)
+        want = ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -277,5 +383,6 @@ def test_trainer_keeps_cuda_params_on_the_card(cuda_device, tmp_path):
     assert all(p.is_cuda for p in trainer.params.values())
     kernels.reset_launch_counts()
     assert np.isfinite(trainer.train_one_step(batch)["loss"])
-    assert min(kernels.launch_counts().values()) > 0, kernels.launch_counts()
+    counts = kernels.launch_counts()
+    assert min(counts[name] for name in kernels.DEFAULT_PATH_KERNELS) > 0, counts
     assert not any(kernels.plain_counts().values())

@@ -156,9 +156,11 @@ def test_backward_runs_through_the_functions_and_matches_jax_grad(tmp_path):
                "FlashAttentionPackedFunction"):
         assert f"{fn}Backward" in names, (fn, sorted(names))
     grads = torch.autograd.grad(loss, list(pt.params.values()))
-    # On CPU tensors every kernel wrapper, forward and backward, took its
-    # plain version, and none launched a kernel.
-    assert all(n > 0 for n in kernels.plain_counts().values()), kernels.plain_counts()
+    # On CPU tensors every kernel wrapper of the bias-free layout, forward
+    # and backward, took its plain version, and none launched a kernel.
+    plain = kernels.plain_counts()
+    assert all(plain[name] > 0 for name in kernels.DEFAULT_PATH_KERNELS), plain
+    assert plain["add_layer_norm"] == plain["geglu"] == 0
     assert set(kernels.launch_counts().values()) == {0}
     np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=REL)
     assert_close_to_scale({k: g.numpy() for k, g in zip(pt.params, grads)}, want)
@@ -267,3 +269,73 @@ def test_gradient_checkpointing_gives_the_same_gradients(tmp_path):
         results.append((float(loss), {k: g.numpy() for k, g in grads.items()}))
     assert results[0][0] == results[1][0]
     assert_close_to_scale(results[1][1], results[0][1], rel=1e-6)
+
+
+# --- long context: one step past S = 1024 -------------------------------------
+
+LONG_SEQ = 1280
+
+
+def long_config(pkg):
+    backbone = pkg.ModernBertBackboneConfig(
+        vocab_size=256, hidden_size=128, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=2, max_position_embeddings=2048, local_attention=64,
+        pad_token_id=0, num_labels=1,
+    )
+    return pkg.OpenProvenceConfig(
+        base_model_config=backbone.to_dict(), num_labels=1,
+        pruning_config={"hidden_size": 128, "classifier_dropout": 0.0}, max_length=LONG_SEQ,
+    )
+
+
+def long_batch():
+    """One pair whose document runs past 1024 tokens, one that is short, one
+    padding pair; the same arrays from both collators."""
+    sentences = [f"sentence {i} about rivers and temples." for i in range(36)]
+    spans, pos = [], 0
+    for s in sentences:
+        spans.append([pos, pos + len(s)])
+        pos += len(s) + 1
+    rows = [
+        {"query": "rivers", "texts": [" ".join(sentences)], "context_spans": [spans],
+         "context_spans_relevance": [[i % 3 == 0 for i in range(36)]], "labels": [1],
+         "teacher_score": [0.8]},
+        features()[1],
+    ]
+    args = dict(COLLATOR_ARGS, max_length=LONG_SEQ, pad_pairs_to=3)
+    batch = OpenProvenceDataCollator(tokenizer=PairDummyTokenizer(), **args)(rows)
+    ref = JaxCollator(tokenizer=PairDummyTokenizer(), **args)(rows)
+    for key in batch:
+        np.testing.assert_array_equal(batch[key], ref[key])
+    assert batch["input_ids"].shape == (3, LONG_SEQ)
+    assert batch["attention_mask"][0].sum() > 1024 and batch["pair_mask"].tolist() == [1, 1, 0]
+    return batch
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "gradient_checkpointing"])
+def test_trainer_step_past_1024_matches_jax_trainer(tmp_path, remat):
+    """Two steps at S = 1280 (the first has learning rate 0): the loss and
+    every parameter against the JAX trainer, with and without per-layer
+    recompute."""
+    batch = long_batch()
+    params = jax_params()  # the same widths: S enters no parameter shape
+    jt = JaxTrainer(
+        long_config(jop), params, PairDummyTokenizer(), output_dir=tmp_path / "jax",
+        learning_rate=1e-3, total_steps=10, bf16=False, gradient_checkpointing=remat,
+        mesh=create_mesh(devices=jax.devices()[:1]),
+    )
+    config = long_config(top)
+    pt = OpenProvenceTrainer(
+        config, state_dict_from_flax(params, config), PairDummyTokenizer(),
+        output_dir=tmp_path / "port", learning_rate=1e-3, total_steps=10, bf16=False,
+        gradient_checkpointing=remat, device="cpu",
+    )
+    for _ in range(2):
+        want = jt.train_one_step(batch)
+        got = pt.train_one_step(batch)
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=REL)
+    assert_close_to_scale(
+        {k: v.detach().numpy() for k, v in pt.params.items()},
+        {k: v.numpy() for k, v in
+         state_dict_from_flax(jax.device_get(jt.state.params), config).items()},
+    )
