@@ -3,8 +3,8 @@
 card and check it, in phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the ten hand-written kernels from kernels/csrc with nvcc, and the
-   host library of native/;
+2. build the fourteen hand-written kernels from kernels/csrc with nvcc, and
+   the host library of native/;
 3. each forward kernel against its plain PyTorch version on the card, at
    the ModernBERT-base shapes the engine dispatches (M = B·S for B in 1/8/32
    and S in 64/192/512, ragged padding, global and ±64 windows), fp32 and
@@ -18,6 +18,15 @@ card and check it, in phases:
    fp32 and bf16, with times at B=8, S=2048; the one-call PyTorch
    counterparts (F.layer_norm, scaled_dot_product_attention and their
    autograd backwards) timed beside the kernels, and each kernel's bound;
+3d. attention on separate q, k, v (kernels 9 and 16) against its plain
+   version for every head layout of width 768 (24 x 32, 12 x 64, 6 x 128,
+   3 x 256) at B=32, S=512 and, for D = 32 and 256, at B=8, S=2048: fp32 and
+   bf16, global and +-64, ragged masks with a padding row, on contiguous
+   tensors, on strided views of a packed buffer and through the packed
+   wrapper on that buffer; times, bounds and the library call per shape;
+3e. the whole MLP in one kernel (kernels 8 and 13) against its plain version
+   at M = 16384 and a ragged M, fp32 and bf16, every activation, with times
+   beside the split path's (kernel 4 or 11 and the library's Wo products);
 4. the whole model at base width on seeded random weights: fp32 on the card
    against fp32 on the CPU (plain versions), and bf16 on the card against
    the same CPU result;
@@ -43,7 +52,15 @@ card and check it, in phases:
    22 layers with train pairs/s and tokens/s;
 10. the bias-carrying checkpoint layouts (norm_bias; mlp_bias with
    attention_bias) at base width: fp32 card against CPU, ``process()`` and
-   20 training steps each, with the launch counts of their kernels.
+   20 training steps each, with the launch counts of their kernels;
+11. head layouts the packed TPU kernel refuses (24 heads of 32; 3 heads of
+   256) at base width: fp32 card against CPU (model, keep/drop flips, one
+   training step), ``process()`` on 256 pairs and 20 bf16 training steps,
+   with kernels 9 and 16 launched and no plain version;
+12. the whole-MLP fusion (gate OPEN_PROVENCE_TPU_FUSED_MLP_TAIL): the
+   forward, the training step's wall and device time with the gate at 0, 1
+   and bwd in turn; with 1: ``process()``, fp32 card against CPU, training
+   steps and the bit-exact resume; with bwd: the training steps again.
 
 ``python3 chip_smoke.py --rates [TREE]`` measures only the serving and
 training rates at B=32, S=512 of the package under TREE (default: this
@@ -62,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -95,7 +113,17 @@ KERNEL_INFO = {
     "ln_matmul_bwd": ("ln_gemm_bwd.cu", [f"{_JAX_OPS}/geglu.py:886"], [12]),
     "add_layer_norm": ("layer_norm.cu", [f"{_JAX_OPS}/layer_norm.py:233"], [7]),
     "geglu": ("ln_gemm.cu", [f"{_JAX_OPS}/geglu.py:148"], [6]),
+    "flash_attention": ("flash_attention.cu", [f"{_JAX_OPS}/flash_attention.py:185"], [9]),
+    "flash_attention_bwd": (
+        "flash_attention_bwd.cu",
+        [f"{_JAX_OPS}/flash_attention.py:474", f"{_JAX_OPS}/flash_attention.py:570"], [16]),
+    "ln_geglu_wo": ("mlp_tail.cu", [f"{_JAX_OPS}/geglu.py:518"], [8]),
+    "ln_geglu_wo_bwd": ("mlp_tail_bwd.cu", [f"{_JAX_OPS}/geglu.py:631"], [13]),
 }
+# Every head layout of width 768 the attention kernels are instantiated for;
+# the JAX package's packed kernel takes the second and third.
+HEAD_LAYOUTS = ((24, 32), (12, 64), (6, 128), (3, 256))
+MLP_TAIL_GATE = "OPEN_PROVENCE_TPU_FUSED_MLP_TAIL"
 FORWARD = ("layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu")
 BACKWARD = ("layer_norm_bwd", "ln_geglu_bwd", "flash_attention_packed_bwd", "ln_matmul_bwd")
 DEFAULT_EIGHT = FORWARD + BACKWARD
@@ -170,18 +198,19 @@ def scored_pairs(mask: torch.Tensor, window: int | None) -> int:
     return total
 
 
-def attention_bound(mask: torch.Tensor, window: int | None, backward: bool) -> dict:
-    """bf16 packed attention at base width under the [B, S] key mask of this
-    run. Forward: Q.K^T and P.V, 4·D operations a scored pair and head;
-    backward: the five products (S, dP, dV, dK, dQ), 10·D. Bytes: qkv and
-    out (and for the backward g, lse and d(qkv)), the int32 mask and the
-    rope tables."""
+def attention_bound(mask: torch.Tensor, window: int | None, backward: bool,
+                    heads: int = HEADS, head_dim: int = HEAD_DIM) -> dict:
+    """bf16 attention on ``heads`` heads of ``head_dim`` under the [B, S] key
+    mask of this run. Forward: Q.K^T and P.V, 4·D operations a scored pair
+    and head; backward: the five products (S, dP, dV, dK, dQ), 10·D. Bytes:
+    q, k, v and out (and for the backward g, lse and dq, dk, dv), the int32
+    mask and the rope tables."""
     batch, seq = mask.shape
-    tokens = batch * seq
-    nbytes = tokens * 4 * HIDDEN * 2 + tokens * 4 + 2 * seq * HEAD_DIM * 2
+    tokens, hidden = batch * seq, heads * head_dim
+    nbytes = tokens * 4 * hidden * 2 + tokens * 4 + 2 * seq * head_dim * 2
     if backward:
-        nbytes += tokens * (HIDDEN + 3 * HIDDEN) * 2 + batch * HEADS * seq * 4
-    return bound((10 if backward else 4) * HEAD_DIM * HEADS * scored_pairs(mask, window), nbytes)
+        nbytes += tokens * (hidden + 3 * hidden) * 2 + batch * heads * seq * 4
+    return bound((10 if backward else 4) * head_dim * heads * scored_pairs(mask, window), nbytes)
 
 
 def gemm_bounds(rows: int) -> dict[str, dict]:
@@ -197,6 +226,10 @@ def gemm_bounds(rows: int) -> dict[str, dict]:
         # dW and dy (and for GeGLU the recomputed projection): 2·M·K·N each.
         "ln_matmul_bwd": bound(4 * m * k * n, (2 * m * k + 2 * k + 2 * n * k + m * n) * e),
         "ln_geglu_bwd": bound(12 * m * k * i, (2 * m * k + 2 * k + 4 * i * k + m * i) * e),
+        # The whole MLP: x, the scale, Wi and Wo in, [M, K] out; the backward
+        # also reads g and writes dx, dscale, dWi, dWo.
+        "ln_geglu_wo": bound(6 * m * k * i, (2 * m * k + k + 3 * i * k) * e),
+        "ln_geglu_wo_bwd": bound(16 * m * k * i, (3 * m * k + 2 * k + 6 * i * k) * e),
     }
 
 
@@ -222,17 +255,23 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> floa
     return err.max().item()
 
 
-def check_grad(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def grad_errors(name: str, got: torch.Tensor, want: torch.Tensor, dtype):
+    """(|kernel - plain|, the mask of values outside BWD_TOL)."""
     a, r = BWD_TOL[dtype]
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs()
-    bad = err > a * want.abs().max() + r * want.abs()
+    return err, err > a * want.abs().max() + r * want.abs()
+
+
+def check_grad(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+    err, bad = grad_errors(name, got, want, dtype)
     if bad.any():
+        a, r = BWD_TOL[dtype]
         raise AssertionError(
             f"{name}: {int(bad.sum())} of {bad.numel()} values off, max abs err "
-            f"{err.max().item():.3e} (max |plain| {want.abs().max().item():.3e}; "
+            f"{err.max().item():.3e} (max |plain| {want.float().abs().max().item():.3e}; "
             f"atol {a}·max|plain|, rtol {r})"
         )
     return err.max().item()
@@ -474,7 +513,8 @@ def phase3b_backward(dev) -> dict[str, dict]:
     return stats
 
 
-def library_attention_ms(qkv, rope, mask, g) -> tuple[float, float]:
+def library_attention_ms(qkv, rope, mask, g, heads: int = HEADS,
+                         head_dim: int = HEAD_DIM) -> tuple[float, float]:
     """Milliseconds of ``F.scaled_dot_product_attention`` and of its autograd
     backward on the same problem as a global layer: q and k rotated
     beforehand (the library call has no rope, so it does less than the
@@ -483,13 +523,13 @@ def library_attention_ms(qkv, rope, mask, g) -> tuple[float, float]:
     from open_provence_tpu_torch import ops
 
     batch, seq, _ = qkv.shape
-    q, k, v = qkv.reshape(batch, seq, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv.reshape(batch, seq, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
     q, k = ops.apply_rotary(q, k, *rope)
     q, k, v = (t.contiguous().requires_grad_() for t in (q, k, v))
     keys = mask.bool().clone()
     keys[keys.sum(dim=1) == 0] = True  # a padding row would give the library NaNs
     keys = keys[:, None, None, :]
-    g_heads = g.reshape(batch, seq, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+    g_heads = g.reshape(batch, seq, heads, head_dim).transpose(1, 2).contiguous()
     with torch.no_grad():
         fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keys))
     out = F.scaled_dot_product_attention(q, k, v, attn_mask=keys)
@@ -574,6 +614,260 @@ def phase3c_long_context(dev, stats: dict[str, dict]) -> None:
               f"bf16: forward {lib_f:.4f} ms, autograd backward {lib_b:.4f} ms")
 
 
+def phase3d_head_layouts(dev, stats: dict[str, dict]) -> None:
+    """Attention on separate q, k, v (kernels 9 and 16) against its plain
+    version for every head layout of width 768, at B=32, S=512 and (D = 32,
+    256) at B=8, S=2048; fp32 and bf16, global and +-64, ragged masks whose
+    last row is padding. The same data as strided views of the packed buffer
+    and through the packed wrapper must give the same bits. Errors go
+    into the stats of all four attention kernels under the tolerances of
+    phases 3 and 3b; times, bounds and the library call per shape in bf16."""
+    from open_provence_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(37)
+    fwd = stats.setdefault("flash_attention", {"max_abs_err": {}})
+    bwd = stats.setdefault("flash_attention_bwd", {"max_abs_err": {}})
+    packed_fwd, packed_bwd = stats["flash_attention_packed"], stats["flash_attention_packed_bwd"]
+    shapes = [(32, 512, h, d) for h, d in HEAD_LAYOUTS] + [(8, 2048, 24, 32), (8, 2048, 3, 256)]
+
+    def case(batch, seq, dtype):
+        qkv = torch.randn(batch, seq, 3 * HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+        mask = ragged_mask(batch, seq, gen, dev)
+        mask[-1] = 0
+        g = (torch.randn(batch, seq, HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+             * mask[..., None].to(dtype))
+        return qkv, mask, g
+
+    def merged(x):
+        return x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch, seq, heads, head_dim in shapes:
+            qkv, mask, g_packed = case(batch, seq, dtype)
+            views = ops.packed_views(qkv, heads)
+            q, k, v = (t.contiguous() for t in views)
+            g = g_packed.view(batch, seq, heads, head_dim).transpose(1, 2)
+            rows = mask.bool()[:, None, :].expand(batch, heads, seq)
+            for window, theta in ((None, 160000.0), (64, 10000.0)):
+                kw = dict(padding_mask=mask, window=window,
+                          rope=ops.rope_tables(seq, head_dim, theta, dtype, dev))
+                what = f"{heads}x{head_dim} S={seq} window={window} {dtype}"
+                out, lse = ops.flash_attention_lse(q, k, v, **kw)
+                out_p, lse_p = ops.attention_unpacked_plain(q, k, v, **kw, return_lse=True)
+                if not (torch.isfinite(lse).all() and torch.isfinite(out).all()):
+                    raise AssertionError(f"attention {what}: out or lse is not finite")
+                out_err = check_close(f"attention out {what}", out[rows], out_p[rows], dtype)
+                lse_err = check_close(f"attention lse {what}", lse[rows], lse_p[rows],
+                                      torch.float32)
+                del out_p, lse_p
+                grads = ops.flash_attention_bwd(q, k, v, g, out, lse, **kw)
+                wants = ops.attention_unpacked_bwd_plain(q, k, v, g, out, lse, **kw)
+                grad_err = max(check_grad(f"attention {name} {what}", got, want, dtype)
+                               for name, got, want in zip(("dq", "dk", "dv"), grads, wants))
+                del wants
+                # Strided views of the packed buffer, then the packed wrapper
+                # on the buffer itself: the same bits.
+                out_v, lse_v = ops.flash_attention_lse(*views, **kw)
+                grads_v = ops.flash_attention_bwd(*views, g, out_v, lse_v, **kw)
+                pkw = dict(num_heads=heads, **kw)
+                out_k, lse_k = ops.flash_attention_packed_lse(qkv, **pkw)
+                dqkv = ops.flash_attention_packed_bwd(qkv, g_packed, out_k, lse_k, **pkw)
+                same = (torch.equal(out_v, out) and torch.equal(lse_v, lse)
+                        and all(torch.equal(a, b) for a, b in zip(grads_v, grads))
+                        and torch.equal(out_k, merged(out)) and torch.equal(lse_k, lse)
+                        and torch.equal(dqkv, torch.cat([merged(t) for t in grads], dim=-1)))
+                if not same:
+                    raise AssertionError(f"attention {what}: contiguous tensors, strided views "
+                                         "and the packed wrapper disagree")
+                for st, err in ((fwd, out_err), (packed_fwd, out_err), (bwd, grad_err),
+                                (packed_bwd, grad_err)):
+                    st["max_abs_err"][dtype] = max(st["max_abs_err"].get(dtype, 0.0), err)
+                phase(f"phase 3d attention {str(dtype)[6:]} B={batch} {heads}x{head_dim} S={seq} "
+                      f"window={window}: max_abs_err out {out_err:.3e}, lse {lse_err:.3e}, "
+                      f"dq/dk/dv {grad_err:.3e}; views and the packed wrapper bit-equal")
+            torch.cuda.synchronize()
+
+    # Times per shape, bf16: the unpacked wrapper on contiguous tensors (its
+    # plain version beside it), the packed wrapper on the buffer, the bound of
+    # this run's masks and the library call (global layers).
+    dtype = torch.bfloat16
+    for batch, seq, heads, head_dim in shapes:
+        qkv, mask, g_packed = case(batch, seq, dtype)
+        q, k, v = (t.contiguous() for t in ops.packed_views(qkv, heads))
+        g = g_packed.view(batch, seq, heads, head_dim).transpose(1, 2).contiguous()
+        label = f"_{heads}x{head_dim}_b{batch}_s{seq}"
+        headline = (batch, seq, heads, head_dim) == shapes[0]
+        for window, theta in ((64, 10000.0), (None, 160000.0)):
+            rope = ops.rope_tables(seq, head_dim, theta, dtype, dev)
+            kw = dict(padding_mask=mask, window=window, rope=rope)
+            pkw = dict(num_heads=heads, **kw)
+            out, lse = ops.flash_attention_lse(q, k, v, **kw)
+            out_k, lse_k = ops.flash_attention_packed_lse(qkv, **pkw)
+            f_ms = paired_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                             lambda: ops.attention_unpacked_plain(q, k, v, **kw))
+            b_ms = paired_ms(lambda: ops.flash_attention_bwd(q, k, v, g, out, lse, **kw),
+                             lambda: ops.attention_unpacked_bwd_plain(q, k, v, g, out, lse, **kw))
+            pf_ms = cuda_ms(lambda: ops.flash_attention_packed_lse(qkv, **pkw))
+            pb_ms = cuda_ms(lambda: ops.flash_attention_packed_bwd(qkv, g_packed, out_k, lse_k,
+                                                                   **pkw))
+            suffix = label + ("" if window is None else "_window64")
+            for st, packed_st, (ms, plain_ms), packed_ms, backward in (
+                    (fwd, packed_fwd, f_ms, pf_ms, False), (bwd, packed_bwd, b_ms, pb_ms, True)):
+                b = attention_bound(mask, window, backward, heads, head_dim)
+                st.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                           f"bound_ms{suffix}": b["bound_ms"]})
+                packed_st[f"ms_packed_buffer{suffix}"] = packed_ms
+                if headline and window is None:
+                    st.update(ms=ms, plain_ms=plain_ms, **b)
+                phase(f"phase 3d time attention {'backward' if backward else 'forward'} B={batch} "
+                      f"{heads}x{head_dim} S={seq} window={window} bf16: kernel {ms:.4f} ms "
+                      f"(packed buffer, lse written: {packed_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                      f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+        lib_f, lib_b = library_attention_ms(qkv, rope, mask, g_packed, heads, head_dim)
+        fwd[f"library_ms{label}"], bwd[f"library_ms{label}"] = lib_f, lib_b
+        if headline:
+            fwd["library_ms"], bwd["library_ms"] = lib_f, lib_b
+        phase(f"phase 3d time scaled_dot_product_attention (no rope) B={batch} {heads}x{head_dim} "
+              f"S={seq} global bf16: forward {lib_f:.4f} ms, autograd backward {lib_b:.4f} ms")
+
+
+# How far from 0 the plain version's inp (its fp32 sum, before rounding) may
+# lie where kernel 13's relu' can differ from it: two fp32 sums of 768
+# products of size 0.1 in another order differ by about 1e-6.
+RELU_STEP_REACH = 1e-5
+
+
+def relu_at_the_step(label: str, x, scale, w_i, w_o, g, dtype, stats: dict) -> None:
+    """Kernel 13 with relu on operands whose inp comes as near 0 as random
+    data brings it. Where the kernel's and the plain version's sums for an inp
+    fall on either side of 0, relu' is 0 on one side and 1 on the other, which
+    moves that element's row of dx and its row of dWi (the inp half) by a
+    whole term. So: dscale and dWo must be inside the tolerance; every value
+    of dx outside it must lie in a row, and every value of dWi outside it in a
+    row of the inp half, where the plain version has an |inp| below
+    RELU_STEP_REACH. The errors are recorded as measured, nothing left out."""
+    from open_provence_tpu_torch import ops
+
+    grads = ops.ln_geglu_wo_bwd(x, scale, w_i, w_o, g, "relu")
+    dx, dscale, dwi, dwo = ops.ln_geglu_wo_bwd_plain(x, scale, w_i, w_o, g, "relu")
+    errs = [check_grad(f"{label} dscale", grads[1], dscale, dtype),
+            check_grad(f"{label} dwo", grads[3], dwo, dtype)]
+    acc = torch.promote_types(dtype, torch.float32)
+    inp = ops.layer_norm_plain(x, scale).to(acc) @ w_i[:INTER].to(acc).t()
+    nearest = inp.abs()
+    del inp
+    reach_rows, reach_cols = nearest.amin(dim=1), nearest.amin(dim=0)
+    reach_cols = torch.cat([reach_cols, torch.full_like(reach_cols, float("inf"))])
+    notes = []
+    for name, got, want, reach in (("dx", grads[0], dx, reach_rows),
+                                   ("dwi", grads[2], dwi, reach_cols)):
+        err, bad = grad_errors(f"{label} {name}", got, want, dtype)
+        off = bad.any(dim=1)
+        farthest = reach[off].max().item() if off.any() else 0.0
+        errs.append(err.max().item())
+        notes.append(f"{name}: {int(bad.sum())} values in {int(off.sum())} rows outside the "
+                     f"tolerance, max_abs_err {errs[-1]:.3e}, each such row within "
+                     f"{farthest:.3e} of the step ({int((reach < RELU_STEP_REACH).sum())} of "
+                     f"{reach.numel()} rows are within {RELU_STEP_REACH})")
+        if farthest >= RELU_STEP_REACH:
+            raise AssertionError(f"{label} {name}: values outside the tolerance in a row whose "
+                                 f"inp stays {farthest:.3e} from 0")
+    stats["max_abs_err_relu_at_the_step"] = stats.get("max_abs_err_relu_at_the_step", {})
+    stats["max_abs_err_relu_at_the_step"][str(dtype)[6:]] = max(errs)
+    phase(f"{label} with inp up to the step: " + "; ".join(notes))
+
+
+def phase3e_whole_mlp(dev, stats: dict[str, dict]) -> None:
+    """The whole MLP in one kernel, forward (kernel 8) and backward (kernel
+    13), against its plain version at M = 16384 and a ragged M, fp32 and bf16,
+    every activation the kernels know; the backward twice for the same bits.
+    Times in bf16 beside the split path's: kernel 4 and the library's Wo
+    product; kernel 11 and the library's products for dh and dWo."""
+    from open_provence_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(38)
+    rows = 32 * 512
+    fwd = stats.setdefault("ln_geglu_wo", {"max_abs_err": {}})
+    bwd = stats.setdefault("ln_geglu_wo_bwd", {"max_abs_err": {}})
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(device=dev, dtype=dtype)
+
+    sign_gen = torch.Generator().manual_seed(39)
+
+    def signs(n):
+        """[n, 1] of +-1 in the loop's dtype."""
+        return (torch.randint(0, 2, (n, 1), generator=sign_gen) * 2 - 1).to(device=dev, dtype=dtype)
+
+    labels = ("dx", "dscale", "dwi", "dwo")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(rows, HIDDEN, scale=2.0, dtype=dtype)
+        scale = randn(HIDDEN, scale=0.1, dtype=dtype) + 1
+        w_i = randn(2 * INTER, HIDDEN, scale=HIDDEN**-0.5, dtype=dtype)
+        w_o = randn(HIDDEN, INTER, scale=INTER**-0.5, dtype=dtype)
+        g = randn(rows, HIDDEN, scale=0.1, dtype=dtype)
+        # relu's derivative is a step at 0, so relu is held to the tolerance on
+        # operands whose inp stays away from 0: the first 64 columns of x are
+        # +-2 by row and of W_inp +-1/59 by column, together a term of about
+        # +-1, and the rest of W_inp is an eighth of its size, a sum with a
+        # deviation of about 0.12. inp keeps the size it has for the others.
+        x_step, w_step = x.clone(), w_i.clone()
+        x_step[:, :64] = 2.0 * signs(rows)
+        w_step[:INTER] *= 0.125
+        w_step[:INTER, :64] = signs(INTER) / 59
+        for m, act, xs, ws in ((rows, "gelu", x, w_i), (rows, "gelu_pytorch_tanh", x, w_i),
+                               (rows, "relu", x_step, w_step), (rows, "silu", x, w_i),
+                               (rows - 37, "gelu", x, w_i)):
+            out = ops.ln_geglu_wo(xs[:m], scale, ws, w_o, act)
+            out_err = check_close(f"ln_geglu_wo {act} M={m} {dtype}", out,
+                                  ops.ln_geglu_wo_plain(xs[:m], scale, ws, w_o, act), dtype)
+            grads = ops.ln_geglu_wo_bwd(xs[:m], scale, ws, w_o, g[:m], act)
+            wants = ops.ln_geglu_wo_bwd_plain(xs[:m], scale, ws, w_o, g[:m], act)
+            errs = [check_grad(f"ln_geglu_wo_bwd {label} {act} M={m} {dtype}", a, b, dtype)
+                    for label, a, b in zip(labels, grads, wants)]
+            again = ops.ln_geglu_wo_bwd(xs[:m], scale, ws, w_o, g[:m], act)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError("ln_geglu_wo_bwd gave other bits the second time")
+            fwd["max_abs_err"][dtype] = max(fwd["max_abs_err"].get(dtype, 0.0), out_err)
+            bwd["max_abs_err"][dtype] = max(bwd["max_abs_err"].get(dtype, 0.0), *errs)
+            a, r = BWD_TOL[dtype]
+            phase(f"phase 3e whole MLP {str(dtype)[6:]} {act} M={m}: forward max_abs_err "
+                  f"{out_err:.3e} (tol atol {TOL[dtype][0]} + rtol {TOL[dtype][1]}); backward "
+                  + ", ".join(f"{label} {e:.3e}" for label, e in zip(labels, errs))
+                  + f" (tol {a}·max|plain| + {r}·|plain|), the same bits twice")
+        relu_at_the_step(f"phase 3e whole MLP {str(dtype)[6:]} relu", x, scale, w_i, w_o, g, dtype,
+                         bwd)
+        torch.cuda.synchronize()
+
+    # Times at B=32, S=512, bf16 (the last dtype of the loop above).
+    hidden = ops.ln_geglu(x, scale, w_i, "gelu")
+
+    def split_backward():
+        dh = g @ w_o
+        return g.t() @ hidden, ops.ln_geglu_bwd(x, scale, w_i, dh, "gelu")
+
+    timings = {
+        "ln_geglu_wo": paired_ms(lambda: ops.ln_geglu_wo(x, scale, w_i, w_o, "gelu"),
+                                 lambda: ops.ln_geglu_wo_plain(x, scale, w_i, w_o, "gelu")),
+        "ln_geglu_wo_bwd": paired_ms(
+            lambda: ops.ln_geglu_wo_bwd(x, scale, w_i, w_o, g, "gelu"),
+            lambda: ops.ln_geglu_wo_bwd_plain(x, scale, w_i, w_o, g, "gelu")),
+    }
+    split = {
+        "ln_geglu_wo": cuda_ms(lambda: F.linear(ops.ln_geglu(x, scale, w_i, "gelu"), w_o)),
+        "ln_geglu_wo_bwd": cuda_ms(split_backward),
+    }
+    bounds = gemm_bounds(rows)
+    for name, (ms, plain_ms) in timings.items():
+        stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=None, split_path_ms=split[name],
+                           **bounds[name])
+        phase(f"phase 3e time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']}, one "
+              f"PyTorch call none (it takes three); the split path (kernel "
+              f"{'4' if name == 'ln_geglu_wo' else '11'} and the library's Wo products) "
+              f"{split[name]:.4f} ms")
+
+
 def base_config(max_length: int = 512, **backbone_overrides):
     """ModernBERT-base widths and depth unless overridden (a cut in depth
     for a CPU comparison, a bias layout)."""
@@ -595,7 +889,7 @@ def scores(module, ids, mask):
     return ranking_score_from_logits(out["ranking_logits"]), keep_probs_from_logits(out["pruning_logits"])
 
 
-def phase4_model(config, sd, dev) -> None:
+def phase4_model(config, sd, dev, label: str = "phase 4") -> None:
     from open_provence_tpu_torch import build_module
 
     cpu = build_module(config)
@@ -618,7 +912,7 @@ def phase4_model(config, sd, dev) -> None:
         rank_err = (rank - rank_ref).abs().max().item()
         keep_diff = (keep - keep_ref)[valid].abs()
         keep_err = keep_diff.max().item()
-        phase(f"phase 4 model {str(dtype)[6:]} card vs fp32 cpu, B=2 S=512, "
+        phase(f"{label} model {str(dtype)[6:]} card vs fp32 cpu, B=2 S=512, "
               f"{config.backbone().num_hidden_layers} layers: ranking max_abs_err {rank_err:.3e}, "
               f"keep-prob max_abs_err {keep_err:.3e} (mean {keep_diff.mean().item():.3e}; tol {tol})")
         if not (rank_err <= tol and keep_err <= tol):
@@ -639,6 +933,31 @@ def synthetic_pairs(n_pairs: int, sentences_per_doc: int = 24, seed: int = 0):
         for _ in range(n_pairs)
     ]
     return questions, contexts
+
+
+def fp32_flips(label: str, config, sd, tokenizer_cls, dev, questions, contexts) -> None:
+    """``process()`` in fp32 on the card against fp32 on the CPU: no keep/drop
+    decision may differ among sentences further than 1e-4 from the
+    threshold."""
+    from open_provence_tpu_torch import OpenProvenceModel
+
+    th, margin = 0.1, 1e-4
+    kw = dict(threshold=th, show_progress=False, return_sentence_metrics=True)
+    outs = [
+        OpenProvenceModel(config, sd, tokenizer_cls(), device=d, dtype=torch.float32).process(
+            questions, contexts, **kw
+        )
+        for d in (dev, "cpu")
+    ]
+    card, cpu = (np.concatenate([np.asarray(p) for p in o["sentence_probabilities"]]) for o in outs)
+    decided = np.abs(cpu - th) > margin
+    flips = int(np.sum((card > th)[decided] != (cpu > th)[decided]))
+    score_err = float(np.max(np.abs(np.subtract(outs[0]["reranking_score"], outs[1]["reranking_score"]))))
+    phase(f"{label} fp32 card vs cpu, {len(questions)} pairs: {flips} keep/drop flips among "
+          f"{int(decided.sum())} sentences decided by > {margin}, sentence-prob max_abs_err "
+          f"{np.max(np.abs(card - cpu)):.3e}, score max_abs_err {score_err:.3e}")
+    if flips:
+        raise AssertionError(f"{label}: fp32 keep/drop decisions differ between card and CPU")
 
 
 def phase5_process(config, sd, tokenizer_cls, dev):
@@ -671,24 +990,7 @@ def phase5_process(config, sd, tokenizer_cls, dev):
     phase(f"phase 5 process() checks: scores finite in [{ranks.min():.4f}, {ranks.max():.4f}], "
           f"kept {kept:.3f} of the text at threshold 0.1; threshold 0 exact, threshold 1 empty")
 
-    # fp32 on the card against fp32 on the CPU, 8 pairs.
-    th, margin = 0.1, 1e-4
-    kw = dict(threshold=th, show_progress=False, return_sentence_metrics=True)
-    outs = [
-        OpenProvenceModel(config, sd, tokenizer_cls(), device=d, dtype=torch.float32).process(
-            questions[:8], contexts[:8], **kw
-        )
-        for d in (dev, "cpu")
-    ]
-    card, cpu = (np.concatenate([np.asarray(p) for p in o["sentence_probabilities"]]) for o in outs)
-    decided = np.abs(cpu - th) > margin
-    flips = int(np.sum((card > th)[decided] != (cpu > th)[decided]))
-    score_err = float(np.max(np.abs(np.subtract(outs[0]["reranking_score"], outs[1]["reranking_score"]))))
-    phase(f"phase 5 fp32 card vs cpu, 8 pairs: {flips} keep/drop flips among {int(decided.sum())} "
-          f"sentences decided by > {margin}, sentence-prob max_abs_err "
-          f"{np.max(np.abs(card - cpu)):.3e}, score max_abs_err {score_err:.3e}")
-    if flips:
-        raise AssertionError("fp32 keep/drop decisions differ between card and CPU")
+    fp32_flips("phase 5", config, sd, tokenizer_cls, dev, questions[:8], contexts[:8])
     return model, launches, (questions, contexts)
 
 
@@ -727,12 +1029,14 @@ OUR_KERNELS = {
     ("normalize_kernel",): "LN->GEMM normalize",
     ("geglu_grad_kernel",): "GeGLU bwd chain",
     ("add_layer_norm_kernel",): "add + LayerNorm fwd",
+    ("tail_fwd_mma_kernel",): "whole MLP fwd", ("tail_bwd_rows_mma_kernel",): "whole MLP bwd rows",
     ("layer_norm_kernel",): "LayerNorm fwd",
 }
 
 
-def profile_by_kernel(label: str, fn, reps: int) -> None:
-    """Print where the device time of ``reps`` calls of ``fn`` goes."""
+def profile_by_kernel(label: str, fn, reps: int) -> float:
+    """Print where the device time of ``reps`` calls of ``fn`` goes; returns
+    the device milliseconds a call (0.0 if the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -756,12 +1060,13 @@ def profile_by_kernel(label: str, fn, reps: int) -> None:
     total_us = sum(device_us.values())
     if not total_us:
         phase(f"{label}: wall {wall * 1e3:.1f} ms; the profiler saw no device time")
-        return
+        return 0.0
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:14]
     shares = "; ".join(f"{g} {100 * us / total_us:.1f} %" for g, us in top)
     phase(f"{label}: wall {wall * 1e3:.1f} ms, device busy {total_us / 1e3:.1f} ms "
           f"({total_us / 1e6 / wall:.3f} of wall), {launches:.0f} kernel launches a call; "
           f"by kernel: {shares}")
+    return total_us / 1e3 / reps
 
 
 def forward_ms(model, batch: int, seq: int, label: str, card: str, with_plain: bool = True,
@@ -1000,6 +1305,22 @@ def train_rate(trainer, batches, steps: int = 5) -> tuple[float, float]:
     return real_pairs / per_step, real_tokens / per_step
 
 
+def resume_check(label: str, trainer, fresh, batch) -> Path:
+    """Save a checkpoint, take the next step, then take the same step on
+    ``fresh`` (a new trainer) resumed from the checkpoint: the loss and every
+    parameter must be bit-equal. Returns the checkpoint's directory."""
+    ckpt = trainer.save_checkpoint()
+    after = trainer.train_one_step(batch)["loss"]
+    fresh.load_checkpoint(ckpt)
+    again = fresh.train_one_step(batch)["loss"]
+    diff = max_rel_err(fresh._detached(), trainer._detached())
+    phase(f"{label} resume from {ckpt.name}: next step loss {again:.6f} vs {after:.6f} "
+          f"without the resume; largest parameter difference {diff:.3e}")
+    if again != after or diff != 0.0:
+        raise AssertionError(f"{label}: the resumed step differs from the uninterrupted one")
+    return ckpt
+
+
 def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str,
                             out_dir: Path) -> dict[str, int]:
     from open_provence_tpu_torch import OpenProvenceModel
@@ -1016,18 +1337,7 @@ def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card
     trainer = make(out_dir / "run")
     launches = train_and_check("phase 8", trainer, batches, n_steps, DEFAULT_EIGHT)
 
-    # Resume: the step after the checkpoint, with and without a reload.
-    ckpt = trainer.save_checkpoint()
-    after = trainer.train_one_step(batches[0])["loss"]
-    resumed = make(out_dir / "resumed")
-    resumed.load_checkpoint(ckpt)
-    again = resumed.train_one_step(batches[0])["loss"]
-    diff = max_rel_err(resumed._detached(), trainer._detached())
-    phase(f"phase 8 resume from {ckpt.name}: next step loss {again:.6f} vs {after:.6f} "
-          f"without the resume; largest parameter difference {diff:.3e}")
-    if again != after or diff != 0.0:
-        raise AssertionError("the resumed step differs from the uninterrupted one")
-    del resumed
+    ckpt = resume_check("phase 8", trainer, make(out_dir / "resumed"), batches[0])
 
     # Train pairs/s, kernels against plain versions, in turns.
     real_pairs = batch_size - 1
@@ -1134,25 +1444,8 @@ def phase9_long_context(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     forward_ms(model, 8, max_length, "phase 9", card, with_plain=False)
     del model
 
-    # fp32 on the card against fp32 on the CPU, 3 pairs.
-    th, margin = 0.1, 1e-4
-    kw = dict(threshold=th, show_progress=False, return_sentence_metrics=True)
-    outs = [
-        OpenProvenceModel(config, sd, tokenizer_cls(), device=d, dtype=torch.float32).process(
-            questions[:3], contexts[:3], **kw)
-        for d in (dev, "cpu")
-    ]
-    on_card, on_cpu = (np.concatenate([np.asarray(p) for p in o["sentence_probabilities"]])
-                       for o in outs)
-    decided = np.abs(on_cpu - th) > margin
-    flips = int(np.sum((on_card > th)[decided] != (on_cpu > th)[decided]))
-    score_err = float(np.max(np.abs(np.subtract(outs[0]["reranking_score"],
-                                                outs[1]["reranking_score"]))))
-    phase(f"phase 9 fp32 card vs cpu, 3 pairs at max_length={max_length}: {flips} keep/drop "
-          f"flips among {int(decided.sum())} sentences decided by > {margin}, sentence-prob "
-          f"max_abs_err {np.max(np.abs(on_card - on_cpu)):.3e}, score max_abs_err {score_err:.3e}")
-    if flips:
-        raise AssertionError("fp32 keep/drop decisions differ between card and CPU at 2048")
+    fp32_flips(f"phase 9 max_length={max_length}", config, sd, tokenizer_cls, dev, questions[:3],
+               contexts[:3])
 
     # Training at B=8, S=2048: 7 real pairs of 1500 to 1950 tokens and a
     # padding pair. One fp32 step, card against CPU, at 3 layers (one global,
@@ -1288,6 +1581,236 @@ def phase10_bias_layouts(tokenizer_cls, pair_tokenizer, dev, out_dir: Path):
     return all_launches
 
 
+def drive_path(label: str, config, sd, tokenizer_cls, pair_tokenizer, dev, card: str,
+               out_dir: Path, serve_required, train_required, resume: bool = False):
+    """One configuration end to end at base width: the model in fp32 and
+    bf16 on the card against fp32 on the CPU; ``process()`` in bf16 on the 256
+    pairs of phase 5 with the launch counts read around it; fp32 keep/drop
+    flips on 8 of them; one fp32 training step (B=2, S=512, 22 layers) against
+    the CPU; 20 bf16 training steps at B=32, S=512 (phase 8's schedule) whose
+    eval loss must fall and, with ``resume``, phase 8's bit-exact resume.
+    Every kernel in ``serve_required`` / ``train_required`` must have launched
+    and no plain version may have run. Returns (serving launches, training
+    launches)."""
+    from open_provence_tpu_torch import OpenProvenceModel, kernels
+
+    phase4_model(config, sd, dev, label)
+    model = OpenProvenceModel(config, sd, tokenizer_cls(), device=dev)  # bf16 on the card
+    questions, contexts = synthetic_pairs(256)
+    kernels.reset_launch_counts()
+    result = model.process(questions, contexts, threshold=0.1, show_progress=False)
+    torch.cuda.synchronize()
+    serve, plain = kernels.launch_counts(), kernels.plain_counts()
+    ranks = np.asarray(result["reranking_score"], dtype=np.float64)
+    phase(f"{label} process() bf16, 256 pairs: scores in [{ranks.min():.4f}, {ranks.max():.4f}]; "
+          f"launches {json.dumps(serve)}; plain versions {json.dumps(plain)}")
+    missing = [name for name in serve_required if serve[name] == 0]
+    if missing or any(plain.values()):
+        raise AssertionError(f"{label}: serving never launched {missing} or ran a plain version")
+    if len(result["pruned_context"]) != 256 or not np.all(np.isfinite(ranks)):
+        raise AssertionError(f"{label}: process() gave the wrong length or non-finite scores")
+    if not np.all((ranks >= 0) & (ranks <= 1)):
+        raise AssertionError(f"{label}: scores outside [0, 1]")
+    keep_all = model.process(questions[:16], contexts[:16], threshold=0.0, show_progress=False)
+    if keep_all["pruned_context"] != contexts[:16]:
+        raise AssertionError(f"{label}: threshold 0.0 did not reproduce the input")
+    times = []
+    for _ in range(4):  # the first call is a warm-up
+        began = time.perf_counter()
+        model.process(questions, contexts, threshold=0.1, show_progress=False)
+        times.append(time.perf_counter() - began)
+    median = statistics.median(times[1:])
+    phase(f"{label} process() 256 pairs bf16: {256 / median:.1f} pairs/s (median of 3 calls: "
+          f"{median:.3f} s) [{card}]")
+    forward_ms(model, 32, 512, label, card, with_plain=False, profile=False)
+    del model
+    fp32_flips(label, config, sd, tokenizer_cls, dev, questions[:8], contexts[:8])
+
+    tag = label.replace(" ", "_").replace("=", "_")
+    phase7_train_step(config, sd, pair_tokenizer, dev, out_dir / f"{tag}_fp32", steps=(1,),
+                      label=label)
+    batches = [training_batch(pair_tokenizer, 31, 512, seed=s) for s in (110, 111)]
+    sd_card = {k: v.to(dev) for k, v in sd.items()}
+
+    def make(directory):
+        return make_trainer(training_config(config), sd_card, pair_tokenizer, dev, directory, 20)
+
+    trainer = make(out_dir / tag)
+    train = train_and_check(label, trainer, batches, 20, train_required)
+    if resume:
+        resume_check(label, trainer, make(out_dir / f"{tag}_resumed"), batches[0])
+    pairs_s = float(np.mean([train_rate(trainer, batches)[0] for _ in range(2)]))
+    phase(f"{label} train step B=32 S=512 bf16: {pairs_s:.1f} pairs/s "
+          f"({31 / pairs_s * 1e3:.1f} ms/step) [{card}]")
+    return serve, train
+
+
+def phase11_head_layouts(tokenizer_cls, pair_tokenizer, dev, card: str, out_dir: Path):
+    """The two base-width head layouts for which the JAX package leaves its
+    packed kernel: 24 heads of 32 (2·D is no multiple of 128) and 3 heads of
+    256 (an odd head count). The model's one call to the packed wrapper
+    launches the attention kernels on strided views of the Wqkv output, as it
+    does for every layout."""
+    from open_provence_tpu_torch import init_params
+
+    others = ("layer_norm", "ln_matmul", "ln_geglu")
+    serve_required = (*others, "flash_attention")
+    train_required = (*serve_required, "flash_attention_bwd",
+                      *(f"{name}_bwd" for name in others))
+    all_launches = {}
+    for heads in (24, 3):
+        config = base_config(num_attention_heads=heads)
+        head_dim = config.backbone().head_dim
+        sd = init_params(config, torch.Generator().manual_seed(11))
+        serve, train = drive_path(
+            f"phase 11 {heads}x{head_dim}", config, sd, tokenizer_cls, pair_tokenizer, dev, card,
+            out_dir, serve_required, train_required)
+        all_launches[f"serve_{heads}x{head_dim}"] = serve
+        all_launches[f"train_{heads}x{head_dim}"] = train
+    return all_launches
+
+
+@contextlib.contextmanager
+def mlp_tail_gate(value: str):
+    """Build modules with the whole-MLP gate at ``value`` (it is read when a
+    module is built)."""
+    saved = os.environ.get(MLP_TAIL_GATE)
+    os.environ[MLP_TAIL_GATE] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[MLP_TAIL_GATE]
+        else:
+            os.environ[MLP_TAIL_GATE] = saved
+
+
+# The three gates round at the same points, so from the same weights, batch
+# and dropout masks they differ by bf16 roundings of sums taken in another
+# order, carried through 22 layers. Gradients: per tensor, of its largest
+# value (an H100 measured 6.4e-3 at most, a median of 3.6e-3). Losses:
+# relative, over the first steps of the same schedule (1.0e-3 at most).
+GATE_GRAD_TOL, GATE_LOSS_TOL = 2e-2, 1e-2
+
+
+def gates_agree(trainers: dict, batches) -> None:
+    """Hold the fused MLP (gates 1 and bwd) to the split one (gate 0) in bf16
+    training: the loss and every gradient tensor of one batch before any
+    step, then the losses of the first four steps. The trainers start from
+    the same weights and seed. With gate bwd the forward is gate 0's, so its
+    first loss has gate 0's bits."""
+    losses, grads = {}, {}
+    for gate, trainer in trainers.items():
+        loss, _, grads[gate] = trainer.loss_and_grads(batches[0])
+        losses[gate] = float(loss)
+    for gate in ("1", "bwd"):
+        errs = {k: ((grads[gate][k] - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                for k, w in grads["0"].items()}
+        worst = max(errs, key=errs.get)
+        loss_err = abs(losses[gate] / losses["0"] - 1)
+        phase(f"phase 12 gate {gate} against gate 0, bf16, B=32 S=512, before any step: loss "
+              f"{losses[gate]:.6f} vs {losses['0']:.6f} (rel err {loss_err:.3e}, tol "
+              f"{GATE_LOSS_TOL}); gradients: largest error {errs[worst]:.3e} of the tensor's "
+              f"largest ({worst}; median over tensors {statistics.median(errs.values()):.3e}; tol "
+              f"{GATE_GRAD_TOL}; a zeroed gradient would read 1)")
+        if gate == "bwd" and losses[gate] != losses["0"]:
+            raise AssertionError("gate bwd's forward gave another loss than gate 0's")
+        if not (loss_err <= GATE_LOSS_TOL and errs[worst] <= GATE_GRAD_TOL):
+            raise AssertionError(f"gate {gate}'s loss or gradients left gate 0's")
+    del grads
+    steps = {gate: train_steps(trainer, batches, 4) for gate, trainer in trainers.items()}
+    phase("phase 12 first four bf16 step losses by gate: "
+          + "; ".join(f"{gate}: {', '.join(f'{v:.4f}' for v in steps[gate])}" for gate in steps)
+          + f" (tol {GATE_LOSS_TOL} of gate 0's)")
+    for gate in ("1", "bwd"):
+        if any(abs(v / w - 1) > GATE_LOSS_TOL for v, w in zip(steps[gate], steps["0"])):
+            raise AssertionError(f"gate {gate}'s step losses left gate 0's")
+
+
+def phase12_whole_mlp(sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir: Path):
+    """The whole-MLP fusion on the default layout. First the three values of
+    the gate beside each other in this process: the forward at B=32, S=512 and
+    B=8, S=2048; the fused gates' loss, gradients and first step losses held
+    to gate 0's (``gates_agree``); the training step's wall and device time at
+    B=32, S=512, each value in turn (0, 1, bwd, bwd, 1, 0). Then gate 1 end to end
+    (``drive_path``, with the bit-exact resume), and gate bwd's training."""
+    from open_provence_tpu_torch import OpenProvenceModel, kernels
+    from open_provence_tpu_torch.models.modernbert import MLP_TAIL_DEFAULT
+
+    config, gates, turns = base_config(), ("0", "1", "bwd"), ("0", "1", "bwd", "bwd", "1", "0")
+    models = {}
+    for gate in gates:
+        with mlp_tail_gate(gate):
+            models[gate] = OpenProvenceModel(config, sd, tokenizer_cls(), device=dev)
+    gen = torch.Generator().manual_seed(12)
+    for batch, seq in ((32, 512), (8, 2048)):
+        ids = torch.randint(3, 50000, (batch, seq), generator=gen).to(dev)
+        mask = torch.ones(batch, seq, dtype=torch.int32, device=dev)
+        ms = {gate: [] for gate in gates}
+        for gate in turns:
+            def forward(module=models[gate].module):
+                with torch.inference_mode():
+                    module(ids, mask)
+            ms[gate].append(cuda_ms(forward))
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            models["1"].module(ids, mask)
+        counts = kernels.launch_counts()
+        phase(f"phase 12 forward B={batch} S={seq} bf16, ms a batch by gate (each twice, in turns): "
+              + "; ".join(f"{gate}: {ms[gate][0]:.2f}, {ms[gate][1]:.2f}" for gate in gates)
+              + f"; gate 1 launches ln_geglu_wo {counts['ln_geglu_wo']}, ln_geglu "
+              f"{counts['ln_geglu']} a forward [{card}]")
+        if counts["ln_geglu_wo"] != config.backbone().num_hidden_layers or counts["ln_geglu"]:
+            raise AssertionError("gate 1 did not send every layer's MLP through kernel 8")
+    del models
+
+    batches = [training_batch(pair_tokenizer, 31, 512, seed=s) for s in (120, 121)]
+    train_config = training_config(config)
+    sd_card = {k: v.to(dev) for k, v in sd.items()}
+    trainers = {}
+    for gate in gates:
+        with mlp_tail_gate(gate):
+            trainers[gate] = make_trainer(train_config, sd_card, pair_tokenizer, dev,
+                                          out_dir / f"gate_{gate}", 40)
+    gates_agree(trainers, batches)
+    wall = {gate: [] for gate in gates}
+    device = {gate: [] for gate in gates}
+    for gate in turns:
+        pairs_s = train_rate(trainers[gate], batches, 4)[0]
+        wall[gate].append(31 / pairs_s * 1e3)
+        device[gate].append(profile_by_kernel(
+            f"phase 12 profile of 3 bf16 steps B=32 S=512, gate {gate}",
+            lambda: train_steps(trainers[gate], batches, 1), 3))
+    phase("phase 12 train step B=32 S=512 bf16 by gate (each twice, in turns): "
+          + "; ".join(f"{gate}: wall {wall[gate][0]:.1f}, {wall[gate][1]:.1f} ms, device "
+                      f"{device[gate][0]:.1f}, {device[gate][1]:.1f} ms" for gate in gates)
+          + f"; the default is {MLP_TAIL_DEFAULT} [{card}]")
+    del trainers
+
+    split = ("ln_geglu", "ln_geglu_bwd")
+    fused_serve = (*(k for k in FORWARD if k not in split), "ln_geglu_wo")
+    fused_train = (*(k for k in DEFAULT_EIGHT if k not in split), "ln_geglu_wo", "ln_geglu_wo_bwd")
+    all_launches = {}
+    with mlp_tail_gate("1"):
+        serve, train = drive_path(
+            "phase 12 gate=1", config, sd, tokenizer_cls, pair_tokenizer, dev, card, out_dir,
+            fused_serve, fused_train, resume=True)
+        if any(serve[k] or train[k] for k in split):
+            raise AssertionError("gate 1 ran the split MLP kernels")
+    all_launches["serve_fused_mlp"], all_launches["train_fused_mlp"] = serve, train
+    with mlp_tail_gate("bwd"):
+        trainer = make_trainer(train_config, sd_card, pair_tokenizer, dev, out_dir / "gate_bwd_run",
+                               20)
+        train = train_and_check(
+            "phase 12 gate=bwd", trainer, batches, 20,
+            (*(k for k in DEFAULT_EIGHT if k != "ln_geglu_bwd"), "ln_geglu_wo_bwd"))
+        if train["ln_geglu_bwd"] or train["ln_geglu_wo"]:
+            raise AssertionError("gate bwd ran kernel 11 or kernel 8")
+        del trainer
+    all_launches["train_fused_mlp_bwd"] = train
+    return all_launches
+
+
 def rates_main(tree: Path) -> int:
     """Serving and training rates at B=32, S=512 of the package under
     ``tree``: the forward, ``process()`` on 256 pairs and the bf16 training
@@ -1363,7 +1886,7 @@ def main() -> int:
     kernels.build()
     kernels.library()
     phase(f"phase 2 built {lib_path.name} from {', '.join(kernels.SOURCES)} "
-          f"in {time.perf_counter() - began:.1f} s")
+          f"({len(kernels.UNITS)} nvcc processes side by side) in {time.perf_counter() - began:.1f} s")
     entry = spills = ""
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -1380,6 +1903,8 @@ def main() -> int:
     stats = phase3_kernels(dev)
     stats.update(phase3b_backward(dev))
     phase3c_long_context(dev, stats)
+    phase3d_head_layouts(dev, stats)
+    phase3e_whole_mlp(dev, stats)
     elapsed("the kernel checks")
 
     config = base_config()
@@ -1401,6 +1926,12 @@ def main() -> int:
         elapsed("long context")
         by_path.update(phase10_bias_layouts(DummyTokenizer, PairDummyTokenizer(), dev, Path(tmp)))
         elapsed("the bias layouts")
+        by_path.update(phase11_head_layouts(DummyTokenizer, PairDummyTokenizer(), dev, card,
+                                            Path(tmp)))
+        elapsed("the head layouts")
+        by_path.update(phase12_whole_mlp(sd, DummyTokenizer, PairDummyTokenizer(), dev, card,
+                                         Path(tmp)))
+        elapsed("the whole-MLP fusion")
 
     # Every kernel must have launched on a main path (the comparisons of
     # phase 3 are outside every count), rows 5 and 15 on the long ones.
@@ -1429,6 +1960,7 @@ def main() -> int:
             "bound_by": stats[name]["bound_by"],
             "library_ms": stats[name]["library_ms"],
             "also_replaces": replaces[1:],
+            "counted_with": kernels.SAME_LAUNCH.get(name),
             "tpu_rows": rows,
             "launches_by_path": launches,
             **extras,

@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
-``sm_90a``, one ``nvcc`` process per source, all started together, and
+``sm_90a``, one ``nvcc`` process per unit (a source, and for the attention
+sources also one per head dim), all started together, and
 linked into one shared library with a plain C interface, which is loaded
 with ``ctypes``: no ninja and no libtorch headers, so a build takes seconds.
 The library lands in ``_build/`` (listed in ``.gitignore``) under a name
@@ -34,25 +35,50 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = (
     "layer_norm.cu", "ln_gemm.cu", "flash_attention.cu", "ln_gemm_bwd.cu",
-    "flash_attention_bwd.cu",
+    "flash_attention_bwd.cu", "mlp_tail.cu", "mlp_tail_bwd.cu",
 )
 HEADERS = (
     "common.cuh", "activation.cuh", "attention_common.cuh", "gemm.cuh", "ln_adjoint.cuh",
+    "mlp_tail.cuh",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# The head dims the attention kernels are instantiated for
+# (attention_common.cuh: OPT_ATTN_FOR_EACH_D).
+ATTENTION_HEAD_DIMS = (32, 64, 128, 256)
+_PER_HEAD_DIM = ("flash_attention.cu", "flash_attention_bwd.cu")
+# One nvcc process each: (source, extra flags). The attention sources are
+# compiled once per head dim (the kernels of that D) and once without the
+# macro (the entry points), so the instances build side by side.
+UNITS = tuple(
+    (src, flags)
+    for src in SOURCES
+    for flags in (
+        [(), *((f"-DOPT_HEAD_DIM={d}",) for d in ATTENTION_HEAD_DIMS)]
+        if src in _PER_HEAD_DIM else [()]
+    )
+)
 
 # The kernels' names: the default layout's eight in the order a training
 # step first reaches them (the forward, then the backward from the heads
-# down), then the two of the bias-carrying layouts; the C entry point of
-# each is ``opt_<name>``.
+# down), the two of the bias-carrying layouts, then attention on separate
+# q, k, v and the whole-MLP fusion, forward and backward; the C entry point
+# of each is ``opt_<name>`` (but see SAME_LAUNCH).
 KERNELS = (
     "layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu",
     "layer_norm_bwd", "ln_geglu_bwd", "flash_attention_packed_bwd", "ln_matmul_bwd",
     "add_layer_norm", "geglu",
+    "flash_attention", "flash_attention_bwd", "ln_geglu_wo", "ln_geglu_wo_bwd",
 )
 # The eight the bias-free default layout runs; ``add_layer_norm`` and
 # ``geglu`` run only for checkpoints that carry biases (mlp_bias, norm_bias).
 DEFAULT_PATH_KERNELS = KERNELS[:8]
+# On Hopper attention on the packed buffer and on separate q, k, v is one
+# kernel behind one C entry point, launched on strided operands: the packed
+# names stand for the TPU kernels they replace and read that kernel's count.
+SAME_LAUNCH = {
+    "flash_attention_packed": "flash_attention",
+    "flash_attention_packed_bwd": "flash_attention_bwd",
+}
 
 # Rows of x per fp32 partial row of dscale in the LN-adjoint kernels
 # (ln_adjoint.cuh: ROWS).
@@ -70,7 +96,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_launches)
+    return {name: _launches[SAME_LAUNCH.get(name, name)] for name in KERNELS}
 
 
 def plain_counts() -> dict[str, int]:
@@ -131,18 +157,19 @@ def build() -> Path:
         if lib_path.exists():  # built by another process while we waited
             return lib_path
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        objects = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o") for src in SOURCES]
+        names = ["".join([Path(src).stem, *flags]) for src, flags in UNITS]
+        objects = [tmp.with_name(f"{tmp.name}.{name}.o") for name in names]
         compiles = [
             subprocess.Popen(
                 [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", str(CSRC / src), "-o", str(obj)],
+                 "-Xptxas", "-v", *flags, str(CSRC / src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            for src, obj in zip(SOURCES, objects)
+            for (src, flags), obj in zip(UNITS, objects)
         ]
         logs = [proc.communicate()[0] for proc in compiles]
         log = "".join(logs)
-        failed = [src for src, proc in zip(SOURCES, compiles) if proc.returncode != 0]
+        failed = [name for name, proc in zip(names, compiles) if proc.returncode != 0]
         if not failed:
             link = subprocess.run(
                 [nvcc_path(), *ARCH_FLAGS, "-shared", *map(str, objects), "-o", str(tmp)],
@@ -167,18 +194,21 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
     signatures = {
+        "flash_attention": [p] * 8 + [i, i, i, i, strides, i, f, i, p],
+        "flash_attention_bwd": [p] * 13 + [i, i, i, i, strides, i, f, i, p],
+        "ln_geglu_wo": [p] * 6 + [i, i, i, f, i, i, p],
+        "ln_geglu_wo_bwd": [p] * 14 + [i, i, i, f, i, i, p],
         "layer_norm": [p, p, p, i, i, f, i, p],
         "ln_matmul": [p] * 5 + [i, i, i, f, i, p],
         "ln_geglu": [p] * 5 + [i, i, i, f, i, i, p],
-        "flash_attention_packed": [p, p, p, p, p, p, i, i, i, i, ll, ll, i, f, i, p],
         "layer_norm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
         "add_layer_norm": [p, p, p, p, p, i, i, f, i, p],
         "geglu": [p, p, p, i, i, i, i, i, p],
         "ln_matmul_bwd": [p] * 10 + [i, i, i, f, i, p],
         "ln_geglu_bwd": [p] * 11 + [i, i, i, f, i, i, p],
-        "flash_attention_packed_bwd": [p] * 9 + [i, i, i, i, ll, ll, i, f, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, f"opt_{name}")
@@ -231,6 +261,13 @@ def require_16_byte_rows(*tensors: torch.Tensor) -> None:
                 f"bf16 kernels need 16-byte aligned rows of 8k elements; got shape "
                 f"{tuple(t.shape)}, strides {t.stride()}"
             )
+
+
+def strides_of(*tensors: torch.Tensor):
+    """The (batch, head, row) strides of [B, H, S, D] tensors, in elements,
+    as the C array the unpacked attention entry points take."""
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def stream(t: torch.Tensor) -> int:

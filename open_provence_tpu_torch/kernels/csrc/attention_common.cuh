@@ -1,15 +1,66 @@
-// Helpers shared by the packed attention forward (flash_attention.cu) and
-// its backward (flash_attention_bwd.cu): tile sizes, rotary applied while
-// loading, the additive mask bias and the band bounds of a tile's loop.
+// Helpers shared by the attention forward (flash_attention.cu) and its
+// backward (flash_attention_bwd.cu): the strided operands and argument
+// blocks, tile sizes, rotary applied while loading, the additive mask bias
+// and the band bounds of a tile's loop.
+//
+// Both sources are compiled once per head dim (-DOPT_HEAD_DIM=32, 64, 128,
+// 256: that unit holds the kernels of one D and a host function
+// forward_d<D> / backward_d<D>) and once without the macro (the extern "C"
+// entry points, which pick the unit by head_dim), so the instances build in
+// parallel.
 #pragma once
 
 #include "common.cuh"
 
 #include <math.h>
 
+#define OPT_ATTN_CAT2(a, b) a##b
+#define OPT_ATTN_CAT(a, b) OPT_ATTN_CAT2(a, b)
+
 namespace attn {
 
 constexpr int BQ = 64, BK = 64;
+
+// A [B, H, S, D] operand read or written through its (batch, head, row)
+// strides, in elements; the last dim is contiguous. The packed Wqkv buffer
+// [B, S, 3*H*D] is three of these at offsets 0, H*D and 2*H*D with strides
+// (S*3*H*D, D, 3*H*D); separate contiguous tensors have (H*S*D, S*D, D).
+struct Strided {
+  void* p;
+  long long sb, sh, ss;
+};
+
+template <typename T>
+__device__ __forceinline__ T* rows_of(const Strided& t, int b, int h) {
+  return static_cast<T*>(t.p) + (size_t)b * t.sb + (size_t)h * t.sh;
+}
+
+struct FwdArgs {
+  Strided q, k, v, out;
+  const int* mask;    // [B, S] or null
+  const void* cos_t;  // [S, D] in the storage type, or null
+  const void* sin_t;
+  float* lse;  // [B, H, S] or null
+  int S, H;
+  int window;  // < 0: global
+  float scale;
+};
+
+struct BwdArgs {
+  Strided q, k, v, out, g;  // inputs: g = d out, cast to the storage type
+  Strided dq, dk, dv;       // outputs
+  const int* mask;
+  const void* cos_t;
+  const void* sin_t;
+  const float* lse;  // [B, H, S]
+  float* delta;      // [B, H, S] scratch
+  int S, H;
+  int window;
+  float scale;
+};
+
+// The head dims the kernels are instantiated for, one unit each.
+#define OPT_ATTN_FOR_EACH_D(X) X(32) X(64) X(128) X(256)
 
 // Rotary for element d of a row at position pos, rounding as the plain
 // composition does: x*cos and rotate_half(x)*sin each rounded to T, then
@@ -59,6 +110,22 @@ __device__ __forceinline__ float biased_score(float s, float scale, int qi, int 
   if (mrow != nullptr && mrow[kj] == 0) bias = OPT_NEG_BIG;
   if (window >= 0 && abs(qi - kj) > window) bias = fmaxf(bias + OPT_NEG_BIG, OPT_NEG_BIG);
   return s * scale + bias;
+}
+
+// biased_score in two steps, for a kernel that shares a key tile's mask
+// across its threads: key_bias(kj) is 0, -FLT_MAX for a padded key or -inf
+// past S, computed once a key; banded_score then adds the band (the two
+// stacked biases clamp to -FLT_MAX, and -inf stays -inf). The same bits as
+// biased_score.
+__device__ __forceinline__ float key_bias(int kj, int S, const int* mrow) {
+  if (kj >= S) return -INFINITY;
+  return mrow != nullptr && mrow[kj] == 0 ? OPT_NEG_BIG : 0.f;
+}
+
+__device__ __forceinline__ float banded_score(float s, float scale, int qi, int kj, float kbias,
+                                              int window) {
+  if (window >= 0 && abs(qi - kj) > window) kbias = fminf(kbias, OPT_NEG_BIG);
+  return s * scale + kbias;
 }
 
 // The walk of a tile that starts at row t0 (of `tile` rows) over the other

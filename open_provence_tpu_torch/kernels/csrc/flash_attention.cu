@@ -1,11 +1,16 @@
-// Flash-attention forward on the packed Wqkv output: kernel 3 of the
-// forward path.
+// Flash-attention forward: kernel 3 of the forward path (the packed Wqkv
+// output) and kernel 9 (separate q, k, v), one kernel for both.
 //
-// Replaces ops/flash_attention.py::_flash_kernel_packed. q, k and v are read
-// through strides of one [B, S, 3*H*D] buffer in HF lane order (qkv, head,
-// dim): q at h*D, k at H*D + h*D, v at 2*H*D + h*D of each row. The output is
-// [B, S, H*D], ready for Wo. Rotary runs in-kernel from [S, D] cos/sin tables
-// given in the storage type, rounding as the plain composition does
+// Replaces ops/flash_attention.py::_flash_kernel_packed and ::_flash_kernel.
+// q, k, v and the output are [B, H, S, D] operands read through (batch, head,
+// row) strides (attention_common.cuh: Strided). opt_flash_attention takes
+// separate tensors of any strides with a unit last stride; the packed
+// buffer is the special case "three offsets into one buffer": one
+// [B, S, 3*H*D] buffer in HF lane order (qkv, head, dim), q at h*D, k at
+// H*D + h*D, v at 2*H*D + h*D of each row, and the output a view of
+// [B, S, H*D], ready for Wo. D is 32,
+// 64, 128 or 256, any head count. Rotary runs in-kernel from [S, D] cos/sin
+// tables given in the storage type, rounding as the plain composition does
 // (x*cos and rotate_half(x)*sin each rounded to T, then their sum), so the
 // rotated q/k never reach device memory.
 //
@@ -16,7 +21,8 @@
 // softmax (running max, rescale, running sum) and the P.V accumulator are
 // fp32; P is rounded to T before the P.V product and summed unrounded, as
 // the TPU kernel does. Masking is one additive bias per score: key padding
-// and the band each add -FLT_MAX, clamped so two stacked biases stay finite.
+// and the band each add -FLT_MAX, clamped so two stacked biases stay finite
+// (the bf16 kernel reads the key mask once a key tile into shared memory).
 // Keys past S (a ragged last tile) get -inf and so weigh exactly 0. Rows
 // whose running sum is 0 write 0.
 //
@@ -34,8 +40,12 @@
 // without touching shared memory. fp32: the same walk with fp32 FMA from
 // shared memory (true fp32). The work is 4*S*S*D FLOPs a head for global
 // layers, so the tensor-core rate bounds it; overlapping the K/V loads
-// (cp.async/TMA) and wgmma are later work.
+// (cp.async/TMA) and wgmma are later work. A warp's 16 x D fp32 output is
+// D/2 registers a thread; past D = 128 the Q fragments are read from shared
+// memory at each key tile instead of living in D/4 more registers.
 #include "attention_common.cuh"
+
+#ifdef OPT_HEAD_DIM  // ---- the kernels of one head dim ------------------------
 
 namespace {
 
@@ -46,18 +56,8 @@ using attn::pack_bf16;
 using attn::rope_chunk;
 using attn::rope_elem;
 
-struct Args {
-  const void* qkv;
-  const int* mask;
-  const void* cos_t;
-  const void* sin_t;
-  void* out;
-  float* lse;  // [B, H, S] or null
-  int S, H;
-  long long stride_b, stride_s;
-  int window;
-  float scale;
-};
+using attn::rows_of;
+using Args = attn::FwdArgs;
 
 // ---- fp32: FMA ------------------------------------------------------------
 
@@ -82,10 +82,12 @@ __global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
   float* l_run = m_run + BQ;          // [BQ]
   float* alpha = l_run + BQ;          // [BQ]
 
-  const int S = args.S, HD = args.H * D;
+  const int S = args.S;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const T* base = static_cast<const T*>(args.qkv) + (size_t)b * args.stride_b;
+  const T* qb = rows_of<const T>(args.q, b, h);
+  const T* kb = rows_of<const T>(args.k, b, h);
+  const T* vb = rows_of<const T>(args.v, b, h);
   const T* cos_t = static_cast<const T*>(args.cos_t);
   const T* sin_t = static_cast<const T*>(args.sin_t);
   const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
@@ -93,7 +95,7 @@ __global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D, d = idx % D, pos = q0 + r;
     Qs[r * (D + 1) + d] =
-        pos < S ? rope_elem<T, D>(base + pos * args.stride_s + h * D, d, cos_t, sin_t, pos) : 0.f;
+        pos < S ? rope_elem<T, D>(qb + pos * args.q.ss, d, cos_t, sin_t, pos) : 0.f;
   }
   if (tid < BQ) {
     m_run[tid] = OPT_NEG_BIG;
@@ -112,9 +114,8 @@ __global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
       const int r = idx / D, d = idx % D, pos = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (pos < S) {
-        const T* row = base + pos * args.stride_s;
-        kv = rope_elem<T, D>(row + HD + h * D, d, cos_t, sin_t, pos);
-        vv = row[2 * HD + h * D + d];
+        kv = rope_elem<T, D>(kb + pos * args.k.ss, d, cos_t, sin_t, pos);
+        vv = vb[pos * args.v.ss + d];
       }
       Ks[r * (D + 1) + d] = kv;
       Vs[r * D + d] = vv;
@@ -190,14 +191,14 @@ __global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
 
   if (args.lse != nullptr && tid < BQ && q0 + tid < S)
     args.lse[((size_t)b * args.H + h) * S + q0 + tid] = m_run[tid] + logf(l_run[tid]);
-  T* out = static_cast<T*>(args.out);
+  T* out = rows_of<T>(args.out, b, h);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, pos = q0 + r;
     if (pos >= S) continue;
     const float l = l_run[r];
     const float inv = 1.f / (l == 0.f ? 1.f : l);
-    T* orow = out + ((size_t)b * S + pos) * HD + h * D;
+    T* orow = out + pos * args.out.ss;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
   }
@@ -208,8 +209,8 @@ __global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
 namespace tc {
 constexpr int THREADS = 128;  // 4 warps x 16 query rows
 template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+constexpr size_t smem_bytes() {  // the Q, K and V tiles and the key tile's bias
+  return (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16) + BK * sizeof(float);
 }
 }  // namespace tc
 
@@ -225,12 +226,15 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
   T* Ks = Qs + BQ * LD;                    // [BK][LD], rotated
   T* Vs = Ks + BK * LD;                    // [BK][LD]
+  float* kbias = reinterpret_cast<float*>(Vs + BK * LD);  // [BK]: key padding, keys past S
 
-  const int S = args.S, HD = args.H * D;
+  const int S = args.S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const T* base = static_cast<const T*>(args.qkv) + (size_t)b * args.stride_b;
+  const T* qb = rows_of<const T>(args.q, b, h);
+  const T* kb = rows_of<const T>(args.k, b, h);
+  const T* vb = rows_of<const T>(args.v, b, h);
   const T* cos_t = static_cast<const T*>(args.cos_t);
   const T* sin_t = static_cast<const T*>(args.sin_t);
   const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
@@ -239,7 +243,7 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
   for (int c = tid; c < BQ * CH; c += THREADS) {
     const int r = c / CH, d0 = (c % CH) * 8, pos = q0 + r;
     *reinterpret_cast<uint4*>(Qs + r * LD + d0) =
-        pos < S ? rope_chunk<D>(base + pos * args.stride_s + h * D, d0, cos_t, sin_t, pos) : zero;
+        pos < S ? rope_chunk<D>(qb + pos * args.q.ss, d0, cos_t, sin_t, pos) : zero;
   }
   __syncthreads();
 
@@ -248,9 +252,13 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
   // column +8 for lanes 16-31 (A operand order).
   const int qrow = warp * 16 + g;
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  uint32_t qa[DC][4];
+  constexpr bool Q_IN_REGS = D <= 128;
+  uint32_t qa[Q_IN_REGS ? DC : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int c = 0; c < DC; ++c) ldmatrix_x4(qa[c], Qs + (warp * 16 + a_row) * LD + c * 16 + a_col);
+    for (int c = 0; c < DC; ++c)
+      ldmatrix_x4(qa[c], Qs + (warp * 16 + a_row) * LD + c * 16 + a_col);
+  }
 
   float o[2 * DC][4] = {};
   float m_run[2] = {OPT_NEG_BIG, OPT_NEG_BIG}, l_run[2] = {0.f, 0.f};
@@ -259,30 +267,50 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
   attn::band_range(q0, BQ, BK, S, args.window, &k_first, &k_last);
   for (int k0 = k_first; k0 <= k_last; k0 += BK) {
     __syncthreads();  // every warp is done with the previous Ks/Vs
-    for (int c = tid; c < BK * CH; c += THREADS) {
+    // Four chunks' loads in flight a thread (all of a D = 64 tile's).
+#pragma unroll 4
+    for (int it = 0; it < BK * CH / THREADS; ++it) {
+      const int c = tid + it * THREADS;
       const int r = c / CH, d0 = (c % CH) * 8, pos = k0 + r;
       uint4 kv = zero, vv = zero;
       if (pos < S) {
-        const T* row = base + pos * args.stride_s;
-        kv = rope_chunk<D>(row + HD + h * D, d0, cos_t, sin_t, pos);
-        vv = *reinterpret_cast<const uint4*>(row + 2 * HD + h * D + d0);
+        kv = rope_chunk<D>(kb + pos * args.k.ss, d0, cos_t, sin_t, pos);
+        vv = *reinterpret_cast<const uint4*>(vb + pos * args.v.ss + d0);
       }
       *reinterpret_cast<uint4*>(Ks + r * LD + d0) = kv;
       *reinterpret_cast<uint4*>(Vs + r * LD + d0) = vv;
     }
+    // The mask is read once a key, not once a score.
+    if (tid < BK) kbias[tid] = attn::key_bias(k0 + tid, S, mrow);
     __syncthreads();
 
-    // Scores: 16 rows x 64 keys per warp. B operand = K rows (keys) read
-    // 16 keys x 16 dims per ldmatrix.x4: r0/r1 key tile 2p, r2/r3 tile 2p+1.
+    // Scores: 16 rows x 64 keys per warp, each accumulator summed over the
+    // dim chunks c in order. B operand = K rows (keys) read 16 keys x 16 dims
+    // per ldmatrix.x4: r0/r1 key tile 2p, r2/r3 tile 2p+1.
     float s[KN][4] = {};
+    if constexpr (Q_IN_REGS) {
 #pragma unroll
-    for (int p = 0; p < KN / 2; ++p) {
+      for (int p = 0; p < KN / 2; ++p) {
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          uint32_t r[4];
+          ldmatrix_x4(r, Ks + (p * 16 + a_col + (lane & 7)) * LD + c * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(s[2 * p], qa[c], r);
+          mma_bf16_16816(s[2 * p + 1], qa[c], r + 2);
+        }
+      }
+    } else {  // one Q fragment at a time, read where it is needed
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        uint32_t r[4];
-        ldmatrix_x4(r, Ks + (p * 16 + a_col + (lane & 7)) * LD + c * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[2 * p], qa[c], r);
-        mma_bf16_16816(s[2 * p + 1], qa[c], r + 2);
+        uint32_t qf[4];
+        ldmatrix_x4(qf, Qs + (warp * 16 + a_row) * LD + c * 16 + a_col);
+#pragma unroll
+        for (int p = 0; p < KN / 2; ++p) {
+          uint32_t r[4];
+          ldmatrix_x4(r, Ks + (p * 16 + a_col + (lane & 7)) * LD + c * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(s[2 * p], qf, r);
+          mma_bf16_16816(s[2 * p + 1], qf, r + 2);
+        }
       }
     }
 
@@ -298,7 +326,8 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           float& v = s[nt][2 * i + j];
-          v = biased_score(v, args.scale, qi, k0 + nt * 8 + 2 * t + j, S, mrow, args.window);
+          const int col = nt * 8 + 2 * t + j;
+          v = attn::banded_score(v, args.scale, qi, k0 + col, kbias[col], args.window);
           mx = fmaxf(mx, v);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -349,7 +378,7 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
     }
   }
 
-  T* out = static_cast<T*>(args.out);
+  T* out = rows_of<T>(args.out, b, h);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int pos = q0 + qrow + 8 * i;
@@ -357,7 +386,7 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
     if (args.lse != nullptr && t == 0)
       args.lse[((size_t)b * args.H + h) * S + pos] = m_run[i] + logf(l_run[i]);
     const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
-    T* orow = out + ((size_t)b * S + pos) * HD + h * D;
+    T* orow = out + pos * args.out.ss;
 #pragma unroll
     for (int dn = 0; dn < 2 * DC; ++dn) {
       const __nv_bfloat162 v =
@@ -390,24 +419,64 @@ int by_dtype(const Args& args, int batch, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
+namespace attn {
+int OPT_ATTN_CAT(forward_d, OPT_HEAD_DIM)(const FwdArgs& args, int batch, int dtype,
+                                           cudaStream_t stream) {
+  return by_dtype<OPT_HEAD_DIM>(args, batch, dtype, stream);
+}
+}  // namespace attn
+
+#else  // ---- the entry points --------------------------------------------------
+
+namespace attn {
+#define OPT_ATTN_DECLARE(D) int forward_d##D(const FwdArgs&, int, int, cudaStream_t);
+OPT_ATTN_FOR_EACH_D(OPT_ATTN_DECLARE)
+#undef OPT_ATTN_DECLARE
+}  // namespace attn
+
+namespace {
+
+int forward(const attn::FwdArgs& args, int batch, int head_dim, int dtype, void* stream) {
+  if (batch <= 0 || args.S <= 0 || args.H <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+#define OPT_ATTN_CASE(D) \
+  case D:                \
+    return attn::forward_d##D(args, batch, dtype, s);
+    OPT_ATTN_FOR_EACH_D(OPT_ATTN_CASE)
+#undef OPT_ATTN_CASE
+    default:  // no instance: the wrapper refuses other head dims
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
 // window < 0 means a global layer; cos_t/sin_t may be null (no rotary),
 // mask may be null (no key padding) and lse may be null (serving). Strides
-// are in elements; the bf16 output is written two values at a time, so D is
-// even and out is aligned.
-extern "C" int opt_flash_attention_packed(const void* qkv, const int* mask, const void* cos_t,
-                                          const void* sin_t, void* out, float* lse, int batch,
-                                          int seq, int heads, int head_dim, long long stride_b,
-                                          long long stride_s, int window, float scale,
-                                          int dtype, void* stream) {
-  if (batch <= 0 || seq <= 0) return 0;
-  const Args args{qkv, mask, cos_t, sin_t, out, lse, seq, heads, stride_b, stride_s, window, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // ModernBERT's head dim (base and large); the wrapper refuses others.
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;
-  return by_dtype<64>(args, batch, dtype, s);
+// are in elements; the bf16 kernels move 16-byte chunks and write the output
+// two values at a time, so every pointer is 16-byte aligned and every stride
+// a multiple of 8 (the wrappers check it).
+// q, k, v, out: [B, H, S, D] with the (batch, head, row) strides given, in
+// elements: three ints each, in that order, in `strides` (q, k, v, out).
+extern "C" int opt_flash_attention(const void* q, const void* k, const void* v, const int* mask,
+                                   const void* cos_t, const void* sin_t, void* out, float* lse,
+                                   int batch, int seq, int heads, int head_dim,
+                                   const long long* strides, int window, float scale, int dtype,
+                                   void* stream) {
+  const void* ptrs[4] = {q, k, v, out};
+  attn::Strided t[4];
+  for (int i = 0; i < 4; ++i)
+    t[i] = attn::Strided{const_cast<void*>(ptrs[i]), strides[3 * i], strides[3 * i + 1],
+                         strides[3 * i + 2]};
+  const attn::FwdArgs args{t[0], t[1], t[2], t[3], mask, cos_t, sin_t,
+                           lse,  seq,  heads, window, scale};
+  return forward(args, batch, head_dim, dtype, stream);
 }
 
 // The message of a CUDA error code, for the Python wrappers.
 extern "C" const char* opt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#endif  // OPT_HEAD_DIM

@@ -1,22 +1,30 @@
-// Flash-attention backward on the packed Wqkv buffer: kernel 14.
+// Flash-attention backward: kernel 14 (the packed Wqkv buffer) and kernel
+// 16 (separate q, k, v), one set of kernels for both.
 //
 // Replaces the TPU's one-pass fused backward (ops/flash_attention.py::
 // _bwd_fused_kernel_packed / _1out / _3out, bodies _bwd_fused_compute),
-// which differ only in how the TPU lays out its outputs. Inputs: qkv
-// [B, S, 3*H*D] (through strides), the int key mask [B, S], rope cos/sin
-// [S, D] in the storage type, the forward's out [B, S, H*D] and fp32 lse
-// [B, H, S], and g = d out [B, S, H*D] cast to the storage type. Output:
-// d(qkv) [B, S, 3*H*D], dq/dk/dv in their lanes; the rope tables get no
-// gradient. Three launches on the caller's stream:
+// its split form for long sequences (_bwd_dq_kernel_packed,
+// _bwd_dkv_kernel_packed) and the unpacked pair (_bwd_dq_kernel,
+// _bwd_dkv_kernel). Every operand is [B, H, S, D] read or written through
+// (batch, head, row) strides (attention_common.cuh: Strided): q, k, v, the
+// forward's out, g = d out cast to the storage type, and the outputs dq, dk,
+// dv. opt_flash_attention_bwd takes separate tensors of any strides with a
+// unit last stride; the packed buffer is the special case in which q, k, v
+// are three offsets into one [B, S, 3*H*D] buffer, out and g are views of
+// [B, S, H*D] and dq, dk, dv three offsets into d(qkv) [B, S, 3*H*D].
+// Also given: the int key mask [B, S], rope cos/sin [S, D] in
+// the storage type (they get no gradient) and the forward's fp32 lse
+// [B, H, S]. D is 32, 64, 128 or 256, any head count. Three launches on the
+// caller's stream:
 //   1. delta = rowsum(g * out) in fp32 per (batch, head, row), into scratch
 //      [B, H, S] (the TPU dispatch computes it from g already cast to the
-//      storage type, flash_attention.py:2338-2350);
-//   2. dK, dV: one CTA per (64-key tile, head, batch) walks the query tiles
+//      storage type, flash_attention.py:695-696, :2338-2350);
+//   2. dK, dV: one CTA per (key tile, head, batch) walks the query tiles
 //      inside the band (all of them for a global layer), rebuilding the
 //      rotated q and k while loading, P = exp(s*scale + bias - lse) and
 //      dS = P * (dO.V^T - delta), and accumulates dV += P^T.dO and
 //      dK += dS^T.Q in registers;
-//   3. dQ: one CTA per (64-query tile, head, batch) walks the key tiles the
+//   3. dQ: one CTA per (query tile, head, batch) walks the key tiles the
 //      other way round and accumulates dQ += dS.K, so no fp32 atomics make
 //      the sums depend on scheduling.
 // dq and dk are scaled, rounded to the storage type, then put through the
@@ -27,38 +35,34 @@
 // keys, finite, and its g is 0 wherever the loss ignores the row.
 //
 // bf16: all five products on tensor cores (mma.sync m16n8k16, fp32
-// accumulation), FlashAttention-2 style, 4 warps x 16 rows a CTA; P and dS
-// go from the score accumulators into the A operand without shared memory,
-// rounded to bf16 as the TPU kernel rounds them. fp32: the same walks with
-// FMA from shared memory (true fp32). Recomputing S and dP in both passes
-// costs 7 S*S*D products a head against the TPU kernel's 5; tensor-core
-// rate bounds it, and wgmma/TMA are later work. Any S.
+// accumulation), FlashAttention-2 style; P and dS go from the score
+// accumulators into the A operand without shared memory, rounded to bf16 as
+// the TPU kernel rounds them. A warp owns 16 rows of its CTA's tile, and a
+// warp's fp32 accumulators are rows x columns / 32 registers a thread, so the
+// tile shape is picked by D at compile time (tc::Shape): up to D = 64 four
+// warps hold 16 x D each; past it the D columns of dK and dV (past 128, of
+// dQ) are split over 2 or 4 warps that each recompute the 16 x 64 scores,
+// and at D = 256 the key tile is 32 rows, so no accumulator set passes 64
+// registers. The rounded gradients go through shared memory on their way
+// out, where the rope adjoint finds its partner column d +- D/2 whichever
+// warp held it. fp32: the same walks with FMA from shared memory (true
+// fp32), 64-row tiles, 32 at D = 256 where four 64-row tiles of D + 1 floats
+// pass a CTA's 227 KB. Recomputing S and dP in both passes costs 7 S*S*D
+// products a head against the TPU kernel's 5 (more where the columns are
+// split); tensor-core rate bounds it, and wgmma/TMA are later work. Any S.
 #include "attention_common.cuh"
+
+#ifdef OPT_HEAD_DIM  // ---- the kernels of one head dim ------------------------
 
 namespace {
 
-using attn::BK;
-using attn::BQ;
-using attn::biased_score;
 using attn::pack_bf16;
 using attn::rope_chunk;
 using attn::rope_elem;
+using attn::rows_of;
+using Args = attn::BwdArgs;
 
-struct Args {
-  const void* qkv;
-  const int* mask;
-  const void* cos_t;
-  const void* sin_t;
-  const void* out;    // [B, S, H*D]
-  const float* lse;   // [B, H, S]
-  const void* g;      // [B, S, H*D]
-  float* delta;       // [B, H, S] scratch
-  void* dqkv;         // [B, S, 3*H*D], contiguous
-  int S, H;
-  long long stride_b, stride_s;  // of qkv
-  int window;
-  float scale;
-};
+constexpr int OTHER = 64;  // rows of the other side's tiles a pass walks over
 
 // ---- 1. delta -----------------------------------------------------------------
 
@@ -68,9 +72,8 @@ __global__ void delta_kernel(Args args, int rows) {
   if (row >= rows) return;
   const int h = row % args.H, bs = row / args.H;
   const int s = bs % args.S, b = bs / args.S;
-  const size_t off = (size_t)bs * args.H * D + (size_t)h * D;
-  const T* g = static_cast<const T*>(args.g) + off;
-  const T* o = static_cast<const T*>(args.out) + off;
+  const T* g = rows_of<const T>(args.g, b, h) + s * args.g.ss;
+  const T* o = rows_of<const T>(args.out, b, h) + s * args.out.ss;
   float acc = 0.f;
   for (int d = threadIdx.x & 31; d < D; d += 32) acc += to_f32(g[d]) * to_f32(o[d]);
   acc = warp_sum(acc);
@@ -78,8 +81,9 @@ __global__ void delta_kernel(Args args, int rows) {
 }
 
 // The rope adjoint of element d of a row, given the row's rounded gradient
-// in gr (indexable by d and d +- D/2): T(T(gr[d]*c) + T(rotT(gr*s)[d])),
-// with rotT(y)[d] = y[d + D/2] for d < D/2 and -y[d - D/2] after.
+// at d (gd) and at its partner d +- D/2 (g_other):
+// T(T(gd*c) + T(rotT(g*s)[d])), with rotT(y)[d] = y[d + D/2] for d < D/2
+// and -y[d - D/2] after.
 template <typename T, int D>
 __device__ __forceinline__ float rope_adjoint(float gd, float g_other, int d, const T* cos_t,
                                               const T* sin_t, int pos) {
@@ -92,37 +96,46 @@ __device__ __forceinline__ float rope_adjoint(float gd, float g_other, int d, co
   return round_to<T>(round_to<T>(gd * c) + (d < half ? rot : -rot));
 }
 
-// P and dS of one score: s is the raw q.k, dp = dO.v.
+// P and dS of one score: s is the raw q.k, dp = dO.v, kbias the key's bias
+// (attn::key_bias: the bf16 kernels read the mask once a key, not once a
+// score).
 __device__ __forceinline__ void p_ds(float s, float dp, float lse, float delta, float scale,
-                                     int qi, int kj, int S, const int* mrow, int window, float* p,
+                                     int qi, int kj, int S, float kbias, int window, float* p,
                                      float* ds) {
-  const float pv = qi < S ? expf(biased_score(s, scale, qi, kj, S, mrow, window) - lse) : 0.f;
+  const float pv =
+      qi < S ? expf(attn::banded_score(s, scale, qi, kj, kbias, window) - lse) : 0.f;
   *p = pv;
   *ds = pv * (dp - delta);
 }
 
 // ---- fp32: FMA ------------------------------------------------------------------
+//
+// R x R score tiles, 256 threads as 16 x 16, R / 16 rows and columns of the
+// scores and R / 16 rows x D / 16 columns of each accumulator a thread.
 
 namespace simt {
 constexpr int THREADS = 256;
 template <int D>
-constexpr size_t smem_bytes() {  // 4 row tiles of D + 1, 2 score tiles of 65, 2 rows
-  return (size_t)(4 * 64 * (D + 1) + 2 * 64 * 65 + 2 * 64) * sizeof(float);
+__host__ __device__ constexpr int tile() { return D <= 128 ? 64 : 32; }
+template <int D>
+constexpr size_t smem_bytes() {  // 4 row tiles of D + 1, 2 score tiles of R + 1, 2 rows
+  constexpr int R = tile<D>();
+  return (size_t)(4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R) * sizeof(float);
 }
 }  // namespace simt
 
-// Rows r of a [64][D + 1] tile from the packed buffer at lane offset `lane_off`
-// (q: h*D, k: H*D + h*D, v: 2*H*D + h*D), rotated when `rotate`; zeros past S.
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float* tile, const float* base, int r0,
-                                              int lane_off, bool rotate, const Args& args) {
+// Rows r0 .. r0+R-1 of a [R][D + 1] tile from an operand's rows of one
+// (batch, head), rotated when `rotate`; zeros past S.
+template <int D, int R>
+__device__ __forceinline__ void load_rows_f32(float* tile, const float* rows, long long ss,
+                                              int r0, bool rotate, const Args& args) {
   const float* cos_t = static_cast<const float*>(args.cos_t);
   const float* sin_t = static_cast<const float*>(args.sin_t);
-  for (int idx = threadIdx.x; idx < 64 * D; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
     const int r = idx / D, d = idx % D, pos = r0 + r;
     float v = 0.f;
     if (pos < args.S) {
-      const float* row = base + pos * args.stride_s + lane_off;
+      const float* row = rows + pos * ss;
       v = rotate ? rope_elem<float, D>(row, d, cos_t, sin_t, pos) : row[d];
     }
     tile[r * (D + 1) + d] = v;
@@ -130,85 +143,78 @@ __device__ __forceinline__ void load_rows_f32(float* tile, const float* base, in
 }
 
 template <int D>
-__device__ __forceinline__ void load_g_f32(float* tile, const float* g, int r0, int h,
-                                           const Args& args) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += blockDim.x) {
-    const int r = idx / D, d = idx % D, pos = r0 + r;
-    tile[r * (D + 1) + d] = pos < args.S ? g[(size_t)pos * args.H * D + h * D + d] : 0.f;
-  }
-}
-
-template <int D>
 __global__ void __launch_bounds__(simt::THREADS) dkv_fma_kernel(Args args) {
-  constexpr int DJ = D / 16, LD = D + 1;
+  constexpr int R = simt::tile<D>(), RI = R / 16, DJ = D / 16, LD = D + 1, LP = R + 1;
   extern __shared__ float smem[];
-  float* Ks = smem;            // [64][LD]
-  float* Vs = Ks + 64 * LD;    // [64][LD]
-  float* Qs = Vs + 64 * LD;    // [64][LD]
-  float* Gs = Qs + 64 * LD;    // [64][LD] dO
-  float* Ps = Gs + 64 * LD;    // [keys][65]
-  float* Ds = Ps + 64 * 65;    // [keys][65] dS
-  float* lse_s = Ds + 64 * 65;
-  float* delta_s = lse_s + 64;
+  float* Ks = smem;          // [R][LD]
+  float* Vs = Ks + R * LD;   // [R][LD]
+  float* Qs = Vs + R * LD;   // [R][LD]
+  float* Gs = Qs + R * LD;   // [R][LD] dO
+  float* Ps = Gs + R * LD;   // [keys][LP]
+  float* Ds = Ps + R * LP;   // [keys][LP] dS
+  float* lse_s = Ds + R * LP;
+  float* delta_s = lse_s + R;
 
-  const int S = args.S, H = args.H, HD = H * D;
+  const int S = args.S, H = args.H;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const float* base = static_cast<const float*>(args.qkv) + (size_t)b * args.stride_b;
-  const float* g = static_cast<const float*>(args.g) + (size_t)b * S * HD;
+  const int k0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const float* qb = rows_of<const float>(args.q, b, h);
+  const float* kb = rows_of<const float>(args.k, b, h);
+  const float* vb = rows_of<const float>(args.v, b, h);
+  const float* gb = rows_of<const float>(args.g, b, h);
   const float* lse = args.lse + ((size_t)b * H + h) * S;
   const float* delta = args.delta + ((size_t)b * H + h) * S;
   const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
 
-  load_rows_f32<D>(Ks, base, k0, HD + h * D, true, args);
-  load_rows_f32<D>(Vs, base, k0, 2 * HD + h * D, false, args);
+  load_rows_f32<D, R>(Ks, kb, args.k.ss, k0, true, args);
+  load_rows_f32<D, R>(Vs, vb, args.v.ss, k0, false, args);
 
-  float dk[4][DJ] = {}, dv[4][DJ] = {};  // keys ty + 16i, dims tx + 16j
+  float dk[RI][DJ] = {}, dv[RI][DJ] = {};  // keys ty + 16i, dims tx + 16j
   int q_first, q_last;
-  attn::band_range(k0, BK, BQ, S, args.window, &q_first, &q_last);
-  for (int q0 = q_first; q0 <= q_last; q0 += BQ) {
+  attn::band_range(k0, R, R, S, args.window, &q_first, &q_last);
+  for (int q0 = q_first; q0 <= q_last; q0 += R) {
     __syncthreads();  // the previous tile's Qs/Gs/Ps/Ds are consumed
-    load_rows_f32<D>(Qs, base, q0, h * D, true, args);
-    load_g_f32<D>(Gs, g, q0, h, args);
-    if (tid < 64) {
+    load_rows_f32<D, R>(Qs, qb, args.q.ss, q0, true, args);
+    load_rows_f32<D, R>(Gs, gb, args.g.ss, q0, false, args);
+    if (tid < R) {
       lse_s[tid] = q0 + tid < S ? lse[q0 + tid] : 0.f;
       delta_s[tid] = q0 + tid < S ? delta[q0 + tid] : 0.f;
     }
     __syncthreads();
     // S^T and dP^T for keys ty + 16i, queries tx + 16j.
-    float s[4][4] = {}, dp[4][4] = {};
+    float s[RI][RI] = {}, dp[RI][RI] = {};
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], gv[4];
+      float kv[RI], vv[RI], qv[RI], gv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         kv[i] = Ks[(ty + 16 * i) * LD + d];
         vv[i] = Vs[(ty + 16 * i) * LD + d];
         qv[i] = Qs[(tx + 16 * i) * LD + d];
         gv[i] = Gs[(tx + 16 * i) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
           dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kr = ty + 16 * i, qc = tx + 16 * j;
         float p, ds;
-        p_ds(s[i][j], dp[i][j], lse_s[qc], delta_s[qc], args.scale, q0 + qc, k0 + kr, S, mrow,
-             args.window, &p, &ds);
-        Ps[kr * 65 + qc] = p;
-        Ds[kr * 65 + qc] = ds;
+        p_ds(s[i][j], dp[i][j], lse_s[qc], delta_s[qc], args.scale, q0 + qc, k0 + kr, S,
+             attn::key_bias(k0 + kr, S, mrow), args.window, &p, &ds);
+        Ps[kr * LP + qc] = p;
+        Ds[kr * LP + qc] = ds;
       }
     __syncthreads();
 #pragma unroll 4
-    for (int q = 0; q < 64; ++q) {
+    for (int q = 0; q < R; ++q) {
       float gq[DJ], qq[DJ];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
@@ -216,8 +222,8 @@ __global__ void __launch_bounds__(simt::THREADS) dkv_fma_kernel(Args args) {
         qq[j] = Qs[q * LD + tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty + 16 * i) * 65 + q], ds = Ds[(ty + 16 * i) * 65 + q];
+      for (int i = 0; i < RI; ++i) {
+        const float p = Ps[(ty + 16 * i) * LP + q], ds = Ds[(ty + 16 * i) * LP + q];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           dv[i][j] = fmaf(p, gq[j], dv[i][j]);
@@ -229,98 +235,100 @@ __global__ void __launch_bounds__(simt::THREADS) dkv_fma_kernel(Args args) {
 
   const float* cos_t = static_cast<const float*>(args.cos_t);
   const float* sin_t = static_cast<const float*>(args.sin_t);
-  float* dqkv = static_cast<float*>(args.dqkv) + (size_t)b * S * 3 * HD;
+  float* dkb = rows_of<float>(args.dk, b, h);
+  float* dvb = rows_of<float>(args.dv, b, h);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int pos = k0 + ty + 16 * i;
     if (pos >= S) continue;
-    float* row = dqkv + (size_t)pos * 3 * HD;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + 16 * j;  // its rope partner d +- D/2 is column j +- DJ/2
       const float gd = dk[i][j] * args.scale;
       const float go = dk[i][(j + DJ / 2) % DJ] * args.scale;
-      row[HD + h * D + d] = rope_adjoint<float, D>(gd, go, d, cos_t, sin_t, pos);
-      row[2 * HD + h * D + d] = dv[i][j];
+      dkb[pos * args.dk.ss + d] = rope_adjoint<float, D>(gd, go, d, cos_t, sin_t, pos);
+      dvb[pos * args.dv.ss + d] = dv[i][j];
     }
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(simt::THREADS) dq_fma_kernel(Args args) {
-  constexpr int DJ = D / 16, LD = D + 1;
+  constexpr int R = simt::tile<D>(), RI = R / 16, DJ = D / 16, LD = D + 1, LP = R + 1;
   extern __shared__ float smem[];
-  float* Qs = smem;            // [64][LD]
-  float* Gs = Qs + 64 * LD;    // [64][LD] dO
-  float* Ks = Gs + 64 * LD;    // [64][LD]
-  float* Vs = Ks + 64 * LD;    // [64][LD]
-  float* Ds = Vs + 64 * LD;    // [queries][65] dS
+  float* Qs = smem;          // [R][LD]
+  float* Gs = Qs + R * LD;   // [R][LD] dO
+  float* Ks = Gs + R * LD;   // [R][LD]
+  float* Vs = Ks + R * LD;   // [R][LD]
+  float* Ds = Vs + R * LD;   // [queries][LP] dS
 
-  const int S = args.S, H = args.H, HD = H * D;
+  const int S = args.S, H = args.H;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const float* base = static_cast<const float*>(args.qkv) + (size_t)b * args.stride_b;
-  const float* g = static_cast<const float*>(args.g) + (size_t)b * S * HD;
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const float* qb = rows_of<const float>(args.q, b, h);
+  const float* kb = rows_of<const float>(args.k, b, h);
+  const float* vb = rows_of<const float>(args.v, b, h);
+  const float* gb = rows_of<const float>(args.g, b, h);
   const float* lse = args.lse + ((size_t)b * H + h) * S;
   const float* delta = args.delta + ((size_t)b * H + h) * S;
   const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
 
-  load_rows_f32<D>(Qs, base, q0, h * D, true, args);
-  load_g_f32<D>(Gs, g, q0, h, args);
-  float lse_r[4], delta_r[4];
+  load_rows_f32<D, R>(Qs, qb, args.q.ss, q0, true, args);
+  load_rows_f32<D, R>(Gs, gb, args.g.ss, q0, false, args);
+  float lse_r[RI], delta_r[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int q = q0 + ty + 16 * i;
     lse_r[i] = q < S ? lse[q] : 0.f;
     delta_r[i] = q < S ? delta[q] : 0.f;
   }
 
-  float dq[4][DJ] = {};  // queries ty + 16i, dims tx + 16j
+  float dq[RI][DJ] = {};  // queries ty + 16i, dims tx + 16j
   int k_first, k_last;
-  attn::band_range(q0, BQ, BK, S, args.window, &k_first, &k_last);
-  for (int k0 = k_first; k0 <= k_last; k0 += BK) {
+  attn::band_range(q0, R, R, S, args.window, &k_first, &k_last);
+  for (int k0 = k_first; k0 <= k_last; k0 += R) {
     __syncthreads();  // the previous tile's Ks/Vs/Ds are consumed
-    load_rows_f32<D>(Ks, base, k0, HD + h * D, true, args);
-    load_rows_f32<D>(Vs, base, k0, 2 * HD + h * D, false, args);
+    load_rows_f32<D, R>(Ks, kb, args.k.ss, k0, true, args);
+    load_rows_f32<D, R>(Vs, vb, args.v.ss, k0, false, args);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};  // queries ty + 16i, keys tx + 16j
+    float s[RI][RI] = {}, dp[RI][RI] = {};  // queries ty + 16i, keys tx + 16j
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+      float qv[RI], gv[RI], kv[RI], vv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         qv[i] = Qs[(ty + 16 * i) * LD + d];
         gv[i] = Gs[(ty + 16 * i) * LD + d];
         kv[i] = Ks[(tx + 16 * i) * LD + d];
         vv[i] = Vs[(tx + 16 * i) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int qr = ty + 16 * i, kc = tx + 16 * j;
         float p, ds;
-        p_ds(s[i][j], dp[i][j], lse_r[i], delta_r[i], args.scale, q0 + qr, k0 + kc, S, mrow,
-             args.window, &p, &ds);
-        Ds[qr * 65 + kc] = ds;
+        p_ds(s[i][j], dp[i][j], lse_r[i], delta_r[i], args.scale, q0 + qr, k0 + kc, S,
+             attn::key_bias(k0 + kc, S, mrow), args.window, &p, &ds);
+        Ds[qr * LP + kc] = ds;
       }
     __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < 64; ++kk) {
+    for (int kk = 0; kk < R; ++kk) {
       float kv[DJ];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = Ds[(ty + 16 * i) * 65 + kk];
+      for (int i = 0; i < RI; ++i) {
+        const float ds = Ds[(ty + 16 * i) * LP + kk];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) dq[i][j] = fmaf(ds, kv[j], dq[i][j]);
       }
@@ -329,18 +337,17 @@ __global__ void __launch_bounds__(simt::THREADS) dq_fma_kernel(Args args) {
 
   const float* cos_t = static_cast<const float*>(args.cos_t);
   const float* sin_t = static_cast<const float*>(args.sin_t);
-  float* dqkv = static_cast<float*>(args.dqkv) + (size_t)b * S * 3 * HD;
+  float* dqb = rows_of<float>(args.dq, b, h);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int pos = q0 + ty + 16 * i;
     if (pos >= S) continue;
-    float* row = dqkv + (size_t)pos * 3 * HD;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + 16 * j;
       const float gd = dq[i][j] * args.scale;
       const float go = dq[i][(j + DJ / 2) % DJ] * args.scale;
-      row[h * D + d] = rope_adjoint<float, D>(gd, go, d, cos_t, sin_t, pos);
+      dqb[pos * args.dq.ss + d] = rope_adjoint<float, D>(gd, go, d, cos_t, sin_t, pos);
     }
   }
 }
@@ -348,44 +355,41 @@ __global__ void __launch_bounds__(simt::THREADS) dq_fma_kernel(Args args) {
 // ---- bf16: mma.sync ---------------------------------------------------------------
 
 namespace tc {
-constexpr int THREADS = 128;  // 4 warps x 16 rows
+// A pass's CTA: ROWS_W row-warps of 16 rows (its tile) x SPLIT warps that
+// each hold D / SPLIT columns of the accumulators.
 template <int D>
-constexpr size_t smem_bytes() {  // four [64][D + 8] bf16 tiles, two fp32 rows
-  return (size_t)4 * 64 * (D + 8) * sizeof(__nv_bfloat16) + 2 * 64 * sizeof(float);
+struct Shape {
+  static constexpr int KV_ROWS_W = D <= 128 ? 4 : 2;
+  static constexpr int KV_SPLIT = D <= 64 ? 1 : (D <= 128 ? 2 : 4);
+  static constexpr int Q_ROWS_W = 4;
+  static constexpr int Q_SPLIT = D <= 128 ? 1 : 2;
+};
+// Own tiles (two of TILE rows), the other side's two of 64 rows, two fp32 rows
+// (dK/dV pass: lse and delta of the query tile; dQ pass: the key tile's bias).
+template <int D, int TILE>
+constexpr size_t smem_bytes() {
+  return (size_t)(2 * TILE + 2 * OTHER) * (D + 8) * sizeof(__nv_bfloat16) +
+         2 * OTHER * sizeof(float);
 }
 }  // namespace tc
 
-// Rows r0 .. r0+63 of a [64][D + 8] bf16 tile from the packed buffer, 16-byte
-// chunks, rotated when `rotate`; zeros past S.
-template <int D>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* tile, const __nv_bfloat16* base,
-                                               int r0, int lane_off, bool rotate,
+// Rows r0 .. r0+R-1 of a [R][D + 8] bf16 tile from an operand's rows of one
+// (batch, head), 16-byte chunks, rotated when `rotate`; zeros past S.
+template <int D, int R>
+__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* tile, const __nv_bfloat16* rows,
+                                               long long ss, int r0, bool rotate,
                                                const Args& args) {
   constexpr int LD = D + 8, CH = D / 8;
   const __nv_bfloat16* cos_t = static_cast<const __nv_bfloat16*>(args.cos_t);
   const __nv_bfloat16* sin_t = static_cast<const __nv_bfloat16*>(args.sin_t);
-  for (int c = threadIdx.x; c < 64 * CH; c += blockDim.x) {
+  for (int c = threadIdx.x; c < R * CH; c += blockDim.x) {
     const int r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (pos < args.S) {
-      const __nv_bfloat16* row = base + pos * args.stride_s + lane_off;
+      const __nv_bfloat16* row = rows + pos * ss;
       v = rotate ? rope_chunk<D>(row, d0, cos_t, sin_t, pos)
                  : *reinterpret_cast<const uint4*>(row + d0);
     }
-    *reinterpret_cast<uint4*>(tile + r * LD + d0) = v;
-  }
-}
-
-// dO rows r0 .. r0+63 of head h, from g [S, H*D] of one batch row.
-template <int D>
-__device__ __forceinline__ void load_g_bf16(__nv_bfloat16* tile, const __nv_bfloat16* g, int r0,
-                                            int h, const Args& args) {
-  constexpr int LD = D + 8, CH = D / 8;
-  for (int c = threadIdx.x; c < 64 * CH; c += blockDim.x) {
-    const int r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (pos < args.S)
-      v = *reinterpret_cast<const uint4*>(g + (size_t)pos * args.H * D + h * D + d0);
     *reinterpret_cast<uint4*>(tile + r * LD + d0) = v;
   }
 }
@@ -395,127 +399,167 @@ __device__ __forceinline__ void load_g_bf16(__nv_bfloat16* tile, const __nv_bflo
 __device__ __forceinline__ int a_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
 __device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
 
-// The 16 rows x 64 columns products of one warp: s[n-tile][4] += A . B^T,
-// A from register fragments (DC k-chunks), B rows (64 of them) from a
-// [64][LD] tile.
+// A warp's 16 rows of a [.][D + 8] tile as A fragments, one per 16 dims.
 template <int D>
-__device__ __forceinline__ void rows_times_tile(float (*acc)[4], const uint32_t (*a)[4],
-                                                const __nv_bfloat16* tile, int lane) {
-  constexpr int LD = D + 8, DC = D / 16;
+__device__ __forceinline__ void load_a_frags(uint32_t (*a)[4], const __nv_bfloat16* rows16,
+                                             int lane) {
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      uint32_t r[4];
-      ldmatrix_x4(r, tile + (p * 16 + a_col(lane) + (lane & 7)) * LD + c * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(acc[2 * p], a[c], r);
-      mma_bf16_16816(acc[2 * p + 1], a[c], r + 2);
-    }
+  for (int c = 0; c < D / 16; ++c)
+    ldmatrix_x4(a[c], rows16 + a_row(lane) * (D + 8) + c * 16 + a_col(lane));
 }
 
-// out[d-tile][4] += P (16 x 64, as A fragments pa[4][4]) . tile (64 x D).
-template <int D>
-__device__ __forceinline__ void frag_times_tile(float (*acc)[4], const uint32_t (*pa)[4],
+// The 16 rows x 64 columns products of one warp: acc[n-tile][4] += A . B^T,
+// each accumulator summed over the dim chunks in order. A is the warp's 16
+// rows: register fragments `a` (IN_REGS), else read from rows16 in shared
+// memory chunk by chunk; B rows (64 of them) come from a [64][LD] tile.
+template <int D, bool IN_REGS>
+__device__ __forceinline__ void rows_times_tile(float (*acc)[4], const uint32_t (*a)[4],
+                                                const __nv_bfloat16* rows16,
                                                 const __nv_bfloat16* tile, int lane) {
   constexpr int LD = D + 8, DC = D / 16;
+  if constexpr (IN_REGS) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        uint32_t r[4];
+        ldmatrix_x4(r, tile + (p * 16 + a_col(lane) + (lane & 7)) * LD + c * 16 +
+                           ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(acc[2 * p], a[c], r);
+        mma_bf16_16816(acc[2 * p + 1], a[c], r + 2);
+      }
+  } else {
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      uint32_t af[4];
+      ldmatrix_x4(af, rows16 + a_row(lane) * LD + c * 16 + a_col(lane));
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t r[4];
+        ldmatrix_x4(r, tile + (p * 16 + a_col(lane) + (lane & 7)) * LD + c * 16 +
+                           ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(acc[2 * p], af, r);
+        mma_bf16_16816(acc[2 * p + 1], af, r + 2);
+      }
+    }
+  }
+}
+
+// acc[d-tile][4] += P (16 x 64, as A fragments pa[4][4]) . tile (64 rows x DW
+// columns starting at `cols`, a pointer into a [64][LD] tile).
+template <int LD, int DW>
+__device__ __forceinline__ void frag_times_tile(float (*acc)[4], const uint32_t (*pa)[4],
+                                                const __nv_bfloat16* cols, int lane) {
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-    for (int q = 0; q < DC; ++q) {
+    for (int q = 0; q < DW / 16; ++q) {
       uint32_t r[4];
-      ldmatrix_x4_trans(r, tile + (kc * 16 + a_row(lane)) * LD + q * 16 + a_col(lane));
+      ldmatrix_x4_trans(r, cols + (kc * 16 + a_row(lane)) * LD + q * 16 + a_col(lane));
       mma_bf16_16816(acc[2 * q], pa[kc], r);
       mma_bf16_16816(acc[2 * q + 1], pa[kc], r + 2);
     }
 }
 
-// Write a warp's 16 rows x D of an fp32 accumulator into the dqkv lanes at
-// lane_off: scaled, rounded to bf16, and rope-adjoint when `rotate`. Row
-// g (+8) of the warp holds columns nt*8 + 2t + j; a column's rope partner
-// d +- D/2 is n-tile nt +- D/16 of the same thread.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(const float (*acc)[4], float mult, int r0,
-                                                int lane_off, bool rotate, const Args& args,
-                                                __nv_bfloat16* dqkv_b, int lane) {
-  constexpr int NT = D / 8;
+// A warp's 16 rows x DW columns of an fp32 accumulator, times mult and
+// rounded to bf16, into a [.][LD] staging tile at (its first row, its first
+// column). Row g (+8) of the warp holds columns nt*8 + 2t + j.
+template <int LD, int DW>
+__device__ __forceinline__ void stage_rows_bf16(const float (*acc)[4], float mult,
+                                                __nv_bfloat16* at, int lane) {
   const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < DW / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(at + (g + 8 * i) * LD + nt * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[nt][2 * i] * mult, acc[nt][2 * i + 1] * mult);
+}
+
+// Write R staged rows (rounded gradients, [R][D + 8]) to an output operand's
+// rows r0 .. of one (batch, head) in 16-byte chunks, through the rope adjoint
+// when `rotate`.
+template <int D, int R>
+__device__ __forceinline__ void store_staged_bf16(const __nv_bfloat16* staged,
+                                                  __nv_bfloat16* rows, long long ss, int r0,
+                                                  bool rotate, const Args& args) {
+  constexpr int LD = D + 8, CH = D / 8, half = D / 2;
   const __nv_bfloat16* cos_t = static_cast<const __nv_bfloat16*>(args.cos_t);
   const __nv_bfloat16* sin_t = static_cast<const __nv_bfloat16*>(args.sin_t);
-  const int HD3 = 3 * args.H * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int pos = r0 + g + 8 * i;
+  for (int c = threadIdx.x; c < R * CH; c += blockDim.x) {
+    const int r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
     if (pos >= args.S) continue;
-    __nv_bfloat16* row = dqkv_b + (size_t)pos * HD3 + lane_off;
+    uint4 v = *reinterpret_cast<const uint4*>(staged + r * LD + d0);
+    if (rotate) {
+      const int other = d0 < half ? d0 + half : d0 - half;
+      float gd[8], go[8], out[8];
+      unpack8(v, gd);
+      unpack8(*reinterpret_cast<const uint4*>(staged + r * LD + other), go);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float v[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int d = nt * 8 + 2 * t + j;
-        const float gd = round_to<__nv_bfloat16>(acc[nt][2 * i + j] * mult);
-        if (rotate) {
-          const float go =
-              round_to<__nv_bfloat16>(acc[(nt + NT / 2) % NT][2 * i + j] * mult);
-          v[j] = rope_adjoint<__nv_bfloat16, D>(gd, go, d, cos_t, sin_t, pos);
-        } else {
-          v[j] = gd;
-        }
-      }
-      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8 + 2 * t) = __floats2bfloat162_rn(v[0], v[1]);
+      for (int e = 0; e < 8; ++e)
+        out[e] = rope_adjoint<__nv_bfloat16, D>(gd[e], go[e], d0 + e, cos_t, sin_t, pos);
+      v = pack8(out);  // exact: the adjoint's values are bf16 already
     }
+    *reinterpret_cast<uint4*>(rows + pos * ss + d0) = v;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(tc::THREADS) dkv_mma_kernel(Args args) {
+__global__ void __launch_bounds__(tc::Shape<D>::KV_ROWS_W * tc::Shape<D>::KV_SPLIT * 32)
+    dkv_mma_kernel(Args args) {
   using T = __nv_bfloat16;
-  constexpr int LD = D + 8, DC = D / 16;
+  constexpr int ROWS_W = tc::Shape<D>::KV_ROWS_W, SPLIT = tc::Shape<D>::KV_SPLIT;
+  constexpr int TILE = 16 * ROWS_W, DW = D / SPLIT, LD = D + 8, DC = D / 16;
+  constexpr bool IN_REGS = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [64][LD], rotated
-  T* Vs = Ks + 64 * LD;
-  T* Qs = Vs + 64 * LD;  // rotated
-  T* Gs = Qs + 64 * LD;  // dO
-  float* lse_s = reinterpret_cast<float*>(Gs + 64 * LD);
-  float* delta_s = lse_s + 64;
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [TILE][LD], rotated
+  T* Vs = Ks + TILE * LD;                  // [TILE][LD]
+  T* Qs = Vs + TILE * LD;                  // [64][LD], rotated; dK on the way out
+  T* Gs = Qs + OTHER * LD;                 // [64][LD] dO; dV on the way out
+  float* lse_s = reinterpret_cast<float*>(Gs + OTHER * LD);
+  float* delta_s = lse_s + OTHER;
 
-  const int S = args.S, H = args.H, HD = H * D;
+  const int S = args.S, H = args.H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp % ROWS_W, col0 = (warp / ROWS_W) * DW;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const T* base = static_cast<const T*>(args.qkv) + (size_t)b * args.stride_b;
-  const T* gb = static_cast<const T*>(args.g) + (size_t)b * S * HD;
+  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const T* qb = rows_of<const T>(args.q, b, h);
+  const T* gb = rows_of<const T>(args.g, b, h);
   const float* lse = args.lse + ((size_t)b * H + h) * S;
   const float* delta = args.delta + ((size_t)b * H + h) * S;
   const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
 
-  load_rows_bf16<D>(Ks, base, k0, HD + h * D, true, args);
-  load_rows_bf16<D>(Vs, base, k0, 2 * HD + h * D, false, args);
+  load_rows_bf16<D, TILE>(Ks, rows_of<const T>(args.k, b, h), args.k.ss, k0, true, args);
+  load_rows_bf16<D, TILE>(Vs, rows_of<const T>(args.v, b, h), args.v.ss, k0, false, args);
   __syncthreads();
-  // This warp's 16 keys as A fragments: K for S^T = K.Q^T, V for dP^T = V.dO^T.
-  uint32_t ka[DC][4], va[DC][4];
-#pragma unroll
-  for (int c = 0; c < DC; ++c) {
-    ldmatrix_x4(ka[c], Ks + (warp * 16 + a_row(lane)) * LD + c * 16 + a_col(lane));
-    ldmatrix_x4(va[c], Vs + (warp * 16 + a_row(lane)) * LD + c * 16 + a_col(lane));
+  // This warp's 16 keys as A operands: K for S^T = K.Q^T, V for dP^T = V.dO^T.
+  const T* k16 = Ks + rw * 16 * LD;
+  const T* v16 = Vs + rw * 16 * LD;
+  uint32_t ka[IN_REGS ? DC : 1][4], va[IN_REGS ? DC : 1][4];
+  if constexpr (IN_REGS) {
+    load_a_frags<D>(ka, k16, lane);
+    load_a_frags<D>(va, v16, lane);
   }
 
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  // This thread's two keys (rows g and g + 8 of the warp's 16) for the whole walk.
+  const float kbias[2] = {attn::key_bias(k0 + rw * 16 + g, S, mrow),
+                          attn::key_bias(k0 + rw * 16 + g + 8, S, mrow)};
+  float dk[DW / 8][4] = {}, dv[DW / 8][4] = {};
   int q_first, q_last;
-  attn::band_range(k0, BK, BQ, S, args.window, &q_first, &q_last);
-  for (int q0 = q_first; q0 <= q_last; q0 += BQ) {
+  attn::band_range(k0, TILE, OTHER, S, args.window, &q_first, &q_last);
+  for (int q0 = q_first; q0 <= q_last; q0 += OTHER) {
     __syncthreads();  // every warp is done with the previous Qs/Gs
-    load_rows_bf16<D>(Qs, base, q0, h * D, true, args);
-    load_g_bf16<D>(Gs, gb, q0, h, args);
-    if (tid < 64) {
+    load_rows_bf16<D, OTHER>(Qs, qb, args.q.ss, q0, true, args);
+    load_rows_bf16<D, OTHER>(Gs, gb, args.g.ss, q0, false, args);
+    if (tid < OTHER) {
       lse_s[tid] = q0 + tid < S ? lse[q0 + tid] : 0.f;
       delta_s[tid] = q0 + tid < S ? delta[q0 + tid] : 0.f;
     }
     __syncthreads();
     float s[8][4] = {}, dp[8][4] = {};  // 16 keys x 64 queries
-    rows_times_tile<D>(s, ka, Qs, lane);
-    rows_times_tile<D>(dp, va, Gs, lane);
+    rows_times_tile<D, IN_REGS>(s, ka, k16, Qs, lane);
+    rows_times_tile<D, IN_REGS>(dp, va, v16, Gs, lane);
     // P^T and dS^T straight into A fragments (keys x queries), bf16.
     uint32_t pa[4][4], da[4][4];
 #pragma unroll
@@ -523,94 +567,106 @@ __global__ void __launch_bounds__(tc::THREADS) dkv_mma_kernel(Args args) {
       float p[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + warp * 16 + g + 8 * (e >> 1);
+        const int kj = k0 + rw * 16 + g + 8 * (e >> 1);
         const int qc = nt * 8 + 2 * t + (e & 1);
-        p_ds(s[nt][e], dp[nt][e], lse_s[qc], delta_s[qc], args.scale, q0 + qc, kj, S, mrow,
-             args.window, &p[e], &ds[e]);
+        p_ds(s[nt][e], dp[nt][e], lse_s[qc], delta_s[qc], args.scale, q0 + qc, kj, S,
+             kbias[e >> 1], args.window, &p[e], &ds[e]);
       }
       pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
       pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
       da[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
       da[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    frag_times_tile<D>(dv, pa, Gs, lane);  // dV += P^T . dO
-    frag_times_tile<D>(dk, da, Qs, lane);  // dK += dS^T . Q
+    frag_times_tile<LD, DW>(dv, pa, Gs + col0, lane);  // dV += P^T . dO
+    frag_times_tile<LD, DW>(dk, da, Qs + col0, lane);  // dK += dS^T . Q
   }
 
-  T* dqkv_b = static_cast<T*>(args.dqkv) + (size_t)b * S * 3 * HD;
-  store_rows_bf16<D>(dk, args.scale, k0 + warp * 16, HD + h * D, args.cos_t != nullptr, args,
-                     dqkv_b, lane);
-  store_rows_bf16<D>(dv, 1.f, k0 + warp * 16, 2 * HD + h * D, false, args, dqkv_b, lane);
+  __syncthreads();  // every warp is done with Qs/Gs: they stage dK and dV
+  stage_rows_bf16<LD, DW>(dk, args.scale, Qs + rw * 16 * LD + col0, lane);
+  stage_rows_bf16<LD, DW>(dv, 1.f, Gs + rw * 16 * LD + col0, lane);
+  __syncthreads();
+  store_staged_bf16<D, TILE>(Qs, rows_of<T>(args.dk, b, h), args.dk.ss, k0,
+                             args.cos_t != nullptr, args);
+  store_staged_bf16<D, TILE>(Gs, rows_of<T>(args.dv, b, h), args.dv.ss, k0, false, args);
 }
 
 template <int D>
-__global__ void __launch_bounds__(tc::THREADS) dq_mma_kernel(Args args) {
+__global__ void __launch_bounds__(tc::Shape<D>::Q_ROWS_W * tc::Shape<D>::Q_SPLIT * 32)
+    dq_mma_kernel(Args args) {
   using T = __nv_bfloat16;
-  constexpr int LD = D + 8, DC = D / 16;
+  constexpr int ROWS_W = tc::Shape<D>::Q_ROWS_W, SPLIT = tc::Shape<D>::Q_SPLIT;
+  constexpr int TILE = 16 * ROWS_W, DW = D / SPLIT, LD = D + 8, DC = D / 16;
+  constexpr bool IN_REGS = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [64][LD], rotated
-  T* Gs = Qs + 64 * LD;                    // dO
-  T* Ks = Gs + 64 * LD;                    // rotated
-  T* Vs = Ks + 64 * LD;
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [TILE][LD], rotated
+  T* Gs = Qs + TILE * LD;                  // [TILE][LD] dO
+  T* Ks = Gs + TILE * LD;                  // [64][LD], rotated; dQ on the way out
+  T* Vs = Ks + OTHER * LD;                 // [64][LD]
+  float* kbias = reinterpret_cast<float*>(Vs + OTHER * LD);  // [64]: the key tile's bias
 
-  const int S = args.S, H = args.H, HD = H * D;
+  const int S = args.S, H = args.H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp % ROWS_W, col0 = (warp / ROWS_W) * DW;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const T* base = static_cast<const T*>(args.qkv) + (size_t)b * args.stride_b;
-  const T* gb = static_cast<const T*>(args.g) + (size_t)b * S * HD;
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const T* kb = rows_of<const T>(args.k, b, h);
+  const T* vb = rows_of<const T>(args.v, b, h);
   const float* lse = args.lse + ((size_t)b * H + h) * S;
   const float* delta = args.delta + ((size_t)b * H + h) * S;
   const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
 
-  load_rows_bf16<D>(Qs, base, q0, h * D, true, args);
-  load_g_bf16<D>(Gs, gb, q0, h, args);
+  load_rows_bf16<D, TILE>(Qs, rows_of<const T>(args.q, b, h), args.q.ss, q0, true, args);
+  load_rows_bf16<D, TILE>(Gs, rows_of<const T>(args.g, b, h), args.g.ss, q0, false, args);
   __syncthreads();
-  uint32_t qa[DC][4], ga[DC][4];
-#pragma unroll
-  for (int c = 0; c < DC; ++c) {
-    ldmatrix_x4(qa[c], Qs + (warp * 16 + a_row(lane)) * LD + c * 16 + a_col(lane));
-    ldmatrix_x4(ga[c], Gs + (warp * 16 + a_row(lane)) * LD + c * 16 + a_col(lane));
+  const T* q16 = Qs + rw * 16 * LD;
+  const T* g16 = Gs + rw * 16 * LD;
+  uint32_t qa[IN_REGS ? DC : 1][4], ga[IN_REGS ? DC : 1][4];
+  if constexpr (IN_REGS) {
+    load_a_frags<D>(qa, q16, lane);
+    load_a_frags<D>(ga, g16, lane);
   }
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int q = q0 + warp * 16 + g + 8 * i;
+    const int q = q0 + rw * 16 + g + 8 * i;
     lse_r[i] = q < S ? lse[q] : 0.f;
     delta_r[i] = q < S ? delta[q] : 0.f;
   }
 
-  float dq[D / 8][4] = {};
+  float dq[DW / 8][4] = {};
   int k_first, k_last;
-  attn::band_range(q0, BQ, BK, S, args.window, &k_first, &k_last);
-  for (int k0 = k_first; k0 <= k_last; k0 += BK) {
+  attn::band_range(q0, TILE, OTHER, S, args.window, &k_first, &k_last);
+  for (int k0 = k_first; k0 <= k_last; k0 += OTHER) {
     __syncthreads();  // every warp is done with the previous Ks/Vs
-    load_rows_bf16<D>(Ks, base, k0, HD + h * D, true, args);
-    load_rows_bf16<D>(Vs, base, k0, 2 * HD + h * D, false, args);
+    load_rows_bf16<D, OTHER>(Ks, kb, args.k.ss, k0, true, args);
+    load_rows_bf16<D, OTHER>(Vs, vb, args.v.ss, k0, false, args);
+    if (tid < OTHER) kbias[tid] = attn::key_bias(k0 + tid, S, mrow);
     __syncthreads();
     float s[8][4] = {}, dp[8][4] = {};  // 16 queries x 64 keys
-    rows_times_tile<D>(s, qa, Ks, lane);
-    rows_times_tile<D>(dp, ga, Vs, lane);
+    rows_times_tile<D, IN_REGS>(s, qa, q16, Ks, lane);
+    rows_times_tile<D, IN_REGS>(dp, ga, g16, Vs, lane);
     uint32_t da[4][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       float p[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
-        const int kj = k0 + nt * 8 + 2 * t + (e & 1);
-        p_ds(s[nt][e], dp[nt][e], lse_r[e >> 1], delta_r[e >> 1], args.scale, qi, kj, S, mrow,
-             args.window, &p[e], &ds[e]);
+        const int qi = q0 + rw * 16 + g + 8 * (e >> 1);
+        const int kc = nt * 8 + 2 * t + (e & 1);
+        p_ds(s[nt][e], dp[nt][e], lse_r[e >> 1], delta_r[e >> 1], args.scale, qi, k0 + kc, S,
+             kbias[kc], args.window, &p[e], &ds[e]);
       }
       da[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
       da[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    frag_times_tile<D>(dq, da, Ks, lane);  // dQ += dS . K
+    frag_times_tile<LD, DW>(dq, da, Ks + col0, lane);  // dQ += dS . K
   }
 
-  T* dqkv_b = static_cast<T*>(args.dqkv) + (size_t)b * S * 3 * HD;
-  store_rows_bf16<D>(dq, args.scale, q0 + warp * 16, h * D, args.cos_t != nullptr, args, dqkv_b,
-                     lane);
+  __syncthreads();  // every warp is done with Ks: it stages dQ
+  stage_rows_bf16<LD, DW>(dq, args.scale, Ks + rw * 16 * LD + col0, lane);
+  __syncthreads();
+  store_staged_bf16<D, TILE>(Ks, rows_of<T>(args.dq, b, h), args.dq.ss, q0,
+                             args.cos_t != nullptr, args);
 }
 
 template <typename Kernel>
@@ -631,34 +687,78 @@ int run(const Args& args, int batch, cudaStream_t s) {
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   if constexpr (sizeof(T) == 4) {
-    err = launch(dkv_fma_kernel<D>, args, batch, BK, simt::THREADS, simt::smem_bytes<D>(), s);
+    constexpr int R = simt::tile<D>();
+    err = launch(dkv_fma_kernel<D>, args, batch, R, simt::THREADS, simt::smem_bytes<D>(), s);
     if (err != 0) return err;
-    return launch(dq_fma_kernel<D>, args, batch, BQ, simt::THREADS, simt::smem_bytes<D>(), s);
+    return launch(dq_fma_kernel<D>, args, batch, R, simt::THREADS, simt::smem_bytes<D>(), s);
   } else {
-    err = launch(dkv_mma_kernel<D>, args, batch, BK, tc::THREADS, tc::smem_bytes<D>(), s);
+    using Shape = tc::Shape<D>;
+    constexpr int KV_TILE = 16 * Shape::KV_ROWS_W, Q_TILE = 16 * Shape::Q_ROWS_W;
+    err = launch(dkv_mma_kernel<D>, args, batch, KV_TILE, Shape::KV_ROWS_W * Shape::KV_SPLIT * 32,
+                 tc::smem_bytes<D, KV_TILE>(), s);
     if (err != 0) return err;
-    return launch(dq_mma_kernel<D>, args, batch, BQ, tc::THREADS, tc::smem_bytes<D>(), s);
+    return launch(dq_mma_kernel<D>, args, batch, Q_TILE, Shape::Q_ROWS_W * Shape::Q_SPLIT * 32,
+                  tc::smem_bytes<D, Q_TILE>(), s);
+  }
+}
+
+}  // namespace
+
+namespace attn {
+int OPT_ATTN_CAT(backward_d, OPT_HEAD_DIM)(const BwdArgs& args, int batch, int dtype,
+                                            cudaStream_t stream) {
+  if (dtype == DTYPE_F32) return run<float, OPT_HEAD_DIM>(args, batch, stream);
+  if (dtype == DTYPE_BF16) return run<__nv_bfloat16, OPT_HEAD_DIM>(args, batch, stream);
+  return (int)cudaErrorInvalidValue;
+}
+}  // namespace attn
+
+#else  // ---- the entry points --------------------------------------------------
+
+namespace attn {
+#define OPT_ATTN_DECLARE(D) int backward_d##D(const BwdArgs&, int, int, cudaStream_t);
+OPT_ATTN_FOR_EACH_D(OPT_ATTN_DECLARE)
+#undef OPT_ATTN_DECLARE
+}  // namespace attn
+
+namespace {
+
+int backward(const attn::BwdArgs& args, int batch, int head_dim, int dtype, void* stream) {
+  if (batch <= 0 || args.S <= 0 || args.H <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+#define OPT_ATTN_CASE(D) \
+  case D:                \
+    return attn::backward_d##D(args, batch, dtype, s);
+    OPT_ATTN_FOR_EACH_D(OPT_ATTN_CASE)
+#undef OPT_ATTN_CASE
+    default:  // no instance: the wrapper refuses other head dims
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // window < 0 means a global layer; cos_t/sin_t may be null (no rotary) and
-// mask may be null (no key padding). qkv strides are in elements; out, g and
-// dqkv are contiguous; delta is scratch of batch * heads * seq floats.
-extern "C" int opt_flash_attention_packed_bwd(const void* qkv, const int* mask, const void* cos_t,
-                                              const void* sin_t, const void* out,
-                                              const float* lse, const void* g, float* delta,
-                                              void* dqkv, int batch, int seq, int heads,
-                                              int head_dim, long long stride_b,
-                                              long long stride_s, int window, float scale,
-                                              int dtype, void* stream) {
-  if (batch <= 0 || seq <= 0) return 0;
-  const Args args{qkv, mask, cos_t, sin_t, out, lse, g, delta, dqkv,
-                  seq, heads, stride_b, stride_s, window, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;  // the wrapper refuses others
-  if (dtype == DTYPE_F32) return run<float, 64>(args, batch, s);
-  if (dtype == DTYPE_BF16) return run<__nv_bfloat16, 64>(args, batch, s);
-  return (int)cudaErrorInvalidValue;
+// mask may be null (no key padding); delta is scratch of batch * heads * seq
+// floats.
+// q, k, v, out, g, dq, dk, dv: [B, H, S, D] with the (batch, head, row)
+// strides given, in elements: three ints each, in that order, in `strides`.
+extern "C" int opt_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                       const int* mask, const void* cos_t, const void* sin_t,
+                                       const void* out, const float* lse, const void* g,
+                                       float* delta, void* dq, void* dk, void* dv, int batch,
+                                       int seq, int heads, int head_dim,
+                                       const long long* strides, int window, float scale,
+                                       int dtype, void* stream) {
+  const void* ptrs[8] = {q, k, v, out, g, dq, dk, dv};
+  attn::Strided t[8];
+  for (int i = 0; i < 8; ++i)
+    t[i] = attn::Strided{const_cast<void*>(ptrs[i]), strides[3 * i], strides[3 * i + 1],
+                         strides[3 * i + 2]};
+  const attn::BwdArgs args{t[0], t[1], t[2], t[3],  t[4], t[5],  t[6],   t[7], mask,
+                           cos_t, sin_t, lse, delta, seq,  heads, window, scale};
+  return backward(args, batch, head_dim, dtype, stream);
 }
+
+#endif  // OPT_HEAD_DIM

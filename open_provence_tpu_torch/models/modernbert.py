@@ -10,9 +10,15 @@ path. The default, bias-free layout:
 * attention on the packed Wqkv output (kernel 3) with rotary in-kernel,
   theta and window per layer: every ``global_attn_every_n_layers``-th layer
   is global (160k theta), the others see keys within ±local_attention//2
-  (10k theta);
+  (10k theta); head dims 32, 64, 128 and 256 and any head count go through
+  the same call, which reads the buffer through strides;
 * mlp_norm deferred past the residual add and folded into the Wi GEMM with
-  the GeGLU epilogue (kernel 4); Wo stays a plain ``nn.Linear``;
+  the GeGLU epilogue (kernel 4); Wo stays a plain ``nn.Linear``. With the
+  gate ``OPEN_PROVENCE_TPU_FUSED_MLP_TAIL`` (the JAX package's own name and
+  values, read when the module is built) at ``1`` the whole MLP, Wo
+  included, is one kernel forward (kernel 8) and backward (kernel 13); at
+  ``bwd`` the forward stays split and only the backward is fused; at ``0``
+  neither. The default is what the H100 measured fastest (``PERF.md``);
 * both the last hidden state before ``final_norm`` (read by the pruning
   head) and after it (read by the ranking head).
 
@@ -45,6 +51,8 @@ recomputes each layer in the backward (``torch.utils.checkpoint``), as
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -52,7 +60,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModernBertBackboneConfig
 from ..ops.flash_attention import flash_attention_packed
-from ..ops.geglu import geglu, ln_geglu, ln_matmul, lookup_activation
+from ..ops.geglu import (
+    geglu,
+    geglu_wo_supported,
+    ln_geglu,
+    ln_geglu_wo,
+    ln_matmul,
+    lookup_activation,
+)
 from ..ops.layer_norm import add_layer_norm, layer_norm, layer_norm_plain
 from ..ops.rotary import rope_tables
 from .heads import dropout
@@ -128,12 +143,28 @@ class ModernBertAttention(nn.Module):
         return self.Wo(out)
 
 
+MLP_TAIL_GATE = "OPEN_PROVENCE_TPU_FUSED_MLP_TAIL"
+MLP_TAIL_DEFAULT = "0"
+
+
+def mlp_tail_gate() -> str:
+    """The whole-MLP fusion's gate: ``"1"`` (forward and backward fused),
+    ``"bwd"`` (only the backward) or ``"0"`` (split: kernel 4 or 11 and a
+    plain Wo)."""
+    value = os.environ.get(MLP_TAIL_GATE, MLP_TAIL_DEFAULT)
+    if value not in ("0", "1", "bwd"):
+        raise ValueError(f"{MLP_TAIL_GATE} must be 0, 1 or bwd, not {value!r}")
+    return value
+
+
 class ModernBertMLP(nn.Module):
     """GeGLU MLP: Wi → act(input)·gate, then Wo. Bias-free, Wi and the gate
-    run in one kernel, with mlp_norm folded in when its scale is passed."""
+    run in one kernel, with mlp_norm folded in when its scale is passed; the
+    gate (read here, when the module is built) folds Wo in too."""
 
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
+        self.fused_tail = mlp_tail_gate() if cfg.mlp_dropout == 0.0 else "0"
         self.activation = cfg.hidden_activation
         self.act = lookup_activation(cfg.hidden_activation)[1]
         self.Wi = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=cfg.mlp_bias)
@@ -148,6 +179,15 @@ class ModernBertMLP(nn.Module):
             inp, gate = self.Wi(x).chunk(2, dim=-1)
             return self.Wo(self.act(inp) * gate)
         x2d = x.reshape(-1, x.shape[-1])
+        if (
+            ln_scale is not None
+            and self.fused_tail != "0"
+            and geglu_wo_supported(x2d.shape[1], self.Wo.in_features, x.dtype, self.activation)
+        ):
+            return ln_geglu_wo(
+                x2d, ln_scale, self.Wi.weight, self.Wo.weight, self.activation, ln_eps,
+                fuse_forward=self.fused_tail == "1",
+            ).reshape(x.shape)
         if ln_scale is None:
             hidden = geglu(x2d, self.Wi.weight, self.activation)
         else:

@@ -1,9 +1,17 @@
-"""Plain attention: the numerics reference for the packed kernel.
+"""Plain attention, the numerics reference for the attention kernels, and
+the dispatch over separate q, k, v.
 
-Einsum attention with an additive mask and fp32 softmax, as the JAX
-package's ``ops/attention.py::xla_attention`` (which matches HF eager
-attention, the path the published checkpoints were evaluated with). The
-probabilities are cast to the q dtype before the product with v.
+``attention_plain`` is einsum attention with an additive mask and fp32
+softmax, as the JAX package's ``ops/attention.py::xla_attention`` (which
+matches HF eager attention, the path the published checkpoints were
+evaluated with). The probabilities are cast to the q dtype before the
+product with v.
+
+``multi_head_attention`` is the JAX package's function of that name without
+its ``impl`` argument, for callers that hold q, k, v apart: it is
+``flash_attention`` (kernels 9 and 16 on CUDA tensors, their plain versions
+on CPU tensors). On the card a head dim the kernels have no instance for
+raises; on the CPU any head dim is computed.
 """
 
 from __future__ import annotations
@@ -51,3 +59,19 @@ def attention_plain(
     """q/k/v: [B, H, S, D] → [B, H, S, D]; scores and softmax in fp32."""
     probs = torch.softmax(attention_scores(q, k, bias), dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
+
+
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    padding_mask: torch.Tensor | None,
+    window: int | None,
+    rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Attention on q, k, v [B, H, S, D] → [B, H, S, D]. With
+    ``rope=(cos, sin)`` q and k arrive unrotated. Differentiable in q, k, v."""
+    from .flash_attention import flash_attention
+
+    return flash_attention(q, k, v, padding_mask=padding_mask, window=window, rope=rope)

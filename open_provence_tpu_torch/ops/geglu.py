@@ -1,7 +1,9 @@
 """LayerNorm folded into its GEMM: kernels 2 and 4
 (``kernels/csrc/ln_gemm.cu``), their backward kernels 12 and 11
 (``kernels/csrc/ln_gemm_bwd.cu``), the GeGLU GEMM without a norm (kernel 6,
-``ln_gemm.cu``) and the plain versions of all five.
+``ln_gemm.cu``), the whole MLP in one kernel (kernel 8,
+``kernels/csrc/mlp_tail.cu``, and its backward kernel 13,
+``kernels/csrc/mlp_tail_bwd.cu``) and the plain versions of all seven.
 
 * ``ln_matmul``: LN(x)·scale @ Wᵀ — attn_norm → Wqkv in layers 1 and up
   (JAX: ``ops/geglu.py::fused_ln_matmul``).
@@ -13,6 +15,12 @@
   kernel in the JAX package either (``_geglu_bwd`` is ``jax.vjp`` of the
   plain composition), so here it is autograd through ``geglu_plain`` on both
   devices, ``torch.matmul`` and all.
+* ``ln_geglu_wo``: ``ln_geglu`` followed by Wo, (act·gate) @ Woᵀ, in one
+  kernel, the [M, I] product never in device memory (JAX:
+  ``ops/geglu.py::fused_ln_geglu_wo``). ``fuse_forward=False`` keeps the
+  forward split (``ln_geglu`` then a plain product with Wo: the same rounding
+  points, so the same values) and fuses only the backward, the JAX gate's
+  ``bwd`` form.
 
 Weights are in torch's ``[out, in]`` layout. Numerics follow the JAX
 kernels: the normalized x is rounded to the storage dtype before the
@@ -159,6 +167,65 @@ def ln_geglu_bwd_plain(
     dwi = (cot.t() @ xn).to(wi.dtype)
     dx, dscale = ln_adjoint(h, rstd, scale, cot @ wi.to(h.dtype))
     return dx.to(dtype), dscale.to(scale.dtype), dwi
+
+
+def ln_geglu_wo_plain(
+    x2d: torch.Tensor, scale: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+    activation: str, eps: float = 1e-5,
+) -> torch.Tensor:
+    """(act(LN(x2d)·scale @ wi[:I]ᵀ) · (LN(x2d)·scale @ wi[I:]ᵀ)) @ wo[K, I]ᵀ →
+    [M, K], step by step with kernel 8's rounding points: the normalized
+    rows, inp and gate rounded to x's dtype, act(inp) rounded, h = act·gate in
+    x's dtype, every product summed in at least fp32 and rounded once."""
+    dtype = x2d.dtype
+    xn, _, _ = _normalized(x2d, scale, eps)
+    acc = xn.dtype
+    act = lookup_activation(activation)[1]
+    inp, gate = (xn @ wi.to(acc).t()).to(dtype).chunk(2, dim=-1)
+    h = act(inp.to(acc)).to(dtype) * gate
+    return (h.to(acc) @ wo.to(acc).t()).to(dtype)
+
+
+def ln_geglu_wo_bwd_plain(
+    x2d: torch.Tensor, scale: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+    g: torch.Tensor, activation: str, eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dwi, dwo) of ``ln_geglu_wo_plain`` for the cotangent g
+    [M, K], as kernel 13 computes them: recompute xn, [inp | gate] rounded,
+    a = act(inp) rounded, h = a·gate rounded; dwo = gᵀ·h; dh = g·wo in fp32;
+    gi = dh·act′(inp)·gate and gg = dh·a, each rounded; dwi = [gi | gg]ᵀ·xn,
+    dy = [gi | gg]·wi in fp32, then the LN adjoint."""
+    act = lookup_activation(activation)[1]
+    act_grad = ACTIVATION_GRADS[activation]
+    dtype = x2d.dtype
+    xn, hn, rstd = _normalized(x2d, scale, eps)
+    acc = hn.dtype
+    inp, gate = (xn @ wi.to(acc).t()).to(dtype).to(acc).chunk(2, dim=-1)
+    a = act(inp).to(dtype).to(acc)
+    h = (a * gate).to(dtype).to(acc)
+    gf = g.to(dtype).to(acc)
+    dwo = (gf.t() @ h).to(wo.dtype)
+    dh = gf @ wo.to(acc)
+    cot = torch.cat([(dh * act_grad(inp) * gate).to(dtype), (dh * a).to(dtype)], dim=-1).to(acc)
+    dwi = (cot.t() @ xn).to(wi.dtype)
+    dx, dscale = ln_adjoint(hn, rstd, scale, cot @ wi.to(acc))
+    return dx.to(dtype), dscale.to(scale.dtype), dwi, dwo
+
+
+# The widest hidden size the whole-MLP kernels hold a row tile's output for
+# in registers (mlp_tail.cu: 16 n8-tiles a warp, 8 warps).
+GEGLU_WO_MAX_HIDDEN = 1024
+
+
+def geglu_wo_supported(k: int, intermediate: int, dtype: torch.dtype, activation: str) -> bool:
+    """True where kernels 8 and 13 run on the card: an activation they know,
+    fp32 or bf16, K up to 1024, and in bf16 K a multiple of 16 (one
+    tensor-core step) and I a multiple of 8 (16-byte rows)."""
+    if activation not in ACTIVATIONS or k > GEGLU_WO_MAX_HIDDEN:
+        return False
+    if dtype == torch.float32:
+        return True
+    return dtype == torch.bfloat16 and k % 16 == 0 and intermediate % 8 == 0
 
 
 def _check_operands(x2d, scale, w, rows_of_w_per_out):
@@ -337,6 +404,80 @@ def ln_geglu_bwd(
     return _geglu_bwd_kernel(x2d, scale, wi, g.contiguous(), act_code, eps)
 
 
+def _check_wo(x2d, wi, wo, activation):
+    k, intermediate = x2d.shape[1], wi.shape[0] // 2
+    if wo.shape != (k, intermediate) or wo.dtype != x2d.dtype or wo.device != x2d.device:
+        raise ValueError(
+            f"wo must be [{k}, {intermediate}] {x2d.dtype} on {x2d.device}; got "
+            f"{tuple(wo.shape)} {wo.dtype} on {wo.device}"
+        )
+    kernels.dtype_code(x2d)
+    if not geglu_wo_supported(k, intermediate, x2d.dtype, activation):
+        raise ValueError(
+            f"the whole-MLP kernels take K <= {GEGLU_WO_MAX_HIDDEN} (bf16: K % 16 == 0 and "
+            f"I % 8 == 0); got K={k}, I={intermediate}, {x2d.dtype}"
+        )
+    if x2d.dtype == torch.bfloat16:
+        kernels.require_16_byte_rows(wo)
+
+
+def _geglu_wo_operands(x2d, scale, wi, wo, activation):
+    """The operands contiguous and checked, for a CUDA launch."""
+    x2d, scale, wi, wo = (t.contiguous() for t in (x2d, scale, wi, wo))
+    _check_operands(x2d, scale, wi, 2)
+    _check_wo(x2d, wi, wo, activation)
+    return x2d, scale, wi, wo
+
+
+def _geglu_wo_forward(x2d, scale, wi, wo, activation, eps):
+    """(out, x2d, scale, wi, wo): kernel 8 on CUDA tensors, the plain version
+    on CPU tensors; the operands as the backward takes them."""
+    act_code = lookup_activation(activation)[0]
+    if not kernels.on_cuda(x2d):
+        kernels.count_plain("ln_geglu_wo")
+        return ln_geglu_wo_plain(x2d, scale, wi, wo, activation, eps), x2d, scale, wi, wo
+    x2d, scale, wi, wo = _geglu_wo_operands(x2d, scale, wi, wo, activation)
+    m, k = x2d.shape
+    out, xn = torch.empty_like(x2d), torch.empty_like(x2d)  # xn: scratch, the normalized rows
+    with torch.cuda.device(x2d.device):
+        code = kernels.library().opt_ln_geglu_wo(
+            *(kernels.ptr(t) for t in (x2d, scale, wi, wo, out, xn)), m, k, wi.shape[0] // 2,
+            float(eps), act_code, kernels.dtype_code(x2d), kernels.stream(x2d),
+        )
+    kernels.check(code, "ln_geglu_wo")
+    return out, x2d, scale, wi, wo
+
+
+def ln_geglu_wo_bwd(
+    x2d: torch.Tensor, scale: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+    g: torch.Tensor, activation: str, eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dwi, dwo) of ``ln_geglu_wo``: kernel 13 for CUDA tensors,
+    the plain version for CPU tensors."""
+    act_code = lookup_activation(activation)[0]
+    if not kernels.on_cuda(x2d):
+        kernels.count_plain("ln_geglu_wo_bwd")
+        return ln_geglu_wo_bwd_plain(x2d, scale, wi, wo, g, activation, eps)
+    x2d, scale, wi, wo = _geglu_wo_operands(x2d, scale, wi, wo, activation)
+    m, k = x2d.shape
+    intermediate = wi.shape[0] // 2
+    g = g.to(x2d.dtype).contiguous()
+    _check_bwd(x2d, g, k)
+    dx, dwi, dwo, dscale = (torch.empty_like(t) for t in (x2d, wi, wo, scale))
+    xn, dy, partial = _bwd_scratch(x2d)
+    h = torch.empty((m, intermediate), dtype=x2d.dtype, device=x2d.device)
+    cot = torch.empty((m, 2 * intermediate), dtype=x2d.dtype, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        code = kernels.library().opt_ln_geglu_wo_bwd(
+            *(kernels.ptr(t) for t in (x2d, scale, wi, wo, g, dx, dwi, dwo, dscale, xn, h, cot,
+                                       dy, partial)),
+            m, k, intermediate, float(eps), act_code, kernels.dtype_code(x2d),
+            kernels.stream(x2d),
+        )
+    kernels.check(code, "ln_geglu_wo_bwd")
+    return dx, dscale, dwi, dwo
+
+
 class LnMatmulFunction(torch.autograd.Function):
     """LN(x2d)·scale @ wᵀ with its adjoint: kernels 2 and 12 for CUDA
     tensors, the plain versions for CPU tensors."""
@@ -392,6 +533,47 @@ def ln_geglu(
     if kernels.records_grad(x2d, scale, wi):
         return LnGegluFunction.apply(x2d, scale, wi, activation, eps)
     return _geglu_forward(x2d, scale, wi, activation, eps)[0]
+
+
+class LnGegluWoFunction(torch.autograd.Function):
+    """The whole MLP, (act(LN(x2d)·scale @ wi[:I]ᵀ)·(LN(x2d)·scale @ wi[I:]ᵀ))
+    @ woᵀ, with its adjoint: kernels 8 and 13 for CUDA tensors, the plain
+    versions for CPU tensors. With ``fuse_forward`` false the forward is
+    kernel 4 and a plain product with wo, and only the backward is fused."""
+
+    @staticmethod
+    def forward(ctx, x2d, scale, wi, wo, activation, eps, fuse_forward):
+        if fuse_forward:
+            out, *operands = _geglu_wo_forward(x2d, scale, wi, wo, activation, eps)
+        else:
+            hidden, *operands = _geglu_forward(x2d, scale, wi, activation, eps)
+            out = F.linear(hidden, wo)
+            operands.append(wo)
+        ctx.save_for_backward(*operands)
+        ctx.activation, ctx.eps = activation, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, scale, wi, wo = ctx.saved_tensors
+        grads = ln_geglu_wo_bwd(x2d, scale, wi, wo, g, ctx.activation, ctx.eps)
+        return (*grads, None, None, None)
+
+
+def ln_geglu_wo(
+    x2d: torch.Tensor, scale: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+    activation: str, eps: float = 1e-5, *, fuse_forward: bool = True,
+) -> torch.Tensor:
+    """The whole MLP on rows x2d [M, K] → [M, K], wi [2I, K] and wo [K, I]
+    in torch's layout: the CUDA kernels for CUDA tensors, the plain versions
+    for CPU tensors; differentiable in x2d, scale, wi and wo. ``fuse_forward``
+    false computes the forward as ``ln_geglu`` and a plain product with wo
+    and fuses only the backward."""
+    if kernels.records_grad(x2d, scale, wi, wo):
+        return LnGegluWoFunction.apply(x2d, scale, wi, wo, activation, eps, fuse_forward)
+    if fuse_forward:
+        return _geglu_wo_forward(x2d, scale, wi, wo, activation, eps)[0]
+    return F.linear(_geglu_forward(x2d, scale, wi, activation, eps)[0], wo)
 
 
 class GegluFunction(torch.autograd.Function):

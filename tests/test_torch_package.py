@@ -109,10 +109,14 @@ def test_build_names_library_by_source_hash():
         "layer_norm", "ln_matmul", "flash_attention_packed", "ln_geglu",
         "layer_norm_bwd", "ln_geglu_bwd", "flash_attention_packed_bwd", "ln_matmul_bwd",
         "add_layer_norm", "geglu",
+        "flash_attention", "flash_attention_bwd", "ln_geglu_wo", "ln_geglu_wo_bwd",
     )
     assert kernels.DEFAULT_PATH_KERNELS == kernels.KERNELS[:8]
     for name in (*kernels.SOURCES, *kernels.HEADERS):
         assert (kernels.CSRC / name).is_file(), name
+    # One nvcc unit a source, the attention sources also one per head dim.
+    assert len(kernels.UNITS) == len(kernels.SOURCES) + 2 * len(kernels.ATTENTION_HEAD_DIMS)
+    assert {src for src, _ in kernels.UNITS} == set(kernels.SOURCES)
 
 
 def test_unported_bias_configs_raise():
@@ -218,6 +222,7 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype):
     assert kernels.launch_counts() == {
         **dict.fromkeys(kernels.KERNELS, 0),
         "layer_norm": 1, "ln_matmul": 2, "flash_attention_packed": 2, "ln_geglu": 2,
+        "flash_attention": 2,  # one kernel, counted under both names
     }
 
 
@@ -385,4 +390,148 @@ def test_trainer_keeps_cuda_params_on_the_card(cuda_device, tmp_path):
     assert np.isfinite(trainer.train_one_step(batch)["loss"])
     counts = kernels.launch_counts()
     assert min(counts[name] for name in kernels.DEFAULT_PATH_KERNELS) > 0, counts
+    assert not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,head_dim", [(24, 32), (12, 64), (6, 128), (3, 256)])
+@pytest.mark.parametrize("batch,seq", [(3, 200), (4, 512)])
+def test_unpacked_attention_kernels_match_plain_on_cuda(cuda_device, dtype, heads, head_dim,
+                                                        batch, seq):
+    """Kernels 9 and 16 against their plain versions on the card, every head
+    layout of width 768, at a ragged S = 200 and at the serving S = 512:
+    contiguous [B, H, S, D] tensors and strided views of a packed buffer give
+    the same bits, and so does the packed wrapper."""
+    from open_provence_tpu_torch import kernels, ops
+
+    rng = np.random.default_rng(seq + head_dim)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype, device=cuda_device)
+
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    fwd_tol = 1e-4 if dtype == torch.float32 else 3e-2
+    qkv = t(batch, seq, 3 * heads * head_dim)
+    mask = torch.ones(batch, seq, dtype=torch.int32, device=cuda_device)
+    mask[1, seq - 50:] = 0
+    mask[-1] = 0  # a padding row
+    valid = mask.bool()
+    g_packed = t(batch, seq, heads * head_dim) * mask[..., None].to(dtype)
+    g = g_packed.view(batch, seq, heads, head_dim).transpose(1, 2)
+    views = ops.packed_views(qkv, heads)
+    q, k, v = (x.contiguous() for x in views)
+    kernels.reset_launch_counts()
+    for window, theta in ((None, 160000.0), (64, 10000.0)):
+        kw = dict(padding_mask=mask, window=window,
+                  rope=ops.rope_tables(seq, head_dim, theta, dtype, cuda_device))
+        out, lse = ops.flash_attention_lse(q, k, v, **kw)
+        out_p, lse_p = ops.attention_unpacked_plain(q, k, v, **kw, return_lse=True)
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+        rows = valid[:, None, :].expand(batch, heads, seq)
+        torch.testing.assert_close(out[rows].float(), out_p[rows].float(), atol=fwd_tol,
+                                   rtol=fwd_tol)
+        torch.testing.assert_close(lse[rows], lse_p[rows], atol=1e-4, rtol=1e-4)
+        grads = ops.flash_attention_bwd(q, k, v, g, out, lse, **kw)
+        wants = ops.attention_unpacked_bwd_plain(q, k, v, g, out, lse, **kw)
+        for got, want in zip(grads, wants):
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got.float(), want.float(), rtol=rel,
+                                       atol=rel * want.float().abs().max().item())
+        # Strided views of the packed buffer: the same bits.
+        out_v, lse_v = ops.flash_attention_lse(*views, **kw)
+        assert torch.equal(out_v, out) and torch.equal(lse_v, lse)
+        for got, want in zip(ops.flash_attention_bwd(*views, g, out_v, lse_v, **kw), grads):
+            assert torch.equal(got, want)
+        # The packed wrapper on the buffer: the same bits.
+        merged = torch.cat([x.transpose(1, 2).reshape(batch, seq, -1) for x in grads], dim=-1)
+        pkw = dict(num_heads=heads, **kw)
+        out_k, lse_k = ops.flash_attention_packed_lse(qkv, **pkw)
+        assert torch.equal(out_k.view(batch, seq, heads, head_dim).transpose(1, 2), out)
+        assert torch.equal(lse_k, lse)
+        assert torch.equal(ops.flash_attention_packed_bwd(qkv, g_packed, out_k, lse_k, **pkw),
+                           merged)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 6 and counts["flash_attention_bwd"] == 6
+    assert counts["flash_attention_packed"] == 6 and counts["flash_attention_packed_bwd"] == 6
+    assert not any(kernels.plain_counts().values())
+    # Through autograd: the model's one call.
+    leaf = qkv.clone().requires_grad_()
+    ops.flash_attention_packed(leaf, num_heads=heads, padding_mask=mask, window=64,
+                               rope=kw["rope"]).float().mul(g_packed.float()).sum().backward()
+    assert torch.equal(leaf.grad, merged)
+    after = kernels.launch_counts()
+    assert after["flash_attention"] == 7 and after["flash_attention_bwd"] == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,inter,act", [(77, 128, 72, "silu"), (1000, 768, 1152, "gelu"),
+                                           (130, 1024, 200, "gelu_new"), (64, 256, 64, "relu")])
+def test_whole_mlp_kernels_match_plain_on_cuda(cuda_device, dtype, m, k, inter, act):
+    """Kernels 8 and 13 against their plain versions on the card: a small
+    ragged shape, the base width, the widest K and every activation; the
+    backward gives the same bits twice; the Function launches both."""
+    from open_provence_tpu_torch import kernels, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rng.normal(size=shape) * s, dtype=dtype, device=cuda_device)
+
+    x, scale = t(m, k, s=2.0), t(k, s=0.1) + 1
+    wi, wo, g = t(2 * inter, k, s=k**-0.5), t(k, inter, s=inter**-0.5), t(m, k, s=0.1)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    kernels.reset_launch_counts()
+    out = ops.ln_geglu_wo(x, scale, wi, wo, act)
+    torch.testing.assert_close(out.float(), ops.ln_geglu_wo_plain(x, scale, wi, wo, act).float(),
+                               atol=tol, rtol=tol)
+    grads = ops.ln_geglu_wo_bwd(x, scale, wi, wo, g, act)
+    for got, want in zip(grads, ops.ln_geglu_wo_bwd_plain(x, scale, wi, wo, g, act)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rel,
+                                   atol=rel * want.float().abs().max().item())
+    assert all(torch.equal(a, b)
+               for a, b in zip(grads, ops.ln_geglu_wo_bwd(x, scale, wi, wo, g, act)))
+    for fuse_forward in (True, False):
+        leaves = [v.clone().requires_grad_() for v in (x, scale, wi, wo)]
+        ops.ln_geglu_wo(*leaves, act, fuse_forward=fuse_forward).backward(g)
+        assert all(torch.equal(leaf.grad, want) for leaf, want in zip(leaves, grads))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["ln_geglu_wo"] == 2 and counts["ln_geglu_wo_bwd"] == 4
+    assert counts["ln_geglu"] == 1 and not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_where_no_kernel_instance_exists(cuda_device):
+    """A dtype or a head dim the kernels have no instance for raises on the
+    card; nothing falls back to a plain version."""
+    from open_provence_tpu_torch import kernels, ops
+
+    half = dict(dtype=torch.float16, device=cuda_device)
+    q = torch.zeros(1, 2, 64, 64, **half)
+    kernels.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q, q, q, padding_mask=None, window=None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.ln_geglu_wo(torch.zeros(8, 64, **half), torch.ones(64, **half),
+                        torch.zeros(128, 64, **half), torch.zeros(64, 64, **half), "gelu")
+    q48 = torch.zeros(1, 2, 64, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="instantiated for head_dim"):
+        ops.flash_attention(q48, q48, q48, padding_mask=None, window=None)
+    with pytest.raises(ValueError, match="instantiated for head_dim"):
+        ops.multi_head_attention(q48, q48, q48, padding_mask=None, window=None)
+    with pytest.raises(ValueError, match="instantiated for head_dim"):
+        ops.flash_attention_packed(torch.zeros(1, 64, 3 * 2 * 48, device=cuda_device),
+                                   num_heads=2, padding_mask=None, window=None)
+    with pytest.raises(ValueError, match="whole-MLP kernels"):
+        ops.ln_geglu_wo(torch.zeros(8, 2048, device=cuda_device),
+                        torch.ones(2048, device=cuda_device),
+                        torch.zeros(128, 2048, device=cuda_device),
+                        torch.zeros(2048, 64, device=cuda_device), "gelu")
+    assert not any(kernels.launch_counts().values())
     assert not any(kernels.plain_counts().values())
