@@ -15,7 +15,11 @@ card and check it, in phases:
    adjoint with the residual cotangent gh;
 3c. the attention kernels, forward and backward, at S = 1024, 2048, 4096
    and a ragged 1100 (window ±64 and global, ragged masks, a padding row),
-   fp32 and bf16, with times at B=8, S=2048; the one-call PyTorch
+   fp32 and bf16; then, for every head layout, what tiles, an asynchronous
+   ring and skipped key tiles make fragile: S = 65, 513, 1100, B = 1,
+   windows 0, 16, 128 and one past S, masks with holes and a wholly padded
+   stretch inside a valid row, batches whose rows are all short, the
+   backward twice, bit-equal; times at B=8, S=2048; the one-call PyTorch
    counterparts (F.layer_norm, scaled_dot_product_attention and their
    autograd backwards) timed beside the kernels, and each kernel's bound;
 3d. attention on separate q, k, v (kernels 9 and 16) against its plain
@@ -65,6 +69,10 @@ card and check it, in phases:
 ``python3 chip_smoke.py --rates [TREE]`` measures only the serving and
 training rates at B=32, S=512 of the package under TREE (default: this
 checkout), so that two trees can be compared inside one call.
+``python3 chip_smoke.py --attention [TREE]`` builds TREE's kernels, prints
+the attention units' ptxas report and designs, runs the edge cases of phase
+3c and times the packed attention forward and backward in bf16 at the
+shapes of the table of TPU kernels.
 
 Every phase prints a line; any failure raises and the script exits
 non-zero without printing a result. The line before the last is the JSON
@@ -240,6 +248,23 @@ def library_note(name: str, ms: float | None) -> str:
     return "timed in phase 3c" if name.startswith("flash_attention") else "none"
 
 
+def design_note(head_dim: int, backward: bool) -> str:
+    """Which design the bf16 attention kernel of a head dim runs, the ring's
+    stages and the tile shape, as the library was compiled."""
+    from open_provence_tpu_torch import kernels
+
+    d = kernels.attention_design(head_dim, backward)
+    return f"{d['products']}, {d['fill']}, {d['stages']} stage(s), tile {d['tile']}"
+
+
+def attention_designs(backward: bool) -> dict:
+    """The design of every head dim's bf16 kernel, for the kernel table."""
+    from open_provence_tpu_torch import kernels
+
+    return {f"d{dim}": kernels.attention_design(dim, backward)
+            for dim in kernels.ATTENTION_HEAD_DIMS}
+
+
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
     atol, rtol = TOL[dtype]
     got, want = got.float(), want.float()
@@ -385,7 +410,8 @@ def phase3_kernels(dev) -> dict[str, dict]:
                                            bound_ms_window64=local_bound["bound_ms"])
     phase(f"phase 3 time flash_attention_packed window=64: kernel {local[0]:.4f} ms, "
           f"plain {local[1]:.4f} ms, bound {local_bound['bound_ms']:.4f} ms by "
-          f"{local_bound['bound_by']}")
+          f"{local_bound['bound_by']}; D={HEAD_DIM}: {design_note(HEAD_DIM, False)}")
+    stats["flash_attention_packed"]["design"] = attention_designs(False)
     add_then_ln = cuda_ms(lambda: ops.layer_norm(x + y, scale))
     stats["add_layer_norm"]["add_then_layer_norm_ms"] = add_then_ln
     phase(f"phase 3 time add_layer_norm against an add followed by kernel 1: "
@@ -492,7 +518,9 @@ def phase3b_backward(dev) -> dict[str, dict]:
         bound_ms_window64=attention_bound(mask, 64, True)["bound_ms"])
     phase(f"phase 3b time flash_attention_packed_bwd window=64: kernel {window_ms[0]:.4f} ms, "
           f"plain {window_ms[1]:.4f} ms, bound "
-          f"{stats['flash_attention_packed_bwd']['bound_ms_window64']:.4f} ms")
+          f"{stats['flash_attention_packed_bwd']['bound_ms_window64']:.4f} ms; D={HEAD_DIM}: "
+          f"{design_note(HEAD_DIM, True)}")
+    stats["flash_attention_packed_bwd"]["design"] = attention_designs(True)
     bounds = gemm_bounds(rows)
     bounds["flash_attention_packed_bwd"] = attention_bound(mask, None, True)
     library = dict.fromkeys(timings)
@@ -586,6 +614,8 @@ def phase3c_long_context(dev, stats: dict[str, dict]) -> None:
                 del out_p, lse_p
             torch.cuda.synchronize()
 
+    attention_edge_cases(dev, stats)
+
     # Times at the long-context training and serving shape, and the library
     # call beside the kernels at both shapes (global layers only).
     dtype = torch.bfloat16
@@ -607,11 +637,103 @@ def phase3c_long_context(dev, stats: dict[str, dict]) -> None:
                                f"bound_ms{suffix}": b["bound_ms"]})
                     phase(f"phase 3c time attention {'backward' if backward else 'forward'} "
                           f"B={batch} S={seq} window={window} bf16: kernel {ms:.4f} ms, plain "
-                          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+                          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
+                          f"D={HEAD_DIM}: {design_note(HEAD_DIM, backward)}")
         lib_f, lib_b = library_attention_ms(qkv, rope, mask, g)
         fwd[f"library_ms{label}"], bwd[f"library_ms{label}"] = lib_f, lib_b
         phase(f"phase 3c time scaled_dot_product_attention (no rope) B={batch} S={seq} global "
               f"bf16: forward {lib_f:.4f} ms, autograd backward {lib_b:.4f} ms")
+
+
+def edge_mask(batch: int, seq: int, gen: torch.Generator, device, short: bool = False):
+    """Key masks that are no prefix: each row valid up to a random length (in
+    [seq/2, seq], row 0 full; with ``short`` every row under seq/2), with
+    single padded keys scattered through it and, where it fits, one wholly
+    padded stretch of 130 keys (so at least one aligned 64-key tile holds no
+    valid key) in the middle of the valid run."""
+    lo, hi = (max(seq // 8, 1), max(seq // 2 - 1, 2)) if short else (seq // 2, seq + 1)
+    lengths = torch.randint(lo, hi, (batch,), generator=gen)
+    if not short:
+        lengths[0] = seq
+    mask = (torch.arange(seq)[None, :] < lengths[:, None]).to(torch.int32)
+    holes = torch.rand(batch, seq, generator=gen) < 0.05
+    mask[holes] = 0
+    for row, length in enumerate(lengths.tolist()):
+        if length >= 130 + 32:
+            start = int(torch.randint(8, length - 130 - 8, (1,), generator=gen))
+            mask[row, start:start + 130] = 0
+        mask[row, 0] = 1  # never an empty row here
+    return mask.to(device)
+
+
+def attention_case(qkv, mask, g, heads: int, window, dtype, what: str):
+    """The packed attention kernels, forward and backward, against their plain
+    versions on one input: (out, lse, dqkv) max errors under TOL / BWD_TOL,
+    out and lse on the valid rows (g is zero on the others). The backward
+    runs twice and must give the same bits."""
+    from open_provence_tpu_torch import ops
+
+    batch, seq, width = qkv.shape
+    head_dim = width // (3 * heads)
+    theta = 160000.0 if window is None else 10000.0
+    kw = dict(num_heads=heads, padding_mask=mask, window=window,
+              rope=ops.rope_tables(seq, head_dim, theta, dtype, qkv.device))
+    valid = mask.bool()
+    out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+    out_p, lse_p = ops.attention_packed_plain(qkv, **kw, return_lse=True)
+    if not (torch.isfinite(lse).all() and torch.isfinite(out).all()):
+        raise AssertionError(f"attention {what}: out or lse is not finite")
+    out_err = check_close(f"attention out {what}", out[valid], out_p[valid], dtype)
+    lse_err = check_close(f"attention lse {what}", lse.transpose(1, 2)[valid],
+                          lse_p.transpose(1, 2)[valid], torch.float32)
+    dqkv = ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw)
+    grad_err = check_grad(f"attention dqkv {what}", dqkv,
+                          ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw), dtype)
+    again = ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw)
+    if not (torch.equal(again, dqkv)
+            and torch.equal(ops.flash_attention_packed_lse(qkv, **kw)[0], out)):
+        raise AssertionError(f"attention {what}: two runs on one input gave different bits")
+    return out_err, lse_err, grad_err
+
+
+def attention_edge_cases(dev, stats: dict[str, dict], layouts=HEAD_LAYOUTS) -> None:
+    """What an asynchronously filled ring, wgmma tiles and skipped key tiles
+    make fragile, every head layout, fp32 and bf16: S that is no multiple of
+    the tile (65, 513, 1100), B = 1, windows 0, 16, 64, 128 and one past S
+    beside global, masks with holes and a wholly padded stretch inside a valid
+    row, a batch whose rows are all under S/2."""
+    gen = torch.Generator().manual_seed(39)
+    names = ("flash_attention_packed", "flash_attention", "flash_attention_packed_bwd",
+             "flash_attention_bwd")
+    for name in names:
+        stats.setdefault(name, {"max_abs_err": {}})
+    count = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = [0.0, 0.0, 0.0]
+        for heads, head_dim in layouts:
+            main = (heads, head_dim) == (HEADS, HEAD_DIM)
+            shapes = [(1, 65, False), (3, 513, False), (2, 1100, False), (4, 512, True)]
+            if main:
+                shapes += [(1, 513, False), (1, 1100, False), (2, 2048, True)]
+            for batch, seq, short in shapes:
+                qkv = torch.randn(batch, seq, 3 * HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+                mask = edge_mask(batch, seq, gen, dev, short)
+                g = (torch.randn(batch, seq, HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+                     * mask[..., None].to(dtype))
+                windows = (None, 0, 16, 64, 128, seq + 7) if main else (None, 16, 128)
+                for window in windows:
+                    what = f"{heads}x{head_dim} B={batch} S={seq} window={window} {dtype}"
+                    errs = attention_case(qkv, mask, g, heads, window, dtype, what)
+                    worst = [max(a, b) for a, b in zip(worst, errs)]
+                    count += 1
+            torch.cuda.synchronize()
+        for name, err in zip(names, (worst[0], worst[0], worst[2], worst[2])):
+            by_dtype = stats[name]["max_abs_err"]
+            by_dtype[dtype] = max(by_dtype.get(dtype, 0.0), err)
+        phase(f"phase 3c edge cases {str(dtype)[6:]}: max_abs_err out {worst[0]:.3e}, lse "
+              f"{worst[1]:.3e}, dqkv {worst[2]:.3e} over {count} cases so far (ragged S, B=1, "
+              f"windows 0..S+7, masks with holes and padded stretches, short rows; the backward "
+              f"twice, bit-equal)")
 
 
 def phase3d_head_layouts(dev, stats: dict[str, dict]) -> None:
@@ -627,6 +749,7 @@ def phase3d_head_layouts(dev, stats: dict[str, dict]) -> None:
     gen = torch.Generator().manual_seed(37)
     fwd = stats.setdefault("flash_attention", {"max_abs_err": {}})
     bwd = stats.setdefault("flash_attention_bwd", {"max_abs_err": {}})
+    fwd["design"], bwd["design"] = attention_designs(False), attention_designs(True)
     packed_fwd, packed_bwd = stats["flash_attention_packed"], stats["flash_attention_packed_bwd"]
     shapes = [(32, 512, h, d) for h, d in HEAD_LAYOUTS] + [(8, 2048, 24, 32), (8, 2048, 3, 256)]
 
@@ -722,7 +845,8 @@ def phase3d_head_layouts(dev, stats: dict[str, dict]) -> None:
                 phase(f"phase 3d time attention {'backward' if backward else 'forward'} B={batch} "
                       f"{heads}x{head_dim} S={seq} window={window} bf16: kernel {ms:.4f} ms "
                       f"(packed buffer, lse written: {packed_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-                      f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+                      f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}; D={head_dim}: "
+                      f"{design_note(head_dim, backward)}")
         lib_f, lib_b = library_attention_ms(qkv, rope, mask, g_packed, heads, head_dim)
         fwd[f"library_ms{label}"], bwd[f"library_ms{label}"] = lib_f, lib_b
         if headline:
@@ -1023,6 +1147,8 @@ def plain_ops():
 OUR_KERNELS = {
     ("flash_mma_kernel",): "attention fwd", ("dkv_mma_kernel",): "attention bwd dK/dV",
     ("dq_mma_kernel",): "attention bwd dQ", ("delta_kernel",): "attention bwd delta",
+    ("flash_wgmma_kernel",): "attention fwd", ("dkv_wgmma_kernel",): "attention bwd dK/dV",
+    ("dq_wgmma_kernel",): "attention bwd dQ",
     ("gemm_mma_kernel",): "GEMM engine (LN->GEMM, GeGLU; fwd and bwd)",
     ("ln_adjoint", "row_kernel"): "LN adjoint rows",
     ("ln_adjoint", "reduce_kernel"): "LN adjoint dscale",
@@ -1838,6 +1964,56 @@ def rates_main(tree: Path) -> int:
     return 0
 
 
+def attention_main(tree: Path) -> int:
+    """The attention kernels of the package under ``tree`` alone: the ptxas
+    report of their units, the edge cases against the plain versions, then
+    the packed wrapper's forward and backward times in bf16 at
+    the shapes of the table of TPU kernels (B=32, S=512 and B=8, S=2048,
+    global and +-64, every head layout at S=512), so that two trees can be
+    compared inside one call. One JSON line."""
+    sys.path.insert(0, str(tree))
+    from open_provence_tpu_torch import kernels, ops
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kernels.library()
+    entry = ""
+    for line in kernels.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and ("flash" in entry or "dkv" in entry or "dq_" in entry):
+            phase(f"ptxas {entry}: {line.split(':', 1)[1].strip()}")
+        elif "warning" in line or "spill" in line and "0 bytes spill stores" not in line:
+            phase(f"ptxas {entry}: {line.strip()}")
+    if hasattr(kernels, "attention_design"):  # an older tree has one design and no report
+        for _, head_dim in HEAD_LAYOUTS:
+            phase(f"design D={head_dim}: forward {design_note(head_dim, False)}; backward "
+                  f"{design_note(head_dim, True)}")
+    attention_edge_cases(dev, {})
+    gen = torch.Generator().manual_seed(41)
+    dtype, times = torch.bfloat16, {}
+    shapes = [(32, 512, h, d) for h, d in HEAD_LAYOUTS] + [(8, 2048, HEADS, HEAD_DIM)]
+    for batch, seq, heads, head_dim in shapes:
+        qkv = torch.randn(batch, seq, 3 * HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+        mask = ragged_mask(batch, seq, gen, dev)
+        mask[-1] = 0
+        g = (torch.randn(batch, seq, HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+             * mask[..., None].to(dtype))
+        for window, theta in ((None, 160000.0), (64, 10000.0)):
+            kw = dict(num_heads=heads, padding_mask=mask, window=window,
+                      rope=ops.rope_tables(seq, head_dim, theta, dtype, dev))
+            out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+            key = f"{heads}x{head_dim}_b{batch}_s{seq}_window{window}"
+            fwd = [cuda_ms(lambda: ops.flash_attention_packed(qkv, **kw)) for _ in range(3)]
+            bwd = [cuda_ms(lambda: ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw))
+                   for _ in range(3)]
+            times[key] = {"forward_ms": min(fwd), "backward_ms": min(bwd)}
+            phase(f"time attention {key} bf16: forward {min(fwd):.4f} ms, backward "
+                  f"{min(bwd):.4f} ms (lowest of 3 means of 20)")
+    print(json.dumps({"tree": str(tree), "card": card, "attention": times}), flush=True)
+    return 0
+
+
 def load_dummy_tokenizers():
     """tests/dummy_tokenizers.py's DummyTokenizer and PairDummyTokenizer,
     loaded by path (an installed package may own the top-level name
@@ -1861,10 +2037,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if len(sys.argv) > 1:
-        if sys.argv[1] != "--rates" or len(sys.argv) > 3:
-            print("usage: chip_smoke.py [--rates [TREE]]", file=sys.stderr)
+        modes = ("--rates", "--attention")
+        if sys.argv[1] not in modes or len(sys.argv) > 3:
+            print(f"usage: chip_smoke.py [{' | '.join(modes)} [TREE]]", file=sys.stderr)
             return 2
-        return rates_main(Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else REPO)
+        tree = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else REPO
+        if sys.argv[1] == "--rates":
+            return rates_main(tree)
+        return attention_main(tree)
     sys.path.insert(0, str(REPO))
     from open_provence_tpu_torch import init_params, kernels, native
 

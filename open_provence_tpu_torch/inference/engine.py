@@ -27,6 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import kernels
 from ..configs import OpenProvenceConfig
 from ..models.model import (
     OpenProvenceModule,
@@ -254,15 +255,14 @@ class OpenProvenceModel:
         device_pooling: bool = True,
     ):
         """``state_dict`` has the reference checkpoint names (see
-        ``utils/convert.py``). ``device`` defaults to the first CUDA card if
-        there is one, else the CPU; ``dtype`` defaults to bf16 on CUDA and
-        to the weights' own dtype on the CPU. ``bucket_step`` is the length
+        ``utils/convert.py``). ``device`` defaults to the first CUDA card and
+        raises where there is none: the CPU is taken only when asked for with
+        ``device="cpu"``. ``dtype`` defaults to bf16 on CUDA and to the
+        weights' own dtype on the CPU. ``bucket_step`` is the length
         bucket granularity: the kernels take any S, so 64 wastes at most 63
         padded positions a row."""
         self.config = config
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = kernels.first_card() if device is None else torch.device(device)
         if dtype is None and self.device.type == "cuda":
             dtype = torch.bfloat16
         self.module = OpenProvenceModule(config.backbone(), config.pruning_head())

@@ -39,7 +39,7 @@ SOURCES = (
 )
 HEADERS = (
     "common.cuh", "activation.cuh", "attention_common.cuh", "gemm.cuh", "ln_adjoint.cuh",
-    "mlp_tail.cuh",
+    "mlp_tail.cuh", "hopper.cuh", "attention_wgmma.cuh",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # The head dims the attention kernels are instantiated for
@@ -170,6 +170,7 @@ def build() -> Path:
         logs = [proc.communicate()[0] for proc in compiles]
         log = "".join(logs)
         failed = [name for name, proc in zip(names, compiles) if proc.returncode != 0]
+        report = "".join(out for out, proc in zip(logs, compiles) if proc.returncode != 0)
         if not failed:
             link = subprocess.run(
                 [nvcc_path(), *ARCH_FLAGS, "-shared", *map(str, objects), "-o", str(tmp)],
@@ -177,13 +178,13 @@ def build() -> Path:
             )
             log += link.stdout + link.stderr
             if link.returncode != 0:
-                failed = ["link"]
+                failed, report = ["link"], link.stdout + link.stderr
         lib_path.with_suffix(".log").write_text(log)
         for obj in objects:
             obj.unlink(missing_ok=True)
         if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log[-6000:]}")
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{report[:6000]}")
         os.replace(tmp, lib_path)
     return lib_path
 
@@ -214,10 +215,35 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"opt_{name}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.opt_flash_attention_design.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.opt_flash_attention_design.restype = ctypes.c_int
     lib.opt_error_string.argtypes = [ctypes.c_int]
     lib.opt_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def attention_design(head_dim: int, backward: bool = False) -> dict:
+    """How the bf16 attention kernels of ``head_dim`` were built (it is fixed
+    at compile time): the route to the tensor cores, how the streamed side
+    reaches shared memory, the ring's stages and the tile shape."""
+    out = (ctypes.c_int * 5)()
+    if library().opt_flash_attention_design(head_dim, int(backward), out) != 0:
+        raise ValueError(f"no attention kernel for head_dim {head_dim}")
+    wgmma, stages, own_rows, streamed_rows, other_rows = out
+    if backward:
+        tile = f"dK/dV {own_rows}x{streamed_rows}, dQ {other_rows}x{streamed_rows}"
+    elif other_rows != own_rows:
+        tile = f"{other_rows}x{streamed_rows} global, {own_rows}x{streamed_rows} with a window"
+    else:
+        tile = f"{own_rows}x{streamed_rows}"
+    return {
+        "products": "wgmma" if wgmma else "mma.sync",
+        "fill": ("cp.async ring with mbarriers, a producer warpgroup" if wgmma
+                 else "loads between two barriers a tile"),
+        "stages": stages,
+        "tile": tile,
+    }
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -238,6 +264,18 @@ def on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def first_card() -> torch.device:
+    """The device an entry point runs on when none is named: the first CUDA
+    card. Without one it raises instead of carrying on on the CPU, which is
+    for callers that ask for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'device=None means the first CUDA card, and there is none here; pass device="cpu" '
+            "to run on the CPU"
+        )
+    return torch.device("cuda", 0)
 
 
 def records_grad(*tensors: torch.Tensor) -> bool:

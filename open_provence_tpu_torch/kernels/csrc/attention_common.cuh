@@ -144,6 +144,35 @@ __device__ __forceinline__ void band_range(int t0, int tile, int step, int S, in
   *last = hi;
 }
 
+// e^x as one ex2.approx (the bf16 kernels; the fp32 kernels keep expf).
+__device__ __forceinline__ float exp_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// Whether the key tiles from row `first` to row `last` hold a valid key; all
+// threads of the CTA call it (it is a barrier). False without a mask.
+__device__ __forceinline__ bool walk_has_valid_key(const int* mrow, int first, int last, int tid,
+                                                   int threads) {
+  if (mrow == nullptr) return false;
+  bool any = false;
+  for (int i = first + tid; i <= last; i += threads) any |= mrow[i] != 0;
+  return __syncthreads_or(any) != 0;
+}
+
+// The barrier at the top of a key tile's turn, which also says whether the
+// tile is walked: always, unless `skip_padded` and its 64 keys from row k0 on
+// hold no valid key.
+__device__ __forceinline__ bool tile_barrier(bool skip_padded, const int* mrow, int k0, int S,
+                                             int tid) {
+  if (!skip_padded) {
+    __syncthreads();
+    return true;
+  }
+  return __syncthreads_or(tid < BK && k0 + tid < S && mrow[k0 + tid] != 0) != 0;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);

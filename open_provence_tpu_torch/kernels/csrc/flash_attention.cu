@@ -33,17 +33,32 @@
 // keys are all masked has every score at -FLT_MAX, so its lse is -FLT_MAX
 // too (log l vanishes beside it) and stays finite.
 //
-// bf16 (the serving dtype): both products on tensor cores (mma.sync
-// m16n8k16, fp32 accumulation), FlashAttention-2 style: each of 4 warps owns
-// 16 query rows and keeps its scores, softmax state and output accumulator
-// in registers; P goes from the score accumulators to the P.V operand
-// without touching shared memory. fp32: the same walk with fp32 FMA from
-// shared memory (true fp32). The work is 4*S*S*D FLOPs a head for global
-// layers, so the tensor-core rate bounds it; overlapping the K/V loads
-// (cp.async/TMA) and wgmma are later work. A warp's 16 x D fp32 output is
-// D/2 registers a thread; past D = 128 the Q fragments are read from shared
-// memory at each key tile instead of living in D/4 more registers.
-#include "attention_common.cuh"
+// What bounds it on this card. By the shapes a global layer is bound by
+// operations at long S (4*S*S*D a head on the tensor cores) and by bytes at
+// S = 512 and for every +-64 layer; in practice a kernel here is bound by
+// latency long before either: a key tile's loads, the dependent chain of its
+// softmax (32 exponentials a thread through the special-function unit, which
+// at D = 64 is as busy as the tensor cores) and the wgmma chains all have to
+// be waited out by somebody.
+//
+// bf16, D = 32, 64, 128 (attention_wgmma.cuh has the shared design): a CTA is
+// a producer warpgroup, which fills a ring of key tiles in shared memory with
+// cp.async and rotates K there one tile ahead of its use, and three consumer
+// warpgroups of 64 query rows each that meet it only at mbarriers: no load
+// sits between two barriers. Both products run on wgmma from the swizzled
+// tiles (S = Q.K^T with both operands in shared memory, P from the
+// accumulator's registers as the A operand of P.V, V read MN-major). The
+// softmax runs in base 2 with scale * log2(e) folded into the score and one
+// ex2.approx a score, lse stays in natural log. Key tiles without a valid key
+// are not walked. 192-row CTAs read K and V a third as often as 64-row ones;
+// three warpgroups an SM overlap one's products with another's exponentials.
+// bf16, D = 256: mma.sync m16n8k16 as before (each of 4 warps owns 16 query
+// rows, Q fragments read from shared memory at each key tile), with ex2 and
+// the skipped key tiles: a 64 x 256 output beside the scores leaves no
+// registers for three warpgroups. fp32: the same walk with fp32 FMA from
+// shared memory (true fp32), unchanged: it exists for parity, no main path
+// runs it.
+#include "attention_wgmma.cuh"
 
 #ifdef OPT_HEAD_DIM  // ---- the kernels of one head dim ------------------------
 
@@ -249,24 +264,24 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
 
   // This warp's query rows: qrow = 16*warp + g, and qrow + 8. ldmatrix row
   // addresses: lane l points at row l % 8 (+8 for lanes 8-15 and 24-31) and
-  // column +8 for lanes 16-31 (A operand order).
+  // column +8 for lanes 16-31 (A operand order). The Q fragments are read
+  // from shared memory at each key tile: at the head dims this kernel still
+  // serves (wgmma carries the others) they would not fit beside the output.
+  static_assert(!attn::wg::forward_carried<D>(), "this head dim runs on wgmma");
   const int qrow = warp * 16 + g;
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  constexpr bool Q_IN_REGS = D <= 128;
-  uint32_t qa[Q_IN_REGS ? DC : 1][4];
-  if constexpr (Q_IN_REGS) {
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      ldmatrix_x4(qa[c], Qs + (warp * 16 + a_row) * LD + c * 16 + a_col);
-  }
 
   float o[2 * DC][4] = {};
   float m_run[2] = {OPT_NEG_BIG, OPT_NEG_BIG}, l_run[2] = {0.f, 0.f};
 
   int k_first, k_last;
   attn::band_range(q0, BQ, BK, S, args.window, &k_first, &k_last);
+  // A key tile without a valid key is left out wherever the walk holds a
+  // valid key at all (attention_wgmma.cuh has the argument).
+  const bool skip_padded = attn::walk_has_valid_key(mrow, k_first, k_last, tid, THREADS);
   for (int k0 = k_first; k0 <= k_last; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous Ks/Vs
+    // Every warp is done with the previous Ks/Vs.
+    if (!attn::tile_barrier(skip_padded, mrow, k0, S, tid)) continue;
     // Four chunks' loads in flight a thread (all of a D = 64 tile's).
 #pragma unroll 4
     for (int it = 0; it < BK * CH / THREADS; ++it) {
@@ -288,29 +303,16 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
     // dim chunks c in order. B operand = K rows (keys) read 16 keys x 16 dims
     // per ldmatrix.x4: r0/r1 key tile 2p, r2/r3 tile 2p+1.
     float s[KN][4] = {};
-    if constexpr (Q_IN_REGS) {
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {  // one Q fragment at a time, read where it is needed
+      uint32_t qf[4];
+      ldmatrix_x4(qf, Qs + (warp * 16 + a_row) * LD + c * 16 + a_col);
 #pragma unroll
       for (int p = 0; p < KN / 2; ++p) {
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          uint32_t r[4];
-          ldmatrix_x4(r, Ks + (p * 16 + a_col + (lane & 7)) * LD + c * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(s[2 * p], qa[c], r);
-          mma_bf16_16816(s[2 * p + 1], qa[c], r + 2);
-        }
-      }
-    } else {  // one Q fragment at a time, read where it is needed
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        uint32_t qf[4];
-        ldmatrix_x4(qf, Qs + (warp * 16 + a_row) * LD + c * 16 + a_col);
-#pragma unroll
-        for (int p = 0; p < KN / 2; ++p) {
-          uint32_t r[4];
-          ldmatrix_x4(r, Ks + (p * 16 + a_col + (lane & 7)) * LD + c * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(s[2 * p], qf, r);
-          mma_bf16_16816(s[2 * p + 1], qf, r + 2);
-        }
+        uint32_t r[4];
+        ldmatrix_x4(r, Ks + (p * 16 + a_col + (lane & 7)) * LD + c * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[2 * p], qf, r);
+        mma_bf16_16816(s[2 * p + 1], qf, r + 2);
       }
     }
 
@@ -333,7 +335,7 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       m_new[i] = fmaxf(m_run[i], mx);
-      alpha[i] = expf(m_run[i] - m_new[i]);
+      alpha[i] = attn::exp_ex2(m_run[i] - m_new[i]);
     }
     // P straight from the score accumulators into the A operand of P.V,
     // rounded to bf16: key tile nt fills half of key chunk nt / 2.
@@ -343,7 +345,7 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = expf(s[nt][e] - m_new[e >> 1]);
+        p[e] = attn::exp_ex2(s[nt][e] - m_new[e >> 1]);
         row_sum[e >> 1] += p[e];
       }
       pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
@@ -383,8 +385,9 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
   for (int i = 0; i < 2; ++i) {
     const int pos = q0 + qrow + 8 * i;
     if (pos >= S) continue;
-    if (args.lse != nullptr && t == 0)
-      args.lse[((size_t)b * args.H + h) * S + pos] = m_run[i] + logf(l_run[i]);
+    if (args.lse != nullptr && t == 0)  // no tile walked: a row whose keys are all masked
+      args.lse[((size_t)b * args.H + h) * S + pos] =
+          l_run[i] == 0.f ? OPT_NEG_BIG : m_run[i] + logf(l_run[i]);
     const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
     T* orow = out + pos * args.out.ss;
 #pragma unroll
@@ -394,6 +397,208 @@ __global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
       *reinterpret_cast<__nv_bfloat162*>(&orow[dn * 8 + 2 * t]) = v;
     }
   }
+}
+
+// ---- bf16 on wgmma: the ring of attention_wgmma.cuh -------------------------------
+//
+// NCONS consumer warpgroups (three; four in a global layer at D <= 64) own 64
+// query rows each (Q rotated into a swizzled tile once); the producer
+// warpgroup streams the key tiles. A consumer's
+// tile: S = Q.K^T (both operands in shared memory), the online softmax in
+// registers in base 2 (scale * log2(e) folded into the score, one ex2.approx
+// a score), P rounded to bf16 in the accumulator's own registers as the A
+// operand of O += P.V (V read as an MN-major operand, no transpose). A
+// consumer leaves out a key tile that lies wholly outside its own rows' band.
+
+namespace wgk {
+namespace wg = attn::wg;
+template <int D>
+__host__ __device__ constexpr int own_bytes() { return wg::fwd_own_bytes<D>(); }
+template <int D, int NCONS>
+constexpr size_t smem_bytes() {
+  return 1024 + NCONS * own_bytes<D>() + wg::Ring<D, wg::STAGES>::BYTES;
+}
+}  // namespace wgk
+
+template <int D, int NCONS>
+__global__ void __launch_bounds__((NCONS + 1) * attn::wg::GROUP, 1)
+    flash_wgmma_kernel(const Args args) {
+  namespace wg = attn::wg;
+  using T = __nv_bfloat16;
+  constexpr int NST = wg::STAGES, OWN = wgk::own_bytes<D>();
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ wg::Control ctl;
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring_ptr = smem + NCONS * OWN;
+  const uint32_t ring = hop::smem_u32(ring_ptr);
+
+  const int S = args.S;
+  const int tid = threadIdx.x, group = tid / wg::GROUP, t = tid % wg::GROUP;
+  const int q0 = blockIdx.x * (wg::ROWS * NCONS), h = blockIdx.y, b = blockIdx.z;
+  const T* cos_t = static_cast<const T*>(args.cos_t);
+  const T* sin_t = static_cast<const T*>(args.sin_t);
+  if (tid == 0) wg::mbarriers_init(&ctl, NST, NCONS);
+  __syncthreads();
+
+  if (group == NCONS) {  // ---- the producer ----
+    wg::Stream st;
+    st.rot = rows_of<const T>(args.k, b, h);
+    st.rot_ss = args.k.ss;
+    st.raw = rows_of<const T>(args.v, b, h);
+    st.raw_ss = args.v.ss;
+    st.cos_t = cos_t;
+    st.sin_t = sin_t;
+    st.mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
+    st.lse = st.delta = nullptr;
+    st.S = S;
+    attn::band_range(q0, wg::ROWS * NCONS, wg::ROWS, S, args.window, &st.first, &st.last);
+    st.own_first = st.own_rows = 0;
+    wg::produce<D, NST, true>(ring, ring_ptr, &ctl, st, t);
+  } else {  // ---- a consumer warpgroup ----
+    const int lane = t & 31, warp = t >> 5, g = lane >> 2, qd = lane & 3;
+    const int q0w = q0 + group * wg::ROWS;
+    unsigned char* own_ptr = smem + group * OWN;
+    const uint32_t own = hop::smem_u32(own_ptr);
+    wg::load_own<D>(own, rows_of<const T>(args.q, b, h), args.q.ss, q0w, S, cos_t, sin_t, t);
+    hop::fence_proxy_async();
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);
+
+    const float c = args.scale * wg::LOG2E;
+    const int window = args.window;
+    const int row0 = q0w + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {OPT_NEG_BIG, OPT_NEG_BIG}, l_run[2] = {0.f, 0.f};  // m in base-2 units
+
+    wg::Reader<D, NST> rd{ring, ring_ptr, &ctl};
+    for (int n = 0;; ++n) {
+      const int k0 = rd.wait(n);
+      if (k0 < 0) break;
+      if (wg::band_reach(q0w, k0, window)) {
+        float s[32];
+        hop::wgmma_fence();
+        wg::rows_times_rows<D>(s, own, rd.rot(n));
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<32>(s);
+
+        // The row maxima in base 2. Where every key of the tile is valid and
+        // inside the band of all 64 rows there is no bias to add; elsewhere s
+        // becomes the biased score in base 2.
+        float m_new[2] = {m_run[0], m_run[1]}, alpha[2], sum[2] = {0.f, 0.f};
+        const bool plain = rd.all_valid(n) && wg::band_free(q0w, k0, window);
+        if (plain) {
+          float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int j = 0; j < 32; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) m_new[i] = fmaxf(m_new[i], mx[i] * c);
+        } else {  // attn::banded_score in base 2
+          const float* kb = rd.aux0(n);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 kbv = *reinterpret_cast<const float2*>(kb + j * 8 + 2 * qd);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float bias = (e & 1) ? kbv.y : kbv.x;
+              const int kj = k0 + j * 8 + 2 * qd + (e & 1), qi = row0 + 8 * (e >> 1);
+              if (window >= 0 && abs(qi - kj) > window) bias = fminf(bias, OPT_NEG_BIG);
+              const float v = fmaf(s[4 * j + e], c, bias);
+              s[4 * j + e] = v;
+              m_new[e >> 1] = fmaxf(m_new[e >> 1], v);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
+          m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
+          alpha[i] = hop::ex2(m_run[i] - m_new[i]);
+          m_run[i] = m_new[i];
+        }
+        // P from the score accumulators into the A operand of P.V, rounded to
+        // bf16 and summed unrounded. The plain tile's scores are still raw.
+        const float to_base2 = plain ? c : 1.f;
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = hop::ex2(fmaf(s[4 * j + e], to_base2, -m_new[e >> 1]));
+            sum[e >> 1] += p[e];
+          }
+          pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+          pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+          sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+          l_run[i] = l_run[i] * alpha[i] + sum[i];
+        }
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            o[4 * j + 0] *= alpha[0];
+            o[4 * j + 1] *= alpha[0];
+            o[4 * j + 2] *= alpha[1];
+            o[4 * j + 3] *= alpha[1];
+          }
+        }
+        hop::wgmma_fence();
+        wg::frags_times_tile<D>(o, pa, rd.raw(n));
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<D / 2>(o);
+      }
+      rd.release(n);
+    }
+
+    // A row no tile was walked for (every key tile in its reach left out)
+    // writes 0 and the lse of a row whose keys are all masked.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int pos = row0 + 8 * i;
+      if (args.lse != nullptr && qd == 0 && pos < S)
+        args.lse[((size_t)b * args.H + h) * S + pos] =
+            m_run[i] == OPT_NEG_BIG ? OPT_NEG_BIG : m_run[i] * wg::LN2 + logf(l_run[i]);
+      const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n + 2 * i] *= inv;
+        o[4 * n + 2 * i + 1] *= inv;
+      }
+    }
+    // Through shared memory (Q's tile, done with) to 16-byte row stores.
+    constexpr int LD = D + 8, CH = D / 8;
+    T* staged = reinterpret_cast<T*>(own_ptr);
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);
+    wg::stage_acc<D>(o, 1.f, staged, t);
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);
+    T* out = rows_of<T>(args.out, b, h);
+    for (int ch = t; ch < wg::ROWS * CH; ch += wg::GROUP) {
+      const int r = ch / CH, d0 = (ch % CH) * 8, pos = q0w + r;
+      if (pos < S)
+        *reinterpret_cast<uint4*>(out + (long long)pos * args.out.ss + d0) =
+            *reinterpret_cast<const uint4*>(staged + r * LD + d0);
+    }
+  }
+}
+
+template <int D, int NCONS>
+int launch_wgmma(const Args& args, int batch, cudaStream_t stream) {
+  constexpr size_t smem = wgk::smem_bytes<D, NCONS>();
+  static_assert(smem <= attn::wg::SMEM_LIMIT, "shared memory of a CTA");
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, NCONS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tile = attn::wg::ROWS * NCONS;
+  const dim3 grid((args.S + tile - 1) / tile, args.H, batch);
+  flash_wgmma_kernel<D, NCONS>
+      <<<grid, (NCONS + 1) * attn::wg::GROUP, smem, stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
 template <typename Kernel>
@@ -412,8 +617,16 @@ int by_dtype(const Args& args, int batch, int dtype, cudaStream_t stream) {
   if (dtype == DTYPE_F32)
     return launch(flash_fma_kernel<D>, args, batch, simt::THREADS, simt::smem_bytes<D>(),
                   stream);
-  if (dtype == DTYPE_BF16)
-    return launch(flash_mma_kernel<D>, args, batch, tc::THREADS, tc::smem_bytes<D>(), stream);
+  if (dtype == DTYPE_BF16) {
+    if constexpr (attn::wg::forward_carried<D>()) {
+      // The layer's kind picks the CTA's shape, not a trial.
+      constexpr int WIDE = attn::wg::fwd_global_ncons<D>();
+      if (WIDE != attn::wg::FWD_NCONS && args.window < 0)
+        return launch_wgmma<D, WIDE>(args, batch, stream);
+      return launch_wgmma<D, attn::wg::FWD_NCONS>(args, batch, stream);
+    } else
+      return launch(flash_mma_kernel<D>, args, batch, tc::THREADS, tc::smem_bytes<D>(), stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -472,6 +685,39 @@ extern "C" int opt_flash_attention(const void* q, const void* k, const void* v, 
   const attn::FwdArgs args{t[0], t[1], t[2], t[3], mask, cos_t, sin_t,
                            lse,  seq,  heads, window, scale};
   return forward(args, batch, head_dim, dtype, stream);
+}
+
+// How the bf16 kernels of a head dim are built, fixed when the library is
+// compiled: out[0] = 1 for wgmma from a shared-memory ring filled by cp.async
+// with mbarriers, 0 for mma.sync between two barriers a tile; out[1] = the
+// ring's stages (1: a single buffer); out[2] = rows of a CTA's own tile;
+// out[3] = rows of a streamed tile; out[4] = with `backward`, rows of the dQ
+// pass's own tile (out[1] and out[2] are then the dK/dV pass's), else rows of
+// a CTA's own tile in a global layer (out[2]: in a layer with a window).
+// Returns 0, or -1 without an instance.
+extern "C" int opt_flash_attention_design(int head_dim, int backward, int* out) {
+  namespace wg = attn::wg;
+  switch (head_dim) {
+#define OPT_ATTN_CASE(D)                                                   \
+  case D:                                                                  \
+    if (backward ? wg::backward_carried<D>() : wg::forward_carried<D>()) { \
+      out[0] = 1;                                                          \
+      out[1] = wg::STAGES;                                                 \
+      out[2] = wg::ROWS * (backward ? wg::DKV_NCONS : wg::FWD_NCONS);      \
+      out[4] = wg::ROWS * (backward ? wg::DQ_NCONS : wg::fwd_global_ncons<D>()); \
+    } else {                                                               \
+      out[0] = 0;                                                          \
+      out[1] = 1;                                                          \
+      out[2] = backward && D > 128 ? 32 : 64;                              \
+      out[4] = 64;                                                         \
+    }                                                                      \
+    out[3] = 64;                                                           \
+    return 0;
+    OPT_ATTN_FOR_EACH_D(OPT_ATTN_CASE)
+#undef OPT_ATTN_CASE
+    default:
+      return -1;
+  }
 }
 
 // The message of a CUDA error code, for the Python wrappers.

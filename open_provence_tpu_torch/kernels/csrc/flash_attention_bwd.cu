@@ -15,7 +15,8 @@
 // Also given: the int key mask [B, S], rope cos/sin [S, D] in
 // the storage type (they get no gradient) and the forward's fp32 lse
 // [B, H, S]. D is 32, 64, 128 or 256, any head count. Three launches on the
-// caller's stream:
+// caller's stream (two where wgmma carries the head dim: delta is made in the
+// dQ pass, which then runs before the dK/dV pass):
 //   1. delta = rowsum(g * out) in fp32 per (batch, head, row), into scratch
 //      [B, H, S] (the TPU dispatch computes it from g already cast to the
 //      storage type, flash_attention.py:695-696, :2338-2350);
@@ -34,23 +35,33 @@
 // whose keys are all masked has lse = -FLT_MAX and P = 1 for its (masked)
 // keys, finite, and its g is 0 wherever the loss ignores the row.
 //
-// bf16: all five products on tensor cores (mma.sync m16n8k16, fp32
-// accumulation), FlashAttention-2 style; P and dS go from the score
-// accumulators into the A operand without shared memory, rounded to bf16 as
-// the TPU kernel rounds them. A warp owns 16 rows of its CTA's tile, and a
-// warp's fp32 accumulators are rows x columns / 32 registers a thread, so the
-// tile shape is picked by D at compile time (tc::Shape): up to D = 64 four
-// warps hold 16 x D each; past it the D columns of dK and dV (past 128, of
-// dQ) are split over 2 or 4 warps that each recompute the 16 x 64 scores,
-// and at D = 256 the key tile is 32 rows, so no accumulator set passes 64
-// registers. The rounded gradients go through shared memory on their way
-// out, where the rope adjoint finds its partner column d +- D/2 whichever
-// warp held it. fp32: the same walks with FMA from shared memory (true
-// fp32), 64-row tiles, 32 at D = 256 where four 64-row tiles of D + 1 floats
-// pass a CTA's 227 KB. Recomputing S and dP in both passes costs 7 S*S*D
-// products a head against the TPU kernel's 5 (more where the columns are
-// split); tensor-core rate bounds it, and wgmma/TMA are later work. Any S.
-#include "attention_common.cuh"
+// What bounds it on this card: by the shapes, bytes at S = 512 and operations
+// (10*S*S*D a head for the five products; seven are computed, S and dP in
+// both passes, since one pass would need fp32 atomics or an S/64-fold fp32
+// scratch for dQ and the trainer's bit-exact resume needs sums in a fixed
+// order); in practice latency, as in the forward (flash_attention.cu).
+//
+// bf16, D = 32, 64 (attention_wgmma.cuh has the shared design): both passes
+// run on wgmma from a ring of tiles filled by a producer warpgroup with
+// cp.async, rotated in shared memory one tile ahead, handed over at
+// mbarriers. The dQ pass runs first (three consumer warpgroups of 64 queries;
+// Q rotated and dO are the A operands of S = Q.K^T and dP = dO.V^T; dS goes
+// from the accumulators' registers into dQ += dS.K, K read MN-major); its
+// prologue computes delta = rowsum(dO * out) while it loads dO and writes it
+// for the dK/dV pass (two consumer warpgroups of 64 keys; S^T = K.Q^T,
+// dP^T = V.dO^T, then dV += P^T.dO and dK += dS^T.Q with the streamed query
+// tiles read MN-major). P = 2^(s * scale * log2(e) + bias - lse * log2(e)),
+// one ex2.approx a score. Key tiles without a valid key are not walked (dQ)
+// or get zeros (dK/dV). The rounded gradients go through shared memory on
+// their way out, where the rope adjoint finds its partner column d +- D/2.
+// bf16, D = 128, 256: mma.sync m16n8k16 as before, with ex2 and the skipped
+// key tiles; two 64 x D accumulators beside S and dP pass a thread's 255
+// registers, so the D columns of dK and dV (past 128, of dQ) are split over
+// 2 or 4 warps that each recompute the 16 x 64 scores, and at D = 256 the key
+// tile is 32 rows (tc::Shape). fp32: the same walks with FMA from shared
+// memory (true fp32), 64-row tiles, 32 at D = 256 where four 64-row tiles of
+// D + 1 floats pass a CTA's 227 KB; unchanged. Any S.
+#include "attention_wgmma.cuh"
 
 #ifdef OPT_HEAD_DIM  // ---- the kernels of one head dim ------------------------
 
@@ -98,12 +109,13 @@ __device__ __forceinline__ float rope_adjoint(float gd, float g_other, int d, co
 
 // P and dS of one score: s is the raw q.k, dp = dO.v, kbias the key's bias
 // (attn::key_bias: the bf16 kernels read the mask once a key, not once a
-// score).
+// score). EX2: the exponential as one ex2.approx (the bf16 kernels).
+template <bool EX2 = false>
 __device__ __forceinline__ void p_ds(float s, float dp, float lse, float delta, float scale,
                                      int qi, int kj, int S, float kbias, int window, float* p,
                                      float* ds) {
-  const float pv =
-      qi < S ? expf(attn::banded_score(s, scale, qi, kj, kbias, window) - lse) : 0.f;
+  const float x = attn::banded_score(s, scale, qi, kj, kbias, window) - lse;
+  const float pv = qi < S ? (EX2 ? attn::exp_ex2(x) : expf(x)) : 0.f;
   *p = pv;
   *ds = pv * (dp - delta);
 }
@@ -356,11 +368,13 @@ __global__ void __launch_bounds__(simt::THREADS) dq_fma_kernel(Args args) {
 
 namespace tc {
 // A pass's CTA: ROWS_W row-warps of 16 rows (its tile) x SPLIT warps that
-// each hold D / SPLIT columns of the accumulators.
+// each hold D / SPLIT columns of the accumulators. For the head dims wgmma
+// does not carry (D = 128, 256).
 template <int D>
 struct Shape {
+  static_assert(!attn::wg::backward_carried<D>(), "this head dim runs on wgmma");
   static constexpr int KV_ROWS_W = D <= 128 ? 4 : 2;
-  static constexpr int KV_SPLIT = D <= 64 ? 1 : (D <= 128 ? 2 : 4);
+  static constexpr int KV_SPLIT = D <= 128 ? 2 : 4;
   static constexpr int Q_ROWS_W = 4;
   static constexpr int Q_SPLIT = D <= 128 ? 1 : 2;
 };
@@ -399,48 +413,25 @@ __device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* tile, const __nv_b
 __device__ __forceinline__ int a_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
 __device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
 
-// A warp's 16 rows of a [.][D + 8] tile as A fragments, one per 16 dims.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (*a)[4], const __nv_bfloat16* rows16,
-                                             int lane) {
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c)
-    ldmatrix_x4(a[c], rows16 + a_row(lane) * (D + 8) + c * 16 + a_col(lane));
-}
-
 // The 16 rows x 64 columns products of one warp: acc[n-tile][4] += A . B^T,
 // each accumulator summed over the dim chunks in order. A is the warp's 16
-// rows: register fragments `a` (IN_REGS), else read from rows16 in shared
-// memory chunk by chunk; B rows (64 of them) come from a [64][LD] tile.
-template <int D, bool IN_REGS>
-__device__ __forceinline__ void rows_times_tile(float (*acc)[4], const uint32_t (*a)[4],
-                                                const __nv_bfloat16* rows16,
+// rows, read from rows16 in shared memory chunk by chunk; B rows (64 of them)
+// come from a [64][LD] tile.
+template <int D>
+__device__ __forceinline__ void rows_times_tile(float (*acc)[4], const __nv_bfloat16* rows16,
                                                 const __nv_bfloat16* tile, int lane) {
   constexpr int LD = D + 8, DC = D / 16;
-  if constexpr (IN_REGS) {
 #pragma unroll
-    for (int p = 0; p < 4; ++p)
+  for (int c = 0; c < DC; ++c) {
+    uint32_t af[4];
+    ldmatrix_x4(af, rows16 + a_row(lane) * LD + c * 16 + a_col(lane));
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        uint32_t r[4];
-        ldmatrix_x4(r, tile + (p * 16 + a_col(lane) + (lane & 7)) * LD + c * 16 +
-                           ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(acc[2 * p], a[c], r);
-        mma_bf16_16816(acc[2 * p + 1], a[c], r + 2);
-      }
-  } else {
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      uint32_t af[4];
-      ldmatrix_x4(af, rows16 + a_row(lane) * LD + c * 16 + a_col(lane));
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t r[4];
-        ldmatrix_x4(r, tile + (p * 16 + a_col(lane) + (lane & 7)) * LD + c * 16 +
-                           ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(acc[2 * p], af, r);
-        mma_bf16_16816(acc[2 * p + 1], af, r + 2);
-      }
+    for (int p = 0; p < 4; ++p) {
+      uint32_t r[4];
+      ldmatrix_x4(r, tile + (p * 16 + a_col(lane) + (lane & 7)) * LD + c * 16 +
+                         ((lane >> 3) & 1) * 8);
+      mma_bf16_16816(acc[2 * p], af, r);
+      mma_bf16_16816(acc[2 * p + 1], af, r + 2);
     }
   }
 }
@@ -478,15 +469,15 @@ __device__ __forceinline__ void stage_rows_bf16(const float (*acc)[4], float mul
 
 // Write R staged rows (rounded gradients, [R][D + 8]) to an output operand's
 // rows r0 .. of one (batch, head) in 16-byte chunks, through the rope adjoint
-// when `rotate`.
+// when `rotate`; by `step` threads, of which this is number t.
 template <int D, int R>
 __device__ __forceinline__ void store_staged_bf16(const __nv_bfloat16* staged,
                                                   __nv_bfloat16* rows, long long ss, int r0,
-                                                  bool rotate, const Args& args) {
+                                                  bool rotate, const Args& args, int t, int step) {
   constexpr int LD = D + 8, CH = D / 8, half = D / 2;
   const __nv_bfloat16* cos_t = static_cast<const __nv_bfloat16*>(args.cos_t);
   const __nv_bfloat16* sin_t = static_cast<const __nv_bfloat16*>(args.sin_t);
-  for (int c = threadIdx.x; c < R * CH; c += blockDim.x) {
+  for (int c = t; c < R * CH; c += step) {
     const int r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
     if (pos >= args.S) continue;
     uint4 v = *reinterpret_cast<const uint4*>(staged + r * LD + d0);
@@ -509,8 +500,7 @@ __global__ void __launch_bounds__(tc::Shape<D>::KV_ROWS_W * tc::Shape<D>::KV_SPL
     dkv_mma_kernel(Args args) {
   using T = __nv_bfloat16;
   constexpr int ROWS_W = tc::Shape<D>::KV_ROWS_W, SPLIT = tc::Shape<D>::KV_SPLIT;
-  constexpr int TILE = 16 * ROWS_W, DW = D / SPLIT, LD = D + 8, DC = D / 16;
-  constexpr bool IN_REGS = D <= 64;
+  constexpr int TILE = 16 * ROWS_W, DW = D / SPLIT, LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);  // [TILE][LD], rotated
   T* Vs = Ks + TILE * LD;                  // [TILE][LD]
@@ -536,11 +526,6 @@ __global__ void __launch_bounds__(tc::Shape<D>::KV_ROWS_W * tc::Shape<D>::KV_SPL
   // This warp's 16 keys as A operands: K for S^T = K.Q^T, V for dP^T = V.dO^T.
   const T* k16 = Ks + rw * 16 * LD;
   const T* v16 = Vs + rw * 16 * LD;
-  uint32_t ka[IN_REGS ? DC : 1][4], va[IN_REGS ? DC : 1][4];
-  if constexpr (IN_REGS) {
-    load_a_frags<D>(ka, k16, lane);
-    load_a_frags<D>(va, v16, lane);
-  }
 
   // This thread's two keys (rows g and g + 8 of the warp's 16) for the whole walk.
   const float kbias[2] = {attn::key_bias(k0 + rw * 16 + g, S, mrow),
@@ -548,6 +533,11 @@ __global__ void __launch_bounds__(tc::Shape<D>::KV_ROWS_W * tc::Shape<D>::KV_SPL
   float dk[DW / 8][4] = {}, dv[DW / 8][4] = {};
   int q_first, q_last;
   attn::band_range(k0, TILE, OTHER, S, args.window, &q_first, &q_last);
+  // Own keys that are all padding, in a batch row that has a valid key,
+  // get zeros: their P is exactly 0 for every row with a valid key in reach.
+  if (mrow != nullptr && !attn::walk_has_valid_key(mrow, k0, min(k0 + TILE, S) - 1, tid, blockDim.x) &&
+      attn::walk_has_valid_key(mrow, 0, S - 1, tid, blockDim.x))
+    q_last = q_first - 1;
   for (int q0 = q_first; q0 <= q_last; q0 += OTHER) {
     __syncthreads();  // every warp is done with the previous Qs/Gs
     load_rows_bf16<D, OTHER>(Qs, qb, args.q.ss, q0, true, args);
@@ -558,8 +548,8 @@ __global__ void __launch_bounds__(tc::Shape<D>::KV_ROWS_W * tc::Shape<D>::KV_SPL
     }
     __syncthreads();
     float s[8][4] = {}, dp[8][4] = {};  // 16 keys x 64 queries
-    rows_times_tile<D, IN_REGS>(s, ka, k16, Qs, lane);
-    rows_times_tile<D, IN_REGS>(dp, va, v16, Gs, lane);
+    rows_times_tile<D>(s, k16, Qs, lane);
+    rows_times_tile<D>(dp, v16, Gs, lane);
     // P^T and dS^T straight into A fragments (keys x queries), bf16.
     uint32_t pa[4][4], da[4][4];
 #pragma unroll
@@ -569,8 +559,8 @@ __global__ void __launch_bounds__(tc::Shape<D>::KV_ROWS_W * tc::Shape<D>::KV_SPL
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + rw * 16 + g + 8 * (e >> 1);
         const int qc = nt * 8 + 2 * t + (e & 1);
-        p_ds(s[nt][e], dp[nt][e], lse_s[qc], delta_s[qc], args.scale, q0 + qc, kj, S,
-             kbias[e >> 1], args.window, &p[e], &ds[e]);
+        p_ds<true>(s[nt][e], dp[nt][e], lse_s[qc], delta_s[qc], args.scale, q0 + qc, kj, S,
+                   kbias[e >> 1], args.window, &p[e], &ds[e]);
       }
       pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
       pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
@@ -586,8 +576,9 @@ __global__ void __launch_bounds__(tc::Shape<D>::KV_ROWS_W * tc::Shape<D>::KV_SPL
   stage_rows_bf16<LD, DW>(dv, 1.f, Gs + rw * 16 * LD + col0, lane);
   __syncthreads();
   store_staged_bf16<D, TILE>(Qs, rows_of<T>(args.dk, b, h), args.dk.ss, k0,
-                             args.cos_t != nullptr, args);
-  store_staged_bf16<D, TILE>(Gs, rows_of<T>(args.dv, b, h), args.dv.ss, k0, false, args);
+                             args.cos_t != nullptr, args, tid, blockDim.x);
+  store_staged_bf16<D, TILE>(Gs, rows_of<T>(args.dv, b, h), args.dv.ss, k0, false, args, tid,
+                             blockDim.x);
 }
 
 template <int D>
@@ -595,8 +586,7 @@ __global__ void __launch_bounds__(tc::Shape<D>::Q_ROWS_W * tc::Shape<D>::Q_SPLIT
     dq_mma_kernel(Args args) {
   using T = __nv_bfloat16;
   constexpr int ROWS_W = tc::Shape<D>::Q_ROWS_W, SPLIT = tc::Shape<D>::Q_SPLIT;
-  constexpr int TILE = 16 * ROWS_W, DW = D / SPLIT, LD = D + 8, DC = D / 16;
-  constexpr bool IN_REGS = D <= 64;
+  constexpr int TILE = 16 * ROWS_W, DW = D / SPLIT, LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [TILE][LD], rotated
   T* Gs = Qs + TILE * LD;                  // [TILE][LD] dO
@@ -620,11 +610,6 @@ __global__ void __launch_bounds__(tc::Shape<D>::Q_ROWS_W * tc::Shape<D>::Q_SPLIT
   __syncthreads();
   const T* q16 = Qs + rw * 16 * LD;
   const T* g16 = Gs + rw * 16 * LD;
-  uint32_t qa[IN_REGS ? DC : 1][4], ga[IN_REGS ? DC : 1][4];
-  if constexpr (IN_REGS) {
-    load_a_frags<D>(qa, q16, lane);
-    load_a_frags<D>(ga, g16, lane);
-  }
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -636,15 +621,18 @@ __global__ void __launch_bounds__(tc::Shape<D>::Q_ROWS_W * tc::Shape<D>::Q_SPLIT
   float dq[DW / 8][4] = {};
   int k_first, k_last;
   attn::band_range(q0, TILE, OTHER, S, args.window, &k_first, &k_last);
+  // Key tiles without a valid key are left out as in the forward.
+  const bool skip_padded = attn::walk_has_valid_key(mrow, k_first, k_last, tid, blockDim.x);
   for (int k0 = k_first; k0 <= k_last; k0 += OTHER) {
-    __syncthreads();  // every warp is done with the previous Ks/Vs
+    // Every warp is done with the previous Ks/Vs.
+    if (!attn::tile_barrier(skip_padded, mrow, k0, S, tid)) continue;
     load_rows_bf16<D, OTHER>(Ks, kb, args.k.ss, k0, true, args);
     load_rows_bf16<D, OTHER>(Vs, vb, args.v.ss, k0, false, args);
     if (tid < OTHER) kbias[tid] = attn::key_bias(k0 + tid, S, mrow);
     __syncthreads();
     float s[8][4] = {}, dp[8][4] = {};  // 16 queries x 64 keys
-    rows_times_tile<D, IN_REGS>(s, qa, q16, Ks, lane);
-    rows_times_tile<D, IN_REGS>(dp, ga, g16, Vs, lane);
+    rows_times_tile<D>(s, q16, Ks, lane);
+    rows_times_tile<D>(dp, g16, Vs, lane);
     uint32_t da[4][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -653,8 +641,8 @@ __global__ void __launch_bounds__(tc::Shape<D>::Q_ROWS_W * tc::Shape<D>::Q_SPLIT
       for (int e = 0; e < 4; ++e) {
         const int qi = q0 + rw * 16 + g + 8 * (e >> 1);
         const int kc = nt * 8 + 2 * t + (e & 1);
-        p_ds(s[nt][e], dp[nt][e], lse_r[e >> 1], delta_r[e >> 1], args.scale, qi, k0 + kc, S,
-             kbias[kc], args.window, &p[e], &ds[e]);
+        p_ds<true>(s[nt][e], dp[nt][e], lse_r[e >> 1], delta_r[e >> 1], args.scale, qi, k0 + kc,
+                   S, kbias[kc], args.window, &p[e], &ds[e]);
       }
       da[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
       da[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
@@ -666,7 +654,324 @@ __global__ void __launch_bounds__(tc::Shape<D>::Q_ROWS_W * tc::Shape<D>::Q_SPLIT
   stage_rows_bf16<LD, DW>(dq, args.scale, Ks + rw * 16 * LD + col0, lane);
   __syncthreads();
   store_staged_bf16<D, TILE>(Ks, rows_of<T>(args.dq, b, h), args.dq.ss, q0,
-                             args.cos_t != nullptr, args);
+                             args.cos_t != nullptr, args, tid, blockDim.x);
+}
+
+// ---- bf16 on wgmma: the ring of attention_wgmma.cuh -------------------------------
+//
+// Both passes keep their walks. dK/dV: a consumer warpgroup owns 64 keys (K
+// rotated and V in swizzled tiles, the A operands of S^T = K.Q^T and
+// dP^T = V.dO^T); the producer streams query tiles (Q rotated, dO, lse in
+// base-2 units, delta); P^T and dS^T go from the accumulators' registers into
+// the A operand of dV += P^T.dO and dK += dS^T.Q, whose B operands are the
+// streamed tiles read MN-major. A warpgroup whose keys are all padding (in a
+// batch row that has a valid key) computes nothing and writes zeros: a padded
+// key's P is exactly 0 for every row with a valid key in reach. dQ: a
+// warpgroup owns 64 queries (Q rotated, dO); the producer streams key tiles as
+// in the forward, leaving out those without a valid key; dQ += dS.K. One
+// ex2.approx a score in both. Sums run over the tiles in a fixed order, so the
+// same input gives the same bits.
+
+namespace bwk {
+namespace wg = attn::wg;
+// A pass's shape: NCONS consumer warpgroups and the registers a thread has
+// after the producer has handed its share over.
+template <int NCONS_>
+struct Pass {
+  static_assert(NCONS_ == 2 || NCONS_ == 3, "consumer warpgroups");
+  static constexpr int NCONS = NCONS_;
+  static constexpr int THREADS = (NCONS + 1) * wg::GROUP;
+  static constexpr int PRODUCER_REGS = 56;
+  static constexpr int CONSUMER_REGS = NCONS == 2 ? 224 : 144;
+  static_assert((NCONS * CONSUMER_REGS + PRODUCER_REGS) * wg::GROUP <= 65536, "registers");
+  template <int D>
+  __host__ __device__ static constexpr size_t smem_bytes() {
+    return 1024 + NCONS * wg::bwd_own_bytes<D>() + wg::Ring<D, wg::STAGES>::BYTES;
+  }
+};
+using Dkv = Pass<wg::DKV_NCONS>;
+using Dq = Pass<wg::DQ_NCONS>;
+template <int D>
+__host__ __device__ constexpr int own_bytes() { return wg::bwd_own_bytes<D>(); }
+}  // namespace bwk
+
+// P and dS of a warpgroup's 64 x 64 scores into A fragments. s and dp are the
+// accumulators of the two products; `bias`, `lse2` and `delta` give each
+// score's key bias (with the band), lse (base 2) and delta as functors of
+// (n, e), the accumulator's index pair, whichever of rows and columns are the
+// keys. PLAIN: every bias of the tile is 0 and is not asked for.
+template <bool WANT_P, bool PLAIN, typename Bias, typename Lse, typename Delta>
+__device__ __forceinline__ void p_ds_frags(const float* s, const float* dp, float c, Bias bias,
+                                           Lse lse2, Delta delta, uint32_t (*pa)[4],
+                                           uint32_t (*da)[4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = hop::ex2(PLAIN ? fmaf(s[4 * n + e], c, -lse2(n, e))
+                            : fmaf(s[4 * n + e], c, bias(n, e)) - lse2(n, e));
+      ds[e] = p[e] * (dp[4 * n + e] - delta(n, e));
+    }
+    if constexpr (WANT_P) {
+      pa[n >> 1][(n & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+    da[n >> 1][(n & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+    da[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(bwk::Dkv::THREADS, 1)
+    dkv_wgmma_kernel(const Args args) {
+  namespace wg = attn::wg;
+  using T = __nv_bfloat16;
+  using Pass = bwk::Dkv;
+  constexpr int NCONS = Pass::NCONS, NST = wg::STAGES, OWN = bwk::own_bytes<D>();
+  constexpr int TILE = hop::Tile<D>::BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ wg::Control ctl;
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring_ptr = smem + NCONS * OWN;
+  const uint32_t ring = hop::smem_u32(ring_ptr);
+
+  const int S = args.S, H = args.H;
+  const int tid = threadIdx.x, group = tid / wg::GROUP, t = tid % wg::GROUP;
+  const int k0 = blockIdx.x * (wg::ROWS * NCONS), h = blockIdx.y, b = blockIdx.z;
+  const T* cos_t = static_cast<const T*>(args.cos_t);
+  const T* sin_t = static_cast<const T*>(args.sin_t);
+  const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
+  if (tid == 0) wg::mbarriers_init(&ctl, NST, NCONS);
+  __syncthreads();
+
+  if (group == NCONS) {  // ---- the producer: query tiles ----
+    hop::reg_dealloc<Pass::PRODUCER_REGS>();
+    wg::Stream st;
+    st.rot = rows_of<const T>(args.q, b, h);
+    st.rot_ss = args.q.ss;
+    st.raw = rows_of<const T>(args.g, b, h);
+    st.raw_ss = args.g.ss;
+    st.cos_t = cos_t;
+    st.sin_t = sin_t;
+    st.mrow = mrow;
+    st.lse = args.lse + ((size_t)b * H + h) * S;
+    st.delta = args.delta + ((size_t)b * H + h) * S;
+    st.S = S;
+    attn::band_range(k0, wg::ROWS * NCONS, wg::ROWS, S, args.window, &st.first, &st.last);
+    st.own_first = k0;
+    st.own_rows = wg::ROWS * NCONS;
+    wg::produce<D, NST, false>(ring, ring_ptr, &ctl, st, t);
+  } else {  // ---- a consumer warpgroup: 64 keys ----
+    hop::reg_alloc<Pass::CONSUMER_REGS>();
+    const int lane = t & 31, warp = t >> 5, g = lane >> 2, qd = lane & 3;
+    const int k0w = k0 + group * wg::ROWS;
+    unsigned char* own_ptr = smem + group * OWN;
+    const uint32_t own_k = hop::smem_u32(own_ptr), own_v = own_k + TILE;
+    wg::load_own<D>(own_k, rows_of<const T>(args.k, b, h), args.k.ss, k0w, S, cos_t, sin_t, t);
+    wg::load_own<D>(own_v, rows_of<const T>(args.v, b, h), args.v.ss, k0w, S, nullptr, nullptr,
+                    t);
+    hop::fence_proxy_async();
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);
+
+    const float c = args.scale * wg::LOG2E;
+    const int window = args.window;
+    const int key0 = k0w + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
+    const float kbias[2] = {attn::key_bias(key0, S, mrow), attn::key_bias(key0 + 8, S, mrow)};
+    const bool own_plain = __all_sync(0xffffffffu, kbias[0] == 0.f && kbias[1] == 0.f);
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    wg::Reader<D, NST> rd{ring, ring_ptr, &ctl};
+    bool compute = k0w < S;
+    for (int n = 0;; ++n) {
+      const int q0 = rd.wait(n);
+      if (q0 < 0) break;
+      // The producer's scan of the mask is published with its first stage.
+      if (n == 0 && compute && ctl.skip && !ctl.tile_valid[group]) compute = false;
+      if (compute && wg::band_reach(k0w, q0, window)) {
+        float s[32], dp[32];  // 64 keys x 64 queries
+        hop::wgmma_fence();
+        wg::rows_times_rows<D>(s, own_k, rd.rot(n));
+        wg::rows_times_rows<D>(dp, own_v, rd.raw(n));
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<32>(s);
+        hop::pin<32>(dp);
+        const float* lse2 = rd.aux0(n);
+        const float* delta = rd.aux1(n);
+        uint32_t pa[4][4], da[4][4];
+        const auto bias = [&](int j, int e) {
+          const int qi = q0 + j * 8 + 2 * qd + (e & 1), kj = key0 + 8 * (e >> 1);
+          const float kb = kbias[e >> 1];
+          return window >= 0 && abs(qi - kj) > window ? fminf(kb, OPT_NEG_BIG) : kb;
+        };
+        const auto col_lse = [&](int j, int e) { return lse2[j * 8 + 2 * qd + (e & 1)]; };
+        const auto col_delta = [&](int j, int e) { return delta[j * 8 + 2 * qd + (e & 1)]; };
+        if (own_plain && wg::band_free(k0w, q0, window))
+          p_ds_frags<true, true>(s, dp, c, bias, col_lse, col_delta, pa, da);
+        else
+          p_ds_frags<true, false>(s, dp, c, bias, col_lse, col_delta, pa, da);
+        hop::wgmma_fence();
+        wg::frags_times_tile<D>(dv, pa, rd.raw(n));  // dV += P^T . dO
+        wg::frags_times_tile<D>(dk, da, rd.rot(n));  // dK += dS^T . Q
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<D / 2>(dv);
+        hop::pin<D / 2>(dk);
+      }
+      rd.release(n);
+    }
+
+    T* staged_k = reinterpret_cast<T*>(own_ptr);
+    T* staged_v = staged_k + wg::ROWS * (D + 8);
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);  // the own tiles are done with
+    wg::stage_acc<D>(dk, args.scale, staged_k, t);
+    wg::stage_acc<D>(dv, 1.f, staged_v, t);
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);
+    store_staged_bf16<D, wg::ROWS>(staged_k, rows_of<T>(args.dk, b, h), args.dk.ss, k0w,
+                                   args.cos_t != nullptr, args, t, wg::GROUP);
+    store_staged_bf16<D, wg::ROWS>(staged_v, rows_of<T>(args.dv, b, h), args.dv.ss, k0w, false,
+                                   args, t, wg::GROUP);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(bwk::Dq::THREADS, 1)
+    dq_wgmma_kernel(const Args args) {
+  namespace wg = attn::wg;
+  using T = __nv_bfloat16;
+  using Pass = bwk::Dq;
+  constexpr int NCONS = Pass::NCONS, NST = wg::STAGES, OWN = bwk::own_bytes<D>();
+  constexpr int TILE = hop::Tile<D>::BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ wg::Control ctl;
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring_ptr = smem + NCONS * OWN;
+  const uint32_t ring = hop::smem_u32(ring_ptr);
+
+  const int S = args.S, H = args.H;
+  const int tid = threadIdx.x, group = tid / wg::GROUP, t = tid % wg::GROUP;
+  const int q0 = blockIdx.x * (wg::ROWS * NCONS), h = blockIdx.y, b = blockIdx.z;
+  const T* cos_t = static_cast<const T*>(args.cos_t);
+  const T* sin_t = static_cast<const T*>(args.sin_t);
+  if (tid == 0) wg::mbarriers_init(&ctl, NST, NCONS);
+  __syncthreads();
+
+  if (group == NCONS) {  // ---- the producer: key tiles, as in the forward ----
+    hop::reg_dealloc<Pass::PRODUCER_REGS>();
+    wg::Stream st;
+    st.rot = rows_of<const T>(args.k, b, h);
+    st.rot_ss = args.k.ss;
+    st.raw = rows_of<const T>(args.v, b, h);
+    st.raw_ss = args.v.ss;
+    st.cos_t = cos_t;
+    st.sin_t = sin_t;
+    st.mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
+    st.lse = st.delta = nullptr;
+    st.S = S;
+    attn::band_range(q0, wg::ROWS * NCONS, wg::ROWS, S, args.window, &st.first, &st.last);
+    st.own_first = st.own_rows = 0;
+    wg::produce<D, NST, true>(ring, ring_ptr, &ctl, st, t);
+  } else {  // ---- a consumer warpgroup: 64 queries ----
+    hop::reg_alloc<Pass::CONSUMER_REGS>();
+    const int lane = t & 31, warp = t >> 5, g = lane >> 2, qd = lane & 3;
+    const int q0w = q0 + group * wg::ROWS;
+    unsigned char* own_ptr = smem + group * OWN;
+    const uint32_t own_q = hop::smem_u32(own_ptr), own_g = own_q + TILE;
+    wg::load_own<D>(own_q, rows_of<const T>(args.q, b, h), args.q.ss, q0w, S, cos_t, sin_t, t);
+    // dO into its tile and, on the way, delta = rowsum(dO * out) of the 64
+    // rows: eight products a thread, then a tree over the row's D / 8 lanes.
+    // It goes to device memory for the dK/dV pass, which runs after this one.
+    float* delta_own = reinterpret_cast<float*>(own_ptr + 2 * TILE);  // [64], beside the tiles
+    float* delta_out = args.delta + ((size_t)b * H + h) * S;
+    {
+      constexpr int CH = D / 8;
+      const T* grows = rows_of<const T>(args.g, b, h);
+      const T* orows = rows_of<const T>(args.out, b, h);
+      for (int ch = t; ch < wg::ROWS * CH; ch += wg::GROUP) {
+        const int r = ch / CH, d0 = (ch % CH) * 8, pos = q0w + r;
+        uint4 gv = make_uint4(0, 0, 0, 0), ov = gv;
+        if (pos < S) {
+          gv = *reinterpret_cast<const uint4*>(grows + (long long)pos * args.g.ss + d0);
+          ov = *reinterpret_cast<const uint4*>(orows + (long long)pos * args.out.ss + d0);
+        }
+        hop::sts128(own_g + hop::Tile<D>::chunk(r, d0), gv);
+        float gf[8], of[8], part = 0.f;
+        unpack8(gv, gf);
+        unpack8(ov, of);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) part += gf[i] * of[i];
+#pragma unroll
+        for (int off = 1; off < CH; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (d0 == 0) {
+          delta_own[r] = part;
+          if (pos < S) delta_out[pos] = part;
+        }
+      }
+    }
+    hop::fence_proxy_async();
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);
+
+    const float c = args.scale * wg::LOG2E;
+    const int window = args.window;
+    const int row0 = q0w + warp * 16 + g;  // this thread's queries: row0 and row0 + 8
+    const float* lse = args.lse + ((size_t)b * H + h) * S;
+    float lse2_r[2], delta_r[2];  // a query past S gets P = 0 through lse = +inf
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = row0 + 8 * i;
+      const float l = q < S ? lse[q] : 0.f;
+      lse2_r[i] = q < S ? (l == OPT_NEG_BIG ? OPT_NEG_BIG : l * wg::LOG2E) : INFINITY;
+      delta_r[i] = delta_own[warp * 16 + g + 8 * i];
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    wg::Reader<D, NST> rd{ring, ring_ptr, &ctl};
+    for (int n = 0;; ++n) {
+      const int k0 = rd.wait(n);
+      if (k0 < 0) break;
+      if (wg::band_reach(q0w, k0, window)) {
+        float s[32], dp[32];  // 64 queries x 64 keys
+        hop::wgmma_fence();
+        wg::rows_times_rows<D>(s, own_q, rd.rot(n));
+        wg::rows_times_rows<D>(dp, own_g, rd.raw(n));
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<32>(s);
+        hop::pin<32>(dp);
+        const float* kb = rd.aux0(n);
+        uint32_t da[4][4];
+        const auto bias = [&](int j, int e) {
+          const int kj = k0 + j * 8 + 2 * qd + (e & 1), qi = row0 + 8 * (e >> 1);
+          const float b = kb[j * 8 + 2 * qd + (e & 1)];
+          return window >= 0 && abs(qi - kj) > window ? fminf(b, OPT_NEG_BIG) : b;
+        };
+        const auto row_lse = [&](int, int e) { return lse2_r[e >> 1]; };
+        const auto row_delta = [&](int, int e) { return delta_r[e >> 1]; };
+        if (rd.all_valid(n) && wg::band_free(q0w, k0, window))
+          p_ds_frags<false, true>(s, dp, c, bias, row_lse, row_delta, nullptr, da);
+        else
+          p_ds_frags<false, false>(s, dp, c, bias, row_lse, row_delta, nullptr, da);
+        hop::wgmma_fence();
+        wg::frags_times_tile<D>(dq, da, rd.rot(n));  // dQ += dS . K
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<D / 2>(dq);
+      }
+      rd.release(n);
+    }
+
+    T* staged = reinterpret_cast<T*>(own_ptr);
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);  // the own tiles are done with
+    wg::stage_acc<D>(dq, args.scale, staged, t);
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);
+    store_staged_bf16<D, wg::ROWS>(staged, rows_of<T>(args.dq, b, h), args.dq.ss, q0w,
+                                   args.cos_t != nullptr, args, t, wg::GROUP);
+  }
 }
 
 template <typename Kernel>
@@ -680,25 +985,46 @@ int launch(Kernel kernel, const Args& args, int batch, int tile, int threads, si
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int run(const Args& args, int batch, cudaStream_t s) {
+// delta, then the two passes, on one stream.
+template <typename T, int D, typename DkvKernel, typename DqKernel>
+int run_three(const Args& args, int batch, cudaStream_t s, DkvKernel dkv, int kv_tile,
+              int kv_threads, size_t kv_smem, DqKernel dq, int q_tile, int q_threads,
+              size_t q_smem) {
   const int rows = batch * args.S * args.H;
   delta_kernel<T, D><<<(rows + 7) / 8, 256, 0, s>>>(args, rows);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
+  err = launch(dkv, args, batch, kv_tile, kv_threads, kv_smem, s);
+  if (err != 0) return err;
+  return launch(dq, args, batch, q_tile, q_threads, q_smem, s);
+}
+
+template <typename T, int D>
+int run(const Args& args, int batch, cudaStream_t s) {
   if constexpr (sizeof(T) == 4) {
     constexpr int R = simt::tile<D>();
-    err = launch(dkv_fma_kernel<D>, args, batch, R, simt::THREADS, simt::smem_bytes<D>(), s);
+    constexpr size_t smem = simt::smem_bytes<D>();
+    return run_three<T, D>(args, batch, s, dkv_fma_kernel<D>, R, simt::THREADS, smem,
+                           dq_fma_kernel<D>, R, simt::THREADS, smem);
+  } else if constexpr (attn::wg::backward_carried<D>()) {
+    // The dQ pass first: its prologue makes delta, which the dK/dV pass reads.
+    using Dq = bwk::Dq;
+    using Dkv = bwk::Dkv;
+    static_assert(Dq::smem_bytes<D>() <= attn::wg::SMEM_LIMIT, "shared memory of a CTA");
+    static_assert(Dkv::smem_bytes<D>() <= attn::wg::SMEM_LIMIT, "shared memory of a CTA");
+    static_assert(2 * hop::Tile<D>::BYTES + attn::wg::ROWS * 4 <= bwk::own_bytes<D>(), "delta");
+    const int err = launch(dq_wgmma_kernel<D>, args, batch, attn::wg::ROWS * Dq::NCONS,
+                           Dq::THREADS, Dq::smem_bytes<D>(), s);
     if (err != 0) return err;
-    return launch(dq_fma_kernel<D>, args, batch, R, simt::THREADS, simt::smem_bytes<D>(), s);
+    return launch(dkv_wgmma_kernel<D>, args, batch, attn::wg::ROWS * Dkv::NCONS, Dkv::THREADS,
+                  Dkv::smem_bytes<D>(), s);
   } else {
     using Shape = tc::Shape<D>;
     constexpr int KV_TILE = 16 * Shape::KV_ROWS_W, Q_TILE = 16 * Shape::Q_ROWS_W;
-    err = launch(dkv_mma_kernel<D>, args, batch, KV_TILE, Shape::KV_ROWS_W * Shape::KV_SPLIT * 32,
-                 tc::smem_bytes<D, KV_TILE>(), s);
-    if (err != 0) return err;
-    return launch(dq_mma_kernel<D>, args, batch, Q_TILE, Shape::Q_ROWS_W * Shape::Q_SPLIT * 32,
-                  tc::smem_bytes<D, Q_TILE>(), s);
+    return run_three<T, D>(args, batch, s, dkv_mma_kernel<D>, KV_TILE,
+                           Shape::KV_ROWS_W * Shape::KV_SPLIT * 32, tc::smem_bytes<D, KV_TILE>(),
+                           dq_mma_kernel<D>, Q_TILE, Shape::Q_ROWS_W * Shape::Q_SPLIT * 32,
+                           tc::smem_bytes<D, Q_TILE>());
   }
 }
 

@@ -1,0 +1,281 @@
+// Hopper (sm_90a) building blocks for the kernels that run on wgmma: mbarriers,
+// the proxy fence, named barriers, setmaxnreg, asynchronous copies with a
+// memory clobber, the swizzled shared-memory tile wgmma reads through a matrix
+// descriptor, and the wgmma instructions themselves as inline PTX.
+//
+// A tile is [64 rows][D] bf16 cut into panels of PW = min(D, 64) columns; a
+// panel row is PW * 2 bytes (128 or 64), which is also the swizzle width: the
+// 16-byte chunk c of row r lies at chunk c ^ (r % 8) of its row (128-byte
+// swizzle) or c ^ ((r / 2) % 4) (64-byte swizzle), the pattern both TMA and
+// the wgmma descriptor's layout field name. Tiles start on 1024-byte
+// boundaries, so the pattern is a function of the address alone and a
+// descriptor may start anywhere inside a row (the k-step of a K-major operand
+// is +32 bytes).
+#pragma once
+
+#include "common.cuh"
+
+namespace hop {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier ----------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the barrier's phase differs from `parity`. A wait that outlasts
+// any kernel of this package by orders of magnitude is a protocol fault: trap
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1u << 24)) __trap();
+  }
+}
+
+// Writes made through the generic proxy (st.shared, cp.async) become visible
+// to the async proxy (wgmma's operand reads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int REGS>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// ---- asynchronous copies (ordered against the thread's own accesses) -----------
+
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// 2^x, one instruction: 2^-inf = +0, 2^0 = 1 exactly.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- the swizzled tile ----------------------------------------------------------
+
+constexpr int TILE_ROWS = 64;
+
+template <int D>
+struct Tile {
+  static constexpr int PW = D < 64 ? D : 64;   // columns a panel
+  static constexpr int PITCH = PW * 2;         // bytes a panel row = swizzle width
+  static constexpr int PANELS = D / PW;
+  static constexpr int PANEL_BYTES = TILE_ROWS * PITCH;
+  static constexpr int BYTES = TILE_ROWS * D * 2;
+  static constexpr int ATOM_BYTES = 8 * PITCH;  // eight rows: the swizzle's period
+  static constexpr uint64_t LAYOUT = PITCH == 128 ? 1 : 2;  // descriptor: 128 B / 64 B swizzle
+  static_assert(D % 16 == 0 && (PITCH == 128 || PITCH == 64), "head dim not carried");
+
+  // Byte offset of the 16-byte chunk that holds elements d0 .. d0+7 of row r.
+  __device__ static __forceinline__ int chunk(int r, int d0) {
+    const int p = d0 / PW, c = (d0 % PW) >> 3;
+    const int sw = PITCH == 128 ? (r & 7) : ((r >> 1) & 3);
+    return p * PANEL_BYTES + r * PITCH + ((c ^ sw) << 4);
+  }
+};
+
+// A matrix descriptor: start address, leading and stride byte offsets (all in
+// 16-byte units) and the swizzle. Shared-memory addresses stay under 2^18, so
+// the start field needs no mask and a k-step is one add of a constant.
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t offset, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes, uint64_t layout) {
+  const uint32_t lo = (addr >> 4) + (offset >> 4) + ((lbo_bytes >> 4) << 16);
+  const uint32_t hi = (sbo_bytes >> 4) | (uint32_t)(layout << 30);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// The tile at `addr` as a K-major operand (A: rows are M, or B: rows are N;
+// the columns are the product's depth), k-step kk of 16 columns.
+template <int D>
+__device__ __forceinline__ uint64_t k_major(uint32_t addr, int kk) {
+  using T = Tile<D>;
+  const int col = kk * 16;
+  return descriptor(addr, (col / T::PW) * T::PANEL_BYTES + (col % T::PW) * 2, 16, T::ATOM_BYTES,
+                    T::LAYOUT);
+}
+
+// The tile at `addr` as an MN-major B operand (rows are the product's depth,
+// all D columns are N), k-step kk of 16 rows.
+template <int D>
+__device__ __forceinline__ uint64_t mn_major(uint32_t addr, int kk) {
+  using T = Tile<D>;
+  return descriptor(addr, kk * 16 * T::PITCH, T::PANEL_BYTES, T::ATOM_BYTES, T::LAYOUT);
+}
+
+// ---- wgmma ------------------------------------------------------------------------
+//
+// One warpgroup, D[64 x N] (+)= A[64 x 16] . B[16 x N], bf16 operands, fp32
+// sums. Thread t of the warpgroup (warp w = t / 32, g = lane / 4, q = lane % 4)
+// holds d[4 n + 0..1] = D[16 w + g][8 n + 2 q + 0..1] and d[4 n + 2..3] = the
+// same columns of row 16 w + g + 8: mma.sync's m16n8 accumulator, N / 8 times
+// over. A in registers has mma.sync's m16k16 layout.
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across the
+// asynchronous product's start or its wait.
+template <int COUNT>
+__device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < COUNT; ++i) asm volatile("" : "+f"(d[i]));
+}
+
+// A and B from shared memory, both K-major; N = 64.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  static_assert(N == 64, "no instance");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  }
+}
+
+// A from registers, B from shared memory MN-major (transposed); N = 32, 64, 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b,
+                                         int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "no instance");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  }
+}
+
+}  // namespace hop

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import kernels
 from ..configs import OpenProvenceConfig
 from ..models.model import build_module
 from ..utils import safetensors_io
@@ -111,9 +112,8 @@ def resolve_device(
 ) -> torch.device:
     """The device a trainer runs on. ``None`` takes the device the
     parameters already lie on when that is not the CPU, else the first CUDA
-    card when there is one, else the CPU (as the inference engine picks it).
-    Parameters on a card are never moved to the CPU silently: that takes an
-    explicit ``device="cpu"``."""
+    card, and raises where there is none (as the inference engine does): the
+    CPU takes an explicit ``device="cpu"``, also for parameters on a card."""
     on = {v.device for v in params.values() if isinstance(v, torch.Tensor)}
     off_cpu = sorted({d for d in on if d.type != "cpu"}, key=str)
     if device is None:
@@ -121,7 +121,7 @@ def resolve_device(
             raise ValueError(f"params lie on several devices {off_cpu}; pass device=")
         if off_cpu:
             return off_cpu[0]
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        return kernels.first_card()
     return torch.device(device)
 
 

@@ -92,7 +92,7 @@ def trainer(tmp_path, dropout=0.0, **kw):
     params = top.init_params(config, torch.Generator().manual_seed(1))
     return OpenProvenceTrainer(
         config, params, PairDummyTokenizer(), output_dir=tmp_path, learning_rate=3e-3,
-        total_steps=8, bf16=False, seed=5, **kw,
+        total_steps=8, bf16=False, seed=5, device="cpu", **kw,
     )
 
 

@@ -223,3 +223,21 @@ def test_process_past_1024_matches_jax(long_engines, threshold):
 def test_warmup_walks_the_long_buckets(long_engines):
     _jax_model, torch_model = long_engines
     assert torch_model.warmup(batch_size=1) == [(1, 512), (1, 1024), (1, LONG_MAX)]
+
+
+def test_engine_without_a_device_needs_a_card():
+    """device=None means the first card: on a machine without one the engine
+    raises and names device="cpu", which runs."""
+    import torch
+
+    from open_provence_tpu_torch import init_params
+
+    config = _config(OpenProvenceConfig, ModernBertBackboneConfig)
+    sd = init_params(config, torch.Generator().manual_seed(0))
+    if torch.cuda.is_available():
+        assert OpenProvenceModel(config, sd, DummyTokenizer()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            OpenProvenceModel(config, sd, DummyTokenizer())
+    model = OpenProvenceModel(config, sd, DummyTokenizer(), device="cpu", bucket_step=16)
+    assert model.process("q", CONTEXT, threshold=0.0)["pruned_context"] == CONTEXT

@@ -215,6 +215,72 @@ def test_attention_packed_bwd_plain_matches_pallas(window):
         np.testing.assert_allclose(dqkv, ref, **TOL)
 
 
+def _holed_mask(batch, seq, rng):
+    """A key mask that is no prefix: single padded keys scattered through
+    every row and, in row 0, a wholly padded stretch of 130 keys (at least one
+    aligned 64-key tile without a valid key) inside the valid run; row 1 also
+    ends in padding."""
+    mask = (rng.random((batch, seq)) > 0.05).astype(np.int32)
+    mask[0, 70:200] = 0
+    mask[1, seq - 45:] = 0
+    mask[:, 0] = 1
+    return mask
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_attention_plain_matches_pallas_on_a_mask_with_holes(window):
+    """What leaving out key tiles without a valid key must keep: on a mask
+    with holes and a wholly padded stretch, every valid row of the plain
+    forward agrees with the Pallas kernel (fp32, 1e-4)."""
+    batch, seq, heads, dim = 2, 384, 2, 64
+    rng = np.random.default_rng(23)
+    qkv = rng.normal(size=(batch, seq, 3 * heads * dim)).astype(np.float32)
+    mask = _holed_mask(batch, seq, rng)
+    cos, sin = jax_rope_tables(seq, dim, 10000.0)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(
+            jax_flash_packed(
+                jnp.asarray(qkv), num_heads=heads, padding_mask=jnp.asarray(mask),
+                window=window, rope=(cos, sin),
+            )
+        )
+    kwargs = dict(num_heads=heads, padding_mask=_t(mask), window=window,
+                  rope=rope_tables(seq, dim, 10000.0))
+    valid = mask.astype(bool)
+    for fn in (attention_packed_plain, flash_attention_packed):
+        out = fn(_t(qkv), **kwargs).numpy()
+        np.testing.assert_allclose(out[valid], ref[valid], **TOL)
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_attention_bwd_plain_matches_pallas_on_a_mask_with_holes(window):
+    """The same for the backward, the cotangent zero on padded rows: dq, dk
+    and dv of every row, padded keys included (theirs are zero)."""
+    batch, seq, heads, dim = 2, 384, 2, 64
+    rng = np.random.default_rng(29)
+    qkv = rng.normal(size=(batch, seq, 3 * heads * dim)).astype(np.float32)
+    mask = _holed_mask(batch, seq, rng)
+    g = rng.normal(size=(batch, seq, heads * dim)).astype(np.float32) * mask[..., None]
+    cos, sin = jax_rope_tables(seq, dim, 10000.0)
+    (ref,) = _vjp_pallas(
+        lambda q: jax_flash_packed(
+            q, num_heads=heads, padding_mask=jnp.asarray(mask), window=window, rope=(cos, sin)
+        ),
+        (qkv,),
+        g,
+    )
+    kw = dict(num_heads=heads, padding_mask=_t(mask), window=window,
+              rope=rope_tables(seq, dim, 10000.0))
+    out, lse = flash_attention_packed_lse(_t(qkv), **kw)
+    for fn in (attention_packed_bwd_plain, flash_attention_packed_bwd):
+        dqkv = fn(_t(qkv), _t(g), out, lse, **kw).numpy()
+        np.testing.assert_allclose(dqkv, ref, **TOL)
+    # A padded key gets no gradient: its probability is exactly 0 for every
+    # row with a valid key in reach, and the other rows' cotangent is 0.
+    dk, dv = dqkv[..., heads * dim:2 * heads * dim], dqkv[..., 2 * heads * dim:]
+    assert not dk[mask == 0].any() and not dv[mask == 0].any()
+
+
 def _gradcheck_inputs(seed):
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn(6, 16, generator=gen, dtype=torch.float64).requires_grad_()

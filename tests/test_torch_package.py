@@ -114,6 +114,10 @@ def test_build_names_library_by_source_hash():
     assert kernels.DEFAULT_PATH_KERNELS == kernels.KERNELS[:8]
     for name in (*kernels.SOURCES, *kernels.HEADERS):
         assert (kernels.CSRC / name).is_file(), name
+    # Every file under csrc/ is hashed, the wgmma headers included, so an edit
+    # to any of them rebuilds the library.
+    assert {p.name for p in kernels.CSRC.iterdir()} == {*kernels.SOURCES, *kernels.HEADERS}
+    assert {"hopper.cuh", "attention_wgmma.cuh"} <= set(kernels.HEADERS)
     # One nvcc unit a source, the attention sources also one per head dim.
     assert len(kernels.UNITS) == len(kernels.SOURCES) + 2 * len(kernels.ATTENTION_HEAD_DIMS)
     assert {src for src, _ in kernels.UNITS} == set(kernels.SOURCES)
@@ -301,6 +305,78 @@ def test_attention_kernels_match_plain_at_long_context(cuda_device, seq, batch):
         want = ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw)
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+def _edge_mask(batch, seq, rng, short, device):
+    """A key mask that is no prefix: rows valid to a random length (row 0
+    full; with ``short`` all under seq/2), single padded keys scattered through
+    them and, where it fits, a wholly padded stretch of 130 keys inside the
+    valid run, so that at least one aligned 64-key tile holds no valid key."""
+    lengths = (rng.integers(max(seq // 8, 1), max(seq // 2 - 1, 2), batch) if short
+               else rng.integers(seq // 2, seq + 1, batch))
+    if not short:
+        lengths[0] = seq
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+    mask[rng.random((batch, seq)) < 0.05] = 0
+    for row, length in enumerate(lengths):
+        if length >= 162:
+            start = int(rng.integers(8, length - 138))
+            mask[row, start:start + 130] = 0
+    mask[:, 0] = 1
+    return torch.tensor(mask, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,head_dim", [(24, 32), (12, 64), (6, 128), (3, 256)])
+@pytest.mark.parametrize("batch,seq,short", [(1, 65, False), (1, 513, False), (2, 1100, False),
+                                             (3, 512, True)])
+def test_attention_kernels_match_plain_on_fragile_cases(cuda_device, dtype, heads, head_dim,
+                                                        batch, seq, short):
+    """What tiles, an asynchronously filled ring and skipped key tiles make
+    fragile: S that is no multiple of 64, B = 1, windows 0, 16, 128 and one
+    past S beside global and 64, masks with holes and a wholly padded stretch,
+    rows that are all short. Forward on valid rows and the backward (cotangent
+    zero on padded rows) against the plain versions; the backward twice gives
+    the same bits."""
+    from open_provence_tpu_torch import ops
+
+    rng = np.random.default_rng(seq + head_dim)
+    qkv = torch.tensor(rng.normal(size=(batch, seq, 2304)), dtype=dtype, device=cuda_device)
+    mask = _edge_mask(batch, seq, rng, short, cuda_device)
+    valid = mask.bool()
+    g = torch.tensor(rng.normal(size=(batch, seq, 768)), dtype=dtype,
+                     device=cuda_device) * mask[..., None].to(dtype)
+    tol, grad_tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    for window in (None, 0, 16, 64, 128, seq + 7):
+        kw = dict(num_heads=heads, padding_mask=mask, window=window,
+                  rope=ops.rope_tables(seq, head_dim, 10000.0, dtype, cuda_device))
+        out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+        out_p, lse_p = ops.attention_packed_plain(qkv, **kw, return_lse=True)
+        assert torch.isfinite(lse).all() and torch.isfinite(out).all()
+        torch.testing.assert_close(out[valid].float(), out_p[valid].float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(lse.transpose(1, 2)[valid], lse_p.transpose(1, 2)[valid],
+                                   atol=1e-4, rtol=1e-4)
+        got = ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw)
+        want = ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw).float()
+        torch.testing.assert_close(got.float(), want, rtol=grad_tol,
+                                   atol=grad_tol * want.abs().max().item())
+        assert torch.equal(ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw), got)
+
+
+@pytest.mark.cuda
+def test_attention_design_is_reported(cuda_device):
+    """Which design each head dim's bf16 kernels run is fixed when the library
+    is compiled and can be read back: wgmma from a cp.async ring at 12 x 64."""
+    from open_provence_tpu_torch import kernels
+
+    for backward in (False, True):
+        design = kernels.attention_design(64, backward)
+        assert design["products"] == "wgmma" and design["stages"] >= 2
+        assert "cp.async" in design["fill"] and "mbarrier" in design["fill"]
+        assert kernels.attention_design(256, backward)["products"] == "mma.sync"
+    with pytest.raises(ValueError):
+        kernels.attention_design(48)
 
 
 @pytest.mark.cuda

@@ -113,7 +113,7 @@ def port_trainer(tmp_path, accum=1):
     return OpenProvenceTrainer(
         config, state_dict_from_flax(jax_params(), config), PairDummyTokenizer(),
         output_dir=tmp_path, learning_rate=1e-3, total_steps=10, bf16=False,
-        gradient_accumulation_steps=accum,
+        gradient_accumulation_steps=accum, device="cpu",
     )
 
 
@@ -227,19 +227,36 @@ def test_trainer_matches_jax_trainer(tmp_path_factory, accum):
 
 def test_trainer_device_follows_its_parameters(tmp_path):
     """With no device=, the trainer runs where its parameters lie, or on the
-    first CUDA card for CPU and numpy parameters; only an explicit device
-    moves them."""
+    first CUDA card for CPU and numpy parameters, and raises where there is no
+    card; only an explicit device moves parameters to the CPU."""
     from open_provence_tpu_torch.train.trainer import resolve_device
 
-    default = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     meta = {"w": torch.empty(2, device="meta"), "b": np.zeros(2)}
     assert resolve_device(meta, None) == torch.device("meta")
     assert resolve_device(meta, "cpu") == torch.device("cpu")
-    assert resolve_device({"w": np.zeros(2)}, None) == default
-    assert resolve_device({"w": torch.zeros(2)}, None) == default
+    for params in ({"w": np.zeros(2)}, {"w": torch.zeros(2)}):
+        if torch.cuda.is_available():
+            assert resolve_device(params, None) == torch.device("cuda", 0)
+        else:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                resolve_device(params, None)
     pt = port_trainer(tmp_path)
-    assert pt.device == default
-    assert {p.device for p in pt.params.values()} == {default}
+    assert pt.device == torch.device("cpu")
+    assert {p.device for p in pt.params.values()} == {torch.device("cpu")}
+
+
+def test_trainer_without_a_device_needs_a_card(tmp_path):
+    """device=None means the first card: on a machine without one the
+    trainer raises and names device="cpu", which runs."""
+    config = tiny_config(top)
+    args = (config, state_dict_from_flax(jax_params(), config), PairDummyTokenizer())
+    kw = dict(output_dir=tmp_path, learning_rate=1e-3, total_steps=10, bf16=False)
+    if torch.cuda.is_available():
+        assert OpenProvenceTrainer(*args, **kw).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            OpenProvenceTrainer(*args, **kw)
+    assert np.isfinite(OpenProvenceTrainer(*args, **kw, device="cpu").train_one_step(collate())["loss"])
 
 
 def test_training_after_serving_in_inference_mode(tmp_path):
@@ -263,6 +280,7 @@ def test_gradient_checkpointing_gives_the_same_gradients(tmp_path):
         pt = OpenProvenceTrainer(
             config, state_dict_from_flax(jax_params(), config), PairDummyTokenizer(),
             output_dir=tmp_path / str(remat), bf16=False, gradient_checkpointing=remat,
+            device="cpu",
         )
         assert pt.module.ranking_model.model.gradient_checkpointing is remat
         loss, _, grads = pt.loss_and_grads(batch)
