@@ -9,7 +9,11 @@ card and check it, in phases:
    the ModernBERT-base shapes the engine dispatches (M = B·S for B in 1/8/32
    and S in 64/192/512, ragged padding, global and ±64 windows), fp32 and
    bf16; the kernels of the bias-carrying layouts (GeGLU without a norm,
-   add + LayerNorm) at M = 16384 and a ragged M;
+   add + LayerNorm) at M = 16384 and a ragged M; the GEMM engine's edge
+   cases (M = 64, 16384 - 37, 16384; an output width of one tile and a
+   ragged one; K = 768 and a K that is no multiple of 64; every GeGLU
+   activation; two bf16 launches bit-equal), and the bare products on
+   torch.matmul timed beside kernels 2, 4, 6, 11 and 12;
 3b. each backward kernel against its plain version at the training shapes
    (B=32, S=512), fp32 and bf16, with kernel and plain times; the LayerNorm
    adjoint with the residual cotangent gh;
@@ -72,7 +76,10 @@ checkout), so that two trees can be compared inside one call.
 ``python3 chip_smoke.py --attention [TREE]`` builds TREE's kernels, prints
 the attention units' ptxas report and designs, runs the edge cases of phase
 3c and times the packed attention forward and backward in bf16 at the
-shapes of the table of TPU kernels.
+shapes of the table of TPU kernels. ``python3 chip_smoke.py --gemm [TREE]``
+does the same for the GEMM engine: its units' ptxas report, the design of
+every layout, phase 3's GEMM edge cases, and kernels 2, 4 and 6 in bf16 at
+M = 16384 beside torch.matmul on the same product.
 
 Every phase prints a line; any failure raises and the script exits
 non-zero without printing a result. The line before the last is the JSON
@@ -265,6 +272,108 @@ def attention_designs(backward: bool) -> dict:
             for dim in kernels.ATTENTION_HEAD_DIMS}
 
 
+def gemm_designs() -> dict:
+    """The GEMM engine's design of every bf16 layout, as the library was
+    built: the forward's K-major x K-major product (kernels 2, 4, 6 and
+    kernel 11's recomputed projection) and the backward's transposed ones."""
+    from open_provence_tpu_torch import kernels
+
+    layouts = {"xn.W^T": (False, False), "G^T.xn": (True, True), "G.W": (False, True)}
+    return {name: kernels.gemm_design(ta, tb, torch.bfloat16) for name, (ta, tb) in layouts.items()}
+
+
+def gemm_design_note(design: dict) -> str:
+    return (f"{design['products']}, {design['fill']}, {design['stages']} stage(s), "
+            f"tile {design['tile']}")
+
+
+def lowest_ms(fn, tries: int = 3) -> float:
+    """The lowest of ``tries`` means of 20 calls."""
+    return min(cuda_ms(fn) for _ in range(tries))
+
+
+def print_ptxas(log: str, wanted) -> None:
+    """The ptxas report (registers, and the spill line) of the entry
+    functions whose mangled name contains one of ``wanted``."""
+    entry, spills = "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry, spills = line.split("'")[1], ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and any(w in entry for w in wanted):
+            phase(f"ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+        elif "warning" in line:
+            phase(f"ptxas {entry}: {line.strip()}")
+
+
+# The four activation codes of the GeGLU epilogue (ops/geglu.py::ACTIVATIONS).
+GEGLU_ACTIVATIONS = ("gelu", "gelu_new", "relu", "silu")
+
+
+def gemm_edge_cases(dev, stats: dict[str, dict]) -> None:
+    """Kernels 2, 4 and 6 against their plain versions where the GEMM
+    engine's tiles make them fragile: M = 64 (B=1, S=64), 16384 - 37 and
+    16384; output widths of one whole tile (256 columns; 128 under GeGLU)
+    and ragged ones (452 and 100: no multiple of the tile, nor of 8, so the
+    epilogue stores element by element); K = 768 and K = 200 (three 64-deep
+    steps and 8 more, zero-filled); every GeGLU activation; fp32 and bf16.
+    In bf16 each kernel runs twice and must give the same bits. Kernel 4
+    must give the bits of kernel 6 on kernel 1's rows: its normalized rows
+    are kernel 1's to the bit, and the products are the same."""
+    from open_provence_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(6)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(device=dev, dtype=dtype)
+
+    for name in ("ln_matmul", "ln_geglu", "geglu"):
+        stats.setdefault(name, {"max_abs_err": {}, "cases": 0})
+    worst, cases = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (HIDDEN, 200):
+            scale = randn(k, scale=0.1, dtype=dtype) + 1
+            w = {n: randn(n, k, scale=k**-0.5, dtype=dtype) for n in (256, 452)}
+            wi = {i: randn(2 * i, k, scale=k**-0.5, dtype=dtype) for i in (128, 100)}
+            for m in (64, 16384 - 37, 16384):
+                x = randn(m, k, scale=2.0, dtype=dtype)
+                xn = ops.layer_norm_plain(x, scale)
+                xn_kernel = ops.layer_norm(x, scale)
+                # (label, name, kernel, plain, the bits it must equal or None)
+                runs = [(f"ln_matmul N={n}", "ln_matmul",
+                         lambda w_=w_: ops.ln_matmul(x, scale, w_),
+                         lambda w_=w_: ops.ln_matmul_plain(x, scale, w_), None)
+                        for n, w_ in w.items()]
+                for j, (i, w_) in enumerate(wi.items()):
+                    runs += [(f"ln_geglu I={i} {act}", "ln_geglu",
+                              lambda w_=w_, act=act: ops.ln_geglu(x, scale, w_, act),
+                              lambda w_=w_, act=act: ops.ln_geglu_plain(x, scale, w_, act),
+                              lambda w_=w_, act=act: ops.geglu(xn_kernel, w_, act))
+                             for act in GEGLU_ACTIVATIONS]
+                    act = GEGLU_ACTIVATIONS[(j + m) % len(GEGLU_ACTIVATIONS)]
+                    runs.append((f"geglu I={i} {act}", "geglu",
+                                 lambda w_=w_, act=act: ops.geglu(xn, w_, act),
+                                 lambda w_=w_, act=act: ops.geglu_plain(xn, w_, act), None))
+                for label, name, kernel, plain, same_bits in runs:
+                    got = kernel()
+                    err = check_close(f"{label} M={m} K={k} {dtype}", got, plain(), dtype)
+                    if dtype == torch.bfloat16 and not torch.equal(got, kernel()):
+                        raise AssertionError(f"{label} M={m} K={k}: two launches differ")
+                    if same_bits is not None and not torch.equal(got, same_bits()):
+                        raise AssertionError(f"{label} M={m} K={k} {dtype}: not kernel 6 on "
+                                             "kernel 1's rows, bit for bit")
+                    by_dtype = stats[name]["max_abs_err"]
+                    by_dtype[dtype] = max(by_dtype.get(dtype, 0.0), err)
+                    stats[name]["cases"] += 1
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    cases += 1
+                torch.cuda.synchronize()
+    phase(f"phase 3 GEMM edge cases: {cases} cases, max_abs_err fp32 {worst[torch.float32]:.3e}, "
+          f"bf16 {worst[torch.bfloat16]:.3e} (tol {TOL[torch.float32]}, {TOL[torch.bfloat16]}); "
+          "bf16 launches twice, bit-equal")
+
+
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
     atol, rtol = TOL[dtype]
     got, want = got.float(), want.float()
@@ -365,6 +474,7 @@ def phase3_kernels(dev) -> dict[str, dict]:
             atol, rtol = TOL[dtype]
             phase(f"phase 3 {name} {str(dtype)[6:]}: max_abs_err {st['max_abs_err'][dtype]:.3e} "
                   f"(tol atol {atol} + rtol {rtol}) over {st['cases']} cases so far")
+    gemm_edge_cases(dev, stats)
 
     # Times at the main path's largest bucket: B=32, S=512, bf16.
     dtype, batch, seq = torch.bfloat16, 32, 512
@@ -405,6 +515,16 @@ def phase3_kernels(dev) -> dict[str, dict]:
         phase(f"phase 3 time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']}, one "
               f"PyTorch call {library_note(name, library[name])}")
+    # The bare product of kernels 2, 4 and 6 on torch.matmul, on the rows
+    # they normalize: the library's time for the GEMM alone (no single call
+    # computes LN -> GEMM or the GeGLU epilogue).
+    xn = ops.layer_norm(x, scale)
+    design = gemm_designs()
+    for name, w in (("ln_matmul", w_qkv), ("ln_geglu", w_i), ("geglu", w_i)):
+        stats[name].update(matmul_ms=lowest_ms(lambda w=w: torch.matmul(xn, w.t())),
+                           design=design["xn.W^T"])
+        phase(f"phase 3 time {name}: the bare product on torch.matmul "
+              f"{stats[name]['matmul_ms']:.4f} ms; {gemm_design_note(design['xn.W^T'])}")
     local_bound = attention_bound(mask, 64, False)
     stats["flash_attention_packed"].update(ms_window64=local[0], plain_ms_window64=local[1],
                                            bound_ms_window64=local_bound["bound_ms"])
@@ -533,6 +653,20 @@ def phase3b_backward(dev) -> dict[str, dict]:
         phase(f"phase 3b time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, bound {bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']}, one "
               f"PyTorch call {library_note(name, library[name])}")
+    # Their products on torch.matmul, summed: dW = G^T.xn and dy = G.W, and
+    # for kernel 11 the recomputed projection xn.Wi^T (G = [gi | gg]).
+    xn = ops.layer_norm(x, scale)
+    design = gemm_designs()
+    for name, grad, w in (("ln_matmul_bwd", g_qkv, w_qkv),
+                          ("ln_geglu_bwd", torch.cat([g_mlp, g_mlp], dim=1), w_i)):
+        ms = [lowest_ms(lambda: torch.matmul(grad.t(), xn)),
+              lowest_ms(lambda: torch.matmul(grad, w))]
+        if name == "ln_geglu_bwd":
+            ms.append(lowest_ms(lambda: torch.matmul(xn, w.t())))
+        stats[name].update(matmul_ms=sum(ms), design=design)
+        phase(f"phase 3b time {name}: its products on torch.matmul {sum(ms):.4f} ms "
+              f"({', '.join(f'{v:.4f}' for v in ms)}); "
+              + "; ".join(f"{k}: {gemm_design_note(d)}" for k, d in design.items()))
     with_gh = paired_ms(lambda: ops.layer_norm_bwd(x, scale, x, 1e-5, x),
                         lambda: ops.layer_norm_bwd_plain(x, scale, x, 1e-5, x))
     stats["layer_norm_bwd"].update(ms_with_gh=with_gh[0], plain_ms_with_gh=with_gh[1])
@@ -1149,7 +1283,8 @@ OUR_KERNELS = {
     ("dq_mma_kernel",): "attention bwd dQ", ("delta_kernel",): "attention bwd delta",
     ("flash_wgmma_kernel",): "attention fwd", ("dkv_wgmma_kernel",): "attention bwd dK/dV",
     ("dq_wgmma_kernel",): "attention bwd dQ",
-    ("gemm_mma_kernel",): "GEMM engine (LN->GEMM, GeGLU; fwd and bwd)",
+    ("gemm_wgmma_kernel",): "GEMM engine, wgmma (xn.W^T)",
+    ("gemm_mma_kernel",): "GEMM engine, mma.sync (dW, dy)",
     ("ln_adjoint", "row_kernel"): "LN adjoint rows",
     ("ln_adjoint", "reduce_kernel"): "LN adjoint dscale",
     ("normalize_kernel",): "LN->GEMM normalize",
@@ -1977,14 +2112,7 @@ def attention_main(tree: Path) -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     kernels.library()
-    entry = ""
-    for line in kernels.library_path().with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "Used" in line and ("flash" in entry or "dkv" in entry or "dq_" in entry):
-            phase(f"ptxas {entry}: {line.split(':', 1)[1].strip()}")
-        elif "warning" in line or "spill" in line and "0 bytes spill stores" not in line:
-            phase(f"ptxas {entry}: {line.strip()}")
+    print_ptxas(kernels.library_path().with_suffix(".log").read_text(), ("flash", "dkv", "dq_"))
     if hasattr(kernels, "attention_design"):  # an older tree has one design and no report
         for _, head_dim in HEAD_LAYOUTS:
             phase(f"design D={head_dim}: forward {design_note(head_dim, False)}; backward "
@@ -2014,6 +2142,51 @@ def attention_main(tree: Path) -> int:
     return 0
 
 
+def gemm_main(tree: Path) -> int:
+    """The GEMM engine of the package under ``tree`` alone: the ptxas report
+    of its kernels, the design of every layout, phase 3's GEMM edge cases,
+    then kernels 2, 4 and 6 in bf16 at M = 16384 (B=32, S=512 and B=8,
+    S=2048 alike) and torch.matmul on the same product (the normalized rows
+    times the weight), lowest of 3 means of 20 launches, so that two trees
+    can be compared inside one call. One JSON line."""
+    sys.path.insert(0, str(tree))
+    from open_provence_tpu_torch import kernels, ops
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kernels.library()
+    print_ptxas(kernels.library_path().with_suffix(".log").read_text(),
+                ("gemm_wgmma", "gemm_mma", "gemm_fma", "normalize_kernel"))
+    if hasattr(kernels, "gemm_design"):  # an older tree reports no design
+        for name, design in gemm_designs().items():
+            phase(f"design {name} bf16: {gemm_design_note(design)}")
+    gemm_edge_cases(dev, {})
+    gen = torch.Generator().manual_seed(60)
+    dtype, rows = torch.bfloat16, 32 * 512
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device=dev, dtype=dtype)
+
+    x, scale = randn(rows, HIDDEN, scale=2.0), randn(HIDDEN, scale=0.1) + 1
+    w_qkv = randn(3 * HIDDEN, HIDDEN, scale=HIDDEN**-0.5)
+    w_i = randn(2 * INTER, HIDDEN, scale=HIDDEN**-0.5)
+    xn = ops.layer_norm(x, scale)
+    calls = {
+        "ln_matmul": (lambda: ops.ln_matmul(x, scale, w_qkv), w_qkv),
+        "ln_geglu": (lambda: ops.ln_geglu(x, scale, w_i, "gelu"), w_i),
+        "geglu": (lambda: ops.geglu(xn, w_i, "gelu"), w_i),
+    }
+    bounds, times = gemm_bounds(rows), {}
+    for name, (kernel, w) in calls.items():
+        ms, matmul_ms = lowest_ms(kernel), lowest_ms(lambda: torch.matmul(xn, w.t()))
+        times[name] = {"ms": ms, "matmul_ms": matmul_ms, "bound_ms": bounds[name]["bound_ms"]}
+        phase(f"time {name} M={rows} bf16: kernel {ms:.4f} ms, torch.matmul on the product "
+              f"{matmul_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+              "(lowest of 3 means of 20)")
+    print(json.dumps({"tree": str(tree), "card": card, "gemm": times}), flush=True)
+    return 0
+
+
 def load_dummy_tokenizers():
     """tests/dummy_tokenizers.py's DummyTokenizer and PairDummyTokenizer,
     loaded by path (an installed package may own the top-level name
@@ -2037,14 +2210,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if len(sys.argv) > 1:
-        modes = ("--rates", "--attention")
+        modes = {"--rates": rates_main, "--attention": attention_main, "--gemm": gemm_main}
         if sys.argv[1] not in modes or len(sys.argv) > 3:
             print(f"usage: chip_smoke.py [{' | '.join(modes)} [TREE]]", file=sys.stderr)
             return 2
         tree = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else REPO
-        if sys.argv[1] == "--rates":
-            return rates_main(tree)
-        return attention_main(tree)
+        return modes[sys.argv[1]](tree)
     sys.path.insert(0, str(REPO))
     from open_provence_tpu_torch import init_params, kernels, native
 
@@ -2067,14 +2238,7 @@ def main() -> int:
     kernels.library()
     phase(f"phase 2 built {lib_path.name} from {', '.join(kernels.SOURCES)} "
           f"({len(kernels.UNITS)} nvcc processes side by side) in {time.perf_counter() - began:.1f} s")
-    entry = spills = ""
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "spill" in line:
-            spills = line.strip()
-        elif "Used" in line:
-            phase(f"phase 2 ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+    print_ptxas(lib_path.with_suffix(".log").read_text(), ("",))
     host_built = native.is_available()
     phase(f"phase 2 native host library built from {native._SOURCE.relative_to(REPO)}: {host_built}")
     if not host_built:

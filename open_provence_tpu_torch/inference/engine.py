@@ -20,6 +20,7 @@ postprocess (SURVEY §3.2).
 from __future__ import annotations
 
 import logging
+import os
 from collections.abc import Callable, Mapping, Sequence
 from time import perf_counter
 from typing import Any
@@ -326,21 +327,40 @@ class OpenProvenceModel:
 
     def warmup(
         self,
-        batch_size: int = DEFAULT_BATCH_SIZE,
+        batch_size: int | None = None,
         lengths: Sequence[int] | None = None,
-    ) -> list[tuple[int, int]]:
-        """Run one full-batch forward per bucket length ``process()`` will
-        hit, so the first request does not pay for building the kernels or
-        for first-use allocations. Returns the (rows, length) shapes run."""
+        *,
+        include_pooled: bool = True,
+        fragment_caps: Sequence[int] = (16,),
+    ) -> list[tuple[int, ...]]:
+        """Run the forwards ``process()`` will dispatch, so the first request
+        does not pay for building the kernels or for first-use allocations:
+        one full batch per bucket length (every length of the bucket table by
+        default), its rows padded by the dispatcher's rule, and, when
+        ``include_pooled`` and device pooling is on, the pooled forward at
+        each of ``fragment_caps`` rounded as the dispatcher rounds a row's
+        fragment count. ``batch_size=None`` is ``process()``'s default.
+        Returns the (rows, length) and (rows, length, fragment cap) shapes
+        run, as the JAX engine's ``warmup`` returns its compiled keys."""
+        if batch_size is None:
+            batch_size = DEFAULT_BATCH_SIZE
         if lengths is None:
             lengths = length_buckets(self.max_length, self.bucket_step)
-        warmed: list[tuple[int, int]] = []
+        rows = bucket_batch(batch_size, batch_size)
+        warmed: list[tuple[int, ...]] = []
         for seq_len in lengths:
-            ids = np.zeros((batch_size, seq_len), dtype=np.int32)
-            mask = np.ones((batch_size, seq_len), dtype=np.int32)
+            ids = np.zeros((rows, seq_len), dtype=np.int32)
+            mask = np.ones((rows, seq_len), dtype=np.int32)
             for t in self._forward(ids, mask):
                 t.cpu()
-            warmed.append((batch_size, seq_len))
+            warmed.append((rows, seq_len))
+            if include_pooled and self.device_pooling:
+                for cap in fragment_caps:
+                    f_cap = self._frag_cap(int(cap))
+                    starts = np.zeros((rows, f_cap), dtype=np.int32)
+                    for t in self._forward_pooled(ids, mask, starts, starts):
+                        t.cpu()
+                    warmed.append((rows, seq_len, f_cap))
         return warmed
 
     # --- process() --------------------------------------------------------------
@@ -484,8 +504,9 @@ class OpenProvenceModel:
 
         Argument semantics match the reference's ``process()``
         (standalone:3314-3406) and the JAX package's. ``batch_size=None``
-        takes 32 rows a forward; row counts pad to powers of two capped at
-        the batch size. ``preprocess_workers`` selects thread-parallel
+        takes 32 rows a forward and 0 takes one, as in the JAX engine; row
+        counts pad to powers of two capped at the batch size.
+        ``preprocess_workers`` selects thread-parallel
         fragmentation, auto-tuned from the job count and device memory when
         unset (preprocess_tuning.py). ``torch_dataloader_kwargs`` is
         accepted for drop-in compatibility but unused (a warning says so
@@ -497,7 +518,7 @@ class OpenProvenceModel:
                 "torch_dataloader_kwargs is accepted for reference "
                 "compatibility but has no effect (no torch DataLoader here)."
             )
-        batch_size = max(batch_size or DEFAULT_BATCH_SIZE, 1)
+        batch_size = DEFAULT_BATCH_SIZE if batch_size is None else max(batch_size, 1)
         threshold = self.config.resolve_threshold(threshold)
         watch = _Stopwatch()
         began = perf_counter()
@@ -577,7 +598,8 @@ class OpenProvenceModel:
                 progress = None
 
         # The half-size early flush only pays when later chunks are still
-        # fragmentizing while the device works.
+        # fragmentizing while the device works; OPEN_PROVENCE_TPU_PIPELINE=0
+        # turns it off, as in the JAX engine.
         dispatcher = _BlockDispatcher(
             self,
             batch_size,
@@ -585,7 +607,9 @@ class OpenProvenceModel:
             cell_table=(cell_table := {}),
             watch=watch,
             progress=progress,
-            pipeline=len(slices) > 1,
+            pipeline=(
+                os.environ.get("OPEN_PROVENCE_TPU_PIPELINE", "1") != "0" and len(slices) > 1
+            ),
         )
         context_start_cache: dict[int, int] = {}
         for job, entry in zip(prep_jobs, _entries()):

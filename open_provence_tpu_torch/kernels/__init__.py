@@ -39,9 +39,13 @@ SOURCES = (
 )
 HEADERS = (
     "common.cuh", "activation.cuh", "attention_common.cuh", "gemm.cuh", "ln_adjoint.cuh",
-    "mlp_tail.cuh", "hopper.cuh", "attention_wgmma.cuh",
+    "mlp_tail.cuh", "hopper.cuh", "attention_wgmma.cuh", "gemm_wgmma.cuh",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# The rest of the recipe: each unit's compile (with the ptxas report), then
+# the link of the objects into one shared library.
+COMPILE_FLAGS = ("-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 # The head dims the attention kernels are instantiated for
 # (attention_common.cuh: OPT_ATTN_FOR_EACH_D).
 ATTENTION_HEAD_DIMS = (32, 64, 128, 256)
@@ -133,11 +137,13 @@ def nvcc_path() -> str:
 
 
 def _source_digest() -> str:
+    """The hash of the whole recipe: every header and source, the units with
+    their own flags, and the target, compile and link flags."""
     h = hashlib.sha256()
     for name in (*HEADERS, *SOURCES):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(ARCH_FLAGS).encode())
+    h.update(repr((UNITS, ARCH_FLAGS, COMPILE_FLAGS, LINK_FLAGS)).encode())
     return h.hexdigest()[:16]
 
 
@@ -161,8 +167,8 @@ def build() -> Path:
         objects = [tmp.with_name(f"{tmp.name}.{name}.o") for name in names]
         compiles = [
             subprocess.Popen(
-                [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", *flags, str(CSRC / src), "-o", str(obj)],
+                [nvcc_path(), *ARCH_FLAGS, *COMPILE_FLAGS, *flags, str(CSRC / src), "-o",
+                 str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for (src, flags), obj in zip(UNITS, objects)
@@ -173,7 +179,7 @@ def build() -> Path:
         report = "".join(out for out, proc in zip(logs, compiles) if proc.returncode != 0)
         if not failed:
             link = subprocess.run(
-                [nvcc_path(), *ARCH_FLAGS, "-shared", *map(str, objects), "-o", str(tmp)],
+                [nvcc_path(), *ARCH_FLAGS, *LINK_FLAGS, *map(str, objects), "-o", str(tmp)],
                 capture_output=True, text=True, check=False,
             )
             log += link.stdout + link.stderr
@@ -217,6 +223,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.opt_flash_attention_design.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     lib.opt_flash_attention_design.restype = ctypes.c_int
+    lib.opt_gemm_design.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.opt_gemm_design.restype = ctypes.c_int
     lib.opt_error_string.argtypes = [ctypes.c_int]
     lib.opt_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -246,14 +254,36 @@ def attention_design(head_dim: int, backward: bool = False) -> dict:
     }
 
 
+def gemm_design(ta: bool, tb: bool, dtype: torch.dtype) -> dict:
+    """How the GEMM engine runs the layout C = A·B with A (``ta``) or B
+    (``tb``) transposed in ``dtype``, as the library was built: the products,
+    how the operands reach shared memory, the ring's stages and the tile
+    (rows x B rows x depth; under GEGLU half of the B rows are gate rows)."""
+    out = (ctypes.c_int * 6)()
+    if library().opt_gemm_design(int(ta), int(tb), dtype_code_of(dtype), out) != 0:
+        raise ValueError(f"no GEMM for {dtype}")
+    products, fill, stages, rows, cols, depth = out
+    return {
+        "products": ("fma", "mma.sync", "wgmma")[products],
+        "fill": ("loads between two barriers a tile", "cp.async ring between two barriers a tile",
+                 "TMA ring with mbarriers, one producer thread")[fill],
+        "stages": stages,
+        "tile": f"{rows}x{cols}x{depth}",
+    }
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def dtype_code(t: torch.Tensor) -> int:
+def dtype_code_of(dtype: torch.dtype) -> int:
     try:
-        return _DTYPE_CODES[t.dtype]
+        return _DTYPE_CODES[dtype]
     except KeyError:
-        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}") from None
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}") from None
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    return dtype_code_of(t.dtype)
 
 
 def on_cuda(t: torch.Tensor) -> bool:

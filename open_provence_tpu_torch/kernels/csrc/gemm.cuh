@@ -10,16 +10,21 @@
 //
 // Epilogues: STORE casts the fp32 sum to C's type. GEGLU (TB false) reads
 // B as Wi [2N, K] and writes C[m, n] = act(A . Wi[n]) * (A . Wi[N + n])
-// with the TPU kernel's rounding chain (ops/geglu.py::_ln_geglu_kernel):
-// round each half to the storage type, the activation in fp32 on the
-// rounded input, round, then the product with the rounded gate. Its tiles
-// hold the input rows of half as many output columns followed, block by
-// block, by their gate rows, so the thread that holds an input's sum also
+// with the TPU kernel's rounding chain (geglu<OutT>, gemm_wgmma.cuh). Its
+// tiles hold the input rows of half as many output columns followed, block
+// by block, by their gate rows, so the thread that holds an input's sum also
 // holds its gate's.
+//
+// Routes, by layout and type alone: fp32 on FMA (true fp32, no TF32); bf16
+// with both operands K-major (TA and TB false: the forward's xn . W^T and
+// the backward's recomputed projection) on wgmma fed by a producer
+// warpgroup (gemm_wgmma.cuh); the transposed bf16 layouts of the backward
+// (dW = G^T . xn, dy = G . W) on mma.sync.
 #pragma once
 
 #include "activation.cuh"
 #include "common.cuh"
+#include "gemm_wgmma.cuh"
 
 // Return a launch's error code if it is not 0 (variadic: template argument
 // lists carry commas).
@@ -33,8 +38,6 @@
 // ln_adjoint.cuh, so no kernel symbol is shared across objects.
 namespace gemm_engine {
 namespace {
-
-enum class Epi { STORE, GEGLU };
 
 // xn = T(h * s), h = (x - mean) * rstd from fp32 E[x^2] - E[x]^2: the
 // rounding point of the TPU kernels' _ln_rows. One warp a row.
@@ -71,12 +74,6 @@ __device__ __forceinline__ int b_row(int n0, int r, int N, bool* ok) {
     *ok = n0 + r < N;
     return n0 + r;
   }
-}
-
-template <typename OutT>
-__device__ __forceinline__ OutT geglu(float inp, float gate, int act) {
-  const float a = round_to<OutT>(activation(round_to<OutT>(inp), act));
-  return from_f32<OutT>(a * round_to<OutT>(gate));
 }
 
 // ---- fp32: FMA over 64x64 tiles, 4x4 outputs a thread (true fp32, no TF32)
@@ -146,14 +143,15 @@ __global__ void __launch_bounds__(simt::THREADS)
   }
 }
 
-// ---- bf16: mma.sync m16n8k16 with fp32 accumulation ------------------------
+// ---- bf16, a transposed operand: mma.sync m16n8k16, fp32 accumulation -------
 //
 // 128x128 CTA tiles, 8 warps as 2 (m) x 4 (n), a warp owns 64 x 32: 4 x 4
 // m16n8 tiles. Each operand tile sits in shared memory as it lies in device
 // memory (rows along its contiguous dim, padded by 8 against bank
 // conflicts), filled by a 3-stage cp.async ring; ldmatrix reads the
 // fragments, with .trans where the tile's rows run along the contraction.
-// Under GEGLU a warp's 32 B rows are 16 input rows and their 16 gate rows.
+// B is always transposed here (TB): the K-major x K-major layout and GEGLU
+// run on gemm_wgmma_kernel.
 namespace tc {
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
 template <bool T_>
@@ -166,22 +164,21 @@ constexpr size_t smem_bytes() {
 }
 }  // namespace tc
 
-template <bool TA, bool TB, Epi E, typename OutT>
+template <bool TA, bool TB, typename OutT>
 __global__ void __launch_bounds__(tc::THREADS)
     gemm_mma_kernel(const __nv_bfloat16* __restrict__ A, int lda,
                     const __nv_bfloat16* __restrict__ B, int ldb, OutT* __restrict__ C, int ldc,
-                    int M, int N, int K, int act) {
+                    int M, int N, int K) {
   using namespace tc;
   using bf16 = __nv_bfloat16;
-  static_assert(E == Epi::STORE || !TB, "GEGLU reads Wi in torch's [out, in] layout");
-  constexpr int OUT_N = E == Epi::GEGLU ? BN / 2 : BN;  // output columns a tile
+  static_assert(TB, "the K-major x K-major layout runs on wgmma");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);
   bf16* Bs = As + STAGES * a_stage<TA>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * OUT_N;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int n_k = (K + BK - 1) / BK;
 
   auto issue = [&](int kt) {
@@ -205,21 +202,12 @@ __global__ void __launch_bounds__(tc::THREADS)
         }
       }
 #pragma unroll
-      for (int e = 0; e < BN * BK / 8 / THREADS; ++e) {
+      for (int e = 0; e < BN * BK / 8 / THREADS; ++e) {  // tile [BK][BN]: rows k, n contiguous
         const int c = tid + e * THREADS;
-        if constexpr (TB) {  // tile [BK][BN]: rows k, n contiguous
-          const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-          const bool ok = k0 + r < K && n0 + nc < N;
-          cp_async16(bs + r * (BN + 8) + nc, ok ? B + (size_t)(k0 + r) * ldb + n0 + nc : B,
-                     ok ? 16 : 0);
-        } else {  // tile [BN][BK]: rows n, k contiguous
-          const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-          bool ok;
-          const int row = b_row<E, 16>(n0, r, N, &ok);
-          ok = ok && k0 + kc < K;
-          cp_async16(bs + r * (BK + 8) + kc, ok ? B + (size_t)row * ldb + k0 + kc : B,
-                     ok ? 16 : 0);
-        }
+        const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+        const bool ok = k0 + r < K && n0 + nc < N;
+        cp_async16(bs + r * (BN + 8) + nc, ok ? B + (size_t)(k0 + r) * ldb + n0 + nc : B,
+                   ok ? 16 : 0);
       }
     }
     cp_async_commit();  // an empty group keeps the wait count uniform
@@ -254,12 +242,8 @@ __global__ void __launch_bounds__(tc::THREADS)
       for (int pair = 0; pair < 2; ++pair) {
         const int nb = warp_n * 32 + pair * 16;
         uint32_t r[4];
-        if constexpr (TB)
-          ldmatrix_x4_trans(r, bs + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * (BN + 8) + nb +
-                                   (lane >> 4) * 8);
-        else
-          ldmatrix_x4(r, bs + (nb + (lane >> 4) * 8 + (lane & 7)) * (BK + 8) + ks +
-                             ((lane >> 3) & 1) * 8);
+        ldmatrix_x4_trans(r, bs + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * (BN + 8) + nb +
+                                 (lane >> 4) * 8);
         b[2 * pair][0] = r[0];
         b[2 * pair][1] = r[1];
         b[2 * pair + 1][0] = r[2];
@@ -273,9 +257,7 @@ __global__ void __launch_bounds__(tc::THREADS)
   }
   cp_async_wait<0>();
 
-  // acc[mt][nt] holds tile columns warp_n * 32 + nt * 8 + 2t + j; under
-  // GEGLU, nt = 0, 1 are the inputs of output columns warp_n * 16 + nt * 8
-  // + 2t + j and nt + 2 their gates.
+  // acc[mt][nt] holds tile columns warp_n * 32 + nt * 8 + 2t + j.
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -283,41 +265,37 @@ __global__ void __launch_bounds__(tc::THREADS)
       const int row = m0 + warp_m * 64 + mt * 16 + g + half * 8;
       if (row >= M) continue;
 #pragma unroll
-      for (int nt = 0; nt < (E == Epi::GEGLU ? 2 : 4); ++nt)
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int col = n0 + warp_n * (OUT_N / 4) + nt * 8 + 2 * t + j;
-          if (col >= N) continue;
-          if constexpr (E == Epi::GEGLU)
-            C[(size_t)row * ldc + col] =
-                geglu<OutT>(acc[mt][nt][half * 2 + j], acc[mt][nt + 2][half * 2 + j], act);
-          else
-            C[(size_t)row * ldc + col] = from_f32<OutT>(acc[mt][nt][half * 2 + j]);
+          const int col = n0 + warp_n * 32 + nt * 8 + 2 * t + j;
+          if (col < N) C[(size_t)row * ldc + col] = from_f32<OutT>(acc[mt][nt][half * 2 + j]);
         }
     }
 }
 
-// C = A . B on the caller's stream: FMA for float, mma.sync for bf16. N is
-// C's column count (under GEGLU half of B's rows); act is GEGLU's
-// activation code.
+// C = A . B on the caller's stream, by the routes above. N is C's column
+// count (under GEGLU half of B's rows); act is GEGLU's activation code.
 template <bool TA, bool TB, Epi E = Epi::STORE, typename T, typename OutT>
 int gemm(const T* A, int lda, const T* B, int ldb, OutT* C, int ldc, int M, int N, int K,
          cudaStream_t s, int act = 0) {
   if (M <= 0 || N <= 0) return 0;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 2 && !TA && !TB) {
+    return gemm_wgmma<E>(A, lda, B, ldb, C, ldc, M, N, K, s, act);
+  } else if constexpr (sizeof(T) == 4) {
     constexpr int out_n = E == Epi::GEGLU ? simt::BN / 2 : simt::BN;
     const dim3 grid((N + out_n - 1) / out_n, (M + simt::BM - 1) / simt::BM);
     gemm_fma_kernel<TA, TB, E><<<grid, simt::THREADS, 0, s>>>(A, lda, B, ldb, C, ldc, M, N, K,
                                                               act);
   } else {
+    static_assert(E == Epi::STORE, "GEGLU reads Wi in torch's [out, in] layout");
     constexpr size_t smem = tc::smem_bytes<TA, TB>();
-    constexpr int out_n = E == Epi::GEGLU ? tc::BN / 2 : tc::BN;
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_mma_kernel<TA, TB, E, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gemm_mma_kernel<TA, TB, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + out_n - 1) / out_n, (M + tc::BM - 1) / tc::BM);
-    gemm_mma_kernel<TA, TB, E, OutT><<<grid, tc::THREADS, smem, s>>>(A, lda, B, ldb, C, ldc, M,
-                                                                     N, K, act);
+    const dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::BM - 1) / tc::BM);
+    gemm_mma_kernel<TA, TB, OutT><<<grid, tc::THREADS, smem, s>>>(A, lda, B, ldb, C, ldc, M, N,
+                                                                  K);
   }
   return (int)cudaGetLastError();
 }

@@ -24,9 +24,11 @@
 //   5. the LN-adjoint row body (ln_adjoint.cuh) on (x, s, dy): dx and ds.
 // At base widths (M = 16384, K = 768, N = 2304 or 2I = 2304) steps 2-4 are
 // 58 GFLOP each, so the GEMMs bound it. Steps 1-4 run on gemm.cuh, the
-// engine the forward (ln_gemm.cu) runs on: bf16 on tensor cores (mma.sync
-// m16n8k16 fed by ldmatrix from a 3-stage cp.async ring), fp32 on FMA (true
-// fp32, no TF32). Fusing the steps and wgmma/TMA are later work.
+// engine the forward (ln_gemm.cu) runs on: in bf16 step 2's K-major x
+// K-major product on wgmma (gemm_wgmma.cuh), steps 3 and 4, whose operands
+// are transposed, on mma.sync m16n8k16 fed by ldmatrix from a 3-stage
+// cp.async ring; fp32 on FMA (true fp32, no TF32). Fusing the steps and
+// moving 3 and 4 to wgmma are later work.
 #include "gemm.cuh"
 #include "ln_adjoint.cuh"
 

@@ -135,7 +135,88 @@ def test_process_shape_errors_match(engines, args):
 
 def test_warmup_runs_every_bucket(engines):
     _jax_model, torch_model = engines
-    assert torch_model.warmup(batch_size=2) == [(2, n) for n in (16, 32, 48, 64)]
+    assert torch_model.warmup(batch_size=2) == [
+        key for n in (16, 32, 48, 64) for key in ((2, n), (2, n, 16))
+    ]
+    assert torch_model.warmup(batch_size=2, include_pooled=False) == [
+        (2, n) for n in (16, 32, 48, 64)
+    ]
+
+
+def test_warmup_matches_the_jax_engine(engines):
+    """The JAX engine's signature (names, kinds, defaults), and the same
+    (rows, length) and (rows, length, fragment cap) keys for the same
+    arguments: the pooled forward at each cap rounded to a power of two of
+    at least 16."""
+    import inspect
+
+    jax_model, torch_model = engines
+
+    def params(fn):
+        return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(torch_model.warmup) == params(jax_model.warmup)
+    for kwargs in ({"batch_size": 3, "lengths": [16, 48]},
+                   {"batch_size": 2, "lengths": [32], "fragment_caps": (5, 17)}):
+        assert torch_model.warmup(**kwargs) == jax_model.warmup(**kwargs), kwargs
+    assert torch_model.warmup(lengths=[16])[0] == (32, 16)  # process()'s default rows
+
+
+class _SpyDispatcher:
+    """Wraps the engine's dispatcher and records how process() built it and
+    the rows of every forward it ran."""
+
+    def __init__(self, monkeypatch, torch_model):
+        from open_provence_tpu_torch.inference import engine
+
+        self.built, self.rows = [], []
+        real, spy = engine._BlockDispatcher, self
+
+        class Dispatcher(real):
+            def __init__(self, model, batch_size, **kwargs):
+                spy.built.append((batch_size, kwargs["pipeline"]))
+                super().__init__(model, batch_size, **kwargs)
+
+        forward = torch_model._forward
+
+        def counted(ids, mask):
+            spy.rows.append(ids.shape[0])
+            return forward(ids, mask)
+
+        monkeypatch.setattr(engine, "_BlockDispatcher", Dispatcher)
+        monkeypatch.setattr(torch_model, "_forward", counted)
+
+
+def test_process_batch_size_zero_takes_one_row(engines, monkeypatch):
+    """batch_size=0 dispatches one row a forward and None 32, as the JAX
+    engine's max(batch_size, 1) and its GPU default do."""
+    jax_model, torch_model = engines
+    spy = _SpyDispatcher(monkeypatch, torch_model)
+    args = ("q", [CONTEXT, "Another document. More text.", LONG_CONTEXT])
+    for batch_size, rows in ((0, 1), (None, 32)):
+        spy.built.clear()
+        spy.rows.clear()
+        out = torch_model.process(*args, batch_size=batch_size, show_progress=False)
+        assert [b for b, _ in spy.built] == [rows]
+        assert spy.rows and max(spy.rows) <= rows
+        if batch_size == 0:
+            assert set(spy.rows) == {1} and len(spy.rows) > 2
+        _assert_same(jax_model.process(*args, batch_size=batch_size, show_progress=False), out)
+
+
+def test_pipeline_gate_turns_off_the_early_flush(engines, monkeypatch):
+    """OPEN_PROVENCE_TPU_PIPELINE=0 builds the dispatcher with
+    pipeline=False, as in the JAX engine; the output does not change."""
+    _jax_model, torch_model = engines
+    spy = _SpyDispatcher(monkeypatch, torch_model)
+    args, kwargs = CASES["small_batches_pipelined"]
+    kwargs = dict(kwargs, show_progress=False, return_sentence_metrics=True)
+    monkeypatch.delenv("OPEN_PROVENCE_TPU_PIPELINE", raising=False)
+    pipelined = torch_model.process(*args, **kwargs)
+    monkeypatch.setenv("OPEN_PROVENCE_TPU_PIPELINE", "0")
+    gated = torch_model.process(*args, **kwargs)
+    assert [p for _, p in spy.built] == [True, False]
+    _assert_same(pipelined, gated)
 
 
 # --- long context: max_length past 1024 --------------------------------------
@@ -222,7 +303,9 @@ def test_process_past_1024_matches_jax(long_engines, threshold):
 
 def test_warmup_walks_the_long_buckets(long_engines):
     _jax_model, torch_model = long_engines
-    assert torch_model.warmup(batch_size=1) == [(1, 512), (1, 1024), (1, LONG_MAX)]
+    assert torch_model.warmup(batch_size=1) == [
+        key for n in (512, 1024, LONG_MAX) for key in ((1, n), (1, n, 16))
+    ]
 
 
 def test_engine_without_a_device_needs_a_card():

@@ -90,6 +90,28 @@ def test_ln_geglu_plain_matches_pallas(act):
     np.testing.assert_allclose(ln_geglu(_t(x), _t(scale), wi, act).numpy(), ref, **TOL)
 
 
+@pytest.mark.parametrize("rows,hidden,out", [(1, 200, 100), (77, 136, 452), (130, 200, 260)])
+def test_ln_gemm_match_jax_at_tile_edges(rows, hidden, out):
+    """Kernels 2 and 4 at the GEMM engine's tile edges scaled down: one row,
+    a K that is no multiple of 64 and output widths that are no multiple of
+    the tile (nor, for 452 and 100 columns, of 8). The Pallas kernels take
+    only K and N in multiples of 128, so the JAX side is its plain reference,
+    as the JAX package's own tests run it there. fp32, atol = rtol = 1e-5."""
+    from open_provence_tpu.ops.geglu import _ln_geglu_reference, _ln_matmul_reference
+
+    x, scale = _ln_inputs(rows, hidden, seed=rows)
+    w_kn = (np.random.default_rng(out).normal(size=(hidden, out)) * 0.05).astype(np.float32)
+    args = (jnp.asarray(x), jnp.asarray(scale), jnp.asarray(w_kn))
+    w = _t(w_kn.T)  # torch [out, in]
+    ref = np.asarray(_ln_matmul_reference(*args, 1e-5))
+    np.testing.assert_allclose(ln_matmul(_t(x), _t(scale), w).numpy(), ref, **TOL)
+    for act in ("gelu", "silu"):
+        ref = np.asarray(_ln_geglu_reference(*args, act, 1e-5))
+        got = ln_geglu(_t(x), _t(scale), w, act).numpy()
+        assert got.shape == (rows, out // 2)
+        np.testing.assert_allclose(got, ref, **TOL)
+
+
 @pytest.mark.parametrize("seq", [128, 256])
 @pytest.mark.parametrize("window", [None, 64])
 def test_attention_packed_plain_matches_pallas(seq, window):

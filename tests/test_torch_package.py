@@ -123,6 +123,57 @@ def test_build_names_library_by_source_hash():
     assert {src for src, _ in kernels.UNITS} == set(kernels.SOURCES)
 
 
+def test_library_name_hashes_the_whole_recipe(monkeypatch):
+    """The library's file name changes with the units (and their per-unit
+    flags) and with every flag constant of the build, so no stale library is
+    loaded after any of them changes; it stays the same otherwise. Nothing is
+    built."""
+    from open_provence_tpu_torch import kernels
+
+    path = kernels.library_path()
+    changed = {
+        "UNITS": kernels.UNITS[:-1],
+        "ARCH_FLAGS": ("-gencode", "arch=compute_90,code=sm_90"),
+        "COMPILE_FLAGS": (*kernels.COMPILE_FLAGS, "-lineinfo"),
+        "LINK_FLAGS": (*kernels.LINK_FLAGS, "-lcuda"),
+    }
+    seen = {path}
+    for name, value in changed.items():
+        with monkeypatch.context() as patch:
+            patch.setattr(kernels, name, value)
+            seen.add(kernels.library_path())
+        assert kernels.library_path() == path, name
+    assert len(seen) == 1 + len(changed)
+    with monkeypatch.context() as patch:  # another set of head dims: other unit flags
+        patch.setattr(kernels, "UNITS", tuple(
+            (src, tuple(f.replace("=256", "=96") for f in flags)) for src, flags in kernels.UNITS))
+        assert kernels.library_path() != path
+    assert kernels._lib is None or kernels.library_path() == path
+
+
+def test_pyproject_ships_the_ports_host_source():
+    """An installed port carries native/host_ops.cpp, so its host library
+    builds there too."""
+    import tomllib
+
+    data = tomllib.loads((REPO / "pyproject.toml").read_text())
+    package_data = data["tool"]["setuptools"]["package-data"]
+    assert package_data["open_provence_tpu_torch.native"] == ["*.cpp"]
+    assert (REPO / "open_provence_tpu_torch" / "native" / "host_ops.cpp").is_file()
+
+
+def test_native_host_library_builds_where_gxx_is():
+    import shutil
+
+    from open_provence_tpu_torch import native
+
+    if shutil.which(os.environ.get("CXX", "g++")) is None:
+        pytest.skip("no C++ compiler on PATH to build the host library with")
+    if os.environ.get("OPEN_PROVENCE_TPU_DISABLE_NATIVE"):
+        pytest.skip("OPEN_PROVENCE_TPU_DISABLE_NATIVE is set")
+    assert native.is_available()
+
+
 def test_unported_bias_configs_raise():
     """The bias-carrying layouts build and run (they were refused until their
     kernels were ported); what is still unported, backbone dropout in
@@ -377,6 +428,68 @@ def test_attention_design_is_reported(cuda_device):
         assert kernels.attention_design(256, backward)["products"] == "mma.sync"
     with pytest.raises(ValueError):
         kernels.attention_design(48)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(64, 768), (16384 - 37, 200), (16384, 768)])
+def test_gemm_engine_edges_match_plain_on_cuda(cuda_device, dtype, m, k):
+    """Kernels 2, 4 and 6 against their plain versions where the GEMM
+    engine's tiles make them fragile: M = 64 (B=1, S=64), a ragged M and
+    M = 16384; an output width of one whole tile (256 columns; 128 under
+    GeGLU) and ragged ones (452 and 100: no multiple of the tile or of 8);
+    K = 768 and K = 200 (no multiple of 64); every GeGLU activation. In bf16
+    two launches give the same bits, and kernel 4 gives kernel 6's bits on
+    kernel 1's rows."""
+    from open_provence_tpu_torch import kernels, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m + k)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rng.normal(size=shape) * s, dtype=dtype, device=cuda_device)
+
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    kernels.reset_launch_counts()
+    x, scale = t(m, k, s=2.0), t(k, s=0.1) + 1
+    xn, xn_kernel = ops.layer_norm_plain(x, scale), ops.layer_norm(x, scale)
+    runs = []
+    for n in (256, 452):
+        w = t(n, k, s=k**-0.5)
+        runs.append((lambda w=w: ops.ln_matmul(x, scale, w), ops.ln_matmul_plain(x, scale, w)))
+    for inter in (128, 100):
+        wi = t(2 * inter, k, s=k**-0.5)
+        for act in ("gelu", "gelu_new", "relu", "silu"):
+            runs.append((lambda wi=wi, act=act: ops.ln_geglu(x, scale, wi, act),
+                         ops.ln_geglu_plain(x, scale, wi, act)))
+            runs.append((lambda wi=wi, act=act: ops.geglu(xn, wi, act),
+                         ops.geglu_plain(xn, wi, act)))
+            if dtype == torch.bfloat16:
+                assert torch.equal(ops.ln_geglu(x, scale, wi, act), ops.geglu(xn_kernel, wi, act))
+    for kernel, want in runs:
+        got = kernel()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, kernel())
+    assert not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+def test_gemm_design_is_reported(cuda_device):
+    """The route is fixed by layout and type when the library is compiled:
+    the bf16 K-major x K-major product (kernels 2, 4, 6 and kernel 11's
+    recomputed projection) on wgmma, the transposed bf16 layouts on mma.sync
+    and fp32 on FMA."""
+    from open_provence_tpu_torch import kernels
+
+    design = kernels.gemm_design(False, False, torch.bfloat16)
+    assert design["products"] == "wgmma" and design["stages"] >= 2
+    assert "mbarrier" in design["fill"]
+    assert kernels.gemm_design(True, True, torch.bfloat16)["products"] == "mma.sync"
+    assert kernels.gemm_design(False, True, torch.bfloat16)["products"] == "mma.sync"
+    assert kernels.gemm_design(False, False, torch.float32)["products"] == "fma"
+    with pytest.raises(TypeError):
+        kernels.gemm_design(False, False, torch.float16)
 
 
 @pytest.mark.cuda
