@@ -16,7 +16,10 @@ card and check it, in phases:
    torch.matmul timed beside kernels 2, 4, 6, 11 and 12;
 3b. each backward kernel against its plain version at the training shapes
    (B=32, S=512), fp32 and bf16, with kernel and plain times; the LayerNorm
-   adjoint with the residual cotangent gh;
+   adjoint with the residual cotangent gh; the edge cases of kernels 11 and
+   12 (M = 64, 77, 16384 - 37, 16384; dW row counts 256 and ragged 456 /
+   464; K = 768 and 200; every GeGLU activation; fp32 and bf16; two bf16
+   launches bit-equal);
 3c. the attention kernels, forward and backward, at S = 1024, 2048, 4096
    and a ragged 1100 (window ±64 and global, ragged masks, a padding row),
    fp32 and bf16; then, for every head layout, what tiles, an asynchronous
@@ -78,8 +81,12 @@ the attention units' ptxas report and designs, runs the edge cases of phase
 3c and times the packed attention forward and backward in bf16 at the
 shapes of the table of TPU kernels. ``python3 chip_smoke.py --gemm [TREE]``
 does the same for the GEMM engine: its units' ptxas report, the design of
-every layout, phase 3's GEMM edge cases, and kernels 2, 4 and 6 in bf16 at
-M = 16384 beside torch.matmul on the same product.
+every layout, phase 3's GEMM edge cases, kernels 2, 4 and 6 in bf16 at
+M = 16384 beside torch.matmul on the same product, then kernels 12, 11 and
+13: each whole call, each of its launches on its own (normalize, the recomputed
+projection, the GeGLU chain, dW, dW's chunk sum, dy, the LN adjoint; from
+torch.profiler) beside torch.matmul on each bare product, kernel 12 with
+dW cut into 1 to 14 chunks, and phase 3b's backward edge cases.
 
 Every phase prints a line; any failure raises and the script exits
 non-zero without printing a result. The line before the last is the JSON
@@ -374,6 +381,133 @@ def gemm_edge_cases(dev, stats: dict[str, dict]) -> None:
           "bf16 launches twice, bit-equal")
 
 
+def gemm_bwd_edge_cases(dev, stats: dict[str, dict]) -> None:
+    """Kernels 12 and 11 against their plain versions where the transposed
+    products' tiles and the dW split over rows make them fragile: a
+    contraction depth M (the rows) of 64 (less than one chunk), 77 (a ragged
+    k-step), 16384 - 37 (a ragged last chunk) and 16384; dW row counts of
+    one whole tile (256) and ragged ones (456 for kernel 12; 2I = 464 for
+    kernel 11, whose cotangent rows must stay 16-byte multiples); K = 768
+    and K = 200 (dy's and dW's columns: no multiple of the 256-wide tile);
+    every GeGLU activation (relu's cotangent zeroed where the card and the
+    plain version put inp on either side of the step: off_relu_step); fp32 and
+    bf16. In bf16 each kernel runs twice and must give the same bits."""
+    from open_provence_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(7)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(device=dev, dtype=dtype)
+
+    for name in ("ln_matmul_bwd", "ln_geglu_bwd"):
+        stats.setdefault(name, {"max_abs_err": {}})
+        stats[name].setdefault("cases", 0)
+    worst, cases, flipped = {}, 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (HIDDEN, 200):
+            scale = randn(k, scale=0.1, dtype=dtype) + 1
+            w = {n: randn(n, k, scale=k**-0.5, dtype=dtype) for n in (256, 456)}
+            wi = {i: randn(2 * i, k, scale=k**-0.5, dtype=dtype) for i in (128, 232)}
+            for m in (64, 77, 16384 - 37, 16384):
+                x = randn(m, k, scale=2.0, dtype=dtype)
+                runs = []
+                for n, w_ in w.items():
+                    g = randn(m, n, scale=0.1, dtype=dtype)
+                    runs.append((f"ln_matmul_bwd N={n}", "ln_matmul_bwd",
+                                 lambda w_=w_, g=g: ops.ln_matmul_bwd(x, scale, w_, g),
+                                 lambda w_=w_, g=g: ops.ln_matmul_bwd_plain(x, scale, w_, g)))
+                zeroed = 0
+                for i, w_ in wi.items():
+                    g = randn(m, i, scale=0.1, dtype=dtype)
+                    for act in GEGLU_ACTIVATIONS:
+                        g_act, flips = off_relu_step(x, scale, w_, g) if act == "relu" else (g, 0)
+                        zeroed += flips
+                        runs.append((f"ln_geglu_bwd 2I={2 * i} {act}", "ln_geglu_bwd",
+                                     lambda w_=w_, g=g_act, act=act: ops.ln_geglu_bwd(
+                                         x, scale, w_, g, act),
+                                     lambda w_=w_, g=g_act, act=act: ops.ln_geglu_bwd_plain(
+                                         x, scale, w_, g, act)))
+                for label, name, kernel, plain in runs:
+                    got = kernel()
+                    err = max(check_grad(f"{label} {out} M={m} K={k} {dtype}", a, b, dtype)
+                              for out, a, b in zip(("dx", "dscale", "dw"), got, plain()))
+                    if dtype == torch.bfloat16 and not all(
+                            torch.equal(a, b) for a, b in zip(got, kernel())):
+                        raise AssertionError(f"{label} M={m} K={k}: two launches differ")
+                    by_dtype = stats[name]["max_abs_err"]
+                    by_dtype[dtype] = max(by_dtype.get(dtype, 0.0), err)
+                    stats[name]["cases"] += 1
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    cases += 1
+                torch.cuda.synchronize()
+                flipped[dtype] = flipped.get(dtype, 0) + zeroed
+    a32, a16 = BWD_TOL[torch.float32], BWD_TOL[torch.bfloat16]
+    phase(f"phase 3b GEMM backward edge cases: {cases} cases, max_abs_err fp32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} (tol "
+          f"{a32[0]}·max|plain| + {a32[1]}·|plain|, {a16[0]}·max|plain| + {a16[1]}·|plain|); "
+          "bf16 launches twice, bit-equal; relu's cotangent zeroed at "
+          f"{flipped[torch.float32]} (fp32) and {flipped[torch.bfloat16]} (bf16) elements whose "
+          "inp the card and the plain version put on either side of the step")
+
+
+def off_relu_step(x, scale, w_i, g) -> tuple[torch.Tensor, int]:
+    """(g with 0 wherever the card's inp and the plain version's fall on
+    either side of relu's step, how many). There relu' is 1 on one side and 0
+    on the other, and two right summation orders (or normalized rows one ulp
+    apart) can give either; with g 0 there neither gi nor gg depends on the
+    side, so kernel 11 and its plain version can be held to the tolerance in
+    every output. The card's inp is kernel 2's product on the whole Wi, whose
+    bits are kernel 11's recomputed projection (the same normalize pass and
+    tiles); the plain one is ln_geglu_bwd_plain's."""
+    from open_provence_tpu_torch import ops
+
+    inter = g.shape[1]
+    acc = torch.promote_types(g.dtype, torch.float32)
+    inp_plain = (ops.layer_norm_plain(x, scale).to(acc) @ w_i.to(acc).t()).to(g.dtype)
+    inp_card = ops.ln_matmul(x, scale, w_i)
+    flip = (inp_card[:, :inter] > 0) != (inp_plain[:, :inter] > 0)
+    return g.masked_fill(flip, 0), int(flip.sum())
+
+
+# The launches of kernels 11, 12 and 13 by the profiler's kernel names. The
+# GEMM kernels of the transposed layouts carry them in their template
+# arguments (<true, true: dW = G^T.xn; <false, true: dy = G.W); the first
+# match names a launch.
+BWD_LAUNCHES = (
+    ("normalize_kernel", "normalize"),
+    ("geglu_grad_kernel", "GeGLU chain"),
+    ("ln_adjoint", "LN adjoint"),
+    ("tail_bwd_rows", "whole-MLP rows pass"),
+    ("dw_sum_kernel", "dW chunk sum"),
+    ("<true, true", "dW = G^T.xn"),
+    ("<false, true", "dy = G.W"),
+    ("gemm_wgmma_kernel", "projection xn.Wi^T"),
+)
+
+
+def launch_split(fn, reps: int = 20) -> dict[str, dict]:
+    """Device milliseconds a call of ``fn`` spends in each of its launches,
+    and the launches a call, from torch.profiler's kernel records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split: dict[str, dict] = {}
+    for evt in prof.key_averages():
+        if getattr(evt.device_type, "name", "") != "CUDA":
+            continue
+        us = getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "device_time_total", 0.0)
+        label = next((lab for word, lab in BWD_LAUNCHES if word in evt.key), evt.key[:60])
+        entry = split.setdefault(label, {"ms": 0.0, "launches": 0.0})
+        entry["ms"] += us / 1e3 / reps
+        entry["launches"] += evt.count / reps
+    return split
+
+
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
     atol, rtol = TOL[dtype]
     got, want = got.float(), want.float()
@@ -593,6 +727,8 @@ def phase3b_backward(dev) -> dict[str, dict]:
                       ops.ln_geglu_bwd(x, scale, w_i, g_mlp, "gelu"),
                       ops.ln_geglu_bwd_plain(x, scale, w_i, g_mlp, "gelu"))
         report("ln_geglu_bwd", dtype, f"M={rows}", errs)
+        if dtype == torch.bfloat16:
+            gemm_bwd_edge_cases(dev, stats)
 
         qkv = randn(batch, seq, 3 * HIDDEN, dtype=dtype)
         mask = ragged_mask(batch, seq, gen, dev)
@@ -1283,8 +1419,10 @@ OUR_KERNELS = {
     ("dq_mma_kernel",): "attention bwd dQ", ("delta_kernel",): "attention bwd delta",
     ("flash_wgmma_kernel",): "attention fwd", ("dkv_wgmma_kernel",): "attention bwd dK/dV",
     ("dq_wgmma_kernel",): "attention bwd dQ",
-    ("gemm_wgmma_kernel",): "GEMM engine, wgmma (xn.W^T)",
-    ("gemm_mma_kernel",): "GEMM engine, mma.sync (dW, dy)",
+    ("gemm_wgmma_kernel", "<true, true"): "GEMM engine, wgmma dW = G^T.xn",
+    ("gemm_wgmma_kernel", "<false, true"): "GEMM engine, wgmma dy = G.W",
+    ("gemm_wgmma_kernel",): "GEMM engine, wgmma xn.W^T",
+    ("dw_sum_kernel",): "GEMM engine, dW chunk sum",
     ("ln_adjoint", "row_kernel"): "LN adjoint rows",
     ("ln_adjoint", "reduce_kernel"): "LN adjoint dscale",
     ("normalize_kernel",): "LN->GEMM normalize",
@@ -2147,16 +2285,20 @@ def gemm_main(tree: Path) -> int:
     of its kernels, the design of every layout, phase 3's GEMM edge cases,
     then kernels 2, 4 and 6 in bf16 at M = 16384 (B=32, S=512 and B=8,
     S=2048 alike) and torch.matmul on the same product (the normalized rows
-    times the weight), lowest of 3 means of 20 launches, so that two trees
-    can be compared inside one call. One JSON line."""
+    times the weight), lowest of 3 means of 20 launches; kernels 12, 11 and
+    13 the same way, with each of their launches under the profiler and
+    torch.matmul on each of their products; the dW split swept; phase 3b's
+    backward edge cases. Two trees can be compared inside one call. One JSON
+    line."""
     sys.path.insert(0, str(tree))
     from open_provence_tpu_torch import kernels, ops
 
     dev = torch.device("cuda", 0)
     card = card_line()
+    phase(card)
     kernels.library()
     print_ptxas(kernels.library_path().with_suffix(".log").read_text(),
-                ("gemm_wgmma", "gemm_mma", "gemm_fma", "normalize_kernel"))
+                ("gemm_wgmma", "gemm_mma", "gemm_fma", "normalize_kernel", "dw_sum"))
     if hasattr(kernels, "gemm_design"):  # an older tree reports no design
         for name, design in gemm_designs().items():
             phase(f"design {name} bf16: {gemm_design_note(design)}")
@@ -2183,8 +2325,67 @@ def gemm_main(tree: Path) -> int:
         phase(f"time {name} M={rows} bf16: kernel {ms:.4f} ms, torch.matmul on the product "
               f"{matmul_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
               "(lowest of 3 means of 20)")
+    # Kernels 12, 11 and 13: the whole call, each of its launches under the
+    # profiler, and torch.matmul on each bare product (G = [gi | gg] for 11;
+    # for 13 its two weight gradients, dWi = G^T.xn and dWo = g^T.h with h
+    # shaped as g_mlp, timed together).
+    g_qkv, g_mlp = randn(rows, 3 * HIDDEN, scale=0.1), randn(rows, INTER, scale=0.1)
+    g_cat = torch.cat([g_mlp, g_mlp], dim=1)
+    w_o, g_out = randn(HIDDEN, INTER, scale=INTER**-0.5), randn(rows, HIDDEN, scale=0.1)
+    calls = {
+        "ln_matmul_bwd": (lambda: ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
+                          {"dW = G^T.xn": lambda: torch.matmul(g_qkv.t(), xn),
+                           "dy = G.W": lambda: torch.matmul(g_qkv, w_qkv)}),
+        "ln_geglu_bwd": (lambda: ops.ln_geglu_bwd(x, scale, w_i, g_mlp, "gelu"),
+                         {"projection xn.Wi^T": lambda: torch.matmul(xn, w_i.t()),
+                          "dW = G^T.xn": lambda: torch.matmul(g_cat.t(), xn),
+                          "dy = G.W": lambda: torch.matmul(g_cat, w_i)}),
+        "ln_geglu_wo_bwd": (lambda: ops.ln_geglu_wo_bwd(x, scale, w_i, w_o, g_out, "gelu"),
+                            {"dW = G^T.xn": lambda: (torch.matmul(g_cat.t(), xn),
+                                                     torch.matmul(g_out.t(), g_mlp))}),
+    }
+    for name, (kernel, products) in calls.items():
+        ms, split = lowest_ms(kernel), launch_split(kernel)
+        matmul = {label: lowest_ms(fn) for label, fn in products.items()}
+        bound_ms = bounds[name]["bound_ms"]
+        times[name] = {"ms": ms, "bound_ms": bound_ms, "launches": split, "matmul_ms": matmul}
+        phase(f"time {name} M={rows} bf16: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"(lowest of 3 means of 20); its products on torch.matmul "
+              f"{sum(matmul.values()):.4f} ms")
+        for label, entry in sorted(split.items(), key=lambda kv: -kv[1]["ms"]):
+            beside = f", torch.matmul {matmul[label]:.4f} ms" if label in matmul else ""
+            phase(f"  {name} launch {label}: {entry['ms']:.4f} ms a call over "
+                  f"{entry['launches']:.0f} launch(es){beside}")
+    if hasattr(kernels, "DW_CTAS"):  # an older tree does not split dW
+        times["dw_split"] = dw_split_sweep(lambda: ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
+                                           rows, 3 * HIDDEN, HIDDEN)
+    gemm_bwd_edge_cases(dev, {})
     print(json.dumps({"tree": str(tree), "card": card, "gemm": times}), flush=True)
     return 0
+
+
+def dw_split_sweep(kernel, m: int, n: int, k: int) -> dict:
+    """Kernel 12 with dW [n, k] over m rows cut into 1 to 14 chunks (the
+    rule's target CTA count set in turn; kernels.DW_CTAS is restored after):
+    the whole call, and dW's product and chunk sum under the profiler."""
+    from open_provence_tpu_torch import kernels
+
+    aimed, sweep = kernels.DW_CTAS, {}
+    tiles = -(-n // kernels.DW_TILE[0]) * -(-k // kernels.DW_TILE[1])
+    try:
+        for chunks in (1, 2, 3, 5, 7, 10, 14):
+            kernels.DW_CTAS = chunks * tiles
+            split = launch_split(kernel)
+            dw_ms = sum(split.get(label, {"ms": 0.0})["ms"]
+                        for label in ("dW = G^T.xn", "dW chunk sum"))
+            sweep[chunks] = {"ms": lowest_ms(kernel), "dw_ms": dw_ms,
+                             "chunk_rows": kernels.dw_chunk_rows(m, n, k)}
+            phase(f"dW split, {kernels.dw_chunks(m, n, k)} chunk(s) of "
+                  f"{sweep[chunks]['chunk_rows']} rows ({chunks * tiles} CTAs): ln_matmul_bwd "
+                  f"{sweep[chunks]['ms']:.4f} ms, dW product + chunk sum {dw_ms:.4f} ms")
+    finally:
+        kernels.DW_CTAS = aimed
+    return sweep
 
 
 def load_dummy_tokenizers():

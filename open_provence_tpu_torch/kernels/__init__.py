@@ -88,6 +88,21 @@ SAME_LAUNCH = {
 # (ln_adjoint.cuh: ROWS).
 LN_ADJOINT_ROWS = 64
 
+# The bf16 weight gradients dW [n, k] = G[m, n]^T · X[m, k] (kernels 11, 12,
+# 13; gemm.cuh) sum m rows into few 128 × 256 tiles (gemm_wgmma.cuh: wgm::BM,
+# BN), so the rows are cut into chunks, one CTA a tile and chunk, each chunk
+# summed in fp32 into scratch and the chunks added in order by a second
+# pass. A chunk is a whole number of 64-row k-steps (wgm::BK) but the last;
+# the split aims at DW_CTAS CTAs, one wave of one CTA an SM on an H100's 132
+# (a constant: the split, and so the bits, never depend on the card), and
+# gives each chunk at least DW_MIN_STEPS k-steps, so the fill and the
+# epilogue of a tile stay small beside its products. At base width that is
+# 2 chunks: 1, 3, 5, 7, 10 and 14 measured slower on an H100 (PERF.md).
+DW_TILE = (128, 256)
+DW_STEP = 64
+DW_CTAS = 128
+DW_MIN_STEPS = 8
+
 _launches = dict.fromkeys(KERNELS, 0)
 _plain_calls = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
@@ -119,6 +134,29 @@ def ln_adjoint_partial(rows: int, hidden: int, device: torch.device) -> torch.Te
     """fp32 scratch for the fixed-order dscale sum of an LN-adjoint launch."""
     parts = (rows + LN_ADJOINT_ROWS - 1) // LN_ADJOINT_ROWS
     return torch.empty((parts, hidden), dtype=torch.float32, device=device)
+
+
+def dw_chunk_rows(m: int, n: int, k: int) -> int:
+    """Rows of the contraction each chunk of dW [n, k] = G[m, n]^T · X[m, k]
+    sums: a multiple of DW_STEP, a function of the shape alone."""
+    tiles = -(-n // DW_TILE[0]) * -(-k // DW_TILE[1])
+    steps = -(-m // DW_STEP)
+    chunks = max(1, min(DW_CTAS // tiles, steps // DW_MIN_STEPS))
+    return max(1, -(-steps // chunks)) * DW_STEP
+
+
+def dw_chunks(m: int, n: int, k: int) -> int:
+    """How many chunks of ``dw_chunk_rows`` rows cover m rows (the last may
+    be shorter)."""
+    return max(1, -(-m // dw_chunk_rows(m, n, k)))
+
+
+def dw_partial(products, device: torch.device) -> torch.Tensor:
+    """fp32 scratch for the chunks' partial sums of the weight gradients
+    ``products``, (m, n, k) each, launched one after another: as large as
+    the largest needs."""
+    numel = max(dw_chunks(m, n, k) * n * k for m, n, k in products)
+    return torch.empty(numel, dtype=torch.float32, device=device)
 
 
 def nvcc_path() -> str:
@@ -207,15 +245,15 @@ def library() -> ctypes.CDLL:
         "flash_attention": [p] * 8 + [i, i, i, i, strides, i, f, i, p],
         "flash_attention_bwd": [p] * 13 + [i, i, i, i, strides, i, f, i, p],
         "ln_geglu_wo": [p] * 6 + [i, i, i, f, i, i, p],
-        "ln_geglu_wo_bwd": [p] * 14 + [i, i, i, f, i, i, p],
+        "ln_geglu_wo_bwd": [p] * 15 + [i, i, i, i, i, f, i, i, p],
         "layer_norm": [p, p, p, i, i, f, i, p],
         "ln_matmul": [p] * 5 + [i, i, i, f, i, p],
         "ln_geglu": [p] * 5 + [i, i, i, f, i, i, p],
         "layer_norm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
         "add_layer_norm": [p, p, p, p, p, i, i, f, i, p],
         "geglu": [p, p, p, i, i, i, i, i, p],
-        "ln_matmul_bwd": [p] * 10 + [i, i, i, f, i, p],
-        "ln_geglu_bwd": [p] * 11 + [i, i, i, f, i, i, p],
+        "ln_matmul_bwd": [p] * 11 + [i, i, i, i, f, i, p],
+        "ln_geglu_bwd": [p] * 12 + [i, i, i, i, f, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, f"opt_{name}")
@@ -264,9 +302,9 @@ def gemm_design(ta: bool, tb: bool, dtype: torch.dtype) -> dict:
         raise ValueError(f"no GEMM for {dtype}")
     products, fill, stages, rows, cols, depth = out
     return {
-        "products": ("fma", "mma.sync", "wgmma")[products],
-        "fill": ("loads between two barriers a tile", "cp.async ring between two barriers a tile",
-                 "TMA ring with mbarriers, one producer thread")[fill],
+        "products": {0: "fma", 2: "wgmma"}[products],
+        "fill": {0: "loads between two barriers a tile",
+                 2: "TMA ring with mbarriers, one producer thread"}[fill],
         "stages": stages,
         "tile": f"{rows}x{cols}x{depth}",
     }

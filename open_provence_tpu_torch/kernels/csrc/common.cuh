@@ -97,20 +97,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem_
                : "r"(addr));
 }
 
-// 16-byte asynchronous copy global -> shared; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, int src_bytes) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem_src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
 // Eight bf16 (16 bytes) as floats, and back.
 __device__ __forceinline__ void unpack8(const uint4& v, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);

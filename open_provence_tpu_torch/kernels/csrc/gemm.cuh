@@ -5,8 +5,8 @@
 // C[m, n] = sum_k A(m, k) B(k, n). A(m, k) is A[m * lda + k] (TA false) or
 // A[k * lda + m] (TA true); B(k, n) is B[n * ldb + k] (TB false: torch's
 // [out, in] weight) or B[k * ldb + n] (TB true). Any M, N, K; the bf16 path
-// moves 16-byte chunks along each operand's contiguous dim, which must then
-// be a multiple of 8 (the wrappers check it).
+// reads each operand by TMA, whose row strides (and a contiguous k) must be
+// multiples of 8 elements (the wrappers check it).
 //
 // Epilogues: STORE casts the fp32 sum to C's type. GEGLU (TB false) reads
 // B as Wi [2N, K] and writes C[m, n] = act(A . Wi[n]) * (A . Wi[N + n])
@@ -15,11 +15,18 @@
 // by block, by their gate rows, so the thread that holds an input's sum also
 // holds its gate's.
 //
-// Routes, by layout and type alone: fp32 on FMA (true fp32, no TF32); bf16
-// with both operands K-major (TA and TB false: the forward's xn . W^T and
-// the backward's recomputed projection) on wgmma fed by a producer
-// warpgroup (gemm_wgmma.cuh); the transposed bf16 layouts of the backward
-// (dW = G^T . xn, dy = G . W) on mma.sync.
+// Routes, by type alone, with no fallback between them: fp32 on FMA (true
+// fp32, no TF32); bf16 on wgmma fed by TMA from one producer thread
+// (gemm_wgmma.cuh) for every layout: the forward's xn . W^T and the
+// backward's recomputed projection K-major x K-major, dy = G . W with an
+// MN-major B, and the weight gradients dW = G^T . X (TA) with both operands
+// MN-major. A weight gradient contracts over the M rows of activations
+// (16384 at B=32, S=512) into few output tiles (54 of 128 x 256 at base
+// width), so its bf16 depth is cut into chunks of rows: each chunk's CTAs
+// write fp32 partial sums into scratch the wrapper allocates, and
+// dw_sum_kernel adds them in chunk order and rounds once. The chunk length
+// is the caller's, a function of the shape alone (kernels.dw_chunk_rows), so
+// every launch sums in the same order; no atomics.
 #pragma once
 
 #include "activation.cuh"
@@ -143,161 +150,56 @@ __global__ void __launch_bounds__(simt::THREADS)
   }
 }
 
-// ---- bf16, a transposed operand: mma.sync m16n8k16, fp32 accumulation -------
-//
-// 128x128 CTA tiles, 8 warps as 2 (m) x 4 (n), a warp owns 64 x 32: 4 x 4
-// m16n8 tiles. Each operand tile sits in shared memory as it lies in device
-// memory (rows along its contiguous dim, padded by 8 against bank
-// conflicts), filled by a 3-stage cp.async ring; ldmatrix reads the
-// fragments, with .trans where the tile's rows run along the contraction.
-// B is always transposed here (TB): the K-major x K-major layout and GEGLU
-// run on gemm_wgmma_kernel.
-namespace tc {
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-template <bool T_>
-__host__ __device__ constexpr int a_stage() { return T_ ? BK * (BM + 8) : BM * (BK + 8); }
-template <bool T_>
-__host__ __device__ constexpr int b_stage() { return T_ ? BK * (BN + 8) : BN * (BK + 8); }
-template <bool TA, bool TB>
-constexpr size_t smem_bytes() {
-  return (size_t)STAGES * (a_stage<TA>() + b_stage<TB>()) * sizeof(__nv_bfloat16);
-}
-}  // namespace tc
+// ---- the weight gradients' second pass ------------------------------------------
 
-template <bool TA, bool TB, typename OutT>
-__global__ void __launch_bounds__(tc::THREADS)
-    gemm_mma_kernel(const __nv_bfloat16* __restrict__ A, int lda,
-                    const __nv_bfloat16* __restrict__ B, int ldb, OutT* __restrict__ C, int ldc,
-                    int M, int N, int K) {
-  using namespace tc;
-  using bf16 = __nv_bfloat16;
-  static_assert(TB, "the K-major x K-major layout runs on wgmma");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + STAGES * a_stage<TA>();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int n_k = (K + BK - 1) / BK;
-
-  auto issue = [&](int kt) {
-    if (kt < n_k) {
-      bf16* as = As + (kt % STAGES) * a_stage<TA>();
-      bf16* bs = Bs + (kt % STAGES) * b_stage<TB>();
-      const int k0 = kt * BK;
-#pragma unroll
-      for (int e = 0; e < BM * BK / 8 / THREADS; ++e) {
-        const int c = tid + e * THREADS;
-        if constexpr (TA) {  // tile [BK][BM]: rows k, m contiguous
-          const int r = c / (BM / 8), mc = (c % (BM / 8)) * 8;
-          const bool ok = k0 + r < K && m0 + mc < M;
-          cp_async16(as + r * (BM + 8) + mc, ok ? A + (size_t)(k0 + r) * lda + m0 + mc : A,
-                     ok ? 16 : 0);
-        } else {  // tile [BM][BK]: rows m, k contiguous
-          const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-          const bool ok = m0 + r < M && k0 + kc < K;
-          cp_async16(as + r * (BK + 8) + kc, ok ? A + (size_t)(m0 + r) * lda + k0 + kc : A,
-                     ok ? 16 : 0);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < BN * BK / 8 / THREADS; ++e) {  // tile [BK][BN]: rows k, n contiguous
-        const int c = tid + e * THREADS;
-        const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-        const bool ok = k0 + r < K && n0 + nc < N;
-        cp_async16(bs + r * (BN + 8) + nc, ok ? B + (size_t)(k0 + r) * ldb + n0 + nc : B,
-                   ok ? 16 : 0);
-      }
-    }
-    cp_async_commit();  // an empty group keeps the wait count uniform
-  };
-
-  float acc[4][4][4] = {};
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; every warp is past tile kt - 1
-    issue(kt + STAGES - 1);
-    const bf16* as = As + (kt % STAGES) * a_stage<TA>();
-    const bf16* bs = Bs + (kt % STAGES) * b_stage<TB>();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      // ldmatrix.x4: lane l addresses row l % 8 of matrix l / 8. A fragment
-      // matrices: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15,
-      // k 8-15); B pairs: (n 0-7, k 0-7), (n 0-7, k 8-15), then n 8-15.
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int mb = warp_m * 64 + mt * 16;
-        if constexpr (TA)
-          ldmatrix_x4_trans(a[mt], as + (ks + (lane >> 4) * 8 + (lane & 7)) * (BM + 8) + mb +
-                                       ((lane >> 3) & 1) * 8);
-        else
-          ldmatrix_x4(a[mt], as + (mb + (lane & 7) + ((lane >> 3) & 1) * 8) * (BK + 8) + ks +
-                                 (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int pair = 0; pair < 2; ++pair) {
-        const int nb = warp_n * 32 + pair * 16;
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (ks + ((lane >> 3) & 1) * 8 + (lane & 7)) * (BN + 8) + nb +
-                                 (lane >> 4) * 8);
-        b[2 * pair][0] = r[0];
-        b[2 * pair][1] = r[1];
-        b[2 * pair + 1][0] = r[2];
-        b[2 * pair + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
-    }
+// C[r, c] = round(sum over chunks j, in order, of partial[j][r, c]), the
+// partials [chunks][M][N] fp32; four columns a thread (N % 4 == 0).
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+    dw_sum_kernel(const float* __restrict__ partial, int chunks, int M, int N,
+                  OutT* __restrict__ C, int ldc) {
+  const size_t v = (size_t)blockIdx.x * 256 + threadIdx.x, plane = (size_t)M * N;
+  if (v >= plane / 4) return;
+  float4 sum = reinterpret_cast<const float4*>(partial)[v];
+  for (int j = 1; j < chunks; ++j) {
+    const float4 p = reinterpret_cast<const float4*>(partial + j * plane)[v];
+    sum.x += p.x;
+    sum.y += p.y;
+    sum.z += p.z;
+    sum.w += p.w;
   }
-  cp_async_wait<0>();
-
-  // acc[mt][nt] holds tile columns warp_n * 32 + nt * 8 + 2t + j.
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + warp_m * 64 + mt * 16 + g + half * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + warp_n * 32 + nt * 8 + 2 * t + j;
-          if (col < N) C[(size_t)row * ldc + col] = from_f32<OutT>(acc[mt][nt][half * 2 + j]);
-        }
-    }
+  const size_t row = v * 4 / N, col = v * 4 % N;
+  OutT* out = C + row * ldc + col;
+  out[0] = from_f32<OutT>(sum.x);
+  out[1] = from_f32<OutT>(sum.y);
+  out[2] = from_f32<OutT>(sum.z);
+  out[3] = from_f32<OutT>(sum.w);
 }
 
 // C = A . B on the caller's stream, by the routes above. N is C's column
-// count (under GEGLU half of B's rows); act is GEGLU's activation code.
+// count (under GEGLU half of B's rows); act is GEGLU's activation code. A
+// bf16 weight gradient (TA) takes `partial`, fp32 scratch of ceil(K /
+// chunk_rows) x M x N, and chunk_rows, a multiple of 64; fp32 ignores them.
 template <bool TA, bool TB, Epi E = Epi::STORE, typename T, typename OutT>
 int gemm(const T* A, int lda, const T* B, int ldb, OutT* C, int ldc, int M, int N, int K,
-         cudaStream_t s, int act = 0) {
+         cudaStream_t s, int act = 0, float* partial = nullptr, int chunk_rows = 0) {
   if (M <= 0 || N <= 0) return 0;
-  if constexpr (sizeof(T) == 2 && !TA && !TB) {
-    return gemm_wgmma<E>(A, lda, B, ldb, C, ldc, M, N, K, s, act);
-  } else if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 4) {
     constexpr int out_n = E == Epi::GEGLU ? simt::BN / 2 : simt::BN;
     const dim3 grid((N + out_n - 1) / out_n, (M + simt::BM - 1) / simt::BM);
     gemm_fma_kernel<TA, TB, E><<<grid, simt::THREADS, 0, s>>>(A, lda, B, ldb, C, ldc, M, N, K,
                                                               act);
+    return (int)cudaGetLastError();
+  } else if constexpr (TA) {
+    if (partial == nullptr || chunk_rows <= 0 || K <= 0 || N % 4) return (int)cudaErrorInvalidValue;
+    OPT_TRY(gemm_wgmma<true, TB, E>(A, lda, B, ldb, partial, N, M, N, K, s, act, chunk_rows));
+    const size_t vectors = (size_t)M * N / 4;
+    dw_sum_kernel<OutT><<<(unsigned)((vectors + 255) / 256), 256, 0, s>>>(
+        partial, (K + chunk_rows - 1) / chunk_rows, M, N, C, ldc);
+    return (int)cudaGetLastError();
   } else {
-    static_assert(E == Epi::STORE, "GEGLU reads Wi in torch's [out, in] layout");
-    constexpr size_t smem = tc::smem_bytes<TA, TB>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_mma_kernel<TA, TB, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::BM - 1) / tc::BM);
-    gemm_mma_kernel<TA, TB, OutT><<<grid, tc::THREADS, smem, s>>>(A, lda, B, ldb, C, ldc, M, N,
-                                                                  K);
+    return gemm_wgmma<TA, TB, E>(A, lda, B, ldb, C, ldc, M, N, K, s, act);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

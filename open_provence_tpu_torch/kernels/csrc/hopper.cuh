@@ -195,8 +195,11 @@ __device__ __forceinline__ uint64_t k_major(uint32_t addr, int kk) {
                     T::LAYOUT);
 }
 
-// The tile at `addr` as an MN-major B operand (rows are the product's depth,
-// all D columns are N), k-step kk of 16 rows.
+// The tile at `addr` as an MN-major operand: its rows are the product's
+// depth and its D columns are B's N or, at D = 64, the 64 rows of an A tile
+// (A^T as it lies in memory); k-step kk of 16 rows. Eight rows of a panel
+// are one swizzle atom (the stride byte offset), a panel of 64 columns the
+// leading byte offset.
 template <int D>
 __device__ __forceinline__ uint64_t mn_major(uint32_t addr, int kk) {
   using T = Tile<D>;
@@ -232,11 +235,13 @@ __device__ __forceinline__ void pin(float* d) {
   for (int i = 0; i < COUNT; ++i) asm volatile("" : "+f"(d[i]));
 }
 
-// A and B from shared memory, both K-major; N = 64 or 256.
-template <int N>
+// A and B from shared memory; N = 64 or 256. TA, TB: the transpose
+// immediates, 0 for a K-major operand, 1 for an MN-major one.
+template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
   static_assert(N == 64 || N == 256, "no instance");
+  static_assert((TA == 0 || TA == 1) && (TB == 0 || TB == 1), "a transpose is 0 or 1");
   if constexpr (N == 256) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -249,7 +254,7 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t des
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -272,7 +277,7 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t des
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
   }
   if constexpr (N == 64) {
     asm volatile(
@@ -280,14 +285,14 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t des
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
   }
 }
 

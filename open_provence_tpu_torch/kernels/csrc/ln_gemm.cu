@@ -78,21 +78,20 @@ extern "C" int opt_ln_geglu(const void* x, const void* scale, const void* wi, vo
 
 // How the GEMM engine runs a layout (ta, tb: A, B transposed, as gemm<TA, TB>
 // takes them) in a dtype, fixed when the library is built: out[0] = the
-// products (0 FMA, 1 mma.sync, 2 wgmma); out[1] = the fill (0 loads between
-// two barriers a tile, 1 a cp.async ring between barriers, 2 a TMA ring with
-// mbarriers, one producer thread); out[2] = the ring's
-// stages; out[3], out[4], out[5] = the tile's rows, B rows (output columns,
-// half of them under GEGLU) and depth. Returns 0, or -1 for another dtype.
+// products (0 FMA, 2 wgmma); out[1] = the fill (0 loads between two barriers
+// a tile, 2 a TMA ring with mbarriers, one producer thread); out[2] = the
+// ring's stages; out[3], out[4], out[5] = the tile's rows, B rows (output
+// columns, half of them under GEGLU) and depth. Every bf16 layout runs on
+// the one wgmma kernel. Returns 0, or -1 for another dtype.
 extern "C" int opt_gemm_design(int ta, int tb, int dtype, int* out) {
   namespace ge = gemm_engine;
+  (void)ta;
+  (void)tb;
   if (dtype == DTYPE_F32) {
     const int design[6] = {0, 0, 1, ge::simt::BM, ge::simt::BN, ge::simt::BK};
     for (int i = 0; i < 6; ++i) out[i] = design[i];
-  } else if (dtype == DTYPE_BF16 && !ta && !tb) {
-    const int design[6] = {2, 2, ge::wgm::STAGES, ge::wgm::BM, ge::wgm::BN, ge::wgm::BK};
-    for (int i = 0; i < 6; ++i) out[i] = design[i];
   } else if (dtype == DTYPE_BF16) {
-    const int design[6] = {1, 1, ge::tc::STAGES, ge::tc::BM, ge::tc::BN, ge::tc::BK};
+    const int design[6] = {2, 2, ge::wgm::STAGES, ge::wgm::BM, ge::wgm::BN, ge::wgm::BK};
     for (int i = 0; i < 6; ++i) out[i] = design[i];
   } else {
     return -1;

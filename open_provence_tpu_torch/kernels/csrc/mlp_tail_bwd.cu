@@ -22,8 +22,8 @@
 //      registers. inp, gate and dh never exist in device memory. h and
 //      [gi | gg] are written once, to scratch [M, I] and [M, 2I], and dy in
 //      fp32 to scratch [M, K];
-//   3. dWi = [gi | gg]^T . xn and dWo = g^T . h on the GEMM engine: one CTA
-//      sums all M rows of an output tile in order, rounded once;
+//   3. dWi = [gi | gg]^T . xn and dWo = g^T . h on the GEMM engine (bf16:
+//      wgmma, the M rows in chunks summed in order, rounded once);
 //   4. the LN-adjoint row body (ln_adjoint.cuh) on (x, s, dy): dx and ds.
 // Against kernel 11 plus the library's two Wo gradients this keeps the
 // [M, 2I] projection and dh out of device memory (one write and one read
@@ -292,7 +292,8 @@ int rows_pass(const float* xn, const float* g, const float* wi, const float* wo,
 template <typename T>
 int tail_bwd(const void* x, const void* scale, const void* wi, const void* wo, const void* g,
              void* dx, void* dwi, void* dwo, void* dscale, void* xn, void* h, void* cot, float* dy,
-             float* partial, int M, int K, int I, float eps, int act, cudaStream_t s) {
+             float* partial, float* dw_partial, int rows_wi, int rows_wo, int M, int K, int I,
+             float eps, int act, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(scale);
   const T* gt = static_cast<const T*>(g);
@@ -302,9 +303,12 @@ int tail_bwd(const void* x, const void* scale, const void* wi, const void* wo, c
   OPT_TRY(normalize<T>(xt, st, xnt, M, K, eps, s));
   OPT_TRY(rows_pass(xnt, gt, static_cast<const T*>(wi), static_cast<const T*>(wo), ht, cott, dy,
                     M, K, I, act, s));
-  // dWi = [gi | gg]^T . xn and dWo = g^T . h, each summed over M in one CTA.
-  OPT_TRY(gemm<true, true>(cott, 2 * I, xnt, K, static_cast<T*>(dwi), K, 2 * I, K, M, s));
-  OPT_TRY(gemm<true, true>(gt, K, ht, I, static_cast<T*>(dwo), I, K, I, M, s));
+  // dWi = [gi | gg]^T . xn and dWo = g^T . h, summed over M; in bf16 in
+  // chunks of rows_wi and rows_wo rows through the one dw_partial, in turn.
+  OPT_TRY(gemm<true, true>(cott, 2 * I, xnt, K, static_cast<T*>(dwi), K, 2 * I, K, M, s, 0,
+                           dw_partial, rows_wi));
+  OPT_TRY(gemm<true, true>(gt, K, ht, I, static_cast<T*>(dwo), I, K, I, M, s, 0, dw_partial,
+                           rows_wo));
   return ln_adjoint::launch<T, float>(xt, st, dy, dx, dscale, partial, M, K, eps, s);
 }
 
@@ -312,21 +316,26 @@ int tail_bwd(const void* x, const void* scale, const void* wi, const void* wo, c
 }  // namespace mlp_tail
 
 // Scratch the wrapper allocates: xn [M, K], h [M, I] and cot [M, 2I] in the
-// storage type, dy [M, K] fp32, partial [ceil(M / 64), K] fp32. All tensors
-// contiguous. K <= 1024; bf16 also takes K % 16 == 0 and I % 8 == 0.
+// storage type, dy [M, K] fp32, partial [ceil(M / 64), K] fp32 and, in bf16,
+// dw_partial fp32 for the larger of dWi's ceil(M / rows_wi) x 2I x K and
+// dWo's ceil(M / rows_wo) x K x I partial sums. All tensors contiguous.
+// K <= 1024; bf16 also takes K % 16 == 0 and I % 8 == 0.
 extern "C" int opt_ln_geglu_wo_bwd(const void* x, const void* scale, const void* wi,
                                    const void* wo, const void* g, void* dx, void* dwi, void* dwo,
                                    void* dscale, void* xn, void* h, void* cot, float* dy,
-                                   float* partial, int m, int k, int intermediate, float eps,
-                                   int act, int dtype, void* stream) {
+                                   float* partial, float* dw_partial, int m, int k,
+                                   int intermediate, int rows_wi, int rows_wo, float eps, int act,
+                                   int dtype, void* stream) {
   if (m <= 0 || k <= 0 || intermediate <= 0) return 0;
   if (k > 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return mlp_tail::tail_bwd<float>(x, scale, wi, wo, g, dx, dwi, dwo, dscale, xn, h, cot, dy, partial, m,
-                           k, intermediate, eps, act, s);
+    return mlp_tail::tail_bwd<float>(x, scale, wi, wo, g, dx, dwi, dwo, dscale, xn, h, cot, dy,
+                                     partial, dw_partial, rows_wi, rows_wo, m, k, intermediate,
+                                     eps, act, s);
   if (dtype == DTYPE_BF16)
-    return mlp_tail::tail_bwd<__nv_bfloat16>(x, scale, wi, wo, g, dx, dwi, dwo, dscale, xn, h, cot, dy, partial, m, k,
-                          intermediate, eps, act, s);
+    return mlp_tail::tail_bwd<__nv_bfloat16>(x, scale, wi, wo, g, dx, dwi, dwo, dscale, xn, h,
+                                             cot, dy, partial, dw_partial, rows_wi, rows_wo, m,
+                                             k, intermediate, eps, act, s);
   return (int)cudaErrorInvalidValue;
 }

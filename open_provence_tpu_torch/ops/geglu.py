@@ -324,13 +324,16 @@ def _geglu_forward(x2d, scale, wi, activation, eps):
     return ln_geglu_plain(x2d, scale, wi, activation, eps), x2d, scale, wi
 
 
-def _bwd_scratch(x2d):
-    """xn (x's dtype), dy (fp32) and the dscale partial rows."""
+def _bwd_scratch(x2d, *dw_products):
+    """xn (x's dtype), dy (fp32), the dscale partial rows and, in bf16, the
+    fp32 partial sums of the weight gradients ``dw_products`` ((m, n, k)
+    each; ``kernels.dw_partial``); None in fp32, which sums on FMA."""
     m, k = x2d.shape
     return (
         torch.empty_like(x2d),
         torch.empty((m, k), dtype=torch.float32, device=x2d.device),
         kernels.ln_adjoint_partial(m, k, x2d.device),
+        kernels.dw_partial(dw_products, x2d.device) if x2d.dtype == torch.bfloat16 else None,
     )
 
 
@@ -348,11 +351,13 @@ def _matmul_bwd_kernel(x2d, scale, w, g, eps):
     n = w.shape[0]
     _check_bwd(x2d, g, n)
     dx, dw, dscale = torch.empty_like(x2d), torch.empty_like(w), torch.empty_like(scale)
-    xn, dy, partial = _bwd_scratch(x2d)
+    xn, dy, partial, dw_partial = _bwd_scratch(x2d, (m, n, k))
     with torch.cuda.device(x2d.device):
         code = kernels.library().opt_ln_matmul_bwd(
-            *(kernels.ptr(t) for t in (x2d, scale, w, g, dx, dw, dscale, xn, dy, partial)),
-            m, k, n, float(eps), kernels.dtype_code(x2d), kernels.stream(x2d),
+            *(kernels.ptr(t) for t in (x2d, scale, w, g, dx, dw, dscale, xn, dy, partial,
+                                       dw_partial)),
+            m, k, n, kernels.dw_chunk_rows(m, n, k), float(eps), kernels.dtype_code(x2d),
+            kernels.stream(x2d),
         )
     kernels.check(code, "ln_matmul_bwd")
     return dx, dscale, dw
@@ -363,13 +368,14 @@ def _geglu_bwd_kernel(x2d, scale, wi, g, act_code, eps):
     intermediate = wi.shape[0] // 2
     _check_bwd(x2d, g, intermediate)
     dx, dwi, dscale = torch.empty_like(x2d), torch.empty_like(wi), torch.empty_like(scale)
-    xn, dy, partial = _bwd_scratch(x2d)
+    xn, dy, partial, dw_partial = _bwd_scratch(x2d, (m, 2 * intermediate, k))
     pre = torch.empty((m, 2 * intermediate), dtype=x2d.dtype, device=x2d.device)
     with torch.cuda.device(x2d.device):
         code = kernels.library().opt_ln_geglu_bwd(
-            *(kernels.ptr(t) for t in (x2d, scale, wi, g, dx, dwi, dscale, xn, pre, dy, partial)),
-            m, k, intermediate, float(eps), act_code, kernels.dtype_code(x2d),
-            kernels.stream(x2d),
+            *(kernels.ptr(t) for t in (x2d, scale, wi, g, dx, dwi, dscale, xn, pre, dy, partial,
+                                       dw_partial)),
+            m, k, intermediate, kernels.dw_chunk_rows(m, 2 * intermediate, k), float(eps),
+            act_code, kernels.dtype_code(x2d), kernels.stream(x2d),
         )
     kernels.check(code, "ln_geglu_bwd")
     return dx, dscale, dwi
@@ -464,15 +470,16 @@ def ln_geglu_wo_bwd(
     g = g.to(x2d.dtype).contiguous()
     _check_bwd(x2d, g, k)
     dx, dwi, dwo, dscale = (torch.empty_like(t) for t in (x2d, wi, wo, scale))
-    xn, dy, partial = _bwd_scratch(x2d)
+    dw_wi, dw_wo = (m, 2 * intermediate, k), (m, k, intermediate)  # dWi, dWo: (m, n, k)
+    xn, dy, partial, dw_partial = _bwd_scratch(x2d, dw_wi, dw_wo)
     h = torch.empty((m, intermediate), dtype=x2d.dtype, device=x2d.device)
     cot = torch.empty((m, 2 * intermediate), dtype=x2d.dtype, device=x2d.device)
     with torch.cuda.device(x2d.device):
         code = kernels.library().opt_ln_geglu_wo_bwd(
             *(kernels.ptr(t) for t in (x2d, scale, wi, wo, g, dx, dwi, dwo, dscale, xn, h, cot,
-                                       dy, partial)),
-            m, k, intermediate, float(eps), act_code, kernels.dtype_code(x2d),
-            kernels.stream(x2d),
+                                       dy, partial, dw_partial)),
+            m, k, intermediate, kernels.dw_chunk_rows(*dw_wi), kernels.dw_chunk_rows(*dw_wo),
+            float(eps), act_code, kernels.dtype_code(x2d), kernels.stream(x2d),
         )
     kernels.check(code, "ln_geglu_wo_bwd")
     return dx, dscale, dwi, dwo

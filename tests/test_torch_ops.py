@@ -182,10 +182,17 @@ def _vjp_pallas(fn, args, g):
         return [np.asarray(t) for t in vjp(jnp.asarray(g))]
 
 
-def test_ln_matmul_bwd_plain_matches_pallas():
-    x, scale = _ln_inputs(256, 128, seed=13)
+# Contraction depths of dW = gᵀ·xn: one row tile, and a longer one whose
+# cotangent is scaled by sqrt(256 / rows) so that dW stays O(1).
+BWD_ROWS = [256, 1024]
+
+
+@pytest.mark.parametrize("rows", BWD_ROWS)
+def test_ln_matmul_bwd_plain_matches_pallas(rows):
+    x, scale = _ln_inputs(rows, 128, seed=13)
     w_kn = (np.random.default_rng(14).normal(size=(128, 384)) * 0.05).astype(np.float32)
-    g = (np.random.default_rng(15).normal(size=(256, 384)) * 0.1).astype(np.float32)
+    g = (np.random.default_rng(15).normal(size=(rows, 384)) * 0.1
+         * np.sqrt(256 / rows)).astype(np.float32)
     ref_dx, ref_ds, ref_dw = _vjp_pallas(
         lambda a, s, w: fused_ln_matmul(a, s, w, 1e-5), (x, scale, w_kn), g
     )
@@ -195,11 +202,13 @@ def test_ln_matmul_bwd_plain_matches_pallas():
     np.testing.assert_allclose(dw.numpy(), ref_dw.T, **TOL)
 
 
+@pytest.mark.parametrize("rows", BWD_ROWS)
 @pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh", "silu"])
-def test_ln_geglu_bwd_plain_matches_pallas(act):
-    x, scale = _ln_inputs(256, 128, seed=16)
+def test_ln_geglu_bwd_plain_matches_pallas(act, rows):
+    x, scale = _ln_inputs(rows, 128, seed=16)
     wi_kn = (np.random.default_rng(17).normal(size=(128, 128)) * 0.1).astype(np.float32)
-    g = (np.random.default_rng(18).normal(size=(256, 64)) * 0.1).astype(np.float32)
+    g = (np.random.default_rng(18).normal(size=(rows, 64)) * 0.1
+         * np.sqrt(256 / rows)).astype(np.float32)
     ref_dx, ref_ds, ref_dwi = _vjp_pallas(
         lambda a, s, w: fused_ln_geglu(a, s, w, act, 1e-5), (x, scale, wi_kn), g
     )
@@ -207,6 +216,74 @@ def test_ln_geglu_bwd_plain_matches_pallas(act):
     np.testing.assert_allclose(dx.numpy(), ref_dx, **TOL)
     np.testing.assert_allclose(ds.numpy(), ref_ds, **TOL)
     np.testing.assert_allclose(dwi.numpy(), ref_dwi.T, **TOL)
+
+
+# (m, n, k) of the weight gradients the kernels split: kernels 11 / 12 at
+# base width (dW [2304, 768]) over a training batch, a ragged one and twice
+# as many rows; kernel 13's dWo [768, 1152]; the edge cases of the card
+# tests (less than one chunk, a ragged k-step, ragged widths); one row.
+DW_SHAPES = [
+    (16384, 2304, 768), (16384 - 37, 2304, 768), (32768, 2304, 768), (16384, 768, 1152),
+    (64, 256, 768), (77, 456, 200), (16384 - 37, 464, 200), (1, 8, 8),
+]
+
+
+@pytest.mark.parametrize("m,n,k", DW_SHAPES)
+def test_dw_chunk_rule_covers_every_row_once(m, n, k):
+    """The split of dW = Gᵀ·X over its m rows: chunks of one length, a whole
+    number of k-steps, that cover rows 0 .. m - 1 once and in order, the
+    last one non-empty; at most DW_CTAS CTAs unless a single chunk; every
+    chunk but the last at least DW_MIN_STEPS k-steps. The rule reads only
+    the shape, so the same call always gives the same split."""
+    from open_provence_tpu_torch import kernels
+
+    rows, chunks = kernels.dw_chunk_rows(m, n, k), kernels.dw_chunks(m, n, k)
+    assert rows % kernels.DW_STEP == 0 and rows == kernels.dw_chunk_rows(m, n, k)
+    bounds = [(c * rows, min(m, (c + 1) * rows)) for c in range(chunks)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == m and bounds[-1][0] < m
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    tiles = -(-n // kernels.DW_TILE[0]) * -(-k // kernels.DW_TILE[1])
+    assert chunks == 1 or tiles * chunks <= kernels.DW_CTAS
+    assert chunks == 1 or rows >= kernels.DW_MIN_STEPS * kernels.DW_STEP
+
+
+def test_dw_chunk_rule_at_base_width():
+    """The split the training step runs: dW [2304, 768] over 16384 rows is 54
+    tiles in 2 chunks of 8192 rows (128 k-steps), 108 CTAs; the ragged batch
+    keeps the chunk length and shortens only the last chunk; kernel 13's dWo
+    [768, 1152] is 30 tiles in 4 chunks."""
+    from open_provence_tpu_torch import kernels
+
+    assert (kernels.dw_chunk_rows(16384, 2304, 768), kernels.dw_chunks(16384, 2304, 768)) == (
+        8192, 2)
+    assert (kernels.dw_chunk_rows(16384 - 37, 2304, 768),
+            kernels.dw_chunks(16384 - 37, 2304, 768)) == (8192, 2)
+    assert kernels.dw_chunks(16384, 768, 1152) == 4
+    assert kernels.dw_chunks(64, 256, 768) == 1
+
+
+@pytest.mark.parametrize("m,n,k", DW_SHAPES)
+def test_bwd_scratch_holds_the_chunks(m, n, k):
+    """The scratch the backward wrappers allocate for the split: bf16 holds
+    every chunk's fp32 [n, k] partial sums; fp32, which sums on FMA in one
+    pass, gets none. Kernel 13's two weight gradients share one buffer, as
+    large as the larger needs."""
+    import importlib
+
+    from open_provence_tpu_torch import kernels
+
+    geglu = importlib.import_module("open_provence_tpu_torch.ops.geglu")  # the module, not the op
+    x2d = torch.empty((m, k), dtype=torch.bfloat16)
+    xn, dy, partial, dw_partial = geglu._bwd_scratch(x2d, (m, n, k))
+    assert xn.shape == (m, k) and dy.shape == (m, k) and dy.dtype == torch.float32
+    assert partial.shape == (-(-m // kernels.LN_ADJOINT_ROWS), k)
+    assert dw_partial.dtype == torch.float32
+    assert dw_partial.numel() == kernels.dw_chunks(m, n, k) * n * k
+    assert geglu._bwd_scratch(x2d.float(), (m, n, k))[3] is None
+    wo = (m, k, n // 2)
+    both = geglu._bwd_scratch(x2d, (m, n, k), wo)[3]
+    assert both.numel() == max(kernels.dw_chunks(m, n, k) * n * k,
+                               kernels.dw_chunks(*wo) * k * (n // 2))
 
 
 @pytest.mark.parametrize("window", [None, 32])

@@ -476,18 +476,17 @@ def test_gemm_engine_edges_match_plain_on_cuda(cuda_device, dtype, m, k):
 
 @pytest.mark.cuda
 def test_gemm_design_is_reported(cuda_device):
-    """The route is fixed by layout and type when the library is compiled:
-    the bf16 K-major x K-major product (kernels 2, 4, 6 and kernel 11's
-    recomputed projection) on wgmma, the transposed bf16 layouts on mma.sync
-    and fp32 on FMA."""
+    """The route is fixed by type when the library is compiled: every bf16
+    layout (the K-major x K-major product of kernels 2, 4, 6 and kernel 11's
+    recomputed projection, dW = G^T.xn and dy = G.W of kernels 11 and 12) on
+    wgmma fed by a TMA ring, and fp32 on FMA."""
     from open_provence_tpu_torch import kernels
 
-    design = kernels.gemm_design(False, False, torch.bfloat16)
-    assert design["products"] == "wgmma" and design["stages"] >= 2
-    assert "mbarrier" in design["fill"]
-    assert kernels.gemm_design(True, True, torch.bfloat16)["products"] == "mma.sync"
-    assert kernels.gemm_design(False, True, torch.bfloat16)["products"] == "mma.sync"
-    assert kernels.gemm_design(False, False, torch.float32)["products"] == "fma"
+    for ta, tb in ((False, False), (True, True), (False, True)):
+        design = kernels.gemm_design(ta, tb, torch.bfloat16)
+        assert design["products"] == "wgmma" and design["stages"] >= 2
+        assert "TMA" in design["fill"] and "mbarrier" in design["fill"]
+        assert kernels.gemm_design(ta, tb, torch.float32)["products"] == "fma"
     with pytest.raises(TypeError):
         kernels.gemm_design(False, False, torch.float16)
 
@@ -538,6 +537,66 @@ def test_backward_kernels_match_plain_on_cuda(cuda_device, dtype):
     assert counts["layer_norm_bwd"] == counts["ln_matmul_bwd"] == counts["ln_geglu_bwd"] == 1
     assert counts["flash_attention_packed_bwd"] == 2
     assert not any(kernels.plain_counts().values())
+
+
+def _off_relu_step(x, scale, wi, g):
+    """g with 0 where the card's inp (kernel 2 on the whole wi: the bits of
+    kernel 11's recomputed projection) and the plain version's fall on either
+    side of relu's step, where relu' may be 1 on one side and 0 on the other."""
+    from open_provence_tpu_torch import ops
+
+    inter = g.shape[1]
+    acc = torch.promote_types(g.dtype, torch.float32)
+    inp_plain = (ops.layer_norm_plain(x, scale).to(acc) @ wi.to(acc).t()).to(g.dtype)
+    inp_card = ops.ln_matmul(x, scale, wi)
+    return g.masked_fill((inp_card[:, :inter] > 0) != (inp_plain[:, :inter] > 0), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [64, 77, 16384 - 37, 16384])
+@pytest.mark.parametrize("k", [768, 200])
+def test_backward_gemm_edges_match_plain_on_cuda(cuda_device, dtype, m, k):
+    """Kernels 12 and 11 against their plain versions where the transposed
+    products' tiles and the dW split over rows make them fragile: M = 64
+    (less than one chunk), 77 (a ragged k-step), 16384 - 37 (a ragged last
+    chunk) and 16384; dW row counts of one whole tile (256; 2I = 256) and
+    ragged ones (456; 2I = 464); K = 768 and 200; every GeGLU activation
+    (under relu the cotangent is 0 where the card and the plain version put
+    inp on either side of the step). The tolerance is a share of each
+    output's largest value. In bf16 two launches give the same bits. Each
+    call is one launch of its kernel and no plain version runs."""
+    from open_provence_tpu_torch import kernels, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m + k)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rng.normal(size=shape) * s, dtype=dtype, device=cuda_device)
+
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    x, scale = t(m, k, s=2.0), t(k, s=0.1) + 1
+    runs = []
+    for n in (256, 456):
+        w, g = t(n, k, s=k**-0.5), t(m, n, s=0.1)
+        runs.append(("ln_matmul_bwd", lambda w=w, g=g: ops.ln_matmul_bwd(x, scale, w, g),
+                     ops.ln_matmul_bwd_plain(x, scale, w, g)))
+    for inter in (128, 232):
+        wi, g = t(2 * inter, k, s=k**-0.5), t(m, inter, s=0.1)
+        for act in ("gelu", "gelu_new", "relu", "silu"):
+            g_act = _off_relu_step(x, scale, wi, g) if act == "relu" else g
+            runs.append(("ln_geglu_bwd",
+                         lambda wi=wi, g=g_act, act=act: ops.ln_geglu_bwd(x, scale, wi, g, act),
+                         ops.ln_geglu_bwd_plain(x, scale, wi, g_act, act)))
+    for name, kernel, want in runs:
+        kernels.reset_launch_counts()
+        got = kernel()
+        assert kernels.launch_counts()[name] == 1 and not any(kernels.plain_counts().values())
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=rel,
+                                       atol=rel * b.float().abs().max().item())
+        if dtype == torch.bfloat16:
+            assert all(torch.equal(a, b) for a, b in zip(got, kernel()))
 
 
 @pytest.mark.cuda
