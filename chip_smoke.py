@@ -77,9 +77,16 @@ card and check it, in phases:
 training rates at B=32, S=512 of the package under TREE (default: this
 checkout), so that two trees can be compared inside one call.
 ``python3 chip_smoke.py --attention [TREE]`` builds TREE's kernels, prints
-the attention units' ptxas report and designs, runs the edge cases of phase
-3c and times the packed attention forward and backward in bf16 at the
-shapes of the table of TPU kernels. ``python3 chip_smoke.py --gemm [TREE]``
+the attention units' ptxas report, a digest of each kernel's machine code
+and the designs, runs the edge cases of phase 3c and times the attention
+forward and backward in bf16 at the shapes of the table of TPU kernels
+(packed and unpacked wrappers, each launch from torch.profiler, the host's
+time to issue a call, the library call beside them). ``python3 chip_smoke.py
+--layouts [TREE]`` profiles the forward and the training step of phase 11's
+head layouts. ``python3 chip_smoke.py --same-buffers TREE`` imports TREE's
+package beside this checkout's into one process and times both trees'
+attention kernels in turns on the same tensors at the shapes of
+``--attention``. ``python3 chip_smoke.py --gemm [TREE]``
 does the same for the GEMM engine: its units' ptxas report, the design of
 every layout, phase 3's GEMM edge cases, kernels 2, 4 and 6 in bf16 at
 M = 16384 beside torch.matmul on the same product, then kernels 12, 11 and
@@ -100,8 +107,10 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -226,7 +235,8 @@ def attention_bound(mask: torch.Tensor, window: int | None, backward: bool,
     mask of this run. Forward: Q.K^T and P.V, 4·D operations a scored pair
     and head; backward: the five products (S, dP, dV, dK, dQ), 10·D. Bytes:
     q, k, v and out (and for the backward g, lse and dq, dk, dv), the int32
-    mask and the rope tables."""
+    mask and the rope tables: the function's own operands, not the scratch a
+    design may rotate them into."""
     batch, seq = mask.shape
     tokens, hidden = batch * seq, heads * head_dim
     nbytes = tokens * 4 * hidden * 2 + tokens * 4 + 2 * seq * head_dim * 2
@@ -264,11 +274,20 @@ def library_note(name: str, ms: float | None) -> str:
 
 def design_note(head_dim: int, backward: bool) -> str:
     """Which design the bf16 attention kernel of a head dim runs, the ring's
-    stages and the tile shape, as the library was compiled."""
+    stages, the tile shape, the consumer warpgroups a CTA and where the rope
+    tables come from, as the library was compiled (an older tree reports
+    the first four)."""
     from open_provence_tpu_torch import kernels
 
     d = kernels.attention_design(head_dim, backward)
-    return f"{d['products']}, {d['fill']}, {d['stages']} stage(s), tile {d['tile']}"
+    note = f"{d['products']}, {d['fill']}, {d['stages']} stage(s), tile {d['tile']}"
+    if "consumers" in d:
+        note += f", consumer warpgroups {d['consumers']}, rotation {d['rotation']}"
+        if d["scratch"]:
+            note += f" ({d['scratch']} operand(s))"
+    if "dq_stages" in d:
+        note += f"; dQ {d['dq_stages']} stage(s)"
+    return note
 
 
 def attention_designs(backward: bool) -> dict:
@@ -1009,7 +1028,7 @@ def attention_edge_cases(dev, stats: dict[str, dict], layouts=HEAD_LAYOUTS) -> N
 def phase3d_head_layouts(dev, stats: dict[str, dict]) -> None:
     """Attention on separate q, k, v (kernels 9 and 16) against its plain
     version for every head layout of width 768, at B=32, S=512 and (D = 32,
-    256) at B=8, S=2048; fp32 and bf16, global and +-64, ragged masks whose
+    128, 256) at B=8, S=2048; fp32 and bf16, global and +-64, ragged masks whose
     last row is padding. The same data as strided views of the packed buffer
     and through the packed wrapper must give the same bits. Errors go
     into the stats of all four attention kernels under the tolerances of
@@ -1021,7 +1040,8 @@ def phase3d_head_layouts(dev, stats: dict[str, dict]) -> None:
     bwd = stats.setdefault("flash_attention_bwd", {"max_abs_err": {}})
     fwd["design"], bwd["design"] = attention_designs(False), attention_designs(True)
     packed_fwd, packed_bwd = stats["flash_attention_packed"], stats["flash_attention_packed_bwd"]
-    shapes = [(32, 512, h, d) for h, d in HEAD_LAYOUTS] + [(8, 2048, 24, 32), (8, 2048, 3, 256)]
+    shapes = [(32, 512, h, d) for h, d in HEAD_LAYOUTS] + [
+        (8, 2048, 24, 32), (8, 2048, 6, 128), (8, 2048, 3, 256)]
 
     def case(batch, seq, dtype):
         qkv = torch.randn(batch, seq, 3 * HIDDEN, generator=gen).to(device=dev, dtype=dtype)
@@ -1415,10 +1435,13 @@ def plain_ops():
 # these names, the rest by the first words of theirs (cuBLAS, torch's
 # elementwise and reductions).
 OUR_KERNELS = {
+    # An older tree's (a parent's, to compare with: --layouts).
     ("flash_mma_kernel",): "attention fwd", ("dkv_mma_kernel",): "attention bwd dK/dV",
     ("dq_mma_kernel",): "attention bwd dQ", ("delta_kernel",): "attention bwd delta",
     ("flash_wgmma_kernel",): "attention fwd", ("dkv_wgmma_kernel",): "attention bwd dK/dV",
+    ("dkv_split_kernel",): "attention bwd dK/dV", ("dkv_roles_kernel",): "attention bwd dK/dV",
     ("dq_wgmma_kernel",): "attention bwd dQ",
+    ("rotate_rows_kernel",): "attention rope into scratch",
     ("gemm_wgmma_kernel", "<true, true"): "GEMM engine, wgmma dW = G^T.xn",
     ("gemm_wgmma_kernel", "<false, true"): "GEMM engine, wgmma dy = G.W",
     ("gemm_wgmma_kernel",): "GEMM engine, wgmma xn.W^T",
@@ -1433,9 +1456,10 @@ OUR_KERNELS = {
 }
 
 
-def profile_by_kernel(label: str, fn, reps: int) -> float:
+def profile_by_kernel(label: str, fn, reps: int, shares: dict | None = None) -> float:
     """Print where the device time of ``reps`` calls of ``fn`` goes; returns
-    the device milliseconds a call (0.0 if the profiler saw none)."""
+    the device milliseconds a call (0.0 if the profiler saw none) and, into
+    ``shares`` where given, each group's fraction of it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1460,11 +1484,13 @@ def profile_by_kernel(label: str, fn, reps: int) -> float:
     if not total_us:
         phase(f"{label}: wall {wall * 1e3:.1f} ms; the profiler saw no device time")
         return 0.0
+    if shares is not None:
+        shares.update({g: us / total_us for g, us in device_us.items()})
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:14]
-    shares = "; ".join(f"{g} {100 * us / total_us:.1f} %" for g, us in top)
+    top_note = "; ".join(f"{g} {100 * us / total_us:.1f} %" for g, us in top)
     phase(f"{label}: wall {wall * 1e3:.1f} ms, device busy {total_us / 1e3:.1f} ms "
           f"({total_us / 1e6 / wall:.3f} of wall), {launches:.0f} kernel launches a call; "
-          f"by kernel: {shares}")
+          f"by kernel: {top_note}")
     return total_us / 1e3 / reps
 
 
@@ -2237,20 +2263,224 @@ def rates_main(tree: Path) -> int:
     return 0
 
 
+def launch_ms(fn, reps: int) -> dict[str, float]:
+    """Device milliseconds a call of ``fn`` spends in each kernel it
+    launches, from torch.profiler over ``reps`` calls (the kernel's name up
+    to its template arguments)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_call: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if getattr(evt.device_type, "name", "") != "CUDA":
+            continue
+        us = getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "device_time_total", 0.0)
+        full = evt.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+        base, _, args = full.partition("<")
+        name = base.split("::")[-1] + (f"<{args}" if args and len(args) < 12 else "")
+        per_call[name] = per_call.get(name, 0.0) + us / 1e3 / reps
+    return dict(sorted(per_call.items(), key=lambda kv: -kv[1]))
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host milliseconds to issue one call of ``fn``, begun on an idle card:
+    the card runs behind and the queue does not fill in ``reps`` calls, so
+    this is the Python and launch cost alone."""
+    fn()
+    torch.cuda.synchronize()
+    began = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - began) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def sass_digests(kernels, wanted=("flash_attention", "rotate_rows")) -> dict[str, dict]:
+    """The machine code of the built library's functions whose names hold
+    one of ``wanted``, from ``cuobjdump -sass``: a function's instruction count, a
+    digest of its instructions and one with the kernel-argument offsets
+    (``c[0x0][...]``) blanked, keyed by its mangled name without the unit's
+    hashes, so that two trees' builds compare function by function."""
+    cuobjdump = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(kernels.library_path())],
+                          capture_output=True, text=True, check=True, timeout=600).stdout
+    code: dict[str, list[str]] = {}
+    name = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = re.sub(r"_cu_[0-9a-f]{8}", "_cu", re.sub(
+                r"__N__[0-9a-f]{8}_", "__N__", line.split("Function :")[1].strip()))
+            name = name if any(w in name for w in wanted) else None
+            if name:
+                code[name] = []
+        elif name:
+            found = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*([^;]*);", line)
+            if found:
+                code[name].append(found.group(1).strip())
+
+    def digest(lines):
+        return hashlib.sha1("\n".join(lines).encode()).hexdigest()[:12]
+
+    return {fn: {"instructions": len(lines), "digest": digest(lines),
+                 "digest_without_argument_offsets": digest(
+                     [re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][arg]", x) for x in lines])}
+            for fn, lines in sorted(code.items())}
+
+
+def layouts_main(tree: Path) -> int:
+    """The head layouts of phase 11 (24 x 32, 3 x 256) with the package
+    under ``tree``: the device time of a bf16 forward at B=32, S=512 (5
+    forwards) and of a bf16 training step (3 steps) and the attention
+    kernels' shares of each, from torch.profiler, so that two trees can be
+    compared inside one call. One JSON line."""
+    sys.path.insert(0, str(tree))
+    from open_provence_tpu_torch import OpenProvenceModel, init_params, kernels
+
+    DummyTokenizer, PairDummyTokenizer = load_dummy_tokenizers()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kernels.library()
+    result = {}
+    for heads in (24, 3):
+        config = base_config(num_attention_heads=heads)
+        label = f"{heads}x{config.backbone().head_dim}"
+        sd = init_params(config, torch.Generator().manual_seed(11))
+        model = OpenProvenceModel(config, sd, DummyTokenizer(), device=dev)
+        ids = torch.randint(3, 50000, (32, 512), generator=torch.Generator().manual_seed(6))
+        ids, mask = ids.to(dev), torch.ones(32, 512, dtype=torch.int32, device=dev)
+
+        def forward():
+            with torch.inference_mode():
+                model.module(ids, mask)
+
+        fwd_shares, step_shares = {}, {}
+        fwd = profile_by_kernel(f"{label} profile of 5 forwards B=32 S=512 bf16", forward, 5,
+                                fwd_shares)
+        del model
+        batches = [training_batch(PairDummyTokenizer(), 31, 512, seed=s) for s in (110, 111)]
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = make_trainer(training_config(config),
+                                   {k: v.to(dev) for k, v in sd.items()}, PairDummyTokenizer(),
+                                   dev, Path(tmp), 20)
+            train_steps(trainer, batches, 2)
+            step = profile_by_kernel(f"{label} profile of 3 bf16 steps B=32 S=512",
+                                     lambda: train_steps(trainer, batches, 1), 3, step_shares)
+        result[label] = {
+            "forward_device_ms": fwd, "train_step_device_ms": step,
+            "forward_attention_share": sum(v for k, v in fwd_shares.items()
+                                           if k.startswith("attention")),
+            "train_step_attention_share": sum(v for k, v in step_shares.items()
+                                              if k.startswith("attention"))}
+    print(json.dumps({"tree": str(tree), "card": card, "layouts": result}), flush=True)
+    return 0
+
+
+# The shapes --attention and --same-buffers time: every head layout at B=32,
+# S=512, and three at B=8, S=2048.
+ATTENTION_SHAPES = [(32, 512, h, d) for h, d in HEAD_LAYOUTS] + [
+    (8, 2048, HEADS, HEAD_DIM), (8, 2048, 6, 128), (8, 2048, 3, 256)]
+
+
+def attention_operands(ops, batch: int, seq: int, heads: int, gen, dev):
+    """bf16 operands of one timed attention shape: the packed qkv, a ragged
+    mask whose last row is padding, the cotangent g (zero on padding), and
+    q, k, v and g as contiguous [B, H, S, D] tensors."""
+    dtype = torch.bfloat16
+    qkv = torch.randn(batch, seq, 3 * HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+    mask = ragged_mask(batch, seq, gen, dev)
+    mask[-1] = 0
+    g = (torch.randn(batch, seq, HIDDEN, generator=gen).to(device=dev, dtype=dtype)
+         * mask[..., None].to(dtype))
+    q, k, v = (t.contiguous() for t in ops.packed_views(qkv, heads))
+    g_heads = g.view(batch, seq, heads, HIDDEN // heads).transpose(1, 2).contiguous()
+    return qkv, mask, g, q, k, v, g_heads
+
+
+def same_buffers_main(other: Path) -> int:
+    """This checkout's attention kernels and those of the package under
+    ``other``, imported side by side into one process (the other as
+    ``other_tree``; the package's own imports are relative): at the shapes of
+    ``--attention``, each tree's bf16 forward and backward, through the
+    packed wrapper and on contiguous q, k, v, launched on the same tensors
+    and timed in turns (other, this, this, other; three rounds), so that a
+    difference between the two builds comes neither from the process nor
+    from where the tensors lie. One JSON line."""
+    import importlib
+    import importlib.util
+
+    sys.path.insert(0, str(REPO))
+    from open_provence_tpu_torch import kernels, ops
+
+    root = other / "open_provence_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "other_tree", root / "__init__.py", submodule_search_locations=[str(root)])
+    sys.modules["other_tree"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["other_tree"])
+    trees = {"other": importlib.import_module("other_tree.ops"), "this": ops}
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    phase(card)
+    kernels.library()
+    importlib.import_module("other_tree.kernels").library()
+    gen = torch.Generator().manual_seed(41)
+    times = {}
+    for batch, seq, heads, head_dim in ATTENTION_SHAPES:
+        qkv, mask, g, q, k, v, g_heads = attention_operands(ops, batch, seq, heads, gen, dev)
+        for window, theta in ((None, 160000.0), (64, 10000.0)):
+            kw = dict(padding_mask=mask, window=window,
+                      rope=ops.rope_tables(seq, head_dim, theta, torch.bfloat16, dev))
+            calls = {}
+            for name, o in trees.items():
+                out, lse = o.flash_attention_packed_lse(qkv, num_heads=heads, **kw)
+                out_u, lse_u = o.flash_attention_lse(q, k, v, **kw)
+                calls[name] = {
+                    "forward_ms": lambda o=o: o.flash_attention_packed(qkv, num_heads=heads, **kw),
+                    "backward_ms": lambda o=o, out=out, lse=lse: o.flash_attention_packed_bwd(
+                        qkv, g, out, lse, num_heads=heads, **kw),
+                    "contiguous_forward_ms": lambda o=o: o.flash_attention(q, k, v, **kw),
+                    "contiguous_backward_ms": lambda o=o, out=out_u, lse=lse_u: (
+                        o.flash_attention_bwd(q, k, v, g_heads, out, lse, **kw))}
+            runs = {name: {what: [] for what in fns} for name, fns in calls.items()}
+            for _ in range(3):
+                for name in ("other", "this", "this", "other"):
+                    for what, fn in calls[name].items():
+                        runs[name][what].append(cuda_ms(fn))
+            key = f"{heads}x{head_dim}_b{batch}_s{seq}_window{window}"
+            times[key] = runs
+            phase(f"same buffers {key} bf16, lowest of 6 means of 20, other / this: " + "; ".join(
+                f"{what} {min(runs['other'][what]):.4f} / {min(runs['this'][what]):.4f}"
+                for what in calls["this"]))
+    print(json.dumps({"other": str(other), "card": card, "attention": times}), flush=True)
+    return 0
+
+
 def attention_main(tree: Path) -> int:
     """The attention kernels of the package under ``tree`` alone: the ptxas
     report of their units, the edge cases against the plain versions, then
-    the packed wrapper's forward and backward times in bf16 at
-    the shapes of the table of TPU kernels (B=32, S=512 and B=8, S=2048,
-    global and +-64, every head layout at S=512), so that two trees can be
-    compared inside one call. One JSON line."""
+    the forward and backward times in bf16 at the shapes of the table of TPU
+    kernels (every head layout at B=32, S=512; 12 x 64, 6 x 128 and 3 x 256
+    at B=8, S=2048; global and +-64), through the packed wrapper and through
+    the unpacked one on contiguous q, k, v, beside the library call on the
+    same data (global), so that two trees and the library can be compared
+    inside one call. One JSON line."""
     sys.path.insert(0, str(tree))
     from open_provence_tpu_torch import kernels, ops
 
     dev = torch.device("cuda", 0)
     card = card_line()
+    phase(card)
     kernels.library()
     print_ptxas(kernels.library_path().with_suffix(".log").read_text(), ("flash", "dkv", "dq_"))
+    sass = sass_digests(kernels)
+    for fn, d in sass.items():
+        phase(f"sass {fn}: {d['instructions']} instructions, digest {d['digest']}, without "
+              f"kernel-argument offsets {d['digest_without_argument_offsets']}")
     if hasattr(kernels, "attention_design"):  # an older tree has one design and no report
         for _, head_dim in HEAD_LAYOUTS:
             phase(f"design D={head_dim}: forward {design_note(head_dim, False)}; backward "
@@ -2258,25 +2488,55 @@ def attention_main(tree: Path) -> int:
     attention_edge_cases(dev, {})
     gen = torch.Generator().manual_seed(41)
     dtype, times = torch.bfloat16, {}
-    shapes = [(32, 512, h, d) for h, d in HEAD_LAYOUTS] + [(8, 2048, HEADS, HEAD_DIM)]
-    for batch, seq, heads, head_dim in shapes:
-        qkv = torch.randn(batch, seq, 3 * HIDDEN, generator=gen).to(device=dev, dtype=dtype)
-        mask = ragged_mask(batch, seq, gen, dev)
-        mask[-1] = 0
-        g = (torch.randn(batch, seq, HIDDEN, generator=gen).to(device=dev, dtype=dtype)
-             * mask[..., None].to(dtype))
+    for batch, seq, heads, head_dim in ATTENTION_SHAPES:
+        qkv, mask, g, q, k, v, g_heads = attention_operands(ops, batch, seq, heads, gen, dev)
+        shape = f"{heads}x{head_dim}_b{batch}_s{seq}"
         for window, theta in ((None, 160000.0), (64, 10000.0)):
-            kw = dict(num_heads=heads, padding_mask=mask, window=window,
-                      rope=ops.rope_tables(seq, head_dim, theta, dtype, dev))
-            out, lse = ops.flash_attention_packed_lse(qkv, **kw)
-            key = f"{heads}x{head_dim}_b{batch}_s{seq}_window{window}"
-            fwd = [cuda_ms(lambda: ops.flash_attention_packed(qkv, **kw)) for _ in range(3)]
-            bwd = [cuda_ms(lambda: ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw))
+            rope = ops.rope_tables(seq, head_dim, theta, dtype, dev)
+            kw = dict(padding_mask=mask, window=window, rope=rope)
+            out, lse = ops.flash_attention_packed_lse(qkv, num_heads=heads, **kw)
+            out_u, lse_u = ops.flash_attention_lse(q, k, v, **kw)
+            fwd = [cuda_ms(lambda: ops.flash_attention_packed(qkv, num_heads=heads, **kw))
                    for _ in range(3)]
-            times[key] = {"forward_ms": min(fwd), "backward_ms": min(bwd)}
+            bwd = [cuda_ms(lambda: ops.flash_attention_packed_bwd(qkv, g, out, lse,
+                                                                   num_heads=heads, **kw))
+                   for _ in range(3)]
+            fwd_u, bwd_u = [], []
+            for qc, kc, vc in [[t.clone() for t in (q, k, v)] for _ in range(3)]:
+                # three placements of q, k, v in memory
+                fwd_u.append(cuda_ms(lambda: ops.flash_attention(qc, kc, vc, **kw)))
+                bwd_u.append(cuda_ms(lambda: ops.flash_attention_bwd(qc, kc, vc, g_heads, out_u,
+                                                                     lse_u, **kw)))
+            issue = {"forward_ms": host_ms(lambda: ops.flash_attention_packed(
+                         qkv, num_heads=heads, **kw)),
+                     "backward_ms": host_ms(lambda: ops.flash_attention_packed_bwd(
+                         qkv, g, out, lse, num_heads=heads, **kw))}
+            key = f"{shape}_window{window}"
+            launches = launch_ms(lambda: (ops.flash_attention_packed_bwd(
+                qkv, g, out, lse, num_heads=heads, **kw), ops.flash_attention_packed(
+                qkv, num_heads=heads, **kw)), 10)
+            times[key] = {"forward_ms": min(fwd), "backward_ms": min(bwd),
+                          "contiguous_forward_ms": min(fwd_u),
+                          "contiguous_backward_ms": min(bwd_u),
+                          "contiguous_forward_ms_each": fwd_u,
+                          "contiguous_backward_ms_each": bwd_u, "host_issue_ms": issue,
+                          "launch_ms": launches}
             phase(f"time attention {key} bf16: forward {min(fwd):.4f} ms, backward "
-                  f"{min(bwd):.4f} ms (lowest of 3 means of 20)")
-    print(json.dumps({"tree": str(tree), "card": card, "attention": times}), flush=True)
+                  f"{min(bwd):.4f} ms; contiguous q, k, v: forward {min(fwd_u):.4f} ms, "
+                  f"backward {min(bwd_u):.4f} ms (lowest of 3 means of 20; contiguous: of 3 "
+                  f"placements in memory); the host issues a call in {issue['forward_ms']:.4f} / "
+                  f"{issue['backward_ms']:.4f} ms; a backward and a forward launch by launch: "
+                  + ", ".join(f"{name} {ms:.4f} ms" for name, ms in launches.items()))
+            if window is None:
+                lib = [library_attention_ms(qkv, rope, mask, g, heads, head_dim)
+                       for _ in range(3)]
+                times[key]["library_attention_ms"] = {"forward_ms": min(f for f, _ in lib),
+                                                      "backward_ms": min(b for _, b in lib)}
+                phase(f"time scaled_dot_product_attention (no rope) {shape} bf16: forward "
+                      f"{min(f for f, _ in lib):.4f} ms, autograd backward "
+                      f"{min(b for _, b in lib):.4f} ms (lowest of 3 means of 20)")
+    print(json.dumps({"tree": str(tree), "card": card, "sass": sass, "attention": times}),
+          flush=True)
     return 0
 
 
@@ -2411,7 +2671,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if len(sys.argv) > 1:
-        modes = {"--rates": rates_main, "--attention": attention_main, "--gemm": gemm_main}
+        modes = {"--rates": rates_main, "--attention": attention_main, "--gemm": gemm_main,
+                 "--layouts": layouts_main, "--same-buffers": same_buffers_main}
         if sys.argv[1] not in modes or len(sys.argv) > 3:
             print(f"usage: chip_smoke.py [{' | '.join(modes)} [TREE]]", file=sys.stderr)
             return 2

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -242,8 +243,8 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     signatures = {
-        "flash_attention": [p] * 8 + [i, i, i, i, strides, i, f, i, p],
-        "flash_attention_bwd": [p] * 13 + [i, i, i, i, strides, i, f, i, p],
+        "flash_attention": [p] * 9 + [i, i, i, i, strides, i, f, i, p],
+        "flash_attention_bwd": [p] * 14 + [i, i, i, i, strides, i, f, i, p],
         "ln_geglu_wo": [p] * 6 + [i, i, i, f, i, i, p],
         "ln_geglu_wo_bwd": [p] * 15 + [i, i, i, i, i, f, i, i, p],
         "layer_norm": [p, p, p, i, i, f, i, p],
@@ -272,24 +273,47 @@ def library() -> ctypes.CDLL:
 def attention_design(head_dim: int, backward: bool = False) -> dict:
     """How the bf16 attention kernels of ``head_dim`` were built (it is fixed
     at compile time): the route to the tensor cores, how the streamed side
-    reaches shared memory, the ring's stages and the tile shape."""
-    out = (ctypes.c_int * 5)()
+    reaches shared memory, the ring's stages, the tile shape, the consumer
+    warpgroups a CTA, how the rotation happens and how many [B, H, S, D]
+    operands a call with rope tables rotates into scratch first. Backward:
+    ``stages`` and ``rotation`` are the dK/dV pass's, ``dq_stages`` the dQ
+    pass's."""
+    out = (ctypes.c_int * 12)()
     if library().opt_flash_attention_design(head_dim, int(backward), out) != 0:
         raise ValueError(f"no attention kernel for head_dim {head_dim}")
-    wgmma, stages, own_rows, streamed_rows, other_rows = out
-    if backward:
-        tile = f"dK/dV {own_rows}x{streamed_rows}, dQ {other_rows}x{streamed_rows}"
-    elif other_rows != own_rows:
-        tile = f"{other_rows}x{streamed_rows} global, {own_rows}x{streamed_rows} with a window"
-    else:
-        tile = f"{own_rows}x{streamed_rows}"
-    return {
-        "products": "wgmma" if wgmma else "mma.sync",
-        "fill": ("cp.async ring with mbarriers, a producer warpgroup" if wgmma
-                 else "loads between two barriers a tile"),
+    (consumers, stages, own_rows, streamed_rows, other_rows, other_consumers, other_stages,
+     tables, _, form, rotated, route) = out
+    products, fill = {2: ("wgmma", "cp.async ring with mbarriers, a producer warpgroup")}[route]
+    design = {
+        "products": products,
+        "fill": fill,
         "stages": stages,
-        "tile": tile,
+        "rotation": ("in the ring, cos/sin staged beside each tile" if tables
+                     else "into scratch before the pass"),
+        "scratch": rotated,
     }
+    if backward:
+        # attention_wgmma.cuh: DkvForm
+        lay = {0: "", 1: " splitting the D columns", 2: " making dV or dK by the tile's parity"}
+        design.update(
+            tile=f"dK/dV {own_rows}x{streamed_rows}, dQ {other_rows}x{streamed_rows}",
+            consumers=f"dK/dV {consumers}{lay[form]}, dQ {other_consumers}",
+            dq_stages=other_stages)
+    elif other_rows != own_rows:
+        design.update(
+            tile=f"{other_rows}x{streamed_rows} global, {own_rows}x{streamed_rows} with a window",
+            consumers=f"{other_consumers} global, {consumers} with a window")
+    else:
+        design.update(tile=f"{own_rows}x{streamed_rows}", consumers=str(consumers))
+    return design
+
+
+@functools.lru_cache(maxsize=None)
+def attention_scratch_operands(head_dim: int, backward: bool) -> int:
+    """How many [B, H, S, D] operands the bf16 attention kernels of
+    ``head_dim`` rotate into scratch when they get rope tables (the wrapper
+    allocates it): fixed when the library is built."""
+    return attention_design(head_dim, backward)["scratch"]
 
 
 def gemm_design(ta: bool, tb: bool, dtype: torch.dtype) -> dict:

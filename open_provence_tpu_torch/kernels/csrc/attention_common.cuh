@@ -41,6 +41,7 @@ struct FwdArgs {
   const void* cos_t;  // [S, D] in the storage type, or null
   const void* sin_t;
   float* lse;  // [B, H, S] or null
+  void* rot;   // scratch [B, H, S, D]: K rotated, where the head dim streams it so; or null
   int S, H;
   int window;  // < 0: global
   float scale;
@@ -54,6 +55,8 @@ struct BwdArgs {
   const void* sin_t;
   const float* lse;  // [B, H, S]
   float* delta;      // [B, H, S] scratch
+  void* rot;         // scratch [2, B, H, S, D]: Q, then K, rotated, where the head dim streams
+                     // them so; or null
   int S, H;
   int window;
   float scale;
@@ -142,35 +145,6 @@ __device__ __forceinline__ void band_range(int t0, int tile, int step, int S, in
   }
   *first = (lo / step) * step;
   *last = hi;
-}
-
-// e^x as one ex2.approx (the bf16 kernels; the fp32 kernels keep expf).
-__device__ __forceinline__ float exp_ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
-}
-
-// Whether the key tiles from row `first` to row `last` hold a valid key; all
-// threads of the CTA call it (it is a barrier). False without a mask.
-__device__ __forceinline__ bool walk_has_valid_key(const int* mrow, int first, int last, int tid,
-                                                   int threads) {
-  if (mrow == nullptr) return false;
-  bool any = false;
-  for (int i = first + tid; i <= last; i += threads) any |= mrow[i] != 0;
-  return __syncthreads_or(any) != 0;
-}
-
-// The barrier at the top of a key tile's turn, which also says whether the
-// tile is walked: always, unless `skip_padded` and its 64 keys from row k0 on
-// hold no valid key.
-__device__ __forceinline__ bool tile_barrier(bool skip_padded, const int* mrow, int k0, int S,
-                                             int tid) {
-  if (!skip_padded) {
-    __syncthreads();
-    return true;
-  }
-  return __syncthreads_or(tid < BK && k0 + tid < S && mrow[k0 + tid] != 0) != 0;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

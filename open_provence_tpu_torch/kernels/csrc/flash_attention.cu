@@ -41,23 +41,25 @@
 // at D = 64 is as busy as the tensor cores) and the wgmma chains all have to
 // be waited out by somebody.
 //
-// bf16, D = 32, 64, 128 (attention_wgmma.cuh has the shared design): a CTA is
+// bf16, every head dim (attention_wgmma.cuh has the shared design): a CTA is
 // a producer warpgroup, which fills a ring of key tiles in shared memory with
-// cp.async and rotates K there one tile ahead of its use, and three consumer
+// cp.async and rotates K there one tile ahead of its use, and consumer
 // warpgroups of 64 query rows each that meet it only at mbarriers: no load
 // sits between two barriers. Both products run on wgmma from the swizzled
 // tiles (S = Q.K^T with both operands in shared memory, P from the
 // accumulator's registers as the A operand of P.V, V read MN-major). The
 // softmax runs in base 2 with scale * log2(e) folded into the score and one
 // ex2.approx a score, lse stays in natural log. Key tiles without a valid key
-// are not walked. 192-row CTAs read K and V a third as often as 64-row ones;
-// three warpgroups an SM overlap one's products with another's exponentials.
-// bf16, D = 256: mma.sync m16n8k16 as before (each of 4 warps owns 16 query
-// rows, Q fragments read from shared memory at each key tile), with ex2 and
-// the skipped key tiles: a 64 x 256 output beside the scores leaves no
-// registers for three warpgroups. fp32: the same walk with fp32 FMA from
-// shared memory (true fp32), unchanged: it exists for parity, no main path
-// runs it.
+// are not walked. Three consumers a CTA (four in a global layer at D <= 64)
+// read K and V a third as often as 64-row CTAs and overlap one's products
+// with another's exponentials. At D = 256 a consumer's 64 x 256 output takes
+// 128 registers, so a CTA is one consumer beside the producer (255 registers;
+// beside two more warpgroups it would have 168), with a two-stage ring, and
+// the call rotates K into scratch first (attention_wgmma.cuh: FwdPass,
+// rotate_rows), so that a stage carries K and V alone and the producer only
+// copies. fp32: the same walk
+// with fp32 FMA from shared memory (true fp32), unchanged: it exists for
+// parity, no main path runs it.
 #include "attention_wgmma.cuh"
 
 #ifdef OPT_HEAD_DIM  // ---- the kernels of one head dim ------------------------
@@ -68,7 +70,6 @@ using attn::BK;
 using attn::BQ;
 using attn::biased_score;
 using attn::pack_bf16;
-using attn::rope_chunk;
 using attn::rope_elem;
 
 using attn::rows_of;
@@ -219,213 +220,37 @@ __global__ void __launch_bounds__(simt::THREADS) flash_fma_kernel(Args args) {
   }
 }
 
-// ---- bf16: mma.sync -------------------------------------------------------
-
-namespace tc {
-constexpr int THREADS = 128;  // 4 warps x 16 query rows
-template <int D>
-constexpr size_t smem_bytes() {  // the Q, K and V tiles and the key tile's bias
-  return (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16) + BK * sizeof(float);
-}
-}  // namespace tc
-
-// 16-byte rows throughout: D % 8 == 0 and 16-byte aligned rows (the wrapper
-// checks the strides and pointers).
-template <int D>
-__global__ void __launch_bounds__(tc::THREADS) flash_mma_kernel(Args args) {
-  using T = __nv_bfloat16;
-  constexpr int THREADS = tc::THREADS, LD = D + 8, CH = D / 8;
-  constexpr int DC = D / 16;  // k-chunks of Q.K^T and d-pairs of the output
-  constexpr int KN = BK / 8;  // n-tiles of the scores
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
-  T* Ks = Qs + BQ * LD;                    // [BK][LD], rotated
-  T* Vs = Ks + BK * LD;                    // [BK][LD]
-  float* kbias = reinterpret_cast<float*>(Vs + BK * LD);  // [BK]: key padding, keys past S
-
-  const int S = args.S;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = rows_of<const T>(args.q, b, h);
-  const T* kb = rows_of<const T>(args.k, b, h);
-  const T* vb = rows_of<const T>(args.v, b, h);
-  const T* cos_t = static_cast<const T*>(args.cos_t);
-  const T* sin_t = static_cast<const T*>(args.sin_t);
-  const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  for (int c = tid; c < BQ * CH; c += THREADS) {
-    const int r = c / CH, d0 = (c % CH) * 8, pos = q0 + r;
-    *reinterpret_cast<uint4*>(Qs + r * LD + d0) =
-        pos < S ? rope_chunk<D>(qb + pos * args.q.ss, d0, cos_t, sin_t, pos) : zero;
-  }
-  __syncthreads();
-
-  // This warp's query rows: qrow = 16*warp + g, and qrow + 8. ldmatrix row
-  // addresses: lane l points at row l % 8 (+8 for lanes 8-15 and 24-31) and
-  // column +8 for lanes 16-31 (A operand order). The Q fragments are read
-  // from shared memory at each key tile: at the head dims this kernel still
-  // serves (wgmma carries the others) they would not fit beside the output.
-  static_assert(!attn::wg::forward_carried<D>(), "this head dim runs on wgmma");
-  const int qrow = warp * 16 + g;
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-
-  float o[2 * DC][4] = {};
-  float m_run[2] = {OPT_NEG_BIG, OPT_NEG_BIG}, l_run[2] = {0.f, 0.f};
-
-  int k_first, k_last;
-  attn::band_range(q0, BQ, BK, S, args.window, &k_first, &k_last);
-  // A key tile without a valid key is left out wherever the walk holds a
-  // valid key at all (attention_wgmma.cuh has the argument).
-  const bool skip_padded = attn::walk_has_valid_key(mrow, k_first, k_last, tid, THREADS);
-  for (int k0 = k_first; k0 <= k_last; k0 += BK) {
-    // Every warp is done with the previous Ks/Vs.
-    if (!attn::tile_barrier(skip_padded, mrow, k0, S, tid)) continue;
-    // Four chunks' loads in flight a thread (all of a D = 64 tile's).
-#pragma unroll 4
-    for (int it = 0; it < BK * CH / THREADS; ++it) {
-      const int c = tid + it * THREADS;
-      const int r = c / CH, d0 = (c % CH) * 8, pos = k0 + r;
-      uint4 kv = zero, vv = zero;
-      if (pos < S) {
-        kv = rope_chunk<D>(kb + pos * args.k.ss, d0, cos_t, sin_t, pos);
-        vv = *reinterpret_cast<const uint4*>(vb + pos * args.v.ss + d0);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LD + d0) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * LD + d0) = vv;
-    }
-    // The mask is read once a key, not once a score.
-    if (tid < BK) kbias[tid] = attn::key_bias(k0 + tid, S, mrow);
-    __syncthreads();
-
-    // Scores: 16 rows x 64 keys per warp, each accumulator summed over the
-    // dim chunks c in order. B operand = K rows (keys) read 16 keys x 16 dims
-    // per ldmatrix.x4: r0/r1 key tile 2p, r2/r3 tile 2p+1.
-    float s[KN][4] = {};
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {  // one Q fragment at a time, read where it is needed
-      uint32_t qf[4];
-      ldmatrix_x4(qf, Qs + (warp * 16 + a_row) * LD + c * 16 + a_col);
-#pragma unroll
-      for (int p = 0; p < KN / 2; ++p) {
-        uint32_t r[4];
-        ldmatrix_x4(r, Ks + (p * 16 + a_col + (lane & 7)) * LD + c * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[2 * p], qf, r);
-        mma_bf16_16816(s[2 * p + 1], qf, r + 2);
-      }
-    }
-
-    // Bias, then the online softmax of rows qrow (i = 0) and qrow + 8
-    // (i = 1); a row's 64 scores live in the 4 lanes of a quad.
-    float m_new[2], alpha[2], row_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qi = q0 + qrow + 8 * i;
-      float mx = OPT_NEG_BIG;
-#pragma unroll
-      for (int nt = 0; nt < KN; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float& v = s[nt][2 * i + j];
-          const int col = nt * 8 + 2 * t + j;
-          v = attn::banded_score(v, args.scale, qi, k0 + col, kbias[col], args.window);
-          mx = fmaxf(mx, v);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      m_new[i] = fmaxf(m_run[i], mx);
-      alpha[i] = attn::exp_ex2(m_run[i] - m_new[i]);
-    }
-    // P straight from the score accumulators into the A operand of P.V,
-    // rounded to bf16: key tile nt fills half of key chunk nt / 2.
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < KN; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = attn::exp_ex2(s[nt][e] - m_new[e >> 1]);
-        row_sum[e >> 1] += p[e];
-      }
-      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float rs = row_sum[i];
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l_run[i] = l_run[i] * alpha[i] + rs;
-      m_run[i] = m_new[i];
-    }
-#pragma unroll
-    for (int dn = 0; dn < 2 * DC; ++dn) {
-      o[dn][0] *= alpha[0];
-      o[dn][1] *= alpha[0];
-      o[dn][2] *= alpha[1];
-      o[dn][3] *= alpha[1];
-    }
-    // O += P.V. B operand = V read transposed, 16 keys x 16 dims per
-    // ldmatrix.x4.trans: r0/r1 dim tile 2q, r2/r3 dim tile 2q+1.
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-#pragma unroll
-      for (int q = 0; q < DC; ++q) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, Vs + (kc * 16 + a_row) * LD + q * 16 + a_col);
-        mma_bf16_16816(o[2 * q], pa[kc], r);
-        mma_bf16_16816(o[2 * q + 1], pa[kc], r + 2);
-      }
-    }
-  }
-
-  T* out = rows_of<T>(args.out, b, h);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int pos = q0 + qrow + 8 * i;
-    if (pos >= S) continue;
-    if (args.lse != nullptr && t == 0)  // no tile walked: a row whose keys are all masked
-      args.lse[((size_t)b * args.H + h) * S + pos] =
-          l_run[i] == 0.f ? OPT_NEG_BIG : m_run[i] + logf(l_run[i]);
-    const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
-    T* orow = out + pos * args.out.ss;
-#pragma unroll
-    for (int dn = 0; dn < 2 * DC; ++dn) {
-      const __nv_bfloat162 v =
-          __floats2bfloat162_rn(o[dn][2 * i] * inv, o[dn][2 * i + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(&orow[dn * 8 + 2 * t]) = v;
-    }
-  }
-}
-
 // ---- bf16 on wgmma: the ring of attention_wgmma.cuh -------------------------------
 //
-// NCONS consumer warpgroups (three; four in a global layer at D <= 64) own 64
-// query rows each (Q rotated into a swizzled tile once); the producer
-// warpgroup streams the key tiles. A consumer's
+// NCONS consumer warpgroups (attention_wgmma.cuh: FwdPass) own 64 query rows
+// each (Q rotated into a swizzled tile once); the producer warpgroup streams
+// the key tiles. A consumer's
 // tile: S = Q.K^T (both operands in shared memory), the online softmax in
 // registers in base 2 (scale * log2(e) folded into the score, one ex2.approx
 // a score), P rounded to bf16 in the accumulator's own registers as the A
-// operand of O += P.V (V read as an MN-major operand, no transpose). A
-// consumer leaves out a key tile that lies wholly outside its own rows' band.
+// operand of O += P.V (V read as an MN-major operand, no transpose; at
+// D = 256 two products of 128 columns). A consumer leaves out a key tile that
+// lies wholly outside its own rows' band.
 
 namespace wgk {
 namespace wg = attn::wg;
 template <int D>
 __host__ __device__ constexpr int own_bytes() { return wg::fwd_own_bytes<D>(); }
-template <int D, int NCONS>
+template <int D, bool GLOBAL>
 constexpr size_t smem_bytes() {
-  return 1024 + NCONS * own_bytes<D>() + wg::Ring<D, wg::STAGES>::BYTES;
+  using P = wg::FwdPass<D, GLOBAL>;
+  return 1024 + P::NCONS * own_bytes<D>() + wg::Ring<D, P::NST, P::TABLES>::BYTES;
 }
 }  // namespace wgk
 
-template <int D, int NCONS>
-__global__ void __launch_bounds__((NCONS + 1) * attn::wg::GROUP, 1)
+template <int D, bool GLOBAL>
+__global__ void __launch_bounds__(attn::wg::FwdPass<D, GLOBAL>::THREADS, 1)
     flash_wgmma_kernel(const Args args) {
   namespace wg = attn::wg;
   using T = __nv_bfloat16;
-  constexpr int NST = wg::STAGES, OWN = wgk::own_bytes<D>();
+  using P = wg::FwdPass<D, GLOBAL>;
+  static_assert(!P::REALLOC, "the forward's warpgroups keep the launch's registers");
+  constexpr int NCONS = P::NCONS, NST = P::NST, OWN = wgk::own_bytes<D>();
   extern __shared__ unsigned char smem_raw[];
   __shared__ wg::Control ctl;
   unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
@@ -441,19 +266,21 @@ __global__ void __launch_bounds__((NCONS + 1) * attn::wg::GROUP, 1)
   __syncthreads();
 
   if (group == NCONS) {  // ---- the producer ----
+    const wg::RotatedRows rk =
+        wg::rotated_rows<D, !P::TABLES>(args.k, args.rot, 0, cos_t, sin_t, b, h, S, args.H);
     wg::Stream st;
-    st.rot = rows_of<const T>(args.k, b, h);
-    st.rot_ss = args.k.ss;
+    st.rot = rk.rows;
+    st.rot_ss = rk.ss;
     st.raw = rows_of<const T>(args.v, b, h);
     st.raw_ss = args.v.ss;
-    st.cos_t = cos_t;
-    st.sin_t = sin_t;
+    st.cos_t = rk.cos_t;
+    st.sin_t = rk.sin_t;
     st.mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
     st.lse = st.delta = nullptr;
     st.S = S;
     attn::band_range(q0, wg::ROWS * NCONS, wg::ROWS, S, args.window, &st.first, &st.last);
     st.own_first = st.own_rows = 0;
-    wg::produce<D, NST, true>(ring, ring_ptr, &ctl, st, t);
+    wg::produce<D, NST, true, P::TABLES>(ring, ring_ptr, &ctl, st, t);
   } else {  // ---- a consumer warpgroup ----
     const int lane = t & 31, warp = t >> 5, g = lane >> 2, qd = lane & 3;
     const int q0w = q0 + group * wg::ROWS;
@@ -587,45 +414,46 @@ __global__ void __launch_bounds__((NCONS + 1) * attn::wg::GROUP, 1)
   }
 }
 
-template <int D, int NCONS>
+template <int D, bool GLOBAL>
 int launch_wgmma(const Args& args, int batch, cudaStream_t stream) {
-  constexpr size_t smem = wgk::smem_bytes<D, NCONS>();
+  constexpr size_t smem = wgk::smem_bytes<D, GLOBAL>();
   static_assert(smem <= attn::wg::SMEM_LIMIT, "shared memory of a CTA");
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, NCONS>,
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, GLOBAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tile = attn::wg::ROWS * NCONS;
+  using P = attn::wg::FwdPass<D, GLOBAL>;
+  const int tile = attn::wg::ROWS * P::NCONS;
   const dim3 grid((args.S + tile - 1) / tile, args.H, batch);
-  flash_wgmma_kernel<D, NCONS>
-      <<<grid, (NCONS + 1) * attn::wg::GROUP, smem, stream>>>(args);
-  return (int)cudaGetLastError();
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, const Args& args, int batch, int threads, size_t smem,
-           cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((args.S + BQ - 1) / BQ, args.H, batch);
-  kernel<<<grid, threads, smem, stream>>>(args);
+  flash_wgmma_kernel<D, GLOBAL><<<grid, P::THREADS, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int by_dtype(const Args& args, int batch, int dtype, cudaStream_t stream) {
-  if (dtype == DTYPE_F32)
-    return launch(flash_fma_kernel<D>, args, batch, simt::THREADS, simt::smem_bytes<D>(),
-                  stream);
+  if (dtype == DTYPE_F32) {
+    constexpr size_t smem = simt::smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(flash_fma_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((args.S + BQ - 1) / BQ, args.H, batch);
+    flash_fma_kernel<D><<<grid, simt::THREADS, smem, stream>>>(args);
+    return (int)cudaGetLastError();
+  }
   if (dtype == DTYPE_BF16) {
-    if constexpr (attn::wg::forward_carried<D>()) {
-      // The layer's kind picks the CTA's shape, not a trial.
-      constexpr int WIDE = attn::wg::fwd_global_ncons<D>();
-      if (WIDE != attn::wg::FWD_NCONS && args.window < 0)
-        return launch_wgmma<D, WIDE>(args, batch, stream);
-      return launch_wgmma<D, attn::wg::FWD_NCONS>(args, batch, stream);
-    } else
-      return launch(flash_mma_kernel<D>, args, batch, tc::THREADS, tc::smem_bytes<D>(), stream);
+    if constexpr (!attn::wg::FwdPass<D, false>::TABLES) {  // K rotated into the scratch first
+      if (args.cos_t != nullptr) {
+        if (args.rot == nullptr) return (int)cudaErrorInvalidValue;
+        const int err = attn::wg::rotate_rows<D>(args.k, args.cos_t, args.sin_t, args.rot, batch,
+                                                 args.S, args.H, stream);
+        if (err != 0) return err;
+      }
+    }
+    // The layer's kind picks the CTA's shape, not a trial; a head dim whose
+    // global layers take the same shape builds one kernel.
+    constexpr bool WIDE = attn::wg::FwdPass<D, true>::NCONS != attn::wg::FwdPass<D, false>::NCONS;
+    if constexpr (WIDE)
+      if (args.window < 0) return launch_wgmma<D, true>(args, batch, stream);
+    return launch_wgmma<D, false>(args, batch, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -672,9 +500,12 @@ int forward(const attn::FwdArgs& args, int batch, int head_dim, int dtype, void*
 // a multiple of 8 (the wrappers check it).
 // q, k, v, out: [B, H, S, D] with the (batch, head, row) strides given, in
 // elements: three ints each, in that order, in `strides` (q, k, v, out).
+// scratch: batch * heads * seq * head_dim elements of the storage type where
+// opt_flash_attention_design reports a pre-rotated operand (out[10]), else
+// null.
 extern "C" int opt_flash_attention(const void* q, const void* k, const void* v, const int* mask,
                                    const void* cos_t, const void* sin_t, void* out, float* lse,
-                                   int batch, int seq, int heads, int head_dim,
+                                   void* scratch, int batch, int seq, int heads, int head_dim,
                                    const long long* strides, int window, float scale, int dtype,
                                    void* stream) {
   const void* ptrs[4] = {q, k, v, out};
@@ -682,36 +513,49 @@ extern "C" int opt_flash_attention(const void* q, const void* k, const void* v, 
   for (int i = 0; i < 4; ++i)
     t[i] = attn::Strided{const_cast<void*>(ptrs[i]), strides[3 * i], strides[3 * i + 1],
                          strides[3 * i + 2]};
-  const attn::FwdArgs args{t[0], t[1], t[2], t[3], mask, cos_t, sin_t,
-                           lse,  seq,  heads, window, scale};
+  const attn::FwdArgs args{t[0], t[1], t[2],  t[3], mask,   cos_t, sin_t,
+                           lse,  scratch, seq, heads, window, scale};
   return forward(args, batch, head_dim, dtype, stream);
 }
 
 // How the bf16 kernels of a head dim are built, fixed when the library is
-// compiled: out[0] = 1 for wgmma from a shared-memory ring filled by cp.async
-// with mbarriers, 0 for mma.sync between two barriers a tile; out[1] = the
-// ring's stages (1: a single buffer); out[2] = rows of a CTA's own tile;
-// out[3] = rows of a streamed tile; out[4] = with `backward`, rows of the dQ
-// pass's own tile (out[1] and out[2] are then the dK/dV pass's), else rows of
-// a CTA's own tile in a global layer (out[2]: in a layer with a window).
-// Returns 0, or -1 without an instance.
+// compiled (every head dim runs wgmma from a shared-memory ring filled by
+// cp.async with mbarriers). Forward: out[0] = consumer warpgroups a CTA and
+// out[1] = the ring's stages in a layer with a window, out[2] = rows of a
+// CTA's own tile there, out[3] = rows of a streamed tile, out[4] = rows of a
+// CTA's own tile in a global layer, out[5] = its consumer warpgroups, out[6] =
+// its stages, out[7] = 1 where cos/sin are staged in the ring (0: read from
+// L2), out[8] = the same in a global layer, out[9] = 0. With `backward`, the
+// same fields of the dK/dV pass in out[0..2] and out[7], of the dQ pass in
+// out[4..6] and out[8]; out[9] = how the dK/dV pass lays 64 keys on its
+// consumers (attention_wgmma.cuh: DkvForm, 0 WHOLE, 1 COLUMNS, 2 ROLES).
+// out[10]: how many [B, H, S, D] operands the call rotates into its scratch
+// (forward: K; backward: Q and K) when it has rope tables. out[11]: the
+// route (attention_wgmma.cuh: ROUTE). Returns 0, or -1 without an instance.
+namespace {
+template <typename P, typename Q>
+void report(int* out, int rows_p, int rows_q, int form, int rotated) {
+  const int fields[12] = {P::NCONS, P::NST,    rows_p, attn::wg::ROWS, rows_q,  Q::NCONS,
+                          Q::NST,   P::TABLES, Q::TABLES, form,        rotated, attn::wg::ROUTE};
+  for (int i = 0; i < 12; ++i) out[i] = fields[i];
+}
+}  // namespace
+
 extern "C" int opt_flash_attention_design(int head_dim, int backward, int* out) {
   namespace wg = attn::wg;
   switch (head_dim) {
-#define OPT_ATTN_CASE(D)                                                   \
-  case D:                                                                  \
-    if (backward ? wg::backward_carried<D>() : wg::forward_carried<D>()) { \
-      out[0] = 1;                                                          \
-      out[1] = wg::STAGES;                                                 \
-      out[2] = wg::ROWS * (backward ? wg::DKV_NCONS : wg::FWD_NCONS);      \
-      out[4] = wg::ROWS * (backward ? wg::DQ_NCONS : wg::fwd_global_ncons<D>()); \
-    } else {                                                               \
-      out[0] = 0;                                                          \
-      out[1] = 1;                                                          \
-      out[2] = backward && D > 128 ? 32 : 64;                              \
-      out[4] = 64;                                                         \
-    }                                                                      \
-    out[3] = 64;                                                           \
+#define OPT_ATTN_CASE(D)                                                                   \
+  case D:                                                                                  \
+    if (backward)                                                                          \
+      report<wg::DkvPass<D>, wg::DqPass<D>>(                                               \
+          out, wg::dkv_form<D>() == wg::DkvForm::WHOLE ? wg::ROWS * wg::DkvPass<D>::NCONS \
+                                                         : wg::ROWS,                       \
+          wg::ROWS * wg::DqPass<D>::NCONS, (int)wg::dkv_form<D>(),                         \
+          wg::DqPass<D>::TABLES ? 0 : 2);                                                  \
+    else                                                                                   \
+      report<wg::FwdPass<D, false>, wg::FwdPass<D, true>>(                                 \
+          out, wg::ROWS * wg::FwdPass<D, false>::NCONS, wg::ROWS * wg::FwdPass<D, true>::NCONS, \
+          0, wg::FwdPass<D, false>::TABLES ? 0 : 1);                                      \
     return 0;
     OPT_ATTN_FOR_EACH_D(OPT_ATTN_CASE)
 #undef OPT_ATTN_CASE

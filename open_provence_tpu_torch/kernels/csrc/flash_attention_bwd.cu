@@ -41,26 +41,30 @@
 // scratch for dQ and the trainer's bit-exact resume needs sums in a fixed
 // order); in practice latency, as in the forward (flash_attention.cu).
 //
-// bf16, D = 32, 64 (attention_wgmma.cuh has the shared design): both passes
-// run on wgmma from a ring of tiles filled by a producer warpgroup with
+// bf16, every head dim (attention_wgmma.cuh has the shared design): both
+// passes run on wgmma from a ring of tiles filled by a producer warpgroup with
 // cp.async, rotated in shared memory one tile ahead, handed over at
-// mbarriers. The dQ pass runs first (three consumer warpgroups of 64 queries;
-// Q rotated and dO are the A operands of S = Q.K^T and dP = dO.V^T; dS goes
+// mbarriers. The dQ pass runs first (consumer warpgroups of 64 queries; Q
+// rotated and dO are the A operands of S = Q.K^T and dP = dO.V^T; dS goes
 // from the accumulators' registers into dQ += dS.K, K read MN-major); its
 // prologue computes delta = rowsum(dO * out) while it loads dO and writes it
-// for the dK/dV pass (two consumer warpgroups of 64 keys; S^T = K.Q^T,
-// dP^T = V.dO^T, then dV += P^T.dO and dK += dS^T.Q with the streamed query
-// tiles read MN-major). P = 2^(s * scale * log2(e) + bias - lse * log2(e)),
-// one ex2.approx a score. Key tiles without a valid key are not walked (dQ)
-// or get zeros (dK/dV). The rounded gradients go through shared memory on
-// their way out, where the rope adjoint finds its partner column d +- D/2.
-// bf16, D = 128, 256: mma.sync m16n8k16 as before, with ex2 and the skipped
-// key tiles; two 64 x D accumulators beside S and dP pass a thread's 255
-// registers, so the D columns of dK and dV (past 128, of dQ) are split over
-// 2 or 4 warps that each recompute the 16 x 64 scores, and at D = 256 the key
-// tile is 32 rows (tc::Shape). fp32: the same walks with FMA from shared
-// memory (true fp32), 64-row tiles, 32 at D = 256 where four 64-row tiles of
-// D + 1 floats pass a CTA's 227 KB; unchanged. Any S.
+// for the dK/dV pass (S^T = K.Q^T, dP^T = V.dO^T, then dV += P^T.dO and
+// dK += dS^T.Q with the streamed query tiles read MN-major: two consumer
+// warpgroups of 64 keys each up to D = 64; past it two 64 x D accumulators
+// beside S^T and dP^T pass the registers a thread has, so at D = 128 one pair
+// of warpgroups on 64 keys splits the D columns (one makes P^T, the other
+// dP^T and dS^T, and they hand them over through shared memory) and at
+// D = 256 a CTA of one warpgroup makes dV or dK of its 64 keys). Past D = 64
+// the call first rotates Q and K into scratch, which both passes stream.
+// P = 2^(s * scale * log2(e) + bias - lse * log2(e)), one ex2.approx a score.
+// Key tiles without a valid key are not walked (dQ) or get zeros (dK/dV). The
+// rounded gradients go through shared memory on their way out, where the rope
+// adjoint finds its partner column d +- D/2. How many consumers, stages and
+// registers each pass takes at each D: attention_wgmma.cuh (DqPass, DkvPass,
+// DkvForm).
+// fp32: the same walks with FMA from shared memory (true fp32), 64-row tiles,
+// 32 at D = 256 where four 64-row tiles of D + 1 floats pass a CTA's 227 KB;
+// unchanged. Any S.
 #include "attention_wgmma.cuh"
 
 #ifdef OPT_HEAD_DIM  // ---- the kernels of one head dim ------------------------
@@ -68,12 +72,9 @@
 namespace {
 
 using attn::pack_bf16;
-using attn::rope_chunk;
 using attn::rope_elem;
 using attn::rows_of;
 using Args = attn::BwdArgs;
-
-constexpr int OTHER = 64;  // rows of the other side's tiles a pass walks over
 
 // ---- 1. delta -----------------------------------------------------------------
 
@@ -107,15 +108,13 @@ __device__ __forceinline__ float rope_adjoint(float gd, float g_other, int d, co
   return round_to<T>(round_to<T>(gd * c) + (d < half ? rot : -rot));
 }
 
-// P and dS of one score: s is the raw q.k, dp = dO.v, kbias the key's bias
-// (attn::key_bias: the bf16 kernels read the mask once a key, not once a
-// score). EX2: the exponential as one ex2.approx (the bf16 kernels).
-template <bool EX2 = false>
+// P and dS of one score (the fp32 kernels): s is the raw q.k, dp = dO.v,
+// kbias the key's bias (attn::key_bias).
 __device__ __forceinline__ void p_ds(float s, float dp, float lse, float delta, float scale,
                                      int qi, int kj, int S, float kbias, int window, float* p,
                                      float* ds) {
   const float x = attn::banded_score(s, scale, qi, kj, kbias, window) - lse;
-  const float pv = qi < S ? (EX2 ? attn::exp_ex2(x) : expf(x)) : 0.f;
+  const float pv = qi < S ? expf(x) : 0.f;
   *p = pv;
   *ds = pv * (dp - delta);
 }
@@ -364,297 +363,78 @@ __global__ void __launch_bounds__(simt::THREADS) dq_fma_kernel(Args args) {
   }
 }
 
-// ---- bf16: mma.sync ---------------------------------------------------------------
-
-namespace tc {
-// A pass's CTA: ROWS_W row-warps of 16 rows (its tile) x SPLIT warps that
-// each hold D / SPLIT columns of the accumulators. For the head dims wgmma
-// does not carry (D = 128, 256).
-template <int D>
-struct Shape {
-  static_assert(!attn::wg::backward_carried<D>(), "this head dim runs on wgmma");
-  static constexpr int KV_ROWS_W = D <= 128 ? 4 : 2;
-  static constexpr int KV_SPLIT = D <= 128 ? 2 : 4;
-  static constexpr int Q_ROWS_W = 4;
-  static constexpr int Q_SPLIT = D <= 128 ? 1 : 2;
-};
-// Own tiles (two of TILE rows), the other side's two of 64 rows, two fp32 rows
-// (dK/dV pass: lse and delta of the query tile; dQ pass: the key tile's bias).
-template <int D, int TILE>
-constexpr size_t smem_bytes() {
-  return (size_t)(2 * TILE + 2 * OTHER) * (D + 8) * sizeof(__nv_bfloat16) +
-         2 * OTHER * sizeof(float);
-}
-}  // namespace tc
-
-// Rows r0 .. r0+R-1 of a [R][D + 8] bf16 tile from an operand's rows of one
-// (batch, head), 16-byte chunks, rotated when `rotate`; zeros past S.
-template <int D, int R>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* tile, const __nv_bfloat16* rows,
-                                               long long ss, int r0, bool rotate,
-                                               const Args& args) {
-  constexpr int LD = D + 8, CH = D / 8;
-  const __nv_bfloat16* cos_t = static_cast<const __nv_bfloat16*>(args.cos_t);
-  const __nv_bfloat16* sin_t = static_cast<const __nv_bfloat16*>(args.sin_t);
-  for (int c = threadIdx.x; c < R * CH; c += blockDim.x) {
-    const int r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (pos < args.S) {
-      const __nv_bfloat16* row = rows + pos * ss;
-      v = rotate ? rope_chunk<D>(row, d0, cos_t, sin_t, pos)
-                 : *reinterpret_cast<const uint4*>(row + d0);
-    }
-    *reinterpret_cast<uint4*>(tile + r * LD + d0) = v;
-  }
-}
-
-// ldmatrix lane addressing (see common.cuh): A operand rows / B operand
-// rows read "n-major" (non-trans), and B read transposed from [k][n] rows.
-__device__ __forceinline__ int a_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
-__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
-
-// The 16 rows x 64 columns products of one warp: acc[n-tile][4] += A . B^T,
-// each accumulator summed over the dim chunks in order. A is the warp's 16
-// rows, read from rows16 in shared memory chunk by chunk; B rows (64 of them)
-// come from a [64][LD] tile.
-template <int D>
-__device__ __forceinline__ void rows_times_tile(float (*acc)[4], const __nv_bfloat16* rows16,
-                                                const __nv_bfloat16* tile, int lane) {
-  constexpr int LD = D + 8, DC = D / 16;
-#pragma unroll
-  for (int c = 0; c < DC; ++c) {
-    uint32_t af[4];
-    ldmatrix_x4(af, rows16 + a_row(lane) * LD + c * 16 + a_col(lane));
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      uint32_t r[4];
-      ldmatrix_x4(r, tile + (p * 16 + a_col(lane) + (lane & 7)) * LD + c * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(acc[2 * p], af, r);
-      mma_bf16_16816(acc[2 * p + 1], af, r + 2);
-    }
-  }
-}
-
-// acc[d-tile][4] += P (16 x 64, as A fragments pa[4][4]) . tile (64 rows x DW
-// columns starting at `cols`, a pointer into a [64][LD] tile).
-template <int LD, int DW>
-__device__ __forceinline__ void frag_times_tile(float (*acc)[4], const uint32_t (*pa)[4],
-                                                const __nv_bfloat16* cols, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int q = 0; q < DW / 16; ++q) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, cols + (kc * 16 + a_row(lane)) * LD + q * 16 + a_col(lane));
-      mma_bf16_16816(acc[2 * q], pa[kc], r);
-      mma_bf16_16816(acc[2 * q + 1], pa[kc], r + 2);
-    }
-}
-
-// A warp's 16 rows x DW columns of an fp32 accumulator, times mult and
-// rounded to bf16, into a [.][LD] staging tile at (its first row, its first
-// column). Row g (+8) of the warp holds columns nt*8 + 2t + j.
-template <int LD, int DW>
-__device__ __forceinline__ void stage_rows_bf16(const float (*acc)[4], float mult,
-                                                __nv_bfloat16* at, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < DW / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(at + (g + 8 * i) * LD + nt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nt][2 * i] * mult, acc[nt][2 * i + 1] * mult);
-}
+// ---- bf16 ----------------------------------------------------------------------
 
 // Write R staged rows (rounded gradients, [R][D + 8]) to an output operand's
 // rows r0 .. of one (batch, head) in 16-byte chunks, through the rope adjoint
-// when `rotate`; by `step` threads, of which this is number t.
+// when `rotate`; by `step` threads, of which this is number t. Past D = 64 a
+// thread takes BATCH chunks at once (four, eight past D = 128) and issues all
+// their loads before its first store, which the compiler would otherwise have
+// to assume aliases a later load and wait out one by one; their cos and
+// partner sin words are read 16 bytes at a time (the values rope_adjoint
+// reads one by one).
 template <int D, int R>
 __device__ __forceinline__ void store_staged_bf16(const __nv_bfloat16* staged,
                                                   __nv_bfloat16* rows, long long ss, int r0,
                                                   bool rotate, const Args& args, int t, int step) {
+  using bf16 = __nv_bfloat16;
   constexpr int LD = D + 8, CH = D / 8, half = D / 2;
-  const __nv_bfloat16* cos_t = static_cast<const __nv_bfloat16*>(args.cos_t);
-  const __nv_bfloat16* sin_t = static_cast<const __nv_bfloat16*>(args.sin_t);
-  for (int c = t; c < R * CH; c += step) {
-    const int r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
-    if (pos >= args.S) continue;
-    uint4 v = *reinterpret_cast<const uint4*>(staged + r * LD + d0);
-    if (rotate) {
-      const int other = d0 < half ? d0 + half : d0 - half;
-      float gd[8], go[8], out[8];
-      unpack8(v, gd);
-      unpack8(*reinterpret_cast<const uint4*>(staged + r * LD + other), go);
+  const bf16* cos_t = static_cast<const bf16*>(args.cos_t);
+  const bf16* sin_t = static_cast<const bf16*>(args.sin_t);
+  if constexpr (D <= 64) {
+    for (int c = t; c < R * CH; c += step) {
+      const int r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
+      if (pos >= args.S) continue;
+      uint4 v = *reinterpret_cast<const uint4*>(staged + r * LD + d0);
+      if (rotate) {
+        const int other = d0 < half ? d0 + half : d0 - half;
+        float gd[8], go[8], out[8];
+        unpack8(v, gd);
+        unpack8(*reinterpret_cast<const uint4*>(staged + r * LD + other), go);
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        out[e] = rope_adjoint<__nv_bfloat16, D>(gd[e], go[e], d0 + e, cos_t, sin_t, pos);
-      v = pack8(out);  // exact: the adjoint's values are bf16 already
-    }
-    *reinterpret_cast<uint4*>(rows + pos * ss + d0) = v;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(tc::Shape<D>::KV_ROWS_W * tc::Shape<D>::KV_SPLIT * 32)
-    dkv_mma_kernel(Args args) {
-  using T = __nv_bfloat16;
-  constexpr int ROWS_W = tc::Shape<D>::KV_ROWS_W, SPLIT = tc::Shape<D>::KV_SPLIT;
-  constexpr int TILE = 16 * ROWS_W, DW = D / SPLIT, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [TILE][LD], rotated
-  T* Vs = Ks + TILE * LD;                  // [TILE][LD]
-  T* Qs = Vs + TILE * LD;                  // [64][LD], rotated; dK on the way out
-  T* Gs = Qs + OTHER * LD;                 // [64][LD] dO; dV on the way out
-  float* lse_s = reinterpret_cast<float*>(Gs + OTHER * LD);
-  float* delta_s = lse_s + OTHER;
-
-  const int S = args.S, H = args.H;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rw = warp % ROWS_W, col0 = (warp / ROWS_W) * DW;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = rows_of<const T>(args.q, b, h);
-  const T* gb = rows_of<const T>(args.g, b, h);
-  const float* lse = args.lse + ((size_t)b * H + h) * S;
-  const float* delta = args.delta + ((size_t)b * H + h) * S;
-  const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
-
-  load_rows_bf16<D, TILE>(Ks, rows_of<const T>(args.k, b, h), args.k.ss, k0, true, args);
-  load_rows_bf16<D, TILE>(Vs, rows_of<const T>(args.v, b, h), args.v.ss, k0, false, args);
-  __syncthreads();
-  // This warp's 16 keys as A operands: K for S^T = K.Q^T, V for dP^T = V.dO^T.
-  const T* k16 = Ks + rw * 16 * LD;
-  const T* v16 = Vs + rw * 16 * LD;
-
-  // This thread's two keys (rows g and g + 8 of the warp's 16) for the whole walk.
-  const float kbias[2] = {attn::key_bias(k0 + rw * 16 + g, S, mrow),
-                          attn::key_bias(k0 + rw * 16 + g + 8, S, mrow)};
-  float dk[DW / 8][4] = {}, dv[DW / 8][4] = {};
-  int q_first, q_last;
-  attn::band_range(k0, TILE, OTHER, S, args.window, &q_first, &q_last);
-  // Own keys that are all padding, in a batch row that has a valid key,
-  // get zeros: their P is exactly 0 for every row with a valid key in reach.
-  if (mrow != nullptr && !attn::walk_has_valid_key(mrow, k0, min(k0 + TILE, S) - 1, tid, blockDim.x) &&
-      attn::walk_has_valid_key(mrow, 0, S - 1, tid, blockDim.x))
-    q_last = q_first - 1;
-  for (int q0 = q_first; q0 <= q_last; q0 += OTHER) {
-    __syncthreads();  // every warp is done with the previous Qs/Gs
-    load_rows_bf16<D, OTHER>(Qs, qb, args.q.ss, q0, true, args);
-    load_rows_bf16<D, OTHER>(Gs, gb, args.g.ss, q0, false, args);
-    if (tid < OTHER) {
-      lse_s[tid] = q0 + tid < S ? lse[q0 + tid] : 0.f;
-      delta_s[tid] = q0 + tid < S ? delta[q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    float s[8][4] = {}, dp[8][4] = {};  // 16 keys x 64 queries
-    rows_times_tile<D>(s, k16, Qs, lane);
-    rows_times_tile<D>(dp, v16, Gs, lane);
-    // P^T and dS^T straight into A fragments (keys x queries), bf16.
-    uint32_t pa[4][4], da[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + rw * 16 + g + 8 * (e >> 1);
-        const int qc = nt * 8 + 2 * t + (e & 1);
-        p_ds<true>(s[nt][e], dp[nt][e], lse_s[qc], delta_s[qc], args.scale, q0 + qc, kj, S,
-                   kbias[e >> 1], args.window, &p[e], &ds[e]);
+        for (int e = 0; e < 8; ++e)
+          out[e] = rope_adjoint<bf16, D>(gd[e], go[e], d0 + e, cos_t, sin_t, pos);
+        v = pack8(out);  // exact: the adjoint's values are bf16 already
       }
-      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-      da[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      da[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      *reinterpret_cast<uint4*>(rows + pos * ss + d0) = v;
     }
-    frag_times_tile<LD, DW>(dv, pa, Gs + col0, lane);  // dV += P^T . dO
-    frag_times_tile<LD, DW>(dk, da, Qs + col0, lane);  // dK += dS^T . Q
-  }
-
-  __syncthreads();  // every warp is done with Qs/Gs: they stage dK and dV
-  stage_rows_bf16<LD, DW>(dk, args.scale, Qs + rw * 16 * LD + col0, lane);
-  stage_rows_bf16<LD, DW>(dv, 1.f, Gs + rw * 16 * LD + col0, lane);
-  __syncthreads();
-  store_staged_bf16<D, TILE>(Qs, rows_of<T>(args.dk, b, h), args.dk.ss, k0,
-                             args.cos_t != nullptr, args, tid, blockDim.x);
-  store_staged_bf16<D, TILE>(Gs, rows_of<T>(args.dv, b, h), args.dv.ss, k0, false, args, tid,
-                             blockDim.x);
-}
-
-template <int D>
-__global__ void __launch_bounds__(tc::Shape<D>::Q_ROWS_W * tc::Shape<D>::Q_SPLIT * 32)
-    dq_mma_kernel(Args args) {
-  using T = __nv_bfloat16;
-  constexpr int ROWS_W = tc::Shape<D>::Q_ROWS_W, SPLIT = tc::Shape<D>::Q_SPLIT;
-  constexpr int TILE = 16 * ROWS_W, DW = D / SPLIT, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [TILE][LD], rotated
-  T* Gs = Qs + TILE * LD;                  // [TILE][LD] dO
-  T* Ks = Gs + TILE * LD;                  // [64][LD], rotated; dQ on the way out
-  T* Vs = Ks + OTHER * LD;                 // [64][LD]
-  float* kbias = reinterpret_cast<float*>(Vs + OTHER * LD);  // [64]: the key tile's bias
-
-  const int S = args.S, H = args.H;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rw = warp % ROWS_W, col0 = (warp / ROWS_W) * DW;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const T* kb = rows_of<const T>(args.k, b, h);
-  const T* vb = rows_of<const T>(args.v, b, h);
-  const float* lse = args.lse + ((size_t)b * H + h) * S;
-  const float* delta = args.delta + ((size_t)b * H + h) * S;
-  const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
-
-  load_rows_bf16<D, TILE>(Qs, rows_of<const T>(args.q, b, h), args.q.ss, q0, true, args);
-  load_rows_bf16<D, TILE>(Gs, rows_of<const T>(args.g, b, h), args.g.ss, q0, false, args);
-  __syncthreads();
-  const T* q16 = Qs + rw * 16 * LD;
-  const T* g16 = Gs + rw * 16 * LD;
-  float lse_r[2], delta_r[2];
+  } else {
+    constexpr int BATCH = D > 128 ? 8 : 4;
+    for (int c0 = t; c0 < R * CH; c0 += BATCH * step) {
+      uint4 v[BATCH], partner[BATCH], cs[BATCH], sn[BATCH];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int q = q0 + rw * 16 + g + 8 * i;
-    lse_r[i] = q < S ? lse[q] : 0.f;
-    delta_r[i] = q < S ? delta[q] : 0.f;
-  }
-
-  float dq[DW / 8][4] = {};
-  int k_first, k_last;
-  attn::band_range(q0, TILE, OTHER, S, args.window, &k_first, &k_last);
-  // Key tiles without a valid key are left out as in the forward.
-  const bool skip_padded = attn::walk_has_valid_key(mrow, k_first, k_last, tid, blockDim.x);
-  for (int k0 = k_first; k0 <= k_last; k0 += OTHER) {
-    // Every warp is done with the previous Ks/Vs.
-    if (!attn::tile_barrier(skip_padded, mrow, k0, S, tid)) continue;
-    load_rows_bf16<D, OTHER>(Ks, kb, args.k.ss, k0, true, args);
-    load_rows_bf16<D, OTHER>(Vs, vb, args.v.ss, k0, false, args);
-    if (tid < OTHER) kbias[tid] = attn::key_bias(k0 + tid, S, mrow);
-    __syncthreads();
-    float s[8][4] = {}, dp[8][4] = {};  // 16 queries x 64 keys
-    rows_times_tile<D>(s, q16, Ks, lane);
-    rows_times_tile<D>(dp, g16, Vs, lane);
-    uint32_t da[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = q0 + rw * 16 + g + 8 * (e >> 1);
-        const int kc = nt * 8 + 2 * t + (e & 1);
-        p_ds<true>(s[nt][e], dp[nt][e], lse_r[e >> 1], delta_r[e >> 1], args.scale, qi, k0 + kc,
-                   S, kbias[kc], args.window, &p[e], &ds[e]);
+      for (int i = 0; i < BATCH; ++i) {
+        const int c = c0 + i * step, r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
+        if (c >= R * CH || pos >= args.S) continue;
+        v[i] = *reinterpret_cast<const uint4*>(staged + r * LD + d0);
+        if (rotate) {
+          const int other = d0 < half ? d0 + half : d0 - half;
+          partner[i] = *reinterpret_cast<const uint4*>(staged + r * LD + other);
+          cs[i] = *reinterpret_cast<const uint4*>(cos_t + (size_t)pos * D + d0);
+          sn[i] = *reinterpret_cast<const uint4*>(sin_t + (size_t)pos * D + other);
+        }
       }
-      da[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      da[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int c = c0 + i * step, r = c / CH, d0 = (c % CH) * 8, pos = r0 + r;
+        if (c >= R * CH || pos >= args.S) continue;
+        if (rotate) {
+          float gd[8], go[8], cf[8], sf[8], out[8];
+          unpack8(v[i], gd);
+          unpack8(partner[i], go);
+          unpack8(cs[i], cf);
+          unpack8(sn[i], sf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float rot = round_to<bf16>(go[e] * sf[e]);
+            out[e] = round_to<bf16>(round_to<bf16>(gd[e] * cf[e]) + (d0 < half ? rot : -rot));
+          }
+          v[i] = pack8(out);
+        }
+        *reinterpret_cast<uint4*>(rows + pos * ss + d0) = v[i];
+      }
     }
-    frag_times_tile<LD, DW>(dq, da, Ks + col0, lane);  // dQ += dS . K
   }
-
-  __syncthreads();  // every warp is done with Ks: it stages dQ
-  stage_rows_bf16<LD, DW>(dq, args.scale, Ks + rw * 16 * LD + col0, lane);
-  __syncthreads();
-  store_staged_bf16<D, TILE>(Ks, rows_of<T>(args.dq, b, h), args.dq.ss, q0,
-                             args.cos_t != nullptr, args, tid, blockDim.x);
 }
 
 // ---- bf16 on wgmma: the ring of attention_wgmma.cuh -------------------------------
@@ -674,25 +454,26 @@ __global__ void __launch_bounds__(tc::Shape<D>::Q_ROWS_W * tc::Shape<D>::Q_SPLIT
 
 namespace bwk {
 namespace wg = attn::wg;
-// A pass's shape: NCONS consumer warpgroups and the registers a thread has
-// after the producer has handed its share over.
-template <int NCONS_>
-struct Pass {
-  static_assert(NCONS_ == 2 || NCONS_ == 3, "consumer warpgroups");
-  static constexpr int NCONS = NCONS_;
-  static constexpr int THREADS = (NCONS + 1) * wg::GROUP;
-  static constexpr int PRODUCER_REGS = 56;
-  static constexpr int CONSUMER_REGS = NCONS == 2 ? 224 : 144;
-  static_assert((NCONS * CONSUMER_REGS + PRODUCER_REGS) * wg::GROUP <= 65536, "registers");
-  template <int D>
-  __host__ __device__ static constexpr size_t smem_bytes() {
-    return 1024 + NCONS * wg::bwd_own_bytes<D>() + wg::Ring<D, wg::STAGES>::BYTES;
-  }
-};
-using Dkv = Pass<wg::DKV_NCONS>;
-using Dq = Pass<wg::DQ_NCONS>;
 template <int D>
 __host__ __device__ constexpr int own_bytes() { return wg::bwd_own_bytes<D>(); }
+// The split dK/dV pass hands P^T (fp32, 32 values a thread) and dS^T (bf16,
+// 16 words a thread) from one warpgroup of the pair to the other, thread t
+// to thread t: [32][128] floats and [16][128] words.
+constexpr int XCHG_P = 32 * 4 * wg::GROUP, XCHG_BYTES = XCHG_P + 16 * 4 * wg::GROUP;
+template <typename P, int D>
+constexpr size_t smem_bytes(int own) {
+  return 1024 + (size_t)own + wg::Ring<D, P::NST, P::TABLES>::BYTES;
+}
+template <int D>
+constexpr size_t dq_smem() {
+  return smem_bytes<wg::DqPass<D>, D>(wg::DqPass<D>::NCONS * own_bytes<D>());
+}
+template <int D>
+constexpr size_t dkv_smem() {
+  return wg::dkv_form<D>() == wg::DkvForm::COLUMNS
+             ? smem_bytes<wg::DkvPass<D>, D>(own_bytes<D>() + XCHG_BYTES)
+             : smem_bytes<wg::DkvPass<D>, D>(wg::DkvPass<D>::NCONS * own_bytes<D>());
+}
 }  // namespace bwk
 
 // P and dS of a warpgroup's 64 x 64 scores into A fragments. s and dp are the
@@ -723,12 +504,13 @@ __device__ __forceinline__ void p_ds_frags(const float* s, const float* dp, floa
 }
 
 template <int D>
-__global__ void __launch_bounds__(bwk::Dkv::THREADS, 1)
+__global__ void __launch_bounds__(attn::wg::DkvPass<D>::THREADS, 1)
     dkv_wgmma_kernel(const Args args) {
   namespace wg = attn::wg;
   using T = __nv_bfloat16;
-  using Pass = bwk::Dkv;
-  constexpr int NCONS = Pass::NCONS, NST = wg::STAGES, OWN = bwk::own_bytes<D>();
+  using Pass = wg::DkvPass<D>;
+  static_assert(wg::dkv_form<D>() == wg::DkvForm::WHOLE, "dK/dV form");
+  constexpr int NCONS = Pass::NCONS, NST = Pass::NST, OWN = bwk::own_bytes<D>();
   constexpr int TILE = hop::Tile<D>::BYTES;
   extern __shared__ unsigned char smem_raw[];
   __shared__ wg::Control ctl;
@@ -761,7 +543,7 @@ __global__ void __launch_bounds__(bwk::Dkv::THREADS, 1)
     attn::band_range(k0, wg::ROWS * NCONS, wg::ROWS, S, args.window, &st.first, &st.last);
     st.own_first = k0;
     st.own_rows = wg::ROWS * NCONS;
-    wg::produce<D, NST, false>(ring, ring_ptr, &ctl, st, t);
+    wg::produce<D, NST, false, Pass::TABLES>(ring, ring_ptr, &ctl, st, t);
   } else {  // ---- a consumer warpgroup: 64 keys ----
     hop::reg_alloc<Pass::CONSUMER_REGS>();
     const int lane = t & 31, warp = t >> 5, g = lane >> 2, qd = lane & 3;
@@ -838,12 +620,12 @@ __global__ void __launch_bounds__(bwk::Dkv::THREADS, 1)
 }
 
 template <int D>
-__global__ void __launch_bounds__(bwk::Dq::THREADS, 1)
+__global__ void __launch_bounds__(attn::wg::DqPass<D>::THREADS, 1)
     dq_wgmma_kernel(const Args args) {
   namespace wg = attn::wg;
   using T = __nv_bfloat16;
-  using Pass = bwk::Dq;
-  constexpr int NCONS = Pass::NCONS, NST = wg::STAGES, OWN = bwk::own_bytes<D>();
+  using Pass = wg::DqPass<D>;
+  constexpr int NCONS = Pass::NCONS, NST = Pass::NST, OWN = bwk::own_bytes<D>();
   constexpr int TILE = hop::Tile<D>::BYTES;
   extern __shared__ unsigned char smem_raw[];
   __shared__ wg::Control ctl;
@@ -860,27 +642,31 @@ __global__ void __launch_bounds__(bwk::Dq::THREADS, 1)
   __syncthreads();
 
   if (group == NCONS) {  // ---- the producer: key tiles, as in the forward ----
-    hop::reg_dealloc<Pass::PRODUCER_REGS>();
+    if constexpr (Pass::REALLOC) hop::reg_dealloc<Pass::PRODUCER_REGS>();
+    const wg::RotatedRows rk =
+        wg::rotated_rows<D, !Pass::TABLES>(args.k, args.rot, 1, cos_t, sin_t, b, h, S, H);
     wg::Stream st;
-    st.rot = rows_of<const T>(args.k, b, h);
-    st.rot_ss = args.k.ss;
+    st.rot = rk.rows;
+    st.rot_ss = rk.ss;
     st.raw = rows_of<const T>(args.v, b, h);
     st.raw_ss = args.v.ss;
-    st.cos_t = cos_t;
-    st.sin_t = sin_t;
+    st.cos_t = rk.cos_t;
+    st.sin_t = rk.sin_t;
     st.mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
     st.lse = st.delta = nullptr;
     st.S = S;
     attn::band_range(q0, wg::ROWS * NCONS, wg::ROWS, S, args.window, &st.first, &st.last);
     st.own_first = st.own_rows = 0;
-    wg::produce<D, NST, true>(ring, ring_ptr, &ctl, st, t);
+    wg::produce<D, NST, true, Pass::TABLES>(ring, ring_ptr, &ctl, st, t);
   } else {  // ---- a consumer warpgroup: 64 queries ----
-    hop::reg_alloc<Pass::CONSUMER_REGS>();
+    if constexpr (Pass::REALLOC) hop::reg_alloc<Pass::CONSUMER_REGS>();
     const int lane = t & 31, warp = t >> 5, g = lane >> 2, qd = lane & 3;
     const int q0w = q0 + group * wg::ROWS;
     unsigned char* own_ptr = smem + group * OWN;
     const uint32_t own_q = hop::smem_u32(own_ptr), own_g = own_q + TILE;
-    wg::load_own<D>(own_q, rows_of<const T>(args.q, b, h), args.q.ss, q0w, S, cos_t, sin_t, t);
+    const wg::RotatedRows rq =
+        wg::rotated_rows<D, !Pass::TABLES>(args.q, args.rot, 0, cos_t, sin_t, b, h, S, H);
+    wg::load_own<D>(own_q, rq.rows, rq.ss, q0w, S, rq.cos_t, rq.sin_t, t);
     // dO into its tile and, on the way, delta = rowsum(dO * out) of the 64
     // rows: eight products a thread, then a tree over the row's D / 8 lanes.
     // It goes to device memory for the dK/dV pass, which runs after this one.
@@ -890,13 +676,8 @@ __global__ void __launch_bounds__(bwk::Dq::THREADS, 1)
       constexpr int CH = D / 8;
       const T* grows = rows_of<const T>(args.g, b, h);
       const T* orows = rows_of<const T>(args.out, b, h);
-      for (int ch = t; ch < wg::ROWS * CH; ch += wg::GROUP) {
+      const auto chunk_delta = [&](int ch, const uint4& gv, const uint4& ov) {
         const int r = ch / CH, d0 = (ch % CH) * 8, pos = q0w + r;
-        uint4 gv = make_uint4(0, 0, 0, 0), ov = gv;
-        if (pos < S) {
-          gv = *reinterpret_cast<const uint4*>(grows + (long long)pos * args.g.ss + d0);
-          ov = *reinterpret_cast<const uint4*>(orows + (long long)pos * args.out.ss + d0);
-        }
         hop::sts128(own_g + hop::Tile<D>::chunk(r, d0), gv);
         float gf[8], of[8], part = 0.f;
         unpack8(gv, gf);
@@ -908,6 +689,30 @@ __global__ void __launch_bounds__(bwk::Dq::THREADS, 1)
         if (d0 == 0) {
           delta_own[r] = part;
           if (pos < S) delta_out[pos] = part;
+        }
+      };
+      const auto load = [&](int ch, uint4& gv, uint4& ov) {
+        const int r = ch / CH, d0 = (ch % CH) * 8, pos = q0w + r;
+        gv = ov = make_uint4(0, 0, 0, 0);
+        if (pos < S) {
+          gv = *reinterpret_cast<const uint4*>(grows + (long long)pos * args.g.ss + d0);
+          ov = *reinterpret_cast<const uint4*>(orows + (long long)pos * args.out.ss + d0);
+        }
+      };
+      if constexpr (D <= 64) {
+        for (int ch = t; ch < wg::ROWS * CH; ch += wg::GROUP) {
+          uint4 gv, ov;
+          load(ch, gv, ov);
+          chunk_delta(ch, gv, ov);
+        }
+      } else {  // BATCH chunks' loads first, as in store_staged_bf16
+        constexpr int BATCH = D > 128 ? 8 : 4;
+        for (int ch0 = t; ch0 < wg::ROWS * CH; ch0 += BATCH * wg::GROUP) {
+          uint4 gv[BATCH], ov[BATCH];
+#pragma unroll
+          for (int i = 0; i < BATCH; ++i) load(ch0 + i * wg::GROUP, gv[i], ov[i]);
+#pragma unroll
+          for (int i = 0; i < BATCH; ++i) chunk_delta(ch0 + i * wg::GROUP, gv[i], ov[i]);
         }
       }
     }
@@ -974,57 +779,392 @@ __global__ void __launch_bounds__(bwk::Dq::THREADS, 1)
   }
 }
 
+// dK/dV at D = 128 (attention_wgmma.cuh: DkvForm::COLUMNS), the D columns
+// split over a pair of consumer warpgroups that share 64 keys: two 64 x 128
+// accumulators beside S^T and dP^T would pass the 168 registers a thread of
+// three warpgroups has. Warpgroup 0 makes S^T = K.Q^T and P^T,
+// warpgroup 1 dP^T = V.dO^T and, from warpgroup 0's fp32 P^T, dS^T; P^T goes
+// one way and dS^T (rounded to bf16) the other through shared memory, each
+// thread to the thread of the same index in the other warpgroup (the two
+// accumulators' fragments are alike), at two named barriers. Then each
+// accumulates its half of the columns, dV += P^T.dO and dK += dS^T.Q, so
+// every product runs once: warpgroup 0 while it waits for dS^T, warpgroup 1
+// from its registers. P^T and dS^T are those of p_ds_frags, bit for bit. The
+// rounded halves meet in shared memory, where the rope adjoint finds its
+// partner column d +- D/2 in the other half.
+template <int D>
+__global__ void __launch_bounds__(attn::wg::DkvPass<D>::THREADS, 1)
+    dkv_split_kernel(const Args args) {
+  namespace wg = attn::wg;
+  using T = __nv_bfloat16;
+  using Pass = wg::DkvPass<D>;
+  static_assert(wg::dkv_form<D>() == wg::DkvForm::COLUMNS && Pass::NCONS == 2 && !Pass::REALLOC,
+                "a pair at the launch's registers");
+  constexpr int NST = Pass::NST, OWN = bwk::own_bytes<D>(), HALF = D / 2;
+  constexpr int TILE = hop::Tile<D>::BYTES, PAIR = 2 * wg::GROUP;
+  // Named barriers of the pair (attention_wgmma.cuh takes 1 and 2 + group):
+  // P^T handed over, dS^T handed over, both done with K and V.
+  constexpr int BAR_P = 5, BAR_DS = 6, BAR_PAIR = 7;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ wg::Control ctl;
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* own_ptr = smem;  // K, V; dK, dV on the way out
+  float4* x_p = reinterpret_cast<float4*>(smem + OWN);               // P^T: [8][128] float4
+  uint4* x_ds = reinterpret_cast<uint4*>(smem + OWN + bwk::XCHG_P);  // dS^T: [4][128] uint4
+  unsigned char* ring_ptr = smem + OWN + bwk::XCHG_BYTES;
+  const uint32_t ring = hop::smem_u32(ring_ptr);
+
+  const int S = args.S, H = args.H;
+  const int tid = threadIdx.x, group = tid / wg::GROUP, t = tid % wg::GROUP;
+  const int k0 = blockIdx.x * wg::ROWS, h = blockIdx.y, b = blockIdx.z;
+  const T* cos_t = static_cast<const T*>(args.cos_t);
+  const T* sin_t = static_cast<const T*>(args.sin_t);
+  const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
+  if (tid == 0) wg::mbarriers_init(&ctl, NST, 2);
+  __syncthreads();
+
+  if (group == 2) {  // ---- the producer: query tiles ----
+    const wg::RotatedRows rq =
+        wg::rotated_rows<D, !Pass::TABLES>(args.q, args.rot, 0, cos_t, sin_t, b, h, S, H);
+    wg::Stream st;
+    st.rot = rq.rows;
+    st.rot_ss = rq.ss;
+    st.raw = rows_of<const T>(args.g, b, h);
+    st.raw_ss = args.g.ss;
+    st.cos_t = rq.cos_t;
+    st.sin_t = rq.sin_t;
+    st.mrow = mrow;
+    st.lse = args.lse + ((size_t)b * H + h) * S;
+    st.delta = args.delta + ((size_t)b * H + h) * S;
+    st.S = S;
+    attn::band_range(k0, wg::ROWS, wg::ROWS, S, args.window, &st.first, &st.last);
+    st.own_first = k0;
+    st.own_rows = wg::ROWS;
+    wg::produce<D, NST, false, Pass::TABLES>(ring, ring_ptr, &ctl, st, t);
+  } else {  // ---- the pair: warpgroup 0 makes P^T, warpgroup 1 dS^T ----
+    const int lane = t & 31, warp = t >> 5, g = lane >> 2, qd = lane & 3;
+    const uint32_t own_k = hop::smem_u32(own_ptr), own_v = own_k + TILE;
+    if (group == 0) {
+      const wg::RotatedRows rk =
+          wg::rotated_rows<D, !Pass::TABLES>(args.k, args.rot, 1, cos_t, sin_t, b, h, S, H);
+      wg::load_own<D>(own_k, rk.rows, rk.ss, k0, S, rk.cos_t, rk.sin_t, t);
+    } else {
+      wg::load_own<D>(own_v, rows_of<const T>(args.v, b, h), args.v.ss, k0, S, nullptr,
+                      nullptr, t);
+    }
+    hop::fence_proxy_async();
+    hop::bar_sync(wg::bar_consumer(group), wg::GROUP);
+
+    const float c = args.scale * wg::LOG2E;
+    const int window = args.window;
+    const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
+    const float kbias[2] = {attn::key_bias(key0, S, mrow), attn::key_bias(key0 + 8, S, mrow)};
+    const bool own_plain = __all_sync(0xffffffffu, kbias[0] == 0.f && kbias[1] == 0.f);
+    const int col0 = group * HALF;  // this warpgroup's columns of dK and dV
+    float dk[HALF / 2], dv[HALF / 2];
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    wg::Reader<D, NST> rd{ring, ring_ptr, &ctl};
+    bool compute = k0 < S;
+    for (int n = 0;; ++n) {
+      const int q0 = rd.wait(n);
+      if (q0 < 0) break;
+      // The producer's scan of the mask is published with its first stage.
+      if (n == 0 && compute && ctl.skip && !ctl.tile_valid[0]) compute = false;
+      if (compute && wg::band_reach(k0, q0, window)) {
+        float acc[32];  // 64 keys x 64 queries: S^T (warpgroup 0) or dP^T
+        uint32_t pa[4][4], da[4][4];
+        hop::wgmma_fence();
+        wg::rows_times_rows<D>(acc, group == 0 ? own_k : own_v, group == 0 ? rd.rot(n) : rd.raw(n));
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<32>(acc);
+        if (group == 0) {
+          const float* lse2 = rd.aux0(n);
+          const bool plain = own_plain && wg::band_free(k0, q0, window);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = j * 8 + 2 * qd + (e & 1);
+              float x;
+              if (plain) {
+                x = fmaf(acc[4 * j + e], c, -lse2[col]);
+              } else {
+                const int kj = key0 + 8 * (e >> 1);
+                const float kb = kbias[e >> 1];
+                const float bias =
+                    window >= 0 && abs(q0 + col - kj) > window ? fminf(kb, OPT_NEG_BIG) : kb;
+                x = fmaf(acc[4 * j + e], c, bias) - lse2[col];
+              }
+              acc[4 * j + e] = hop::ex2(x);
+            }
+            x_p[j * wg::GROUP + t] =
+                make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+            pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+            pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+          }
+          hop::bar_arrive(BAR_P, PAIR);
+          hop::wgmma_fence();
+          wg::frags_times_tile<D, HALF>(dv, pa, rd.raw(n), col0);  // dV += P^T . dO
+          hop::wgmma_commit();
+          hop::bar_sync(BAR_DS, PAIR);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint4 w = x_ds[i * wg::GROUP + t];
+            da[i][0] = w.x;
+            da[i][1] = w.y;
+            da[i][2] = w.z;
+            da[i][3] = w.w;
+          }
+          hop::wgmma_fence();
+          wg::frags_times_tile<D, HALF>(dk, da, rd.rot(n), col0);  // dK += dS^T . Q
+          hop::wgmma_commit();
+        } else {
+          const float* delta = rd.aux1(n);
+          hop::bar_sync(BAR_P, PAIR);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 p4 = x_p[j * wg::GROUP + t];
+            const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ds[e] = p[e] * (acc[4 * j + e] - delta[j * 8 + 2 * qd + (e & 1)]);
+            pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+            pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+            da[j >> 1][(j & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+            da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            x_ds[i * wg::GROUP + t] = make_uint4(da[i][0], da[i][1], da[i][2], da[i][3]);
+          hop::bar_arrive(BAR_DS, PAIR);
+          hop::wgmma_fence();
+          wg::frags_times_tile<D, HALF>(dv, pa, rd.raw(n), col0);  // dV += P^T . dO
+          wg::frags_times_tile<D, HALF>(dk, da, rd.rot(n), col0);  // dK += dS^T . Q
+          hop::wgmma_commit();
+        }
+        hop::wgmma_wait<0>();
+        hop::pin<HALF / 2>(dv);
+        hop::pin<HALF / 2>(dk);
+        wg::pin_frags(pa);
+        wg::pin_frags(da);
+      }
+      rd.release(n);
+    }
+
+    T* staged_k = reinterpret_cast<T*>(own_ptr);
+    T* staged_v = staged_k + wg::ROWS * (D + 8);
+    hop::bar_sync(BAR_PAIR, PAIR);  // both are done with K and V
+    wg::stage_acc<HALF, D + 8>(dk, args.scale, staged_k + col0, t);
+    wg::stage_acc<HALF, D + 8>(dv, 1.f, staged_v + col0, t);
+    hop::bar_sync(BAR_PAIR, PAIR);
+    const int pt = group * wg::GROUP + t;
+    store_staged_bf16<D, wg::ROWS>(staged_k, rows_of<T>(args.dk, b, h), args.dk.ss, k0,
+                                   args.cos_t != nullptr, args, pt, PAIR);
+    store_staged_bf16<D, wg::ROWS>(staged_v, rows_of<T>(args.dv, b, h), args.dv.ss, k0, false,
+                                   args, pt, PAIR);
+  }
+}
+
+// dK/dV at D = 256 (attention_wgmma.cuh: DkvForm::ROLES): one consumer
+// warpgroup on 64 keys that makes dV (even CTAs of the grid) or dK (odd
+// ones), so a thread holds one 64 x 256 accumulator. Both roles rebuild S^T
+// and P^T; the dK role also dP^T and dS^T. The same walk, sums and roundings
+// as dkv_wgmma_kernel.
+template <int D>
+__global__ void __launch_bounds__(attn::wg::DkvPass<D>::THREADS, 1)
+    dkv_roles_kernel(const Args args) {
+  namespace wg = attn::wg;
+  using T = __nv_bfloat16;
+  using Pass = wg::DkvPass<D>;
+  static_assert(wg::dkv_form<D>() == wg::DkvForm::ROLES && Pass::NCONS == 1, "dK/dV form");
+  constexpr int NST = Pass::NST, OWN = bwk::own_bytes<D>(), TILE = hop::Tile<D>::BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ wg::Control ctl;
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring_ptr = smem + OWN;
+  const uint32_t ring = hop::smem_u32(ring_ptr);
+
+  const int S = args.S, H = args.H;
+  const int tid = threadIdx.x, group = tid / wg::GROUP, t = tid % wg::GROUP;
+  const bool dk_role = (blockIdx.x & 1) != 0;
+  const int k0 = (blockIdx.x >> 1) * wg::ROWS, h = blockIdx.y, b = blockIdx.z;
+  const T* cos_t = static_cast<const T*>(args.cos_t);
+  const T* sin_t = static_cast<const T*>(args.sin_t);
+  const int* mrow = args.mask == nullptr ? nullptr : args.mask + (size_t)b * S;
+  if (tid == 0) wg::mbarriers_init(&ctl, NST, 1);
+  __syncthreads();
+
+  if (group == 1) {  // ---- the producer: query tiles ----
+    const wg::RotatedRows rq =
+        wg::rotated_rows<D, !Pass::TABLES>(args.q, args.rot, 0, cos_t, sin_t, b, h, S, H);
+    wg::Stream st;
+    st.rot = rq.rows;
+    st.rot_ss = rq.ss;
+    st.raw = rows_of<const T>(args.g, b, h);
+    st.raw_ss = args.g.ss;
+    st.cos_t = rq.cos_t;
+    st.sin_t = rq.sin_t;
+    st.mrow = mrow;
+    st.lse = args.lse + ((size_t)b * H + h) * S;
+    st.delta = args.delta + ((size_t)b * H + h) * S;
+    st.S = S;
+    attn::band_range(k0, wg::ROWS, wg::ROWS, S, args.window, &st.first, &st.last);
+    st.own_first = k0;
+    st.own_rows = wg::ROWS;
+    wg::produce<D, NST, false, Pass::TABLES>(ring, ring_ptr, &ctl, st, t);
+  } else {  // ---- the consumer: 64 keys, dV or dK ----
+    const int lane = t & 31, warp = t >> 5, g = lane >> 2, qd = lane & 3;
+    const uint32_t own_k = hop::smem_u32(smem), own_v = own_k + TILE;
+    const wg::RotatedRows rk =
+        wg::rotated_rows<D, !Pass::TABLES>(args.k, args.rot, 1, cos_t, sin_t, b, h, S, H);
+    wg::load_own<D>(own_k, rk.rows, rk.ss, k0, S, rk.cos_t, rk.sin_t, t);
+    if (dk_role)
+      wg::load_own<D>(own_v, rows_of<const T>(args.v, b, h), args.v.ss, k0, S, nullptr, nullptr,
+                      t);
+    hop::fence_proxy_async();
+    hop::bar_sync(wg::bar_consumer(0), wg::GROUP);
+
+    const float c = args.scale * wg::LOG2E;
+    const int window = args.window;
+    const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
+    const float kbias[2] = {attn::key_bias(key0, S, mrow), attn::key_bias(key0 + 8, S, mrow)};
+    const bool own_plain = __all_sync(0xffffffffu, kbias[0] == 0.f && kbias[1] == 0.f);
+    float acc[D / 2];  // dV or dK
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    wg::Reader<D, NST> rd{ring, ring_ptr, &ctl};
+    bool compute = k0 < S;
+    for (int n = 0;; ++n) {
+      const int q0 = rd.wait(n);
+      if (q0 < 0) break;
+      // The producer's scan of the mask is published with its first stage.
+      if (n == 0 && compute && ctl.skip && !ctl.tile_valid[0]) compute = false;
+      if (compute && wg::band_reach(k0, q0, window)) {
+        float s[32], dp[32];  // 64 keys x 64 queries
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = 0.f;
+        hop::wgmma_fence();
+        wg::rows_times_rows<D>(s, own_k, rd.rot(n));
+        if (dk_role) wg::rows_times_rows<D>(dp, own_v, rd.raw(n));
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<32>(s);
+        hop::pin<32>(dp);
+        const float* lse2 = rd.aux0(n);
+        const float* delta = rd.aux1(n);
+        uint32_t frags[4][4];  // P^T (dV) or dS^T (dK)
+        const auto bias = [&](int j, int e) {
+          const int qi = q0 + j * 8 + 2 * qd + (e & 1), kj = key0 + 8 * (e >> 1);
+          const float kb = kbias[e >> 1];
+          return window >= 0 && abs(qi - kj) > window ? fminf(kb, OPT_NEG_BIG) : kb;
+        };
+        const auto col_lse = [&](int j, int e) { return lse2[j * 8 + 2 * qd + (e & 1)]; };
+        const auto col_delta = [&](int j, int e) { return delta[j * 8 + 2 * qd + (e & 1)]; };
+        const bool plain = own_plain && wg::band_free(k0, q0, window);
+        if (dk_role) {
+          if (plain)
+            p_ds_frags<false, true>(s, dp, c, bias, col_lse, col_delta, nullptr, frags);
+          else
+            p_ds_frags<false, false>(s, dp, c, bias, col_lse, col_delta, nullptr, frags);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float p[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[e] = hop::ex2(plain ? fmaf(s[4 * j + e], c, -col_lse(j, e))
+                                    : fmaf(s[4 * j + e], c, bias(j, e)) - col_lse(j, e));
+            frags[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+            frags[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+          }
+        }
+        hop::wgmma_fence();
+        // dK += dS^T . Q or dV += P^T . dO
+        wg::frags_times_tile<D>(acc, frags, dk_role ? rd.rot(n) : rd.raw(n));
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::pin<D / 2>(acc);
+        wg::pin_frags(frags);
+      }
+      rd.release(n);
+    }
+
+    T* staged = reinterpret_cast<T*>(smem);
+    hop::bar_sync(wg::bar_consumer(0), wg::GROUP);  // the own tiles are done with
+    wg::stage_acc<D>(acc, dk_role ? args.scale : 1.f, staged, t);
+    hop::bar_sync(wg::bar_consumer(0), wg::GROUP);
+    if (dk_role)
+      store_staged_bf16<D, wg::ROWS>(staged, rows_of<T>(args.dk, b, h), args.dk.ss, k0,
+                                     args.cos_t != nullptr, args, t, wg::GROUP);
+    else
+      store_staged_bf16<D, wg::ROWS>(staged, rows_of<T>(args.dv, b, h), args.dv.ss, k0, false,
+                                     args, t, wg::GROUP);
+  }
+}
+
+// One CTA a tile of `tile` rows (`per_tile` CTAs a tile), head and batch row.
 template <typename Kernel>
 int launch(Kernel kernel, const Args& args, int batch, int tile, int threads, size_t smem,
-           cudaStream_t stream) {
+           cudaStream_t stream, int per_tile = 1) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((args.S + tile - 1) / tile, args.H, batch);
+  const dim3 grid((args.S + tile - 1) / tile * per_tile, args.H, batch);
   kernel<<<grid, threads, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
-// delta, then the two passes, on one stream.
-template <typename T, int D, typename DkvKernel, typename DqKernel>
-int run_three(const Args& args, int batch, cudaStream_t s, DkvKernel dkv, int kv_tile,
-              int kv_threads, size_t kv_smem, DqKernel dq, int q_tile, int q_threads,
-              size_t q_smem) {
-  const int rows = batch * args.S * args.H;
-  delta_kernel<T, D><<<(rows + 7) / 8, 256, 0, s>>>(args, rows);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  err = launch(dkv, args, batch, kv_tile, kv_threads, kv_smem, s);
-  if (err != 0) return err;
-  return launch(dq, args, batch, q_tile, q_threads, q_smem, s);
-}
-
 template <typename T, int D>
 int run(const Args& args, int batch, cudaStream_t s) {
-  if constexpr (sizeof(T) == 4) {
+  namespace wg = attn::wg;
+  if constexpr (sizeof(T) == 4) {  // delta, then the two passes
     constexpr int R = simt::tile<D>();
     constexpr size_t smem = simt::smem_bytes<D>();
-    return run_three<T, D>(args, batch, s, dkv_fma_kernel<D>, R, simt::THREADS, smem,
-                           dq_fma_kernel<D>, R, simt::THREADS, smem);
-  } else if constexpr (attn::wg::backward_carried<D>()) {
-    // The dQ pass first: its prologue makes delta, which the dK/dV pass reads.
-    using Dq = bwk::Dq;
-    using Dkv = bwk::Dkv;
-    static_assert(Dq::smem_bytes<D>() <= attn::wg::SMEM_LIMIT, "shared memory of a CTA");
-    static_assert(Dkv::smem_bytes<D>() <= attn::wg::SMEM_LIMIT, "shared memory of a CTA");
-    static_assert(2 * hop::Tile<D>::BYTES + attn::wg::ROWS * 4 <= bwk::own_bytes<D>(), "delta");
-    const int err = launch(dq_wgmma_kernel<D>, args, batch, attn::wg::ROWS * Dq::NCONS,
-                           Dq::THREADS, Dq::smem_bytes<D>(), s);
+    const int rows = batch * args.S * args.H;
+    delta_kernel<T, D><<<(rows + 7) / 8, 256, 0, s>>>(args, rows);
+    int err = (int)cudaGetLastError();
     if (err != 0) return err;
-    return launch(dkv_wgmma_kernel<D>, args, batch, attn::wg::ROWS * Dkv::NCONS, Dkv::THREADS,
-                  Dkv::smem_bytes<D>(), s);
+    err = launch(dkv_fma_kernel<D>, args, batch, R, simt::THREADS, smem, s);
+    if (err != 0) return err;
+    return launch(dq_fma_kernel<D>, args, batch, R, simt::THREADS, smem, s);
   } else {
-    using Shape = tc::Shape<D>;
-    constexpr int KV_TILE = 16 * Shape::KV_ROWS_W, Q_TILE = 16 * Shape::Q_ROWS_W;
-    return run_three<T, D>(args, batch, s, dkv_mma_kernel<D>, KV_TILE,
-                           Shape::KV_ROWS_W * Shape::KV_SPLIT * 32, tc::smem_bytes<D, KV_TILE>(),
-                           dq_mma_kernel<D>, Q_TILE, Shape::Q_ROWS_W * Shape::Q_SPLIT * 32,
-                           tc::smem_bytes<D, Q_TILE>());
+    // The dQ pass first: its prologue makes delta, which the dK/dV pass reads.
+    using Dq = wg::DqPass<D>;
+    using Dkv = wg::DkvPass<D>;
+    static_assert(bwk::dq_smem<D>() <= wg::SMEM_LIMIT, "shared memory of a CTA");
+    static_assert(bwk::dkv_smem<D>() <= wg::SMEM_LIMIT, "shared memory of a CTA");
+    static_assert(2 * hop::Tile<D>::BYTES + wg::ROWS * 4 <= bwk::own_bytes<D>(), "delta");
+    static_assert(Dq::TABLES == Dkv::TABLES, "both passes read Q and K alike");
+    if constexpr (!Dq::TABLES) {  // Q and K rotated into the scratch first
+      if (args.cos_t != nullptr) {
+        if (args.rot == nullptr) return (int)cudaErrorInvalidValue;
+        const size_t each = (size_t)batch * args.H * args.S * D;
+        int err = wg::rotate_rows<D>(args.q, args.cos_t, args.sin_t, args.rot, batch, args.S,
+                                     args.H, s);
+        if (err != 0) return err;
+        err = wg::rotate_rows<D>(args.k, args.cos_t, args.sin_t,
+                                 static_cast<__nv_bfloat16*>(args.rot) + each, batch, args.S,
+                                 args.H, s);
+        if (err != 0) return err;
+      }
+    }
+    const int err = launch(dq_wgmma_kernel<D>, args, batch, wg::ROWS * Dq::NCONS, Dq::THREADS,
+                           bwk::dq_smem<D>(), s);
+    if (err != 0) return err;
+    if constexpr (wg::dkv_form<D>() == wg::DkvForm::COLUMNS)
+      return launch(dkv_split_kernel<D>, args, batch, wg::ROWS, Dkv::THREADS, bwk::dkv_smem<D>(),
+                    s);
+    else if constexpr (wg::dkv_form<D>() == wg::DkvForm::ROLES)  // dV and dK CTAs
+      return launch(dkv_roles_kernel<D>, args, batch, wg::ROWS, Dkv::THREADS, bwk::dkv_smem<D>(),
+                    s, 2);
+    else
+      return launch(dkv_wgmma_kernel<D>, args, batch, wg::ROWS * Dkv::NCONS, Dkv::THREADS,
+                    bwk::dkv_smem<D>(), s);
   }
 }
 
@@ -1070,11 +1210,14 @@ int backward(const attn::BwdArgs& args, int batch, int head_dim, int dtype, void
 // floats.
 // q, k, v, out, g, dq, dk, dv: [B, H, S, D] with the (batch, head, row)
 // strides given, in elements: three ints each, in that order, in `strides`.
+// scratch: 2 * batch * heads * seq * head_dim elements of the storage type
+// where opt_flash_attention_design reports two pre-rotated operands (out[10]
+// with `backward`), else null.
 extern "C" int opt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const int* mask, const void* cos_t, const void* sin_t,
                                        const void* out, const float* lse, const void* g,
-                                       float* delta, void* dq, void* dk, void* dv, int batch,
-                                       int seq, int heads, int head_dim,
+                                       float* delta, void* scratch, void* dq, void* dk, void* dv,
+                                       int batch, int seq, int heads, int head_dim,
                                        const long long* strides, int window, float scale,
                                        int dtype, void* stream) {
   const void* ptrs[8] = {q, k, v, out, g, dq, dk, dv};
@@ -1082,8 +1225,8 @@ extern "C" int opt_flash_attention_bwd(const void* q, const void* k, const void*
   for (int i = 0; i < 8; ++i)
     t[i] = attn::Strided{const_cast<void*>(ptrs[i]), strides[3 * i], strides[3 * i + 1],
                          strides[3 * i + 2]};
-  const attn::BwdArgs args{t[0], t[1], t[2], t[3],  t[4], t[5],  t[6],   t[7], mask,
-                           cos_t, sin_t, lse, delta, seq,  heads, window, scale};
+  const attn::BwdArgs args{t[0], t[1],  t[2],  t[3],  t[4],    t[5], t[6],  t[7],   mask,
+                           cos_t, sin_t, lse,   delta, scratch, seq,  heads, window, scale};
   return backward(args, batch, head_dim, dtype, stream);
 }
 

@@ -75,6 +75,12 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive at named barrier `id` without waiting: the threads that bar_sync on
+// it go on once `threads` have arrived, and see this thread's earlier writes.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 template <int REGS>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));

@@ -227,6 +227,19 @@ def _prepare_unpacked(q, k, v, padding_mask, rope):
     return (q, k, v, *_prepare_mask_rope(q, batch, seq_len, head_dim, padding_mask, rope))
 
 
+def _rotation_scratch(q, cos, backward: bool):
+    """The scratch a bf16 launch rotates its streamed operands into, where
+    the head dim's kernels do so and the call has rope tables; else None."""
+    batch, heads, seq_len, head_dim = q.shape
+    if q.dtype != torch.bfloat16 or cos is None:
+        return None
+    operands = kernels.attention_scratch_operands(head_dim, backward)
+    if not operands:
+        return None
+    return torch.empty((operands, batch, heads, seq_len, head_dim), dtype=q.dtype,
+                       device=q.device)
+
+
 def _unpacked_forward_kernel(q, k, v, mask, cos, sin, window, want_lse, out=None):
     """Launch kernel 9. ``out`` is where the result goes: a new contiguous
     [B, H, S, D] tensor, or the strided view the caller passes."""
@@ -238,9 +251,10 @@ def _unpacked_forward_kernel(q, k, v, mask, cos, sin, window, want_lse, out=None
     lse = None
     if want_lse:
         lse = torch.empty((batch, heads, seq_len), dtype=torch.float32, device=q.device)
+    scratch = _rotation_scratch(q, cos, backward=False)
     with torch.cuda.device(q.device):
         code = kernels.library().opt_flash_attention(
-            *(kernels.ptr(t) for t in (q, k, v, mask, cos, sin, out, lse)),
+            *(kernels.ptr(t) for t in (q, k, v, mask, cos, sin, out, lse, scratch)),
             batch, seq_len, heads, head_dim, kernels.strides_of(q, k, v, out),
             _window_arg(window), head_dim**-0.5, kernels.dtype_code(q), kernels.stream(q),
         )
@@ -261,9 +275,11 @@ def _unpacked_backward_kernel(q, k, v, mask, cos, sin, out, lse, g, window, grad
     if q.dtype == torch.bfloat16:
         kernels.require_16_byte_rows(q, k, v, out, g, *grads)
     delta = torch.empty((batch, heads, seq_len), dtype=torch.float32, device=q.device)
+    scratch = _rotation_scratch(q, cos, backward=True)
     with torch.cuda.device(q.device):
         code = kernels.library().opt_flash_attention_bwd(
-            *(kernels.ptr(t) for t in (q, k, v, mask, cos, sin, out, lse, g, delta, *grads)),
+            *(kernels.ptr(t) for t in (q, k, v, mask, cos, sin, out, lse, g, delta, scratch,
+                                       *grads)),
             batch, seq_len, heads, head_dim, kernels.strides_of(q, k, v, out, g, *grads),
             _window_arg(window), head_dim**-0.5, kernels.dtype_code(q), kernels.stream(q),
         )

@@ -58,8 +58,9 @@ def _attention_case(shape, seed):
     return q, k, v, mask, g
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 128, 32), (1, 3, 128, 256), (2, 4, 128, 64)],
-                         ids=["3x32", "3x256", "4x64"])
+@pytest.mark.parametrize("shape", [(2, 3, 128, 32), (1, 3, 128, 256), (2, 4, 128, 64),
+                                   (1, 2, 128, 128)],
+                         ids=["3x32", "3x256", "4x64", "2x128"])
 @pytest.mark.parametrize("window", [None, 16])
 def test_unpacked_attention_plain_matches_pallas(shape, window):
     """``_flash_kernel`` and, through jax.vjp, ``_bwd_dq_kernel`` and

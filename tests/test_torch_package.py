@@ -380,22 +380,29 @@ def _edge_mask(batch, seq, rng, short, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,head_dim", [(24, 32), (12, 64), (6, 128), (3, 256)])
-@pytest.mark.parametrize("batch,seq,short", [(1, 65, False), (1, 513, False), (2, 1100, False),
-                                             (3, 512, True)])
+@pytest.mark.parametrize("batch,seq,short,padded_row", [
+    (1, 65, False, False), (1, 513, False, False), (2, 1100, False, False), (3, 512, True, False),
+    (2, 65, False, True), (2, 513, False, True), (2, 1100, False, True)])
 def test_attention_kernels_match_plain_on_fragile_cases(cuda_device, dtype, heads, head_dim,
-                                                        batch, seq, short):
+                                                        batch, seq, short, padded_row):
     """What tiles, an asynchronously filled ring and skipped key tiles make
     fragile: S that is no multiple of 64, B = 1, windows 0, 16, 128 and one
     past S beside global and 64, masks with holes and a wholly padded stretch,
-    rows that are all short. Forward on valid rows and the backward (cotangent
-    zero on padded rows) against the plain versions; the backward twice gives
-    the same bits."""
-    from open_provence_tpu_torch import ops
+    rows that are all short, a batch row that is all padding (what the dK/dV
+    pass's key tiles of one pair of warpgroups at D = 128, or of the dV and dK
+    CTAs at D = 256, and the rotation into scratch make fragile). Forward on
+    valid rows and the backward (cotangent zero on padded rows) against the
+    plain versions; the backward twice gives the same bits; no plain version
+    runs."""
+    from open_provence_tpu_torch import kernels, ops
 
     rng = np.random.default_rng(seq + head_dim)
     qkv = torch.tensor(rng.normal(size=(batch, seq, 2304)), dtype=dtype, device=cuda_device)
     mask = _edge_mask(batch, seq, rng, short, cuda_device)
+    if padded_row:
+        mask[-1] = 0
     valid = mask.bool()
+    kernels.reset_launch_counts()
     g = torch.tensor(rng.normal(size=(batch, seq, 768)), dtype=dtype,
                      device=cuda_device) * mask[..., None].to(dtype)
     tol, grad_tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
@@ -413,19 +420,26 @@ def test_attention_kernels_match_plain_on_fragile_cases(cuda_device, dtype, head
         torch.testing.assert_close(got.float(), want, rtol=grad_tol,
                                    atol=grad_tol * want.abs().max().item())
         assert torch.equal(ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw), got)
+    assert set(kernels.plain_counts().values()) == {0}
 
 
 @pytest.mark.cuda
 def test_attention_design_is_reported(cuda_device):
     """Which design each head dim's bf16 kernels run is fixed when the library
-    is compiled and can be read back: wgmma from a cp.async ring at 12 x 64."""
+    is compiled and can be read back: wgmma from a cp.async ring with
+    mbarriers at every head dim, both ways; the operands a call rotates into
+    scratch first: K in the forward at D = 256, Q and K in the backward past
+    D = 64, none elsewhere."""
     from open_provence_tpu_torch import kernels
 
-    for backward in (False, True):
-        design = kernels.attention_design(64, backward)
+    scratch = {(32, False): 0, (32, True): 0, (64, False): 0, (64, True): 0,
+               (128, False): 0, (128, True): 2, (256, False): 1, (256, True): 2}
+    for (head_dim, backward), operands in scratch.items():
+        design = kernels.attention_design(head_dim, backward)
         assert design["products"] == "wgmma" and design["stages"] >= 2
         assert "cp.async" in design["fill"] and "mbarrier" in design["fill"]
-        assert kernels.attention_design(256, backward)["products"] == "mma.sync"
+        assert design["scratch"] == operands
+        assert kernels.attention_scratch_operands(head_dim, backward) == operands
     with pytest.raises(ValueError):
         kernels.attention_design(48)
 
