@@ -16,7 +16,8 @@ card and check it, in phases:
    torch.matmul timed beside kernels 2, 4, 6, 11 and 12;
 3b. each backward kernel against its plain version at the training shapes
    (B=32, S=512), fp32 and bf16, with kernel and plain times; the LayerNorm
-   adjoint with the residual cotangent gh; the edge cases of kernels 11 and
+   adjoint with the residual cotangent gh, at K = 768, 1024 and a strided
+   width (264), each twice bit-equal; the edge cases of kernels 11 and
    12 (M = 64, 77, 16384 - 37, 16384; dW row counts 256 and ragged 456 /
    464; K = 768 and 200; every GeGLU activation; fp32 and bf16; two bf16
    launches bit-equal);
@@ -28,7 +29,7 @@ card and check it, in phases:
    stretch inside a valid row, batches whose rows are all short, the
    backward twice, bit-equal; times at B=8, S=2048; the one-call PyTorch
    counterparts (F.layer_norm, scaled_dot_product_attention and their
-   autograd backwards) timed beside the kernels, and each kernel's bound;
+   backwards) timed beside the kernels, and each kernel's bound;
 3d. attention on separate q, k, v (kernels 9 and 16) against its plain
    version for every head layout of width 768 (24 x 32, 12 x 64, 6 x 128,
    3 x 256) at B=32, S=512 and, for D = 32 and 256, at B=8, S=2048: fp32 and
@@ -86,7 +87,13 @@ time to issue a call, the library call beside them). ``python3 chip_smoke.py
 head layouts. ``python3 chip_smoke.py --same-buffers TREE`` imports TREE's
 package beside this checkout's into one process and times both trees'
 attention kernels in turns on the same tensors at the shapes of
-``--attention``. ``python3 chip_smoke.py --gemm [TREE]``
+``--attention``, then their LayerNorm adjoint (kernel 10; kernels 12, 11
+and 13 whole and launch by launch) and forward LayerNorm kernels (1, 7).
+``python3 chip_smoke.py --ln-adjoint [TREE]`` checks the LayerNorm adjoint
+at its widths and row counts, prints its ptxas report and design, and
+times it at every width in both types beside its bound, and kernels 12, 11
+and 13 launch by launch.
+``python3 chip_smoke.py --gemm [TREE]``
 does the same for the GEMM engine: its units' ptxas report, the design of
 every layout, phase 3's GEMM edge cases, kernels 2, 4 and 6 in bf16 at
 M = 16384 beside torch.matmul on the same product, then kernels 12, 11 and
@@ -201,9 +208,31 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def paired_ms(kernel_fn, plain_fn) -> tuple[float, float]:
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per call on the card (CUDA events) of ``reps``
+    calls captured into one CUDA graph and replayed, after warm-up: the
+    device's time for the calls' launches with no host time between them
+    (where a call's Python and launch cost nears its device time, cuda_ms
+    measures the host)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def paired_ms(kernel_fn, plain_fn, timer=cuda_ms) -> tuple[float, float]:
     """Time kernel and plain in turns (plain, kernel, kernel, plain)."""
-    p1, k1, k2, p2 = cuda_ms(plain_fn), cuda_ms(kernel_fn), cuda_ms(kernel_fn), cuda_ms(plain_fn)
+    p1, k1, k2, p2 = timer(plain_fn), timer(kernel_fn), timer(kernel_fn), timer(plain_fn)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -251,7 +280,7 @@ def gemm_bounds(rows: int) -> dict[str, dict]:
     return {
         "layer_norm": bound(8 * m * k, (2 * m * k + k) * e),
         "add_layer_norm": bound(9 * m * k, (4 * m * k + k) * e),
-        "layer_norm_bwd": bound(16 * m * k, (3 * m * k + 2 * k) * e),
+        "layer_norm_bwd": ln_adjoint_bound(m, k, torch.bfloat16, torch.bfloat16),
         "ln_matmul": bound(2 * m * k * n, (m * k + k + n * k + m * n) * e),
         "ln_geglu": bound(4 * m * k * i, (m * k + k + 2 * i * k + m * i) * e),
         "geglu": bound(4 * m * k * i, (m * k + 2 * i * k + m * i) * e),
@@ -263,6 +292,59 @@ def gemm_bounds(rows: int) -> dict[str, dict]:
         "ln_geglu_wo": bound(6 * m * k * i, (2 * m * k + k + 3 * i * k) * e),
         "ln_geglu_wo_bwd": bound(16 * m * k * i, (3 * m * k + 2 * k + 6 * i * k) * e),
     }
+
+
+def ln_adjoint_bound(rows: int, hidden: int, dtype, dy_dtype, with_gh: bool = False) -> dict:
+    """The LN adjoint over rows x hidden: x, dy (g, or the fp32 dy of
+    kernels 11-13) and gh read once, dx written once, the scale read and
+    dscale written; 16 operations an element."""
+    e, nbytes = dtype.itemsize, rows * hidden * dy_dtype.itemsize
+    nbytes += rows * hidden * e * (3 if with_gh else 2) + 2 * hidden * e
+    return bound(16 * rows * hidden, nbytes)
+
+
+def bits_equal(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# The LN adjoint (ln_adjoint.cuh; kernel 10 and the tail of kernels 11-13):
+# the configs' widths, which run its register instance, then a multiple of 8
+# that is no multiple of 256 and a width that is no multiple of 8, which run
+# the strided one; the rows of the training path (B=32, S=512), a ragged
+# count, the head norm's B and a single row.
+LN_ADJOINT_WIDTHS = (768, 1024, 264, 36)
+LN_ADJOINT_ROW_COUNTS = (32 * 512, 32 * 512 - 37, 32, 1)
+
+
+def ln_adjoint_cases(dev, widths, row_counts, check) -> int:
+    """Kernel 10 against its plain version at each width and row count, fp32
+    and bf16, without gh and with it (``check(dtype, case, got, want)``
+    holds each pair to BWD_TOL); a null gh gives the form without gh's bits
+    and two launches give the same bits. Returns the pairs checked."""
+    from open_provence_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(91)
+    pairs = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for width in widths:
+            def randn(*shape, s=1.0):
+                return (torch.randn(*shape, generator=gen) * s).to(device=dev, dtype=dtype)
+
+            x, scale = randn(max(row_counts), width, s=2.0), randn(width, s=0.1) + 1
+            for m in row_counts:
+                g, gh = randn(m, width), randn(m, width)
+                case = f"K={width} M={m}"
+                without = ops.layer_norm_bwd(x[:m], scale, g)
+                check(dtype, case, without, ops.layer_norm_bwd_plain(x[:m], scale, g))
+                with_gh = ops.layer_norm_bwd(x[:m], scale, g, 1e-5, gh)
+                check(dtype, f"{case} with gh", with_gh,
+                      ops.layer_norm_bwd_plain(x[:m], scale, g, 1e-5, gh))
+                if not bits_equal(ops.layer_norm_bwd(x[:m], scale, g, 1e-5, None), without):
+                    raise AssertionError(f"layer_norm_bwd {case}: a null gh changed its bits")
+                if not bits_equal(ops.layer_norm_bwd(x[:m], scale, g, 1e-5, gh), with_gh):
+                    raise AssertionError(f"layer_norm_bwd {case}: two launches differ")
+                pairs += 2
+    return pairs
 
 
 def library_note(name: str, ms: float | None) -> str:
@@ -318,9 +400,10 @@ def lowest_ms(fn, tries: int = 3) -> float:
     return min(cuda_ms(fn) for _ in range(tries))
 
 
-def print_ptxas(log: str, wanted) -> None:
-    """The ptxas report (registers, and the spill line) of the entry
-    functions whose mangled name contains one of ``wanted``."""
+def ptxas_entries(log: str, wanted):
+    """(entry, its "Used ..." line, its spill line) from a ptxas report, for
+    the entry functions whose mangled name contains one of ``wanted``, and
+    the report's warnings as (entry, warning, "")."""
     entry, spills = "", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -328,9 +411,16 @@ def print_ptxas(log: str, wanted) -> None:
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line and any(w in entry for w in wanted):
-            phase(f"ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+            yield entry, line.split(":", 1)[1].strip(), spills
         elif "warning" in line:
-            phase(f"ptxas {entry}: {line.strip()}")
+            yield entry, line.strip(), ""
+
+
+def print_ptxas(log: str, wanted) -> None:
+    """The ptxas report (registers, and the spill line) of the entry
+    functions whose mangled name contains one of ``wanted``."""
+    for entry, used, spills in ptxas_entries(log, wanted):
+        phase(f"ptxas {entry}: {used}; {spills}" if spills else f"ptxas {entry}: {used}")
 
 
 # The four activation codes of the GeGLU epilogue (ops/geglu.py::ACTIVATIONS).
@@ -488,39 +578,48 @@ def off_relu_step(x, scale, w_i, g) -> tuple[torch.Tensor, int]:
     return g.masked_fill(flip, 0), int(flip.sum())
 
 
-# The launches of kernels 11, 12 and 13 by the profiler's kernel names. The
-# GEMM kernels of the transposed layouts carry them in their template
-# arguments (<true, true: dW = G^T.xn; <false, true: dy = G.W); the first
-# match names a launch.
+# The launches of kernels 11, 12 and 13 by the profiler's kernel names (all
+# the words of an entry in a name). The GEMM kernels of the transposed
+# layouts carry them in their template arguments (<true, true: dW = G^T.xn;
+# <false, true: dy = G.W); the first match names a launch.
 BWD_LAUNCHES = (
-    ("normalize_kernel", "normalize"),
-    ("geglu_grad_kernel", "GeGLU chain"),
-    ("ln_adjoint", "LN adjoint"),
-    ("tail_bwd_rows", "whole-MLP rows pass"),
-    ("dw_sum_kernel", "dW chunk sum"),
-    ("<true, true", "dW = G^T.xn"),
-    ("<false, true", "dy = G.W"),
-    ("gemm_wgmma_kernel", "projection xn.Wi^T"),
+    (("normalize_kernel",), "normalize"),
+    (("geglu_grad_kernel",), "GeGLU chain"),
+    (("ln_adjoint", "reduce_kernel"), "LN adjoint dscale"),
+    (("ln_adjoint",), "LN adjoint rows"),
+    (("tail_bwd_rows",), "whole-MLP rows pass"),
+    (("dw_sum_kernel",), "dW chunk sum"),
+    (("<true, true",), "dW = G^T.xn"),
+    (("<false, true",), "dy = G.W"),
+    (("gemm_wgmma_kernel",), "projection xn.Wi^T"),
 )
 
 
-def launch_split(fn, reps: int = 20) -> dict[str, dict]:
+def launch_split(fn, reps: int = 20, flush: torch.Tensor | None = None) -> dict[str, dict]:
     """Device milliseconds a call of ``fn`` spends in each of its launches,
-    and the launches a call, from torch.profiler's kernel records."""
+    and the launches a call, from torch.profiler's kernel records. With
+    ``flush`` (a buffer larger than the 50 MB L2), it is zeroed before each
+    call (that launch not counted), so no launch finds in L2 what the call
+    before it left there."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     split: dict[str, dict] = {}
     for evt in prof.key_averages():
         if getattr(evt.device_type, "name", "") != "CUDA":
             continue
+        if flush is not None and "FillFunctor" in evt.key:
+            continue
         us = getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "device_time_total", 0.0)
-        label = next((lab for word, lab in BWD_LAUNCHES if word in evt.key), evt.key[:60])
+        label = next((lab for words, lab in BWD_LAUNCHES if all(w in evt.key for w in words)),
+                     evt.key[:60])
         entry = split.setdefault(label, {"ms": 0.0, "launches": 0.0})
         entry["ms"] += us / 1e3 / reps
         entry["launches"] += evt.count / reps
@@ -695,7 +794,7 @@ def phase3_kernels(dev) -> dict[str, dict]:
 def phase3b_backward(dev) -> dict[str, dict]:
     """Each backward kernel against its plain version on the same inputs,
     at the training shapes B=32, S=512 (M = 16384 rows), fp32 and bf16."""
-    from open_provence_tpu_torch import ops
+    from open_provence_tpu_torch import kernels, ops
 
     gen = torch.Generator().manual_seed(33)
     batch, seq, rows = 32, 512, 32 * 512
@@ -736,6 +835,9 @@ def phase3b_backward(dev) -> dict[str, dict]:
             null_gh = ops.layer_norm_bwd(x[:m], scale, g, 1e-5, None)
             if not all(torch.equal(a, b) for a, b in zip(null_gh, without)):
                 raise AssertionError("layer_norm_bwd with a null gh changed its bits")
+            if not bits_equal(ops.layer_norm_bwd(x[:m], scale, g, 1e-5, gh),
+                              ops.layer_norm_bwd(x[:m], scale, g, 1e-5, gh)):
+                raise AssertionError(f"layer_norm_bwd: two launches differ at M={m}")
         g_qkv = randn(rows, 3 * HIDDEN, scale=0.1, dtype=dtype)
         errs = record("ln_matmul_bwd", dtype, ("dx", "dscale", "dw"),
                       ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
@@ -748,6 +850,11 @@ def phase3b_backward(dev) -> dict[str, dict]:
         report("ln_geglu_bwd", dtype, f"M={rows}", errs)
         if dtype == torch.bfloat16:
             gemm_bwd_edge_cases(dev, stats)
+            # The LN adjoint's other instances: ModernBERT-large's width and a
+            # strided one, fp32 and bf16.
+            ln_adjoint_cases(dev, (1024, 264), (rows, rows - 37, batch), lambda *case: report(
+                "layer_norm_bwd", case[0], case[1],
+                record("layer_norm_bwd", case[0], ("dx", "dscale"), case[2], case[3])))
 
         qkv = randn(batch, seq, 3 * HIDDEN, dtype=dtype)
         mask = ragged_mask(batch, seq, gen, dev)
@@ -770,10 +877,12 @@ def phase3b_backward(dev) -> dict[str, dict]:
                    f"{errs}; forward lse on valid rows {lse_err:.3e}")
         torch.cuda.synchronize()
 
-    # Times at B=32, S=512, bf16 (the last dtype of the loop above).
+    # Times at B=32, S=512, bf16 (the last dtype of the loop above); kernel
+    # 10's cotangents are tensors of their own, as on the training path.
+    g_ln, gh_ln = randn(rows, HIDDEN, dtype=dtype), randn(rows, HIDDEN, dtype=dtype)
     timings = {
-        "layer_norm_bwd": paired_ms(lambda: ops.layer_norm_bwd(x, scale, x),
-                                    lambda: ops.layer_norm_bwd_plain(x, scale, x)),
+        "layer_norm_bwd": paired_ms(lambda: ops.layer_norm_bwd(x, scale, g_ln),
+                                    lambda: ops.layer_norm_bwd_plain(x, scale, g_ln), graph_ms),
         "ln_geglu_bwd": paired_ms(lambda: ops.ln_geglu_bwd(x, scale, w_i, g_mlp, "gelu"),
                                   lambda: ops.ln_geglu_bwd_plain(x, scale, w_i, g_mlp, "gelu")),
         "ln_matmul_bwd": paired_ms(lambda: ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
@@ -799,10 +908,7 @@ def phase3b_backward(dev) -> dict[str, dict]:
     bounds = gemm_bounds(rows)
     bounds["flash_attention_packed_bwd"] = attention_bound(mask, None, True)
     library = dict.fromkeys(timings)
-    xl, sl = x.clone().requires_grad_(), scale.clone().requires_grad_()
-    ln_out = F.layer_norm(xl, (HIDDEN,), sl, None, 1e-5)
-    library["layer_norm_bwd"] = cuda_ms(
-        lambda: torch.autograd.grad(ln_out, (xl, sl), x, retain_graph=True))
+    library["layer_norm_bwd"] = library_ln_bwd_ms(x, scale, g_ln)
     for name, (ms, plain_ms) in timings.items():
         stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=library[name], **bounds[name])
         phase(f"phase 3b time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -822,12 +928,28 @@ def phase3b_backward(dev) -> dict[str, dict]:
         phase(f"phase 3b time {name}: its products on torch.matmul {sum(ms):.4f} ms "
               f"({', '.join(f'{v:.4f}' for v in ms)}); "
               + "; ".join(f"{k}: {gemm_design_note(d)}" for k, d in design.items()))
-    with_gh = paired_ms(lambda: ops.layer_norm_bwd(x, scale, x, 1e-5, x),
-                        lambda: ops.layer_norm_bwd_plain(x, scale, x, 1e-5, x))
-    stats["layer_norm_bwd"].update(ms_with_gh=with_gh[0], plain_ms_with_gh=with_gh[1])
+    with_gh = paired_ms(lambda: ops.layer_norm_bwd(x, scale, g_ln, 1e-5, gh_ln),
+                        lambda: ops.layer_norm_bwd_plain(x, scale, g_ln, 1e-5, gh_ln), graph_ms)
+    gh_bound = ln_adjoint_bound(rows, HIDDEN, dtype, dtype, True)["bound_ms"]
+    stats["layer_norm_bwd"].update(ms_with_gh=with_gh[0], plain_ms_with_gh=with_gh[1],
+                                   bound_ms_with_gh=gh_bound,
+                                   design=kernels.built_ln_adjoint_design(rows, HIDDEN))
     phase(f"phase 3b time layer_norm_bwd with gh: kernel {with_gh[0]:.4f} ms, plain "
-          f"{with_gh[1]:.4f} ms")
+          f"{with_gh[1]:.4f} ms, bound {gh_bound:.4f} ms; design "
+          f"{stats['layer_norm_bwd']['design']}")
     return stats
+
+
+def library_ln_bwd_ms(x, scale, g) -> float:
+    """Milliseconds of the library's LayerNorm backward on kernel 10's
+    inputs: the one call autograd makes for F.layer_norm
+    (aten.native_layer_norm_backward, which reads the mean and rstd its
+    forward saved instead of recomputing them), timed as kernel 10 is, by
+    replays of a CUDA graph. A yardstick only; the port never calls it."""
+    hidden = (x.shape[1],)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, hidden, scale, None, 1e-5)
+    return graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        g, x, hidden, mean, rstd, scale, None, [True, True, False]))
 
 
 def library_attention_ms(qkv, rope, mask, g, heads: int = HEADS,
@@ -1446,7 +1568,7 @@ OUR_KERNELS = {
     ("gemm_wgmma_kernel", "<false, true"): "GEMM engine, wgmma dy = G.W",
     ("gemm_wgmma_kernel",): "GEMM engine, wgmma xn.W^T",
     ("dw_sum_kernel",): "GEMM engine, dW chunk sum",
-    ("ln_adjoint", "row_kernel"): "LN adjoint rows",
+    ("ln_adjoint", "row_kernel"): "LN adjoint rows",  # register_row_kernel, row_kernel
     ("ln_adjoint", "reduce_kernel"): "LN adjoint dscale",
     ("normalize_kernel",): "LN->GEMM normalize",
     ("geglu_grad_kernel",): "GeGLU bwd chain",
@@ -2410,7 +2532,10 @@ def same_buffers_main(other: Path) -> int:
     packed wrapper and on contiguous q, k, v, launched on the same tensors
     and timed in turns (other, this, this, other; three rounds), so that a
     difference between the two builds comes neither from the process nor
-    from where the tensors lie. One JSON line."""
+    from where the tensors lie. Then the same for the LN adjoint: kernel 10
+    in bf16 at K = 768 without and with gh at M = 16384, 16347 and 32,
+    kernels 12, 11 and 13 whole, and the adjoint's launches inside 12 and 11
+    (torch.profiler). One JSON line."""
     import importlib
     import importlib.util
 
@@ -2456,7 +2581,40 @@ def same_buffers_main(other: Path) -> int:
             phase(f"same buffers {key} bf16, lowest of 6 means of 20, other / this: " + "; ".join(
                 f"{what} {min(runs['other'][what]):.4f} / {min(runs['this'][what]):.4f}"
                 for what in calls["this"]))
-    print(json.dumps({"other": str(other), "card": card, "attention": times}), flush=True)
+    # The LN adjoint: kernel 10 and the whole calls of kernels 12, 11 and 13;
+    # beside them, the forward row kernels 1 and 7, which keep their source.
+    t = adjoint_operands(dev, gen)
+    calls = {}
+    for name, o in trees.items():
+        calls[name] = adjoint_calls(o, t, LN_ADJOINT_ROW_COUNTS[:3])
+        calls[name]["layer_norm"] = lambda o=o: o.layer_norm(t["x"], t["scale"])
+        calls[name]["add_layer_norm"] = lambda o=o: o.add_layer_norm(t["x"], t["g"], t["scale"])
+    ln_times = {what: {name: [] for name in trees} for what in calls["this"]}
+    for _ in range(3):
+        for name in ("other", "this", "this", "other"):
+            for what, fn in calls[name].items():
+                ln_times[what][name].append(graph_ms(fn))
+    # Each launch inside kernels 12 and 11 (the LN adjoint's, normalize, the
+    # products, ...), from the profiler, with L2 flushed between calls: back
+    # to back, a call's first launch (normalize, reading x) would find in L2
+    # what the call before it left there, which differs between the trees.
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    for _ in range(3):
+        for name in ("other", "this", "this", "other"):
+            for what in ("ln_matmul_bwd", "ln_geglu_bwd"):
+                split = launch_split(calls[name][what], flush=flush)
+                split["LN adjoint"] = {"ms": sum(v["ms"] for k, v in split.items()
+                                                 if k.startswith("LN adjoint"))}
+                for label, entry in split.items():
+                    ln_times.setdefault(f"{what}: {label}", {n: [] for n in trees})[name].append(
+                        entry["ms"])
+    for what, runs in ln_times.items():
+        phase(f"same buffers {what} bf16 K={HIDDEN}, other / this: lowest "
+              f"{min(runs['other']):.4f} / {min(runs['this']):.4f} ms, highest "
+              f"{max(runs['other']):.4f} / {max(runs['this']):.4f} ms (6 graph replays of 20; "
+              "a launch inside a call: profiler device time)")
+    print(json.dumps({"other": str(other), "card": card, "attention": times,
+                      "ln_adjoint": ln_times}), flush=True)
     return 0
 
 
@@ -2624,6 +2782,130 @@ def gemm_main(tree: Path) -> int:
     return 0
 
 
+def adjoint_operands(dev, gen) -> dict:
+    """bf16 operands at M = 16384, base width, of the calls that end on the
+    LN adjoint (adjoint_calls)."""
+    rows = 32 * 512
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(device=dev, dtype=torch.bfloat16)
+
+    return {
+        "x": randn(rows, HIDDEN, s=2.0), "scale": randn(HIDDEN, s=0.1) + 1,
+        "g": randn(rows, HIDDEN), "gh": randn(rows, HIDDEN),
+        "w_qkv": randn(3 * HIDDEN, HIDDEN, s=HIDDEN**-0.5),
+        "w_i": randn(2 * INTER, HIDDEN, s=HIDDEN**-0.5), "w_o": randn(HIDDEN, INTER, s=INTER**-0.5),
+        "g_qkv": randn(rows, 3 * HIDDEN, s=0.1), "g_mlp": randn(rows, INTER, s=0.1),
+    }
+
+
+def adjoint_calls(ops, t: dict, row_counts) -> dict:
+    """Calls that end on the LN adjoint, on adjoint_operands ``t``: kernel 10
+    without and with gh over the first m rows for each of ``row_counts``,
+    then kernels 12, 11 and 13 whole at M = 16384."""
+    calls = {}
+    for m in row_counts:
+        x, g, gh = t["x"][:m], t["g"][:m], t["gh"][:m]
+        calls[f"layer_norm_bwd M={m}"] = lambda x=x, g=g: ops.layer_norm_bwd(x, t["scale"], g)
+        calls[f"layer_norm_bwd M={m} with gh"] = lambda x=x, g=g, gh=gh: ops.layer_norm_bwd(
+            x, t["scale"], g, 1e-5, gh)
+    x, scale = t["x"], t["scale"]
+    calls["ln_matmul_bwd"] = lambda: ops.ln_matmul_bwd(x, scale, t["w_qkv"], t["g_qkv"])
+    calls["ln_geglu_bwd"] = lambda: ops.ln_geglu_bwd(x, scale, t["w_i"], t["g_mlp"], "gelu")
+    calls["ln_geglu_wo_bwd"] = lambda: ops.ln_geglu_wo_bwd(x, scale, t["w_i"], t["w_o"], t["g"],
+                                                           "gelu")
+    return calls
+
+
+def adjoint_instance(entry: str) -> str:
+    """An LN-adjoint register instance's types, gh form and width, from its
+    mangled name (register_row_kernel<T, DY, ADD_GH, NCH>)."""
+    m = re.search(r"register_row_kernelI(13__nv_bfloat16|f)(S2_|13__nv_bfloat16|f)Lb([01])ELi(\d)E",
+                  entry)
+    if not m:
+        return entry
+    x = "bf16" if m[1] != "f" else "fp32"
+    dy = x if m[2] == "S2_" else ("bf16" if m[2] != "f" else "fp32")
+    return f"{x} x, {dy} dy{', gh' if m[3] == '1' else ''}, K={256 * int(m[4])}"
+
+
+def ln_adjoint_main(tree: Path) -> int:
+    """The LN adjoint of the package under ``tree`` alone (kernel 10, and the
+    tail of kernels 11, 12 and 13): the ptxas report of its kernels, its
+    design, kernel 10 against its plain version at every width of
+    LN_ADJOINT_WIDTHS and row count of LN_ADJOINT_ROW_COUNTS (fp32 and bf16,
+    with and without gh, two launches bit-equal), its times at M = 16384
+    for each width and dtype beside its bound (and in bf16 at 768 the
+    library's LayerNorm backward), and kernels 12, 11 and 13 whole and
+    launch by launch. One JSON line."""
+    sys.path.insert(0, str(tree))
+    from open_provence_tpu_torch import kernels, ops
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    phase(card)
+    kernels.library()
+    log = kernels.library_path().with_suffix(".log").read_text()
+    for entry, used, spills in ptxas_entries(log, ("ln_adjoint",)):
+        phase(f"ptxas {adjoint_instance(entry)}: {used}; {spills}")
+    if hasattr(kernels, "built_ln_adjoint_design"):  # an older tree reports none
+        for width in LN_ADJOINT_WIDTHS:
+            for m in LN_ADJOINT_ROW_COUNTS:
+                built = kernels.built_ln_adjoint_design(m, width)
+                parts = kernels.ln_adjoint_partial(m, width, dev).shape[0]
+                registers = width in kernels.LN_ADJOINT_REGISTER_WIDTHS
+                if (built["parts"] != parts
+                        or built["instance"] != ("registers" if registers else "strided")):
+                    raise AssertionError(f"LN adjoint design at {m} x {width}: the library "
+                                         f"reports {built}, the wrappers size {parts} partial "
+                                         f"rows and expect registers={registers}")
+            phase(f"LN adjoint design K={width}: {kernels.built_ln_adjoint_design(32 * 512, width)}")
+    worst: dict = {}
+
+    def check(dtype, case, got, want):
+        errs = [check_grad(f"layer_norm_bwd {case} {dtype}", a, b, dtype)
+                for a, b in zip(got, want)]
+        worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+
+    pairs = ln_adjoint_cases(dev, LN_ADJOINT_WIDTHS, LN_ADJOINT_ROW_COUNTS, check)
+    phase(f"LN adjoint cases: {pairs} pairs, max_abs_err fp32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e}; null gh and repeated launches bit-equal")
+    gen = torch.Generator().manual_seed(93)
+    rows, times = 32 * 512, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for width in LN_ADJOINT_WIDTHS[:3]:
+            x, g, gh = ((torch.randn(rows, width, generator=gen) * s).to(device=dev, dtype=dtype)
+                        for s in (2.0, 1.0, 1.0))
+            scale = (torch.randn(width, generator=gen) * 0.1 + 1).to(device=dev, dtype=dtype)
+            for with_gh in (False, True):
+                ms = min(graph_ms(lambda: ops.layer_norm_bwd(
+                    x, scale, g, 1e-5, gh if with_gh else None)) for _ in range(3))
+                b = ln_adjoint_bound(rows, width, dtype, dtype, with_gh)["bound_ms"]
+                key = f"{str(dtype)[6:]}_k{width}{'_gh' if with_gh else ''}"
+                times[key] = {"ms": ms, "bound_ms": b}
+                phase(f"time layer_norm_bwd {str(dtype)[6:]} M={rows} K={width}"
+                      f"{' with gh' if with_gh else ''}: kernel {ms:.4f} ms, bound {b:.4f} ms "
+                      f"({b / ms:.2f} of it; lowest of 3 graph replays of 20)")
+            if dtype == torch.bfloat16 and width == HIDDEN:
+                lib_ms = min(library_ln_bwd_ms(x, scale, g) for _ in range(3))
+                times[key.removesuffix("_gh")]["library_ms"] = lib_ms
+                phase(f"time the library's LayerNorm backward bf16 M={rows} K={width}: "
+                      f"{lib_ms:.4f} ms (lowest of 3 graph replays of 20)")
+    # The adjoint inside kernels 12, 11 and 13 (its fp32 dy: x, dy and dx move
+    # 100.7 MB at base width), launch by launch.
+    fp32_dy = ln_adjoint_bound(rows, HIDDEN, torch.bfloat16, torch.float32)["bound_ms"]
+    for name, fn in adjoint_calls(ops, adjoint_operands(dev, gen), ()).items():
+        ms, split = min(graph_ms(fn) for _ in range(3)), launch_split(fn)
+        times[name] = {"ms": ms, "launches": split}
+        inside = {k: v for k, v in split.items() if k.startswith("LN adjoint")}
+        phase(f"time {name} bf16 M={rows}: {ms:.4f} ms; its LN adjoint "
+              + ", ".join(f"{k} {v['ms']:.4f} ms over {v['launches']:.0f} launch(es)"
+                          for k, v in inside.items())
+              + f" (bound of the adjoint on an fp32 dy {fp32_dy:.4f} ms)")
+    print(json.dumps({"tree": str(tree), "card": card, "ln_adjoint": times}), flush=True)
+    return 0
+
+
 def dw_split_sweep(kernel, m: int, n: int, k: int) -> dict:
     """Kernel 12 with dW [n, k] over m rows cut into 1 to 14 chunks (the
     rule's target CTA count set in turn; kernels.DW_CTAS is restored after):
@@ -2672,7 +2954,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if len(sys.argv) > 1:
         modes = {"--rates": rates_main, "--attention": attention_main, "--gemm": gemm_main,
-                 "--layouts": layouts_main, "--same-buffers": same_buffers_main}
+                 "--layouts": layouts_main, "--same-buffers": same_buffers_main,
+                 "--ln-adjoint": ln_adjoint_main}
         if sys.argv[1] not in modes or len(sys.argv) > 3:
             print(f"usage: chip_smoke.py [{' | '.join(modes)} [TREE]]", file=sys.stderr)
             return 2

@@ -85,9 +85,12 @@ SAME_LAUNCH = {
     "flash_attention_packed_bwd": "flash_attention_bwd",
 }
 
-# Rows of x per fp32 partial row of dscale in the LN-adjoint kernels
-# (ln_adjoint.cuh: ROWS).
+# The LN-adjoint kernels (ln_adjoint.cuh; the tail of kernels 10-13): rows
+# of x a CTA takes, one fp32 partial row of dscale each (ROWS), and the
+# widths with a register-resident instance (REGISTER_CHUNKS x CHUNK); every
+# other width runs the strided instance.
 LN_ADJOINT_ROWS = 64
+LN_ADJOINT_REGISTER_WIDTHS = (768, 1024)
 
 # The bf16 weight gradients dW [n, k] = G[m, n]^T · X[m, k] (kernels 11, 12,
 # 13; gemm.cuh) sum m rows into few 128 × 256 tiles (gemm_wgmma.cuh: wgm::BM,
@@ -135,6 +138,16 @@ def ln_adjoint_partial(rows: int, hidden: int, device: torch.device) -> torch.Te
     """fp32 scratch for the fixed-order dscale sum of an LN-adjoint launch."""
     parts = (rows + LN_ADJOINT_ROWS - 1) // LN_ADJOINT_ROWS
     return torch.empty((parts, hidden), dtype=torch.float32, device=device)
+
+
+def ln_adjoint_aligned(t: torch.Tensor | None, hidden: int) -> torch.Tensor | None:
+    """``t``, or a copy of it where the LN adjoint's register instance
+    (hidden 768, 1024), which moves rows in 16-byte words, would be handed
+    a pointer off a 16-byte boundary. Every other width takes any
+    alignment."""
+    if t is None or hidden not in LN_ADJOINT_REGISTER_WIDTHS or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
 
 
 def dw_chunk_rows(m: int, n: int, k: int) -> int:
@@ -264,6 +277,8 @@ def library() -> ctypes.CDLL:
     lib.opt_flash_attention_design.restype = ctypes.c_int
     lib.opt_gemm_design.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.opt_gemm_design.restype = ctypes.c_int
+    lib.opt_ln_adjoint_design.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.opt_ln_adjoint_design.restype = ctypes.c_int
     lib.opt_error_string.argtypes = [ctypes.c_int]
     lib.opt_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -332,6 +347,20 @@ def gemm_design(ta: bool, tb: bool, dtype: torch.dtype) -> dict:
         "stages": stages,
         "tile": f"{rows}x{cols}x{depth}",
     }
+
+
+def built_ln_adjoint_design(rows: int, hidden: int) -> dict:
+    """The LN adjoint's design for rows x hidden as the library reports it:
+    the instance, the partial rows of dscale (``ln_adjoint_partial``'s
+    rows), the CTA's rows and warps, the 256-column chunks a row holds in
+    registers (0 when strided) and the warps of the partials' reduction."""
+    out = (ctypes.c_int * 6)()
+    if library().opt_ln_adjoint_design(rows, hidden, out) != 0:
+        raise ValueError(f"no LN adjoint over {rows} x {hidden}")
+    registers, parts, cta_rows, warps, chunks, reduce_warps = out
+    return {"instance": "registers" if registers else "strided", "parts": parts,
+            "cta_rows": cta_rows, "warps": warps, "chunks": chunks,
+            "reduce_warps": reduce_warps}
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

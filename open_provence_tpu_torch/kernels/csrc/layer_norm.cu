@@ -130,19 +130,41 @@ extern "C" int opt_add_layer_norm(const void* x, const void* y, const void* scal
 // with dy = g. gh [rows, hidden] in x's type is the cotangent that reaches
 // x past the norm (the residual stream's); it is added to dx in fp32 before
 // the round, and may be null. dx comes back in x's type, dscale in the
-// scale's (the same as x's here); partial holds ceil(rows / 64) * hidden
-// floats of scratch for the fixed-order dscale sum. Any rows (the head norm
-// has B), any hidden.
+// scale's (the same as x's here); partial holds ln_adjoint::parts(rows) *
+// hidden floats of scratch for the fixed-order dscale sum. Any rows (the
+// head norm has B), any hidden; at hidden 768 and 1024 every pointer must be
+// 16-byte aligned.
+namespace {
+
+template <typename T>
+int layer_norm_bwd(const void* x, const void* scale, const void* g, const void* gh, void* dx,
+                   void* dscale, float* partial, int rows, int hidden, float eps,
+                   cudaStream_t s) {
+  if (gh == nullptr)
+    return ln_adjoint::launch<T, T>(x, scale, g, dx, dscale, partial, rows, hidden, eps, s);
+  return ln_adjoint::launch<T, T, true>(x, scale, g, dx, dscale, partial, rows, hidden, eps, s,
+                                        gh);
+}
+
+}  // namespace
+
 extern "C" int opt_layer_norm_bwd(const void* x, const void* scale, const void* g,
                                   const void* gh, void* dx, void* dscale, float* partial,
                                   int rows, int hidden, float eps, int dtype, void* stream) {
   if (rows <= 0 || hidden <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return ln_adjoint::launch<float, float>(x, scale, g, dx, dscale, partial, rows, hidden, eps, s,
-                                            gh);
+    return layer_norm_bwd<float>(x, scale, g, gh, dx, dscale, partial, rows, hidden, eps, s);
   if (dtype == DTYPE_BF16)
-    return ln_adjoint::launch<__nv_bfloat16, __nv_bfloat16>(x, scale, g, dx, dscale, partial,
-                                                            rows, hidden, eps, s, gh);
+    return layer_norm_bwd<__nv_bfloat16>(x, scale, g, gh, dx, dscale, partial, rows, hidden, eps,
+                                         s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The LN adjoint's design for rows x hidden (kernels 10-13 alike), as
+// ln_adjoint::design reports it: six ints into out.
+extern "C" int opt_ln_adjoint_design(int rows, int hidden, int* out) {
+  if (rows <= 0 || hidden <= 0) return -1;
+  ln_adjoint::design(rows, hidden, out);
+  return 0;
 }

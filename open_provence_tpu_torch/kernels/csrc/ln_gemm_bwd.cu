@@ -103,7 +103,7 @@ int geglu_bwd(const void* x, const void* scale, const void* wi, const void* g, v
 }  // namespace
 
 // Scratch the wrapper allocates: xn [M, K] in the storage type, dy [M, K]
-// fp32, partial [ceil(M / 64), K] fp32, for GeGLU pre [M, 2I] in the
+// fp32, partial [ln_adjoint::parts(M), K] fp32, for GeGLU pre [M, 2I] in the
 // storage type, and in bf16 dw_partial [ceil(M / chunk_rows), N or 2I, K]
 // fp32 (fp32 ignores it and chunk_rows). All tensors contiguous.
 extern "C" int opt_ln_matmul_bwd(const void* x, const void* scale, const void* w, const void* g,

@@ -316,7 +316,7 @@ int tail_bwd(const void* x, const void* scale, const void* wi, const void* wo, c
 }  // namespace mlp_tail
 
 // Scratch the wrapper allocates: xn [M, K], h [M, I] and cot [M, 2I] in the
-// storage type, dy [M, K] fp32, partial [ceil(M / 64), K] fp32 and, in bf16,
+// storage type, dy [M, K] fp32, partial [ln_adjoint::parts(M), K] fp32 and, in bf16,
 // dw_partial fp32 for the larger of dWi's ceil(M / rows_wi) x 2I x K and
 // dWo's ceil(M / rows_wo) x K x I partial sums. All tensors contiguous.
 // K <= 1024; bf16 also takes K % 16 == 0 and I % 8 == 0.

@@ -324,6 +324,14 @@ def _geglu_forward(x2d, scale, wi, activation, eps):
     return ln_geglu_plain(x2d, scale, wi, activation, eps), x2d, scale, wi
 
 
+def _adjoint_operands(x2d, scale):
+    """x2d and scale as the LN adjoint that ends each backward kernel takes
+    them (ln_adjoint.cuh): a copy where its register instance needs one
+    that is 16-byte aligned. Only fp32 can need it here: _check_operands has
+    already refused a misaligned bf16 operand."""
+    return (kernels.ln_adjoint_aligned(t, x2d.shape[1]) for t in (x2d, scale))
+
+
 def _bwd_scratch(x2d, *dw_products):
     """xn (x's dtype), dy (fp32), the dscale partial rows and, in bf16, the
     fp32 partial sums of the weight gradients ``dw_products`` ((m, n, k)
@@ -392,6 +400,7 @@ def ln_matmul_bwd(
         return ln_matmul_bwd_plain(x2d, scale, w, g, eps)
     x2d, scale, w = x2d.contiguous(), scale.contiguous(), w.contiguous()
     _check_operands(x2d, scale, w, 1)
+    x2d, scale = _adjoint_operands(x2d, scale)
     return _matmul_bwd_kernel(x2d, scale, w, g.contiguous(), eps)
 
 
@@ -407,6 +416,7 @@ def ln_geglu_bwd(
         return ln_geglu_bwd_plain(x2d, scale, wi, g, activation, eps)
     x2d, scale, wi = x2d.contiguous(), scale.contiguous(), wi.contiguous()
     _check_operands(x2d, scale, wi, 2)
+    x2d, scale = _adjoint_operands(x2d, scale)
     return _geglu_bwd_kernel(x2d, scale, wi, g.contiguous(), act_code, eps)
 
 
@@ -465,6 +475,7 @@ def ln_geglu_wo_bwd(
         kernels.count_plain("ln_geglu_wo_bwd")
         return ln_geglu_wo_bwd_plain(x2d, scale, wi, wo, g, activation, eps)
     x2d, scale, wi, wo = _geglu_wo_operands(x2d, scale, wi, wo, activation)
+    x2d, scale = _adjoint_operands(x2d, scale)
     m, k = x2d.shape
     intermediate = wi.shape[0] // 2
     g = g.to(x2d.dtype).contiguous()

@@ -164,6 +164,9 @@ def layer_norm_bwd(
     g2d, gh2d = (
         None if t is None else t.reshape(x2d.shape).to(x2d.dtype).contiguous() for t in (g, gh)
     )
+    x2d, scale, g2d, gh2d = (
+        kernels.ln_adjoint_aligned(t, x2d.shape[1]) for t in (x2d, scale, g2d, gh2d)
+    )
     return _backward_kernel(x2d, scale, g2d, eps, gh2d)
 
 

@@ -163,10 +163,22 @@ def test_fragment_mean_pool_matches_jax_with_empty_slots():
 # and the tolerance measures summation order, not the size of the sums.
 
 
-def test_layer_norm_bwd_plain_matches_pallas():
+# (rows, hidden) of the LN adjoint's cases: the first is the original one;
+# then the widths of the port's register instances (768, 1024), a multiple
+# of 256 (256), a multiple of 8 that is not (264) and a width that is no
+# multiple of 8 (36), at 1, 37 and 256 rows. The JAX package takes its
+# Pallas kernel where hidden % 128 == 0 and rows % 8 == 0, its XLA adjoint
+# elsewhere.
+LN_BWD_SHAPES = [(256, 128)] + [
+    (rows, hidden) for hidden in (768, 1024, 256, 264, 36) for rows in (1, 37, 256)
+]
+
+
+@pytest.mark.parametrize("rows,hidden", LN_BWD_SHAPES)
+def test_layer_norm_bwd_plain_matches_pallas(rows, hidden):
     from open_provence_tpu.ops import layer_norm as jax_ln
 
-    x, scale = _ln_inputs(256, 128, seed=11)
+    x, scale = _ln_inputs(rows, hidden, seed=11)
     g = np.random.default_rng(12).normal(size=x.shape).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         ref_dx, ref_ds = jax_ln._ln_bwd(1e-5, (jnp.asarray(x), jnp.asarray(scale)), jnp.asarray(g))
@@ -559,13 +571,14 @@ def test_add_layer_norm_plain_matches_both_jax_routes():
     assert h3.shape == n3.shape == (4, 16, 128)
 
 
-def test_add_layer_norm_bwd_with_gh_matches_pallas():
+@pytest.mark.parametrize("rows,hidden", LN_BWD_SHAPES)
+def test_add_layer_norm_bwd_with_gh_matches_pallas(rows, hidden):
     """The add + LN adjoint: kernel 10 with the residual cotangent gh, via
     jax.vjp of _add_ln_core; and without gh the adjoint is what it was."""
     from open_provence_tpu.ops.layer_norm import _add_ln_core
     from open_provence_tpu_torch.ops import add_layer_norm
 
-    x, scale = _ln_inputs(256, 128, seed=63)
+    x, scale = _ln_inputs(rows, hidden, seed=63)
     rng = np.random.default_rng(64)
     y, gh, gn = (rng.normal(size=x.shape).astype(np.float32) for _ in range(3))
     with pltpu.force_tpu_interpret_mode():

@@ -214,6 +214,51 @@ def test_host_ops_source_is_the_ports_own_copy():
     assert not opened, f"the port builds a path into the JAX package: {opened}"
 
 
+def test_ln_adjoint_design_mirrors_the_source():
+    """kernels.LN_ADJOINT_ROWS and LN_ADJOINT_REGISTER_WIDTHS are the rows a
+    CTA takes (WARPS x ROWS_PER_WARP) and the register instance's widths
+    (REGISTER_CHUNKS x CHUNK) as ln_adjoint.cuh defines them, so the
+    wrappers' dscale scratch, ceil(M / ROWS) rows, is what the kernels
+    write: a function of the shape alone. (The cuda-marked
+    test_ln_adjoint_design_is_reported reads the built library's report.)"""
+    import re
+
+    from open_provence_tpu_torch import kernels
+
+    source = (kernels.CSRC / "ln_adjoint.cuh").read_text()
+    warps, rows_per_warp = re.search(
+        r"constexpr int WARPS = (\d+), ROWS_PER_WARP = (\d+);", source).groups()
+    chunk = int(re.search(r"constexpr int CHUNK = (\d+);", source)[1])
+    chunks = re.search(r"REGISTER_CHUNKS\[\] = \{([\d, ]+)\}", source)[1]
+    assert kernels.LN_ADJOINT_ROWS == int(warps) * int(rows_per_warp)
+    assert kernels.LN_ADJOINT_REGISTER_WIDTHS == tuple(chunk * int(n) for n in chunks.split(","))
+    for k in (768, 264):
+        for m in (1, 64, 65, 16347):
+            partial = kernels.ln_adjoint_partial(m, k, torch.device("cpu"))
+            assert partial.shape == (-(-m // kernels.LN_ADJOINT_ROWS), k)
+            assert partial.dtype == torch.float32
+
+
+@pytest.mark.parametrize("hidden", [768, 1024, 264])
+def test_ln_adjoint_aligned_copies_only_for_the_register_instance(hidden):
+    """A tensor off a 16-byte boundary is copied (same values, aligned) at
+    the register instance's widths and passed through at any other; an
+    aligned one and None always pass through."""
+    from open_provence_tpu_torch import kernels
+
+    base = torch.arange(3 * hidden + 1, dtype=torch.float32)
+    misaligned = base[1:].view(3, hidden)
+    assert misaligned.data_ptr() % 16 and kernels.ln_adjoint_aligned(None, hidden) is None
+    aligned = base[: 3 * hidden].view(3, hidden)
+    assert kernels.ln_adjoint_aligned(aligned, hidden) is aligned
+    got = kernels.ln_adjoint_aligned(misaligned, hidden)
+    if hidden in kernels.LN_ADJOINT_REGISTER_WIDTHS:
+        assert got is not misaligned and got.data_ptr() % 16 == 0
+        assert torch.equal(got, misaligned)
+    else:
+        assert got is misaligned
+
+
 def test_profiler_trace_writes_chrome_trace(tmp_path):
     from open_provence_tpu_torch.utils.tracing import profiler_trace
 
@@ -528,12 +573,19 @@ def test_backward_kernels_match_plain_on_cuda(cuda_device, dtype):
     w, wi = t(2304, 768, s=0.03), t(2304, 768, s=0.03)
     kernels.reset_launch_counts()
     g_ln, g_mm, g_mlp = t(77, 768), t(77, 2304, s=0.1), t(77, 1152, s=0.1)
-    cases = [
-        (ops.layer_norm_bwd(x, scale, g_ln), ops.layer_norm_bwd_plain(x, scale, g_ln)),
-        (ops.ln_matmul_bwd(x, scale, w, g_mm), ops.ln_matmul_bwd_plain(x, scale, w, g_mm)),
-        (ops.ln_geglu_bwd(x, scale, wi, g_mlp, "gelu"),
+    # Kernels 10, 12 and 11 end on the LN adjoint; each gives the same bits
+    # twice.
+    row_kernels = [
+        (lambda: ops.layer_norm_bwd(x, scale, g_ln), ops.layer_norm_bwd_plain(x, scale, g_ln)),
+        (lambda: ops.ln_matmul_bwd(x, scale, w, g_mm), ops.ln_matmul_bwd_plain(x, scale, w, g_mm)),
+        (lambda: ops.ln_geglu_bwd(x, scale, wi, g_mlp, "gelu"),
          ops.ln_geglu_bwd_plain(x, scale, wi, g_mlp, "gelu")),
     ]
+    cases = []
+    for kernel, want in row_kernels:
+        got = kernel()
+        assert all(torch.equal(a, b) for a, b in zip(got, kernel()))
+        cases.append((got, want))
     qkv, mask = t(3, 200, 2304), torch.ones(3, 200, dtype=torch.int32, device=cuda_device)
     mask[1, 150:] = 0
     g = t(3, 200, 768) * mask[..., None].to(dtype)
@@ -548,9 +600,68 @@ def test_backward_kernels_match_plain_on_cuda(cuda_device, dtype):
         for a, b in zip(got, want):
             close(a, b)
     counts = kernels.launch_counts()
-    assert counts["layer_norm_bwd"] == counts["ln_matmul_bwd"] == counts["ln_geglu_bwd"] == 1
+    assert counts["layer_norm_bwd"] == counts["ln_matmul_bwd"] == counts["ln_geglu_bwd"] == 2
     assert counts["flash_attention_packed_bwd"] == 2
     assert not any(kernels.plain_counts().values())
+
+
+# |kernel - plain| <= a·max|plain| + r·|plain| for the LN adjoint (as
+# chip_smoke.py's BWD_TOL): fp32 differs by summation order only; in bf16 a
+# sum beside a rounding boundary can round one ulp apart.
+LN_ADJOINT_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [768, 1024, 264, 36])
+def test_ln_adjoint_matches_plain_on_cuda(cuda_device, dtype, k):
+    """Kernel 10 against its plain version at the widths of its register
+    instances (768, 1024) and two strided ones (264, 36), at M = 1, 32 and
+    16347 (a ragged last CTA), without gh and with it; two launches give the
+    same bits, and a null gh the form without gh's; no plain version runs."""
+    from open_provence_tpu_torch import kernels, ops
+
+    rng = np.random.default_rng(k)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rng.normal(size=shape) * s, dtype=dtype, device=cuda_device)
+
+    a, r = LN_ADJOINT_TOL[dtype]
+    x, scale = t(16347, k, s=2.0), t(k, s=0.1) + 1
+    kernels.reset_launch_counts()
+    for m in (1, 32, 16347):
+        g, gh = t(m, k), t(m, k)
+        for extra in (None, gh):
+            got = ops.layer_norm_bwd(x[:m], scale, g, 1e-5, extra)
+            for out, want in zip(got, ops.layer_norm_bwd_plain(x[:m], scale, g, 1e-5, extra)):
+                assert torch.isfinite(out).all()
+                torch.testing.assert_close(out.float(), want.float(), rtol=r,
+                                           atol=a * want.float().abs().max().item())
+            assert all(torch.equal(p, q) for p, q in
+                       zip(got, ops.layer_norm_bwd(x[:m], scale, g, 1e-5, extra)))
+        assert all(torch.equal(p, q) for p, q in zip(ops.layer_norm_bwd(x[:m], scale, g),
+                                                     ops.layer_norm_bwd(x[:m], scale, g, 1e-5)))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["layer_norm_bwd"] == 18
+    assert not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+def test_ln_adjoint_design_is_reported(cuda_device):
+    """The library's LN-adjoint design at each shape: the register instance
+    at kernels.LN_ADJOINT_REGISTER_WIDTHS and the strided one elsewhere, and
+    the partial rows the wrappers' scratch (ln_adjoint_partial) holds, a
+    function of the shape alone."""
+    from open_provence_tpu_torch import kernels
+
+    for k in (768, 1024, 264, 36, 2048):
+        registers = k in kernels.LN_ADJOINT_REGISTER_WIDTHS
+        for m in (1, 32, 64, 65, 16347, 16384):
+            built = kernels.built_ln_adjoint_design(m, k)
+            assert built["instance"] == ("registers" if registers else "strided")
+            assert built["cta_rows"] == kernels.LN_ADJOINT_ROWS
+            assert built["chunks"] == (k // 256 if registers else 0)
+            assert kernels.ln_adjoint_partial(m, k, cuda_device).shape == (built["parts"], k)
 
 
 def _off_relu_step(x, scale, wi, g):
