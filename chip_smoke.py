@@ -38,7 +38,8 @@ card and check it, in phases:
    wrapper on that buffer; times, bounds and the library call per shape;
 3e. the whole MLP in one kernel (kernels 8 and 13) against its plain version
    at M = 16384 and a ragged M, fp32 and bf16, every activation, with times
-   beside the split path's (kernel 4 or 11 and the library's Wo products);
+   beside the split path's (kernel 4 or 11 and the library's Wo products)
+   and the bf16 design (kernels.built_mlp_tail_design);
 4. the whole model at base width on seeded random weights: fp32 on the card
    against fp32 on the CPU (plain versions), and bf16 on the card against
    the same CPU result;
@@ -88,7 +89,9 @@ head layouts. ``python3 chip_smoke.py --same-buffers TREE`` imports TREE's
 package beside this checkout's into one process and times both trees'
 attention kernels in turns on the same tensors at the shapes of
 ``--attention``, then their LayerNorm adjoint (kernel 10; kernels 12, 11
-and 13 whole and launch by launch) and forward LayerNorm kernels (1, 7).
+and 13 whole and launch by launch), forward LayerNorm kernels (1, 7) and
+whole-MLP kernels (8, 13; launch by launch, beside this tree's split
+paths).
 ``python3 chip_smoke.py --ln-adjoint [TREE]`` checks the LayerNorm adjoint
 at its widths and row counts, prints its ptxas report and design, and
 times it at every width in both types beside its bound, and kernels 12, 11
@@ -588,6 +591,7 @@ BWD_LAUNCHES = (
     (("ln_adjoint", "reduce_kernel"), "LN adjoint dscale"),
     (("ln_adjoint",), "LN adjoint rows"),
     (("tail_bwd_rows",), "whole-MLP rows pass"),
+    (("tail_fwd",), "whole-MLP forward"),
     (("dw_sum_kernel",), "dW chunk sum"),
     (("<true, true",), "dW = G^T.xn"),
     (("<false, true",), "dy = G.W"),
@@ -1318,8 +1322,9 @@ def phase3e_whole_mlp(dev, stats: dict[str, dict]) -> None:
     13), against its plain version at M = 16384 and a ragged M, fp32 and bf16,
     every activation the kernels know; the backward twice for the same bits.
     Times in bf16 beside the split path's: kernel 4 and the library's Wo
-    product; kernel 11 and the library's products for dh and dWo."""
-    from open_provence_tpu_torch import ops
+    product; kernel 11 and the library's products for dh and dWo; the bf16
+    design (the forward's cluster, the backward row pass's tile)."""
+    from open_provence_tpu_torch import kernels, ops
 
     gen = torch.Generator().manual_seed(38)
     rows = 32 * 512
@@ -1394,9 +1399,11 @@ def phase3e_whole_mlp(dev, stats: dict[str, dict]) -> None:
         "ln_geglu_wo_bwd": cuda_ms(split_backward),
     }
     bounds = gemm_bounds(rows)
+    design = kernels.built_mlp_tail_design(HIDDEN)
+    phase(f"phase 3e design bf16 K={HIDDEN}: {json.dumps(design)}")
     for name, (ms, plain_ms) in timings.items():
         stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=None, split_path_ms=split[name],
-                           **bounds[name])
+                           design=design, **bounds[name])
         phase(f"phase 3e time {name} B=32 S=512 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, bound {bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']}, one "
               f"PyTorch call none (it takes three); the split path (kernel "
@@ -2535,7 +2542,9 @@ def same_buffers_main(other: Path) -> int:
     from where the tensors lie. Then the same for the LN adjoint: kernel 10
     in bf16 at K = 768 without and with gh at M = 16384, 16347 and 32,
     kernels 12, 11 and 13 whole, and the adjoint's launches inside 12 and 11
-    (torch.profiler). One JSON line."""
+    (torch.profiler); and the whole-MLP kernels, 8 and 13, each launch
+    inside them from the profiler, beside this tree's split paths (kernel 4
+    or 11 and the library's products with Wo). One JSON line."""
     import importlib
     import importlib.util
 
@@ -2553,6 +2562,7 @@ def same_buffers_main(other: Path) -> int:
     phase(card)
     kernels.library()
     importlib.import_module("other_tree.kernels").library()
+    print_ptxas(kernels.library_path().with_suffix(".log").read_text(), ("tail_",))
     gen = torch.Generator().manual_seed(41)
     times = {}
     for batch, seq, heads, head_dim in ATTENTION_SHAPES:
@@ -2583,17 +2593,31 @@ def same_buffers_main(other: Path) -> int:
                 for what in calls["this"]))
     # The LN adjoint: kernel 10 and the whole calls of kernels 12, 11 and 13;
     # beside them, the forward row kernels 1 and 7, which keep their source.
+    # The whole-MLP kernels (rows 8 and 13; row 13 is one of adjoint_calls)
+    # beside this tree's split paths: kernel 4 and the library's Wo product,
+    # kernel 11 and the library's products for dh and dWo.
     t = adjoint_operands(dev, gen)
+    x, scale, w_i, w_o = t["x"], t["scale"], t["w_i"], t["w_o"]
+    hidden = ops.ln_geglu(x, scale, w_i, "gelu")
+    split_paths = {
+        "ln_geglu_wo split path": lambda: F.linear(ops.ln_geglu(x, scale, w_i, "gelu"), w_o),
+        "ln_geglu_wo_bwd split path": lambda: (
+            t["g"].t() @ hidden, ops.ln_geglu_bwd(x, scale, w_i, t["g"] @ w_o, "gelu")),
+    }
     calls = {}
     for name, o in trees.items():
         calls[name] = adjoint_calls(o, t, LN_ADJOINT_ROW_COUNTS[:3])
         calls[name]["layer_norm"] = lambda o=o: o.layer_norm(t["x"], t["scale"])
         calls[name]["add_layer_norm"] = lambda o=o: o.add_layer_norm(t["x"], t["g"], t["scale"])
+        calls[name]["ln_geglu_wo"] = lambda o=o: o.ln_geglu_wo(x, scale, w_i, w_o, "gelu")
     ln_times = {what: {name: [] for name in trees} for what in calls["this"]}
+    ln_times.update({what: {"this": []} for what in split_paths})
     for _ in range(3):
         for name in ("other", "this", "this", "other"):
             for what, fn in calls[name].items():
                 ln_times[what][name].append(graph_ms(fn))
+        for what, fn in split_paths.items():
+            ln_times[what]["this"].append(graph_ms(fn))
     # Each launch inside kernels 12 and 11 (the LN adjoint's, normalize, the
     # products, ...), from the profiler, with L2 flushed between calls: back
     # to back, a call's first launch (normalize, reading x) would find in L2
@@ -2601,18 +2625,24 @@ def same_buffers_main(other: Path) -> int:
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     for _ in range(3):
         for name in ("other", "this", "this", "other"):
-            for what in ("ln_matmul_bwd", "ln_geglu_bwd"):
+            for what in ("ln_matmul_bwd", "ln_geglu_bwd", "ln_geglu_wo_bwd", "ln_geglu_wo"):
                 split = launch_split(calls[name][what], flush=flush)
-                split["LN adjoint"] = {"ms": sum(v["ms"] for k, v in split.items()
-                                                 if k.startswith("LN adjoint"))}
+                if what.endswith("_bwd"):
+                    split["LN adjoint"] = {"ms": sum(v["ms"] for k, v in split.items()
+                                                     if k.startswith("LN adjoint"))}
                 for label, entry in split.items():
                     ln_times.setdefault(f"{what}: {label}", {n: [] for n in trees})[name].append(
                         entry["ms"])
     for what, runs in ln_times.items():
+        if "other" not in runs:  # a split path, this tree's kernels only
+            phase(f"same buffers {what} bf16 K={HIDDEN}, this tree: lowest {min(runs['this']):.4f}"
+                  f" ms, highest {max(runs['this']):.4f} ms (3 graph replays of 20)")
+            continue
+        low, high = ({n: f"{fn(v):.4f}" if v else "none" for n, v in runs.items()}
+                     for fn in (min, max))  # a launch one tree does not make: none
         phase(f"same buffers {what} bf16 K={HIDDEN}, other / this: lowest "
-              f"{min(runs['other']):.4f} / {min(runs['this']):.4f} ms, highest "
-              f"{max(runs['other']):.4f} / {max(runs['this']):.4f} ms (6 graph replays of 20; "
-              "a launch inside a call: profiler device time)")
+              f"{low['other']} / {low['this']} ms, highest {high['other']} / {high['this']} ms "
+              "(6 graph replays of 20; a launch inside a call: profiler device time)")
     print(json.dumps({"other": str(other), "card": card, "attention": times,
                       "ln_adjoint": ln_times}), flush=True)
     return 0

@@ -107,6 +107,14 @@ DW_STEP = 64
 DW_CTAS = 128
 DW_MIN_STEPS = 8
 
+# The bf16 whole-MLP forward (kernel 8; mlp_tail.cuh, wgf::): a cluster of
+# mlp_tail_cluster(K) CTAs shares each tile of 128 rows, each CTA owning
+# MLP_TAIL_OUT_COLS output columns (64 fp32 sums a consumer thread, within
+# the 168 registers a thread of a three-warpgroup CTA gets); a cluster holds
+# at most MLP_TAIL_MAX_CLUSTER CTAs, the portable limit, so K <= 1024.
+MLP_TAIL_OUT_COLS = 128
+MLP_TAIL_MAX_CLUSTER = 8
+
 _launches = dict.fromkeys(KERNELS, 0)
 _plain_calls = dict.fromkeys(KERNELS, 0)
 _lib: ctypes.CDLL | None = None
@@ -171,6 +179,12 @@ def dw_partial(products, device: torch.device) -> torch.Tensor:
     the largest needs."""
     numel = max(dw_chunks(m, n, k) * n * k for m, n, k in products)
     return torch.empty(numel, dtype=torch.float32, device=device)
+
+
+def mlp_tail_cluster(hidden: int) -> int:
+    """The CTAs of the bf16 whole-MLP forward's cluster at hidden size K:
+    one a slice of MLP_TAIL_OUT_COLS output columns."""
+    return -(-hidden // MLP_TAIL_OUT_COLS)
 
 
 def nvcc_path() -> str:
@@ -279,6 +293,8 @@ def library() -> ctypes.CDLL:
     lib.opt_gemm_design.restype = ctypes.c_int
     lib.opt_ln_adjoint_design.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     lib.opt_ln_adjoint_design.restype = ctypes.c_int
+    lib.opt_mlp_tail_design.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.opt_mlp_tail_design.restype = ctypes.c_int
     lib.opt_error_string.argtypes = [ctypes.c_int]
     lib.opt_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -361,6 +377,21 @@ def built_ln_adjoint_design(rows: int, hidden: int) -> dict:
     return {"instance": "registers" if registers else "strided", "parts": parts,
             "cta_rows": cta_rows, "warps": warps, "chunks": chunks,
             "reduce_warps": reduce_warps}
+
+
+def built_mlp_tail_design(hidden: int) -> dict:
+    """The bf16 design of the whole-MLP kernels at hidden size K as the
+    library reports it: the forward's cluster (CTAs, output columns and
+    columns of h a CTA, ring stages, tile rows, how many the card holds at
+    once) and the backward row pass's tile (rows x columns of I) and ring
+    stages."""
+    out = (ctypes.c_int * 9)()
+    if library().opt_mlp_tail_design(hidden, out) != 0:
+        raise ValueError(f"no whole-MLP kernel for hidden size {hidden}")
+    cluster, out_cols, share, stages, rows, bwd_rows, bwd_cols, bwd_stages, at_once = out
+    return {"cluster": cluster, "out_cols": out_cols, "share": share, "stages": stages,
+            "rows": rows, "clusters_at_once": at_once, "bwd_tile": f"{bwd_rows}x{bwd_cols}",
+            "bwd_stages": bwd_stages}
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -65,38 +65,6 @@ __device__ __forceinline__ void warp_row_stats(const T* row, int hidden, float e
   *rstd_out = rsqrtf(var + eps);
 }
 
-// D += A . B on tensor cores: one m16n8k16 product of bf16 fragments with
-// fp32 accumulation. Fragment layouts (PTX ISA, "mma.m16n8k16"), with
-// g = lane / 4 and t = lane % 4, each 32-bit register holding two bf16 of
-// consecutive k (lower half first):
-//   a[0] = A[g][2t..], a[1] = A[g+8][2t..], a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..]
-//   b[0] = B[2t..][g], b[1] = B[2t+8..][g]   (B is k x n, read as n-major rows)
-//   d[0..1] = D[g][2t, 2t+1], d[2..3] = D[g+8][2t, 2t+1]
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ldmatrix: four 8x8 b16 matrices from shared memory; lane l gives the
-// address of row l % 8 of matrix l / 8 and receives, in r[i], matrix i's
-// elements [l / 4][2 (l % 4) .. +1] — or with .trans [2 (l % 4) .. +1][l / 4].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem_row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem_row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // Eight bf16 (16 bytes) as floats, and back.
 __device__ __forceinline__ void unpack8(const uint4& v, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -114,11 +82,6 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return v;
-}
-
-// Two bf16 at an even element offset, as one 32-bit fragment register.
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // The mask bias of ops/flash_attention.py: -finfo(f32).max, not -inf.

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the kernels that run on wgmma: mbarriers,
 // the proxy fence, named barriers, setmaxnreg, asynchronous copies with a
-// memory clobber (cp.async, and TMA loads of a tensor map's boxes), the
-// swizzled shared-memory tile wgmma reads through a matrix descriptor, and the
-// wgmma instructions themselves as inline PTX.
+// memory clobber (cp.async, and TMA loads of a tensor map's boxes), a
+// thread-block cluster's distributed shared memory, the swizzled
+// shared-memory tile wgmma reads through a matrix descriptor, and the wgmma
+// instructions themselves as inline PTX.
 //
 // A tile is [64 rows][D] bf16 cut into panels of PW = min(D, 64) columns; a
 // panel row is PW * 2 bytes (128 or 64), which is also the swizzle width: the
@@ -158,6 +159,84 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// ---- thread-block clusters -------------------------------------------------------
+//
+// The CTAs of a cluster copy into each other's shared memory through
+// shared::cluster addresses (map_to_rank) and arrive on each other's
+// mbarriers; what a thread did before mbar_arrive_cluster (a release at
+// cluster scope) is seen after mbar_wait_cluster (an acquire at cluster
+// scope).
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// Every thread of every CTA of the cluster arrives, then waits for the rest:
+// the writes before it (an mbarrier's init, too) are seen by all after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address, in CTA `rank`'s shared memory, of the variable
+// that lies at shared::cta address `addr` in this CTA's.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// `bytes` (a multiple of 16) from this CTA's shared memory at `src` to the
+// shared::cluster address `dst` (a peer's), by the bulk-copy engine,
+// completing them on the peer's mbarrier at shared::cluster address `bar`.
+// The source was written through the generic proxy: fence_proxy_async first.
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Arrive on the mbarrier at shared::cluster address `addr` (this CTA's or a
+// peer's), releasing this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// mbar_wait with an acquire at cluster scope: the peers' writes released by
+// their arrivals are seen after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1u << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // ---- the swizzled tile ----------------------------------------------------------
 
 constexpr int TILE_ROWS = 64;
@@ -241,12 +320,12 @@ __device__ __forceinline__ void pin(float* d) {
   for (int i = 0; i < COUNT; ++i) asm volatile("" : "+f"(d[i]));
 }
 
-// A and B from shared memory; N = 64 or 256. TA, TB: the transpose
+// A and B from shared memory; N = 64, 128 or 256. TA, TB: the transpose
 // immediates, 0 for a K-major operand, 1 for an MN-major one.
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
-  static_assert(N == 64 || N == 256, "no instance");
+  static_assert(N == 64 || N == 128 || N == 256, "no instance");
   static_assert((TA == 0 || TA == 1) && (TB == 0 || TB == 1), "a transpose is 0 or 1");
   if constexpr (N == 256) {
     asm volatile(
@@ -285,6 +364,28 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t des
           "+f"(d[126]), "+f"(d[127])
         : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
   }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -302,21 +403,24 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t des
   }
 }
 
-// A from registers, B from shared memory MN-major (transposed); N = 32, 64, 128.
-template <int N>
+// A from registers, B from shared memory; N = 32, 64, 128. TB: B's transpose
+// immediate, 1 (the default) for an MN-major B, 0 for a K-major one.
+template <int N, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b,
                                          int accumulate) {
   static_assert(N == 32 || N == 64 || N == 128, "no instance");
+  static_assert(TB == 0 || TB == 1, "a transpose is 0 or 1");
   if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+          "n"(TB));
   }
   if constexpr (N == 64) {
     asm volatile(
@@ -324,14 +428,15 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+          "n"(TB));
   }
   if constexpr (N == 128) {
     asm volatile(
@@ -341,7 +446,7 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -353,7 +458,8 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+          "n"(TB));
   }
 }
 

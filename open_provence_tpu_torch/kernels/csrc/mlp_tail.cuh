@@ -1,19 +1,33 @@
 // Building blocks of the whole-MLP kernels, forward (mlp_tail.cu) and
-// backward (mlp_tail_bwd.cu): a CTA owns a tile of rows, keeps their
-// normalized x (and in the backward their cotangent g) in shared memory, and
-// walks the intermediate dim I in chunks of CH columns. For each chunk it
-// forms inp and gate (and dh) of its rows from slabs of Wi (and Wo) staged in
-// shared memory, applies the GeGLU chain into shared memory, and adds the
-// chunk's share of a [rows, K] product to accumulators in registers that the
-// CTA's warps (threads, in fp32) split by columns. So no [M, I] operand of a
-// product is read from device memory.
+// backward (mlp_tail_bwd.cu).
 //
-// bf16: mma.sync m16n8k16 with fp32 accumulation, 32 rows and 8 warps a CTA;
-// a warp holds 32 rows x 8*NT output columns (NT = 12 at K = 768: 96
-// registers a thread). fp32: FMA, 16 rows and 256 threads a CTA, a thread
-// holds one row x JN columns (true fp32, no TF32). Slabs are staged with
-// plain 16-byte loads between two barriers: simple and right first; a
-// cp.async ring, wgmma and TMA are later work.
+// bf16 runs on wgmma fed by TMA from one producer thread, as the GEMM engine
+// (gemm_wgmma.cuh) does, a producer warpgroup beside consumer warpgroups of
+// 64 rows each. ptxas gives a warp of a CTA of three warpgroups 168
+// registers, also after setmaxnreg (attention_wgmma.cuh), so a consumer
+// holds at most ~130 fp32 sums beside its addressing; that, not shared
+// memory, shapes both designs (their constants: wgf:: and wgb::). Both read
+// their row operands from L2 again for each tile of output columns, so a
+// taller or wider tile reads fewer bytes for the same products.
+//   - Forward (kernel 8): a cluster of C = ceil(K / 128) CTAs shares a tile
+//     of 128 rows; CTA j owns output columns 128 j .. 128 j + 127 (64 sums a
+//     consumer thread). The cluster walks I in chunks of 64 C columns: each
+//     CTA forms inp and gate of its 64 columns of the chunk over the K loop
+//     (the engine's GEGLU interleave, 64 sums), applies the rounding chain,
+//     writes its h panel [128][64] into its own shared memory, from where the
+//     bulk-copy engine copies it into every peer's (distributed shared
+//     memory), then adds the whole chunk's h . Wo[its columns, chunk]^T to
+//     its output, h read from shared memory into registers as wgmma's A. So
+//     the cluster reads Wi and Wo once a tile, and h never reaches device
+//     memory.
+//   - Backward row pass (kernel 13): one CTA a tile of 192 rows x 64 columns
+//     of I (three consumer warpgroups; a CTA of four warpgroups gives a
+//     thread 128 registers) runs [inp | gate] = xn . Wi^T (64 sums) and dh =
+//     g . Wo (an MN-major Wo, 32 sums) through one ring and applies the chain
+//     in its epilogue; inp, gate and dh never reach device memory.
+// fp32: FMA, 16 rows and 256 threads a CTA, a thread holds one row x JN
+// columns (true fp32, no TF32), slabs staged with plain loads between two
+// barriers: the card's fp32 parity path.
 #pragma once
 
 #include "gemm.cuh"
@@ -26,74 +40,71 @@ using bf16 = __nv_bfloat16;
 // these namespaces for their kernels.
 namespace {
 
-constexpr int THREADS = 256, WARPS = 8;
-constexpr int CH = 64;  // columns of I a chunk
+constexpr int THREADS = 256;
+constexpr int CH = 64;  // fp32: columns of I a chunk
 
 // ---- bf16 -----------------------------------------------------------------------
 
-namespace tc {
-constexpr int BM = 32;        // rows a CTA
-constexpr int KS = 64;        // contraction slab of the chunk's narrow products
-constexpr int LDS = KS + 8;   // row stride of [.][KS] slabs and of [.][CH] tiles
-static_assert(CH == KS, "the chunk tiles share the slab stride");
-}  // namespace tc
+constexpr int GROUP = 128, CONSUMERS = 2, WG_THREADS = (CONSUMERS + 1) * GROUP;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int ROWS = 128, BK = 64;       // rows a tile, depth a k-step
+constexpr int ROW_BYTES = BK * 2;        // one 128-byte swizzle panel row
+constexpr int PANEL_BYTES = ROWS * ROW_BYTES;  // [128][64] bf16, 16 KB
+constexpr int GATE_BLOCK = gemm_engine::wgm::GATE_BLOCK;
+constexpr int SMEM_LIMIT = 232448;       // bytes a CTA may ask for
+constexpr int BAR_CONSUMERS = 1;         // named barriers; 0 is __syncthreads
+__device__ __forceinline__ int bar_consumer(int c) { return 2 + c; }
 
-// rows x cols (cols % 8 == 0) from src into tile, 16 bytes a copy: tile row r
-// is src row row_of(r) (negative: zeros), columns col0 .. col0 + cols - 1,
-// zeros from col_limit (a multiple of 8) on.
-template <typename RowFn>
-__device__ __forceinline__ void stage(bf16* tile, int ld, int rows, int cols, const bf16* src,
-                                      long long src_ld, RowFn row_of, int col0, int col_limit) {
-  const int per_row = cols / 8;
-  for (int c = threadIdx.x; c < rows * per_row; c += THREADS) {
-    const int r = c / per_row, cc = (c % per_row) * 8;
-    const long long row = row_of(r);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row >= 0 && col0 + cc < col_limit)
-      v = *reinterpret_cast<const uint4*>(src + row * src_ld + col0 + cc);
-    *reinterpret_cast<uint4*>(tile + r * ld + cc) = v;
-  }
+// The forward's cluster kernel.
+namespace wgf {
+constexpr int OUT_COLS = 128;  // output columns a CTA
+constexpr int SHARE = 64;      // columns of h a CTA forms a chunk: one panel
+constexpr int MAX_CLUSTER = 8;  // K <= 1024
+constexpr int MAX_STAGES = 4;
+// A ring stage holds a k-step's xn [128][64] and the Wi rows of the CTA's
+// share (SHARE / 8 blocks of 8 input rows, each followed by the same
+// columns' 8 gate rows), or one panel of Wo [128 output columns][64 columns
+// of the chunk] (half the stage).
+constexpr int STAGE_BYTES = 2 * PANEL_BYTES;
+constexpr int STAGED_PITCH = OUT_COLS + 8;  // the epilogue's staged rows
+__host__ __device__ constexpr int cluster(int K) { return (K + OUT_COLS - 1) / OUT_COLS; }
+// The ring's stages beside C panels of h, the barriers and the 1024-byte slack.
+__host__ __device__ constexpr int stages(int C) {
+  return (SMEM_LIMIT - 1024 - 256 - C * PANEL_BYTES) / STAGE_BYTES < MAX_STAGES
+             ? (SMEM_LIMIT - 1024 - 256 - C * PANEL_BYTES) / STAGE_BYTES
+             : MAX_STAGES;
 }
-
-// One warp: acc[mt * 2 * PAIRS + nt][4] += A . B over `ksteps` steps of 16 of
-// the contraction, for MT m-tiles of 16 rows and 2 * PAIRS n-tiles of 8
-// columns. `a` points at (the first row, the first contraction column) of A,
-// rows contiguous along the contraction. B_TRANS false: `b` points at (the
-// first output column's row, the first contraction column) of a tile whose
-// rows are output columns; true: at (the first contraction row, the first
-// output column) of a tile whose rows run along the contraction. Element e of
-// an accumulator is row mt * 16 + lane / 4 + 8 * (e / 2), column nt * 8 +
-// 2 * (lane % 4) + e % 2. The lane addressing is gemm.cuh's.
-template <int MT, int PAIRS, bool B_TRANS>
-__device__ __forceinline__ void warp_mma(float (*acc)[4], const bf16* a, int lda, const bf16* b,
-                                         int ldb, int ksteps, int lane) {
-  for (int ks = 0; ks < ksteps; ++ks) {
-    const int k = ks * 16;
-    uint32_t af[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      ldmatrix_x4(af[mt], a + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * lda + k +
-                              (lane >> 4) * 8);
-#pragma unroll
-    for (int p = 0; p < PAIRS; ++p) {
-      uint32_t r[4];
-      if constexpr (B_TRANS)
-        ldmatrix_x4_trans(r, b + (k + ((lane >> 3) & 1) * 8 + (lane & 7)) * ldb + p * 16 +
-                                 (lane >> 4) * 8);
-      else
-        ldmatrix_x4(r, b + (p * 16 + (lane >> 4) * 8 + (lane & 7)) * ldb + k +
-                           ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16_16816(acc[mt * 2 * PAIRS + 2 * p], af[mt], r);
-        mma_bf16_16816(acc[mt * 2 * PAIRS + 2 * p + 1], af[mt], r + 2);
-      }
-    }
-  }
+__host__ __device__ constexpr int smem_bytes(int C) {
+  return stages(C) * STAGE_BYTES + C * PANEL_BYTES + 1024;
 }
+static_assert(stages(MAX_CLUSTER) >= 2, "a ring of two stages beside the widest h");
+static_assert(CONSUMERS * 64 * STAGED_PITCH * 2 <= 2 * STAGE_BYTES, "the staged output fits");
+}  // namespace wgf
 
-// The Wi rows of a chunk's narrow products as one [2 * CH][LDS] slab: the
-// chunk's CH input rows, then its CH gate rows, contraction columns k0 ..
+// The backward's row pass: WGS consumer warpgroups of 64 rows each. Its
+// 96 sums a thread fit the 128 registers a thread of a CTA of four
+// warpgroups gets, and a taller tile reads the weights' columns for more
+// rows: per row and column of I, a tile reads (2 / NI + 3 / TILE_M) of xn's,
+// g's and the weights' bytes.
+namespace wgb {
+constexpr int NI = 64;  // columns of I a tile
+constexpr int WGS = 3, TILE_M = 64 * WGS, CTA_THREADS = (WGS + 1) * GROUP;
+constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 152;
+static_assert(REGS_PRODUCER + WGS * REGS_CONSUMER <= 65536 / GROUP, "registers after setmaxnreg");
+constexpr int STAGES = 3;
+// A stage: xn [TILE_M][64], Wi [2 NI][64] (interleaved), g [TILE_M][64],
+// Wo [64 k][NI].
+constexpr int X_BYTES = TILE_M * ROW_BYTES, WI_BYTES = 2 * NI * ROW_BYTES, WO_BYTES = BK * NI * 2;
+constexpr int STAGE_BYTES = 2 * X_BYTES + WI_BYTES + WO_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
+constexpr int STAGED_PITCH = NI + 8;  // h, gi, gg rows staged for 16-byte stores
+static_assert(SMEM_BYTES + 256 <= SMEM_LIMIT, "the ring fits");
+static_assert(WGS * 3 * 64 * STAGED_PITCH * 2 <= STAGES * STAGE_BYTES,
+              "the staged outputs fit in the freed ring");
+}  // namespace wgb
+
+// The Wi rows of an fp32 chunk's narrow products as one [2 * CH] slab: the
+// chunk's CH input rows, then its CH gate rows.
 __device__ __forceinline__ long long wi_chunk_row(int r, int i0, int I) {
   const int col = i0 + (r < CH ? r : r - CH);
   if (col >= I) return -1;

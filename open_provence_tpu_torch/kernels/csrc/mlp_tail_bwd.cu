@@ -15,23 +15,24 @@
 // the caller's stream, with no atomics and a fixed summation order
 // everywhere, so two runs give the same bits:
 //   1. xn into scratch [M, K] (gemm.cuh's normalize pass);
-//   2. the row pass (mlp_tail.cuh): a CTA keeps its rows of xn and g in
-//      shared memory and walks I in chunks; per chunk inp, gate and dh come
-//      from slabs of Wi and Wo, the chain gives h, gi, gg in shared memory,
-//      and gi . W_inp + gg . W_gate adds into the rows' dy accumulator in
-//      registers. inp, gate and dh never exist in device memory. h and
-//      [gi | gg] are written once, to scratch [M, I] and [M, 2I], and dy in
-//      fp32 to scratch [M, K];
-//   3. dWi = [gi | gg]^T . xn and dWo = g^T . h on the GEMM engine (bf16:
-//      wgmma, the M rows in chunks summed in order, rounded once);
-//   4. the LN-adjoint row body (ln_adjoint.cuh) on (x, s, dy): dx and ds.
-// Against kernel 11 plus the library's two Wo gradients this keeps the
-// [M, 2I] projection and dh out of device memory (one write and one read
-// each) and writes h once more. A weight pass that recomputed h, gi and gg
-// per tile of dWi or dWo (no [M, I] tensor in device memory at all) would
-// cost 6*M*K*I more operations and is later work. Work here: 16*M*K*I
-// operations, the TPU kernel's count (the row pass's five products are 10,
-// the two weight GEMMs 6), so the tensor-core rate bounds it.
+//   2. the row pass. bf16 (mlp_tail.cuh, wgb::): one CTA a tile of 128 rows
+//      x 64 columns of I runs [inp | gate] = xn . Wi^T and dh = g . Wo on
+//      wgmma through one TMA ring and applies the chain in its epilogue; h
+//      [M, I] and [gi | gg] [M, 2I] go to scratch once, staged for 16-byte
+//      stores, and inp, gate and dh never reach device memory. fp32: a CTA of
+//      16 rows also adds gi . W_inp + gg . W_gate into its rows' dy in
+//      registers (the card's fp32 parity path);
+//   3. bf16: dy = [gi | gg] . Wi in fp32 on the GEMM engine (an MN-major B),
+//      the product kernel 11 runs; the row pass cannot hold a [128, K] fp32
+//      dy beside its sums in the 168 registers a consumer thread has;
+//   4. dWi = [gi | gg]^T . xn and dWo = g^T . h on the GEMM engine (bf16:
+//      the M rows in chunks summed in order, rounded once);
+//   5. the LN-adjoint row body (ln_adjoint.cuh) on (x, s, dy): dx and ds.
+// Against kernel 11 plus the library's products for dh and dWo this keeps
+// dh and the [M, 2I] projection out of device memory and saves a launch.
+// Work: 16*M*K*I operations, the TPU kernel's count (the row pass's three
+// products 6, dy 4, the two weight gradients 6), so the tensor-core rate
+// bounds it.
 #include "ln_adjoint.cuh"
 #include "mlp_tail.cuh"
 
@@ -55,132 +56,146 @@ __device__ __forceinline__ void chain(float inp_acc, float gate_acc, float dh, i
 
 // ---- bf16 -----------------------------------------------------------------------
 
-namespace tc_bwd {
-constexpr int OS = 16;  // contraction slab (rows of Wi per half) of the dy product
-template <int NT>
-constexpr size_t smem_bytes(int K) {
-  const size_t narrow = (2 * CH + tc::KS) * tc::LDS, wide = 2 * OS * (WARPS * 8 * NT + 8);
-  return ((size_t)2 * tc::BM * (K + 8) + 3 * tc::BM * tc::LDS + (narrow > wide ? narrow : wide)) *
-         sizeof(bf16);
-}
-}  // namespace tc_bwd
-
-// NT: n8-tiles of dy a warp holds, K <= 64 * NT.
-template <int NT>
-__global__ void __launch_bounds__(THREADS)
-    tail_bwd_rows_mma_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ g,
-                             const bf16* __restrict__ wi, const bf16* __restrict__ wo,
-                             bf16* __restrict__ h_out, bf16* __restrict__ cot,
-                             float* __restrict__ dy, int M, int K, int I, int act) {
-  using namespace tc;
-  constexpr int OS = tc_bwd::OS, LDW = WARPS * 8 * NT + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldx = K + 8;
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);  // [BM][ldx] normalized rows
-  bf16* Gs = Xs + BM * ldx;                      // [BM][ldx] d out
-  bf16* Hs = Gs + BM * ldx;                      // [BM][LDS] the chunk's h
-  bf16* GIs = Hs + BM * LDS;                     // [BM][LDS] gi
-  bf16* GGs = GIs + BM * LDS;                    // [BM][LDS] gg
-  bf16* Bs = GGs + BM * LDS;  // narrow: Wi slab [2 CH][LDS] + Wo slab [KS][LDS]; wide: [2 OS][LDW]
-  bf16* Bo = Bs + 2 * CH * LDS;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;  // narrow products: m-tile wm, columns 16 wn ..
-  const int m0 = blockIdx.x * BM;
-  auto own_row = [&](int r) { return m0 + r < M ? (long long)(m0 + r) : -1; };
-
-  stage(Xs, ldx, BM, K, xn, K, own_row, 0, K);
-  stage(Gs, ldx, BM, K, g, K, own_row, 0, K);
-
-  float acc[2 * NT][4] = {};  // dy: rows mt * 16 .., columns warp * 8 * NT + nt * 8 ..
-  for (int i0 = 0; i0 < I; i0 += CH) {
-    float pi[2][4] = {}, pg[2][4] = {}, pd[2][4] = {};  // inp, gate, dh: 16 rows x 16 columns
-    for (int k0 = 0; k0 < K; k0 += KS) {
-      __syncthreads();  // the previous slabs are consumed
-      stage(Bs, LDS, 2 * CH, KS, wi, K, [&](int r) { return wi_chunk_row(r, i0, I); }, k0, K);
-      // Wo rows k0 .. (the contraction of dh = g . Wo), the chunk's columns.
-      stage(Bo, LDS, KS, CH, wo, I, [&](int r) { return k0 + r < K ? (long long)(k0 + r) : -1; },
-            i0, I);
-      __syncthreads();
-      const int ksteps = min(KS, K - k0) / 16;
-      const bf16* a = Xs + wm * 16 * ldx + k0;
-      warp_mma<1, 1, false>(pi, a, ldx, Bs + wn * 16 * LDS, LDS, ksteps, lane);
-      warp_mma<1, 1, false>(pg, a, ldx, Bs + (CH + wn * 16) * LDS, LDS, ksteps, lane);
-      warp_mma<1, 1, true>(pd, Gs + wm * 16 * ldx + k0, ldx, Bo + wn * 16, LDS, ksteps, lane);
+// One CTA a tile of TILE_M rows x NI columns of I: a k-step's stage holds
+// xn [TILE_M][64], the Wi rows of the NI columns (blocks of 8 input rows,
+// each followed by their 8 gate rows), g [TILE_M][64] and Wo [64 k-rows][NI],
+// all 128-byte swizzled. Consumer c holds rows 64 c .. + 63 of [inp | gate]
+// (2 NI columns, interleaved as the engine's GEGLU tiles are) and of dh.
+__global__ void __launch_bounds__(wgb::CTA_THREADS, 1)
+    tail_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap xn_map,
+                               const __grid_constant__ CUtensorMap wi_map,
+                               const __grid_constant__ CUtensorMap g_map,
+                               const __grid_constant__ CUtensorMap wo_map, bf16* __restrict__ h,
+                               bf16* __restrict__ cot, int M, int K, int I, int act) {
+  using namespace wgb;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  unsigned char* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = hop::smem_u32(smem);
+  const int tid = threadIdx.x, group = tid / GROUP, t = tid % GROUP, lane = t & 31;
+  const int i0 = blockIdx.x * NI, m0 = blockIdx.y * TILE_M, n_k = (K + BK - 1) / BK;
+  // Offsets inside a stage.
+  constexpr int WI = X_BYTES, G = WI + WI_BYTES, WO = G + X_BYTES;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], WGS * GROUP / 32);
     }
-    // Every warp passed a barrier since it last read the chunk tiles.
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (group == WGS) {  // ---- the producer: one thread issues every copy ----
+    hop::reg_dealloc<REGS_PRODUCER>();
+    if (t != 0) return;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % STAGES, k0 = kt * BK;
+      hop::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+      hop::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+      const uint32_t st = ring + s * STAGE_BYTES;
+      hop::tma_load_2d(st, &xn_map, k0, m0, &full[s]);
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int at = (wm * 16 + gq + 8 * (e >> 1)) * LDS + wn * 16 + nt * 8 + 2 * t + (e & 1);
-        chain<bf16>(pi[nt][e], pg[nt][e], pd[nt][e], act, Hs + at, GIs + at, GGs + at);
-      }
-    for (int s0 = 0; s0 < CH; s0 += OS) {
-      __syncthreads();  // the chunk tiles are whole; the previous slab is consumed
-      if (s0 == 0) {
-        // h and [gi | gg] to scratch, 16 bytes a store.
-        for (int c = threadIdx.x; c < BM * (CH / 8); c += THREADS) {
-          const int r = c / (CH / 8), cc = (c % (CH / 8)) * 8;
-          if (m0 + r >= M || i0 + cc >= I) continue;
-          const size_t row = (size_t)(m0 + r);
-          *reinterpret_cast<uint4*>(h_out + row * I + i0 + cc) =
-              *reinterpret_cast<const uint4*>(Hs + r * LDS + cc);
-          *reinterpret_cast<uint4*>(cot + row * 2 * I + i0 + cc) =
-              *reinterpret_cast<const uint4*>(GIs + r * LDS + cc);
-          *reinterpret_cast<uint4*>(cot + row * 2 * I + I + i0 + cc) =
-              *reinterpret_cast<const uint4*>(GGs + r * LDS + cc);
-        }
-      }
-      // Rows i0 + s0 .. of W_inp, then of W_gate: the contraction of dy.
-      stage(Bs, LDW, 2 * OS, K, wi, K,
-            [&](int r) {
-              const int i = i0 + s0 + (r < OS ? r : r - OS);
-              return i < I ? (long long)(r < OS ? i : I + i) : -1;
-            },
-            0, K);
-      __syncthreads();
-      warp_mma<2, NT / 2, true>(acc, GIs + s0, LDS, Bs + warp * 8 * NT, LDW, OS / 16, lane);
-      warp_mma<2, NT / 2, true>(acc, GGs + s0, LDS, Bs + OS * LDW + warp * 8 * NT, LDW, OS / 16,
-                                lane);
+      for (int j = 0; j < NI / GATE_BLOCK; ++j)
+        hop::tma_load_3d(st + WI + j * 2 * GATE_BLOCK * ROW_BYTES, &wi_map, k0,
+                         i0 + j * GATE_BLOCK, 0, &full[s]);
+      hop::tma_load_2d(st + G, &g_map, k0, m0, &full[s]);
+      hop::tma_load_2d(st + WO, &wo_map, i0, k0, &full[s]);
     }
+    return;
   }
 
+  // ---- a consumer warpgroup: tile rows 64 * group .. + 63 ----
+  hop::reg_alloc<REGS_CONSUMER>();
+  const int warp = t >> 5, g = lane >> 2, q = lane & 3;
+  float ig[NI], dh[NI / 2];  // 2 NI and NI columns: half as many sums a thread
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < NI; ++i) ig[i] = 0.f;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + mt * 16 + gq + 8 * half;
-      if (row >= M) continue;
+  for (int i = 0; i < NI / 2; ++i) dh[i] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % STAGES;
+    hop::mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint32_t st = ring + s * STAGE_BYTES, rows = group * 64 * ROW_BYTES;
+    hop::wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = warp * 8 * NT + nt * 8 + 2 * t;  // K is even
-        if (col >= K) continue;
-        *reinterpret_cast<float2*>(dy + (size_t)row * K + col) =
-            make_float2(acc[mt * NT + nt][2 * half], acc[mt * NT + nt][2 * half + 1]);
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      hop::wgmma_ss<2 * NI>(ig, hop::k_major<BK>(st + rows, kk), hop::k_major<BK>(st + WI, kk), 1);
+      hop::wgmma_ss<NI, 0, 1>(dh, hop::k_major<BK>(st + G + rows, kk),
+                              hop::mn_major<NI>(st + WO, kk), 1);
     }
-}
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();  // the previous k-step's products are done with its stage
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+  }
+  hop::wgmma_wait<0>();
+  hop::pin<NI>(ig);
+  hop::pin<NI / 2>(dh);
 
-template <int NT>
-int launch_rows_mma(const bf16* xn, const bf16* g, const bf16* wi, const bf16* wo, bf16* h,
-                    bf16* cot, float* dy, int M, int K, int I, int act, cudaStream_t s) {
-  const size_t smem = tc_bwd::smem_bytes<NT>(K);
-  const cudaError_t err = cudaFuncSetAttribute(
-      tail_bwd_rows_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  tail_bwd_rows_mma_kernel<NT><<<(M + tc::BM - 1) / tc::BM, THREADS, smem, s>>>(
-      xn, g, wi, wo, h, cot, dy, M, K, I, act);
-  return (int)cudaGetLastError();
+  // Both consumers are past their last product and every copy was waited
+  // for: the ring is free. The chain into [64][NI + 8] tiles of h, gi, gg
+  // (the thread that holds an input's sum holds its gate's and its dh), then
+  // 16-byte stores (I % 8 == 0).
+  hop::bar_sync(BAR_CONSUMERS, WGS * GROUP);
+  constexpr int TILE = 64 * STAGED_PITCH;
+  bf16* staged = reinterpret_cast<bf16*>(smem) + group * 3 * TILE;  // h, gi, gg
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int at = (warp * 16 + g + 8 * i) * STAGED_PITCH + 2 * q;
+#pragma unroll
+    for (int j = 0; j < NI / 8; ++j) {  // ig blocks 2j (inputs), 2j + 1 (gates); dh block j
+      const float* in = ig + 8 * j + 2 * i;
+      const float* d = dh + 4 * j + 2 * i;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        chain<bf16>(in[e], in[4 + e], d[e], act, staged + at + 8 * j + e,
+                    staged + TILE + at + 8 * j + e, staged + 2 * TILE + at + 8 * j + e);
+    }
+  }
+  hop::bar_sync(bar_consumer(group), GROUP);
+  constexpr int CHUNKS = NI / 8;
+  for (int idx = t; idx < 64 * CHUNKS; idx += GROUP) {
+    const int r = idx / CHUNKS, cc = (idx % CHUNKS) * 8, row = m0 + group * 64 + r;
+    if (row >= M || i0 + cc >= I) continue;
+    const bf16* src = staged + r * STAGED_PITCH + cc;
+    const size_t at = (size_t)row * 2 * I + i0 + cc;
+    *reinterpret_cast<uint4*>(h + (size_t)row * I + i0 + cc) = *reinterpret_cast<const uint4*>(src);
+    *reinterpret_cast<uint4*>(cot + at) = *reinterpret_cast<const uint4*>(src + TILE);
+    *reinterpret_cast<uint4*>(cot + at + I) = *reinterpret_cast<const uint4*>(src + 2 * TILE);
+  }
 }
 
 int rows_pass(const bf16* xn, const bf16* g, const bf16* wi, const bf16* wo, bf16* h, bf16* cot,
-              float* dy, int M, int K, int I, int act, cudaStream_t s) {
-  if (K % 16 || I % 8) return (int)cudaErrorInvalidValue;
-  if (K <= 256) return launch_rows_mma<4>(xn, g, wi, wo, h, cot, dy, M, K, I, act, s);
-  if (K <= 768) return launch_rows_mma<12>(xn, g, wi, wo, h, cot, dy, M, K, I, act, s);
-  return launch_rows_mma<16>(xn, g, wi, wo, h, cot, dy, M, K, I, act, s);
+              int M, int K, int I, int act, cudaStream_t s) {
+  using namespace wgb;
+  if (K % 16 || I % 8 || reinterpret_cast<uintptr_t>(xn) % 16 ||
+      reinterpret_cast<uintptr_t>(g) % 16 || reinterpret_cast<uintptr_t>(wi) % 16 ||
+      reinterpret_cast<uintptr_t>(wo) % 16 || reinterpret_cast<uintptr_t>(h) % 16 ||
+      reinterpret_cast<uintptr_t>(cot) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xn_map, wi_map, g_map, wo_map;
+  const cuuint64_t rows_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t rows_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t rows_box[2] = {BK, TILE_M};  // xn and g [M, K] in boxes of TILE_M rows x 64
+  const cuuint64_t wi_dims[3] = {(cuuint64_t)K, (cuuint64_t)I, 2};
+  const cuuint64_t wi_strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)I * K * 2};
+  const cuuint32_t wi_box[3] = {BK, GATE_BLOCK, 2};  // 8 input rows, then their gate rows
+  const cuuint64_t wo_dims[2] = {(cuuint64_t)I, (cuuint64_t)K}, wo_strides[1] = {(cuuint64_t)I * 2};
+  const cuuint32_t wo_box[2] = {NI, BK};  // Wo [K, I]: 64 k-rows x NI columns
+  if (!gemm_engine::bf16_map(&xn_map, xn, 2, rows_dims, rows_strides, rows_box) ||
+      !gemm_engine::bf16_map(&g_map, g, 2, rows_dims, rows_strides, rows_box) ||
+      !gemm_engine::bf16_map(&wi_map, wi, 3, wi_dims, wi_strides, wi_box) ||
+      !gemm_engine::bf16_map(&wo_map, wo, 2, wo_dims, wo_strides, wo_box))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      tail_bwd_rows_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((I + NI - 1) / NI, (M + TILE_M - 1) / TILE_M);
+  tail_bwd_rows_wgmma_kernel<<<grid, CTA_THREADS, SMEM_BYTES, s>>>(xn_map, wi_map, g_map, wo_map,
+                                                                   h, cot, M, K, I, act);
+  return (int)cudaGetLastError();
 }
 
 // ---- fp32 -----------------------------------------------------------------------
@@ -300,9 +315,15 @@ int tail_bwd(const void* x, const void* scale, const void* wi, const void* wo, c
   T* xnt = static_cast<T*>(xn);
   T* ht = static_cast<T*>(h);
   T* cott = static_cast<T*>(cot);
+  const T* wit = static_cast<const T*>(wi);
+  const T* wot = static_cast<const T*>(wo);
   OPT_TRY(normalize<T>(xt, st, xnt, M, K, eps, s));
-  OPT_TRY(rows_pass(xnt, gt, static_cast<const T*>(wi), static_cast<const T*>(wo), ht, cott, dy,
-                    M, K, I, act, s));
+  if constexpr (sizeof(T) == 4) {
+    OPT_TRY(rows_pass(xnt, gt, wit, wot, ht, cott, dy, M, K, I, act, s));
+  } else {
+    OPT_TRY(rows_pass(xnt, gt, wit, wot, ht, cott, M, K, I, act, s));
+    OPT_TRY(gemm<false, true>(cott, 2 * I, wit, K, dy, K, M, K, 2 * I, s));  // dy = [gi | gg] . Wi
+  }
   // dWi = [gi | gg]^T . xn and dWo = g^T . h, summed over M; in bf16 in
   // chunks of rows_wi and rows_wo rows through the one dw_partial, in turn.
   OPT_TRY(gemm<true, true>(cott, 2 * I, xnt, K, static_cast<T*>(dwi), K, 2 * I, K, M, s, 0,

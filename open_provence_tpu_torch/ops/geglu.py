@@ -212,9 +212,10 @@ def ln_geglu_wo_bwd_plain(
     return dx.to(dtype), dscale.to(scale.dtype), dwi, dwo
 
 
-# The widest hidden size the whole-MLP kernels hold a row tile's output for
-# in registers (mlp_tail.cu: 16 n8-tiles a warp, 8 warps).
-GEGLU_WO_MAX_HIDDEN = 1024
+# The widest hidden size the whole-MLP kernels take: in bf16 a cluster of at
+# most 8 CTAs of 128 output columns each (mlp_tail.cuh), in fp32 a row
+# tile's output in registers (64 columns a thread, 16 threads a row).
+GEGLU_WO_MAX_HIDDEN = kernels.MLP_TAIL_OUT_COLS * kernels.MLP_TAIL_MAX_CLUSTER
 
 
 def geglu_wo_supported(k: int, intermediate: int, dtype: torch.dtype, activation: str) -> bool:

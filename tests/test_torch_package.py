@@ -239,6 +239,49 @@ def test_ln_adjoint_design_mirrors_the_source():
             assert partial.dtype == torch.float32
 
 
+def test_mlp_tail_cluster_mirrors_the_source():
+    """kernels.MLP_TAIL_OUT_COLS and MLP_TAIL_MAX_CLUSTER are the output
+    columns a CTA of the bf16 whole-MLP forward owns and the widest cluster,
+    as mlp_tail.cuh defines them (wgf::OUT_COLS, MAX_CLUSTER), so the
+    cluster is ceil(K / 128) CTAs: six at the base width, eight at K = 1024,
+    one up to 128; and the widest hidden size the wrappers send to the
+    kernels is what that cluster covers. (The cuda-marked
+    test_mlp_tail_design_is_reported reads the built library's report.)"""
+    import re
+
+    from open_provence_tpu_torch import kernels, ops
+    from open_provence_tpu_torch.ops.geglu import GEGLU_WO_MAX_HIDDEN
+
+    source = (kernels.CSRC / "mlp_tail.cuh").read_text()
+    assert kernels.MLP_TAIL_OUT_COLS == int(
+        re.search(r"constexpr int OUT_COLS = (\d+);", source)[1])
+    assert kernels.MLP_TAIL_MAX_CLUSTER == int(
+        re.search(r"constexpr int MAX_CLUSTER = (\d+);", source)[1])
+    widths = {16: 1, 128: 1, 144: 2, 256: 2, 768: 6, 1008: 8, 1024: 8}
+    assert {k: kernels.mlp_tail_cluster(k) for k in widths} == widths
+    assert GEGLU_WO_MAX_HIDDEN == 1024
+    assert ops.geglu_wo_supported(1024, 1152, torch.bfloat16, "gelu")
+    assert not ops.geglu_wo_supported(1040, 1152, torch.bfloat16, "gelu")
+
+
+@pytest.mark.cuda
+def test_mlp_tail_design_is_reported(cuda_device):
+    """The library's bf16 whole-MLP design at each hidden size the wrappers
+    take: the forward's cluster of kernels.mlp_tail_cluster(K) CTAs of
+    MLP_TAIL_OUT_COLS columns and 128 rows, a ring of at least two stages,
+    and the backward row pass's tiles; a K past the widest cluster has none."""
+    from open_provence_tpu_torch import kernels
+
+    for k in (128, 256, 768, 1024, 144):
+        built = kernels.built_mlp_tail_design(k)
+        assert built["cluster"] == kernels.mlp_tail_cluster(k)
+        assert built["out_cols"] == kernels.MLP_TAIL_OUT_COLS and built["rows"] == 128
+        assert 2 <= built["stages"] <= 4 and built["bwd_tile"] == "192x64"
+        assert built["clusters_at_once"] >= 1
+    with pytest.raises(ValueError, match="no whole-MLP kernel"):
+        kernels.built_mlp_tail_design(1040)
+
+
 @pytest.mark.parametrize("hidden", [768, 1024, 264])
 def test_ln_adjoint_aligned_copies_only_for_the_register_instance(hidden):
     """A tensor off a 16-byte boundary is copied (same values, aligned) at
@@ -841,11 +884,15 @@ def test_unpacked_attention_kernels_match_plain_on_cuda(cuda_device, dtype, head
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,inter,act", [(77, 128, 72, "silu"), (1000, 768, 1152, "gelu"),
-                                           (130, 1024, 200, "gelu_new"), (64, 256, 64, "relu")])
+                                           (130, 1024, 200, "gelu_new"), (64, 256, 64, "relu"),
+                                           (1000, 1024, 1152, "silu"),
+                                           (16347, 768, 1152, "gelu")])
 def test_whole_mlp_kernels_match_plain_on_cuda(cuda_device, dtype, m, k, inter, act):
     """Kernels 8 and 13 against their plain versions on the card: a small
-    ragged shape, the base width, the widest K and every activation; the
-    backward gives the same bits twice; the Function launches both."""
+    ragged shape, the base width, the widest K (a cluster of eight CTAs in
+    bf16, at a short I and at the full one), the base width with a ragged
+    last row tile, and every activation; the backward gives the same bits
+    twice; the Function launches both."""
     from open_provence_tpu_torch import kernels, ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
