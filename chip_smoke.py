@@ -73,7 +73,21 @@ card and check it, in phases:
 12. the whole-MLP fusion (gate OPEN_PROVENCE_TPU_FUSED_MLP_TAIL): the
    forward, the training step's wall and device time with the gate at 0, 1
    and bwd in turn; with 1: ``process()``, fp32 card against CPU, training
-   steps and the bit-exact resume; with bwd: the training steps again.
+   steps and the bit-exact resume; with bwd: the training steps again;
+13. the checkpoint and encoder entry points at base width, bf16,
+   max_length 512: phase 4's weights written by the trainer's export_model,
+   by the encoder's save_pretrained and in the legacy root-level and
+   flat-backbone layouts; ``OpenProvenceModel.from_pretrained`` on each
+   serves phase 5's 256 pairs with the state-dict model's bits; the encoder
+   from_pretrained (predict, predict_with_pruning at thresholds 0 and 1,
+   prune_texts, predict_context) and the engine's get_raw_predictions_batch
+   and predict_with_thresholds on 64 pairs; both paths launch kernels 1-4
+   and no plain version; fp32 card against CPU on 8 pairs; encoder.predict
+   pairs/s at B=32, S=512.
+
+The library's attention (``scaled_dot_product_attention``) is timed beside
+the kernels at every shape of phases 3c and 3d, global and +-64 (a boolean
+band-and-padding mask: one dense call for the same function).
 
 ``python3 chip_smoke.py --rates [TREE]`` measures only the serving and
 training rates at B=32, S=512 of the package under TREE (default: this
@@ -956,22 +970,28 @@ def library_ln_bwd_ms(x, scale, g) -> float:
         g, x, hidden, mean, rstd, scale, None, [True, True, False]))
 
 
-def library_attention_ms(qkv, rope, mask, g, heads: int = HEADS,
-                         head_dim: int = HEAD_DIM) -> tuple[float, float]:
+def library_attention_ms(qkv, rope, mask, g, heads: int = HEADS, head_dim: int = HEAD_DIM,
+                         window: int | None = None) -> tuple[float, float]:
     """Milliseconds of ``F.scaled_dot_product_attention`` and of its autograd
-    backward on the same problem as a global layer: q and k rotated
-    beforehand (the library call has no rope, so it does less than the
-    kernels), [B, H, S, D] contiguous, the key padding as a boolean mask.
-    Timed as a yardstick only; the port never calls it."""
+    backward on the same problem as a layer of ``window`` (None: global):
+    q and k rotated beforehand (the library call has no rope, so it does
+    less than the kernels), [B, H, S, D] contiguous, the key padding and,
+    for a window, the band |i - j| <= window as one boolean mask (dense: the
+    library call scores every pair). Timed as a yardstick only; the port
+    never calls it."""
     from open_provence_tpu_torch import ops
 
     batch, seq, _ = qkv.shape
     q, k, v = qkv.reshape(batch, seq, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
     q, k = ops.apply_rotary(q, k, *rope)
     q, k, v = (t.contiguous().requires_grad_() for t in (q, k, v))
-    keys = mask.bool().clone()
-    keys[keys.sum(dim=1) == 0] = True  # a padding row would give the library NaNs
-    keys = keys[:, None, None, :]
+    keys = mask.bool()[:, None, None, :]
+    if window is not None:
+        pos = torch.arange(seq, device=qkv.device)
+        keys = keys & ((pos[:, None] - pos[None, :]).abs() <= window)
+    # A query with no key to see (a padding row, a padded stretch out of the
+    # band) sees every key instead: the library would give it NaNs.
+    keys = keys | ~keys.any(dim=-1, keepdim=True)
     g_heads = g.reshape(batch, seq, heads, head_dim).transpose(1, 2).contiguous()
     with torch.no_grad():
         fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keys))
@@ -1032,7 +1052,7 @@ def phase3c_long_context(dev, stats: dict[str, dict]) -> None:
     attention_edge_cases(dev, stats)
 
     # Times at the long-context training and serving shape, and the library
-    # call beside the kernels at both shapes (global layers only).
+    # call beside the kernels at both shapes, global and +-64.
     dtype = torch.bfloat16
     for label, batch, seq in (("", 32, 512), ("_b8_s2048", 8, 2048)):
         qkv, mask, g = case(batch, seq, dtype)
@@ -1040,8 +1060,14 @@ def phase3c_long_context(dev, stats: dict[str, dict]) -> None:
             rope = ops.rope_tables(seq, HEAD_DIM, theta, dtype, dev)
             kw = dict(num_heads=HEADS, padding_mask=mask, window=window, rope=rope)
             out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+            suffix = label + ("" if window is None else "_window64")
+            if window is not None:
+                lib_f, lib_b = library_attention_ms(qkv, rope, mask, g, window=window)
+                fwd[f"library_ms{suffix}"], bwd[f"library_ms{suffix}"] = lib_f, lib_b
+                phase(f"phase 3c time scaled_dot_product_attention (no rope) B={batch} S={seq} "
+                      f"window={window} (a band-and-padding mask) bf16: forward {lib_f:.4f} ms, "
+                      f"autograd backward {lib_b:.4f} ms")
             if label:
-                suffix = label + ("" if window is None else "_window64")
                 f_ms = paired_ms(lambda: ops.flash_attention_packed(qkv, **kw),
                                  lambda: ops.attention_packed_plain(qkv, **kw))
                 b_ms = paired_ms(lambda: ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),
@@ -1228,7 +1254,7 @@ def phase3d_head_layouts(dev, stats: dict[str, dict]) -> None:
 
     # Times per shape, bf16: the unpacked wrapper on contiguous tensors (its
     # plain version beside it), the packed wrapper on the buffer, the bound of
-    # this run's masks and the library call (global layers).
+    # this run's masks and the library call (global and +-64).
     dtype = torch.bfloat16
     for batch, seq, heads, head_dim in shapes:
         qkv, mask, g_packed = case(batch, seq, dtype)
@@ -1250,6 +1276,13 @@ def phase3d_head_layouts(dev, stats: dict[str, dict]) -> None:
             pb_ms = cuda_ms(lambda: ops.flash_attention_packed_bwd(qkv, g_packed, out_k, lse_k,
                                                                    **pkw))
             suffix = label + ("" if window is None else "_window64")
+            if window is not None:
+                lib_f, lib_b = library_attention_ms(qkv, rope, mask, g_packed, heads, head_dim,
+                                                    window)
+                fwd[f"library_ms{suffix}"], bwd[f"library_ms{suffix}"] = lib_f, lib_b
+                phase(f"phase 3d time scaled_dot_product_attention (no rope) B={batch} "
+                      f"{heads}x{head_dim} S={seq} window={window} (a band-and-padding mask) "
+                      f"bf16: forward {lib_f:.4f} ms, autograd backward {lib_b:.4f} ms")
             for st, packed_st, (ms, plain_ms), packed_ms, backward in (
                     (fwd, packed_fwd, f_ms, pf_ms, False), (bwd, packed_bwd, b_ms, pb_ms, True)):
                 b = attention_bound(mask, window, backward, heads, head_dim)
@@ -2365,6 +2398,250 @@ def phase12_whole_mlp(sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir
     return all_launches
 
 
+# Phase 13's checkpoint layouts, each written from one state dict: the
+# names as the reference's legacy root-level files and flat backbones carry
+# them (utils/hf_convert.py::normalize_state_dict undoes both).
+CHECKPOINT_LAYOUTS = {
+    "legacy_root_level": lambda k: k.removeprefix("ranking_model."),
+    "flat_backbone": lambda k: k.replace("ranking_model.model.", "ranking_model.", 1),
+}
+ENCODER_SCORE_TOL, KEEP_MARGIN = 1e-3, 1e-4
+# bf16 encoder on the card against the fp32 encoder on the CPU: phase 4's
+# bf16 model tolerance on each score and keep probability, and on the mean
+# keep-probability error four times the mean phase 4 reads (7.5e-3).
+ENCODER_BF16_TOL, ENCODER_BF16_MEAN_TOL = 0.15, 0.03
+
+
+def checkpoint_dirs(config, sd, pair_tokenizer_cls, out_dir: Path) -> dict[str, Path]:
+    """The same weights written four ways: by the trainer's export_model and
+    the encoder's save_pretrained (merged keys), and in the legacy
+    root-level and flat-backbone layouts."""
+    from open_provence_tpu_torch import OpenProvenceEncoder
+    from open_provence_tpu_torch.train import OpenProvenceTrainer
+    from open_provence_tpu_torch.utils import safetensors_io
+
+    dirs = {
+        "trainer_export": OpenProvenceTrainer(
+            config, sd, pair_tokenizer_cls(), output_dir=out_dir / "p13_run", bf16=False,
+            device="cpu").export_model(out_dir / "p13_trainer_export"),
+        "encoder_save": OpenProvenceEncoder(
+            config=config, state_dict=sd, tokenizer=pair_tokenizer_cls(), device="cpu",
+        ).save_pretrained(out_dir / "p13_encoder_save"),
+    }
+    for name, rename in CHECKPOINT_LAYOUTS.items():
+        dirs[name] = out_dir / f"p13_{name}"
+        config.save(dirs[name])
+        safetensors_io.save_file({rename(k): v for k, v in sd.items()},
+                                 dirs[name] / "model.safetensors")
+    return dirs
+
+
+def split_context(context: str, parts: int = 3) -> list[str]:
+    """A context cut at sentence ends into ``parts`` pieces that join back."""
+    sentences = context.split(" . ")
+    step = -(-len(sentences) // parts)
+    pieces = [" . ".join(sentences[i:i + step]) for i in range(0, len(sentences), step)]
+    return [p + " . " for p in pieces[:-1]] + pieces[-1:]
+
+
+def context_means(raw: dict) -> np.ndarray:
+    """predict_with_thresholds' mean keep probability of each context."""
+    probs = np.asarray(raw["pruning_probs"], dtype=np.float64)
+    return np.array([probs[lo:hi].mean() if hi > lo else np.nan
+                     for lo, hi in raw["context_ranges"]])
+
+
+def encoder_fp32_checks(directory: Path, tokenizer_cls, pair_tokenizer_cls, dev) -> str:
+    """fp32 on the card against fp32 on the CPU, 8 pairs: the encoder's
+    scores within ENCODER_SCORE_TOL, no keep/drop flip among document
+    tokens further than KEEP_MARGIN from the 0.5 threshold, and the engine's
+    predict_with_thresholds decisions equal for contexts whose mean lies
+    further than KEEP_MARGIN from each threshold."""
+    from open_provence_tpu_torch import OpenProvenceEncoder, OpenProvenceModel
+
+    questions, contexts = synthetic_pairs(8, sentences_per_doc=10, seed=13)
+    pairs = list(zip(questions, contexts))
+    chunks = [[(0, len(c) // 2), (len(c) // 2, len(c))] for c in contexts]
+    thresholds = [0.1, 0.5]
+    side = []
+    for where in (dev, "cpu"):
+        enc = OpenProvenceEncoder.from_pretrained(directory, tokenizer=pair_tokenizer_cls(),
+                                                  device=where, dtype=torch.float32)
+        model = OpenProvenceModel.from_pretrained(directory, tokenizer=tokenizer_cls(),
+                                                  device=where, dtype=torch.float32)
+        side.append((
+            enc.predict(pairs, batch_size=8),
+            enc.predict_context(pairs, chunks, batch_size=8),
+            [model.predict_with_thresholds(q, split_context(c), thresholds)
+             for q, c in pairs],
+        ))
+        del enc, model
+    (card_scores, card_ctx, card_th), (cpu_scores, cpu_ctx, cpu_th) = side
+    score_err = float(np.max(np.abs(card_scores - cpu_scores)))
+    card_p = np.concatenate([o.token_scores for o in card_ctx])
+    cpu_p = np.concatenate([o.token_scores for o in cpu_ctx])
+    decided = np.abs(cpu_p - 0.5) > KEEP_MARGIN
+    token_flips = int(np.sum((card_p > 0.5)[decided] != (cpu_p > 0.5)[decided]))
+    sweep_flips = sweep_decided = 0
+    for card_raw, cpu_raw in zip(card_th, cpu_th):
+        if card_raw["context_ranges"] != cpu_raw["context_ranges"]:
+            raise AssertionError("predict_with_thresholds: the card's context ranges differ")
+        means = context_means(cpu_raw)
+        for th in thresholds:
+            away = np.abs(means - th) > KEEP_MARGIN
+            sweep_decided += int(away.sum())
+            sweep_flips += int(np.sum(np.asarray(card_raw["predictions"][th])[away]
+                                      != np.asarray(cpu_raw["predictions"][th])[away]))
+    note = (f"encoder scores max_abs_err {score_err:.3e} (tol {ENCODER_SCORE_TOL}); "
+            f"{token_flips} keep/drop flips among {int(decided.sum())} tokens decided by > "
+            f"{KEEP_MARGIN}, token max_abs_err {np.max(np.abs(card_p - cpu_p)):.3e}; "
+            f"predict_with_thresholds: {sweep_flips} flips among {sweep_decided} decisions")
+    if score_err > ENCODER_SCORE_TOL or token_flips or sweep_flips:
+        raise AssertionError(f"phase 13 fp32 card vs cpu: {note}")
+    return note
+
+
+def encoder_bf16_check(directory: Path, pair_tokenizer_cls, pairs, chunks, scores,
+                       chunked) -> str:
+    """The bf16 encoder's outputs on the card (``predict``'s scores and
+    ``predict_context``'s token keep probabilities) against the fp32
+    encoder's on the CPU on the same pairs, within ENCODER_BF16_TOL each and
+    ENCODER_BF16_MEAN_TOL on the mean keep-probability error."""
+    from open_provence_tpu_torch import OpenProvenceEncoder
+
+    cpu = OpenProvenceEncoder.from_pretrained(directory, tokenizer=pair_tokenizer_cls(),
+                                              device="cpu", dtype=torch.float32)
+    ref = cpu.predict_context(pairs, chunks, batch_size=32)
+    ref_scores = np.array([o.ranking_scores for o in ref])
+    if [len(o.token_scores) for o in ref] != [len(o.token_scores) for o in chunked]:
+        raise AssertionError("phase 13 bf16: the card's document spans differ from the CPU's")
+    card_p = np.concatenate([o.token_scores for o in chunked])
+    cpu_p = np.concatenate([o.token_scores for o in ref])
+    score_err = float(np.max(np.abs(scores - ref_scores)))
+    chunk_score_err = float(np.max(np.abs(np.array([o.ranking_scores for o in chunked])
+                                          - ref_scores)))
+    keep_diff = np.abs(card_p - cpu_p)
+    note = (f"phase 13 encoder bf16 card vs fp32 cpu, {len(pairs)} pairs: predict scores "
+            f"max_abs_err {score_err:.3e} (predict_context's {chunk_score_err:.3e}; CPU scores "
+            f"{ref_scores.min():.4f}-{ref_scores.max():.4f}), keep-prob max_abs_err "
+            f"{keep_diff.max():.3e} mean {keep_diff.mean():.3e} over {keep_diff.size} tokens "
+            f"(CPU keep-probs std {cpu_p.std():.3e}; tol {ENCODER_BF16_TOL}, mean "
+            f"{ENCODER_BF16_MEAN_TOL})")
+    if not (max(score_err, chunk_score_err, keep_diff.max()) <= ENCODER_BF16_TOL
+            and keep_diff.mean() <= ENCODER_BF16_MEAN_TOL):
+        raise AssertionError(note)
+    return note
+
+
+def phase13_entry_points(config, sd, tokenizer_cls, pair_tokenizer_cls, dev, card: str,
+                         out_dir: Path, forward_rate: float) -> dict[str, dict[str, int]]:
+    """The checkpoint and encoder entry points at base width, bf16, max_length
+    512: from_pretrained on four checkpoint directories of phase 4's
+    weights serves phase 5's 256 pairs with the state-dict model's bits;
+    the encoder from_pretrained and the engine's raw-prediction APIs on 64
+    pairs; fp32 card against CPU; encoder.predict pairs/s at B=32, S=512.
+    Both paths must launch kernels 1-4 and no plain version."""
+    from open_provence_tpu_torch import OpenProvenceEncoder, OpenProvenceModel, kernels
+
+    if os.environ.get(MLP_TAIL_GATE, "0") != "0":
+        raise AssertionError(f"phase 13 runs at the default {MLP_TAIL_GATE}")
+    dirs = checkpoint_dirs(config, sd, pair_tokenizer_cls, out_dir)
+    questions, contexts = synthetic_pairs(256)
+    kw = dict(threshold=0.1, show_progress=False)
+    reference = OpenProvenceModel(config, sd, tokenizer_cls(), device=dev).process(
+        questions, contexts, **kw)
+
+    def required(path: str, launches: dict[str, int]) -> None:
+        missing = [name for name in FORWARD if launches[name] == 0]
+        if missing or any(kernels.plain_counts().values()):
+            raise AssertionError(f"{path} never launched {missing} or ran a plain version: "
+                                 f"{kernels.plain_counts()}")
+
+    kernels.reset_launch_counts()
+    for name, directory in dirs.items():
+        model = OpenProvenceModel.from_pretrained(directory, tokenizer=tokenizer_cls(),
+                                                  device=dev)
+        result = model.process(questions, contexts, **kw)
+        same = (result["pruned_context"] == reference["pruned_context"]
+                and np.array_equal(np.asarray(result["reranking_score"]),
+                                   np.asarray(reference["reranking_score"])))
+        if not same:
+            raise AssertionError(f"from_pretrained on {name}: process() differs from the "
+                                 "state-dict model's bits")
+        del model
+    torch.cuda.synchronize()
+    serve = kernels.launch_counts()
+    required("serve_from_pretrained", serve)
+    phase(f"phase 13 from_pretrained bf16 on {', '.join(dirs)}: process() on 256 pairs "
+          f"bit-equal to the state-dict model each time; launches {json.dumps(serve)}")
+
+    questions, contexts = synthetic_pairs(64, sentences_per_doc=10, seed=14)
+    pairs = list(zip(questions, contexts))
+    kernels.reset_launch_counts()
+    encoder = OpenProvenceEncoder.from_pretrained(dirs["encoder_save"],
+                                                  tokenizer=pair_tokenizer_cls(), device=dev)
+    model = OpenProvenceModel.from_pretrained(dirs["trainer_export"], tokenizer=tokenizer_cls(),
+                                              device=dev)
+    scores = encoder.predict(pairs, batch_size=32)
+    whole = encoder.predict_with_pruning(pairs, pruning_threshold=0.0, return_documents=True)
+    empty = encoder.predict_with_pruning(pairs, pruning_threshold=1.0, return_documents=True)
+    half = encoder.prune_texts(questions, contexts, threshold=0.5)
+    chunks = [[(0, len(c) // 2), (len(c) // 2, len(c))] for c in contexts]
+    chunked = encoder.predict_context(pairs, chunks)
+    raw = model.get_raw_predictions_batch(questions, [split_context(c) for c in contexts],
+                                          batch_size=32)
+    sweeps = [model.predict_with_thresholds(q, split_context(c), [0.0, 0.5, 1.0])
+              for q, c in pairs[:8]]
+    torch.cuda.synchronize()
+    enc_launches = kernels.launch_counts()
+    required("encoder_512", enc_launches)
+    checks = {
+        "scores finite": scores.shape == (64,) and bool(np.isfinite(scores).all()),
+        "threshold 0 keeps every document": [o.pruned_documents[0] for o in whole] == contexts
+        and all(o.compression_ratio == 0.0 for o in whole),
+        "threshold 1 empties every document": all(
+            o.pruned_documents[0] == "" and o.compression_ratio == 1.0 for o in empty),
+        "prune_texts ratios in [0, 1]": all(0.0 <= r["kept_ratio"] <= 1.0 for r in half),
+        "chunk scores finite": all(np.isfinite(o.chunk_scores).all()
+                                   and o.chunk_predictions.shape == (2,) for o in chunked),
+        "raw predictions: 3 ranges each, probabilities in [0, 1]": len(raw) == 64 and all(
+            len(r.context_ranges) == 3 and r.pruning_probs.dtype == np.float32
+            and ((r.pruning_probs >= 0) & (r.pruning_probs <= 1)).all() for r in raw),
+        "threshold sweep keeps all at 0 and none at 1": all(
+            w["predictions"][0.0] == [1, 1, 1] and w["predictions"][1.0] == [0, 0, 0]
+            for w in sweeps),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 13 encoder checks failed: {failed}")
+    kept = np.mean([r["kept_ratio"] for r in half])
+    phase(f"phase 13 encoder bf16, 64 pairs: predict, predict_with_pruning at 0 and 1, "
+          f"prune_texts (kept {kept:.3f} at 0.5), predict_context, get_raw_predictions_batch, "
+          f"predict_with_thresholds: {', '.join(checks)}; launches {json.dumps(enc_launches)}")
+    del model
+    phase(encoder_bf16_check(dirs["encoder_save"], pair_tokenizer_cls, pairs, chunks, scores,
+                             chunked))
+
+    phase("phase 13 fp32 card vs cpu, 8 pairs: " + encoder_fp32_checks(
+        dirs["encoder_save"], tokenizer_cls, pair_tokenizer_cls, dev))
+
+    questions, contexts = synthetic_pairs(32, seed=15)  # > 512 tokens each: S = 512
+    long_pairs = list(zip(questions, contexts))
+    for _ in range(2):
+        encoder.predict(long_pairs, batch_size=32)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        encoder.predict(long_pairs, batch_size=32)
+        times.append(time.perf_counter() - began)
+    median = statistics.median(times)
+    phase(f"phase 13 encoder.predict B=32 S=512 bf16: {32 / median:.1f} pairs/s (median of 5 "
+          f"calls: {median * 1e3:.2f} ms, tokenizing included) beside phase 6's forward "
+          f"{forward_rate:.1f} pairs/s [{card}]")
+    return {"serve_from_pretrained": serve, "encoder_512": enc_launches}
+
+
 def rates_main(tree: Path) -> int:
     """Serving and training rates at B=32, S=512 of the package under
     ``tree``: the forward, ``process()`` on 256 pairs and the bf16 training
@@ -2655,8 +2932,8 @@ def attention_main(tree: Path) -> int:
     kernels (every head layout at B=32, S=512; 12 x 64, 6 x 128 and 3 x 256
     at B=8, S=2048; global and +-64), through the packed wrapper and through
     the unpacked one on contiguous q, k, v, beside the library call on the
-    same data (global), so that two trees and the library can be compared
-    inside one call. One JSON line."""
+    same data (for +-64 with a band-and-padding mask), so that two trees and
+    the library can be compared inside one call. One JSON line."""
     sys.path.insert(0, str(tree))
     from open_provence_tpu_torch import kernels, ops
 
@@ -2715,14 +2992,14 @@ def attention_main(tree: Path) -> int:
                   f"placements in memory); the host issues a call in {issue['forward_ms']:.4f} / "
                   f"{issue['backward_ms']:.4f} ms; a backward and a forward launch by launch: "
                   + ", ".join(f"{name} {ms:.4f} ms" for name, ms in launches.items()))
-            if window is None:
-                lib = [library_attention_ms(qkv, rope, mask, g, heads, head_dim)
-                       for _ in range(3)]
-                times[key]["library_attention_ms"] = {"forward_ms": min(f for f, _ in lib),
-                                                      "backward_ms": min(b for _, b in lib)}
-                phase(f"time scaled_dot_product_attention (no rope) {shape} bf16: forward "
-                      f"{min(f for f, _ in lib):.4f} ms, autograd backward "
-                      f"{min(b for _, b in lib):.4f} ms (lowest of 3 means of 20)")
+            lib = [library_attention_ms(qkv, rope, mask, g, heads, head_dim, window)
+                   for _ in range(3)]
+            times[key]["library_attention_ms"] = {"forward_ms": min(f for f, _ in lib),
+                                                  "backward_ms": min(b for _, b in lib)}
+            phase(f"time scaled_dot_product_attention (no rope) {key} bf16: forward "
+                  f"{min(f for f, _ in lib):.4f} ms, autograd backward "
+                  f"{min(b for _, b in lib):.4f} ms (lowest of 3 means of 20"
+                  f"{'' if window is None else '; a band-and-padding mask'})")
     print(json.dumps({"tree": str(tree), "card": card, "sass": sass, "attention": times}),
           flush=True)
     return 0
@@ -3030,7 +3307,7 @@ def main() -> int:
     sd = init_params(config, torch.Generator().manual_seed(0))
     phase4_model(config, sd, dev)
     model, serve_launches, pairs = phase5_process(config, sd, DummyTokenizer, dev)
-    phase6_timings(model, pairs, card)
+    rates = phase6_timings(model, pairs, card)
     del model
     elapsed("serving at 512")
     by_path = {"serve_512": serve_launches}
@@ -3051,6 +3328,9 @@ def main() -> int:
         by_path.update(phase12_whole_mlp(sd, DummyTokenizer, PairDummyTokenizer(), dev, card,
                                          Path(tmp)))
         elapsed("the whole-MLP fusion")
+        by_path.update(phase13_entry_points(config, sd, DummyTokenizer, PairDummyTokenizer, dev,
+                                            card, Path(tmp), rates["forward_pairs_per_s"]))
+        elapsed("the checkpoint and encoder entry points")
 
     # Every kernel must have launched on a main path (the comparisons of
     # phase 3 are outside every count), rows 5 and 15 on the long ones.

@@ -25,11 +25,23 @@ from .utils.convert import init_params, state_dict_from_flax
 
 __version__ = "0.1.0"
 
+
+def __getattr__(name):
+    # The encoder loads lazily, as in the JAX package's __init__, so
+    # ``import open_provence_tpu_torch`` stays light.
+    if name == "OpenProvenceEncoder":
+        from .encoder import OpenProvenceEncoder
+
+        return OpenProvenceEncoder
+    raise AttributeError(name)
+
+
 __all__ = [
     "DEFAULT_PROCESS_THRESHOLD",
     "ModernBertBackboneConfig",
     "OpenProvenceConfig",
     "PruningHeadConfig",
+    "OpenProvenceEncoder",
     "OpenProvenceModel",
     "OpenProvenceModule",
     "build_module",

@@ -1,3 +1,3 @@
-from .engine import OpenProvenceModel
+from .engine import OpenProvenceModel, OpenProvenceRawPrediction
 
-__all__ = ["OpenProvenceModel"]
+__all__ = ["OpenProvenceModel", "OpenProvenceRawPrediction"]

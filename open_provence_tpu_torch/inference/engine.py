@@ -14,7 +14,10 @@ payload, over the port's module:
 
 Everything around the forward is host text processing, carried over from
 the JAX package: sentence split → fragmentation → greedy block packing →
-postprocess (SURVEY §3.2).
+postprocess (SURVEY §3.2). ``from_pretrained`` loads a checkpoint directory
+(config.json + model.safetensors, utils/hf_convert.py); the raw-prediction
+APIs (``get_raw_predictions*``, ``predict_with_thresholds``) are host code
+around the same bucketed forward.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import logging
 import os
 from collections.abc import Callable, Mapping, Sequence
+from pathlib import Path
 from time import perf_counter
 from typing import Any
 
@@ -59,6 +63,50 @@ from .postprocess import (
 _LOG = logging.getLogger(__name__)
 
 DEFAULT_BATCH_SIZE = 32
+# The JAX engine's attention routes; the port has one attention kernel for
+# every shape, so it accepts these names and ignores them.
+ATTENTION_IMPLS = ("auto", "xla", "pallas")
+
+
+def check_attention_impl(attention_impl: str) -> None:
+    if attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(
+            f"attention_impl must be one of {', '.join(ATTENTION_IMPLS)}, not {attention_impl!r}"
+        )
+
+
+def place_module(
+    config: OpenProvenceConfig,
+    state_dict: Mapping[str, torch.Tensor],
+    device: torch.device | str | None,
+    dtype: torch.dtype | None,
+) -> tuple[torch.device, OpenProvenceModule]:
+    """The module of ``config`` holding ``state_dict``, in eval mode, on
+    ``device`` (None: the first CUDA card, raising where there is none) in
+    ``dtype`` (None: bf16 on a card, the weights' own dtype on the CPU)."""
+    device = kernels.first_card() if device is None else torch.device(device)
+    if dtype is None and device.type == "cuda":
+        dtype = torch.bfloat16
+    module = OpenProvenceModule(config.backbone(), config.pruning_head())
+    module.load_state_dict(dict(state_dict))
+    module.to(device=device, dtype=dtype).eval()
+    return device, module
+
+
+@torch.inference_mode()
+def forward_logits(
+    module: OpenProvenceModule,
+    device: torch.device,
+    input_ids: np.ndarray,
+    attention_mask: np.ndarray,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One bucketed forward: (fp32 ranking logits [B, num_labels], fp32 keep
+    probabilities [B, S], the softmax's keep column), left on the device."""
+    ids, mask = (
+        torch.from_numpy(a).to(device, non_blocking=True) for a in (input_ids, attention_mask)
+    )
+    out = module(ids.long(), mask)
+    return out["ranking_logits"].float(), keep_probs_from_logits(out["pruning_logits"])
 
 
 class _Stopwatch:
@@ -241,6 +289,25 @@ class _BlockDispatcher:
         self._pending.clear()
 
 
+class OpenProvenceRawPrediction:
+    """Raw pruning outputs for a (query, contexts) pair
+    (standalone:451-459)."""
+
+    def __init__(
+        self,
+        query: str,
+        contexts: list[str],
+        ranking_score: float | None,
+        pruning_probs: np.ndarray,
+        context_ranges: list[tuple[int, int]],
+    ):
+        self.query = query
+        self.contexts = contexts
+        self.ranking_score = ranking_score
+        self.pruning_probs = pruning_probs
+        self.context_ranges = context_ranges
+
+
 class OpenProvenceModel:
     """Inference runtime: config + module + tokenizer on one device."""
 
@@ -263,12 +330,7 @@ class OpenProvenceModel:
         bucket granularity: the kernels take any S, so 64 wastes at most 63
         padded positions a row."""
         self.config = config
-        self.device = kernels.first_card() if device is None else torch.device(device)
-        if dtype is None and self.device.type == "cuda":
-            dtype = torch.bfloat16
-        self.module = OpenProvenceModule(config.backbone(), config.pruning_head())
-        self.module.load_state_dict(dict(state_dict))
-        self.module.to(device=self.device, dtype=dtype).eval()
+        self.device, self.module = place_module(config, state_dict, device, dtype)
         self.tokenizer = (
             tokenizer
             if isinstance(tokenizer, TokenizerAdapter)
@@ -282,6 +344,41 @@ class OpenProvenceModel:
         # token-prob transfer otherwise.
         self.device_pooling = bool(device_pooling)
 
+    # --- loading -------------------------------------------------------------
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        path: str | Path,
+        *,
+        dtype: torch.dtype | None = None,
+        attention_impl: str = "auto",
+        max_length: int | None = None,
+        tokenizer: Any = None,
+        device: torch.device | str | None = None,
+        **kwargs: Any,
+    ) -> "OpenProvenceModel":
+        """Load a reference-layout checkpoint directory (config.json +
+        model.safetensors in any layout ``utils/hf_convert.py`` accepts, and
+        tokenizer files when ``tokenizer`` is None, read with transformers'
+        ``AutoTokenizer``). ``device`` and ``dtype`` as in the constructor:
+        the first CUDA card and bf16 there by default. ``attention_impl`` is
+        the JAX engine's choice of attention route: it must be one of
+        ``auto``, ``xla``, ``pallas`` and is then ignored, since the port
+        runs one attention kernel for every shape. ``kwargs`` go to the
+        constructor (``bucket_step``, ``device_pooling``)."""
+        from ..utils.hf_convert import load_checkpoint
+
+        check_attention_impl(attention_impl)
+        config, state_dict = load_checkpoint(path)
+        if max_length is not None:
+            config.max_length = int(max_length)
+        if tokenizer is None:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(str(path))
+        return cls(config, state_dict, tokenizer, dtype=dtype, device=device, **kwargs)
+
     # --- device forward -------------------------------------------------------
 
     def _inputs(self, *arrays: np.ndarray) -> list[torch.Tensor]:
@@ -293,12 +390,8 @@ class OpenProvenceModel:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One bucketed forward: ([B] ranking scores, [B, S] keep probs),
         fp32, left on the device."""
-        ids, mask = self._inputs(input_ids, attention_mask)
-        out = self.module(ids.long(), mask)
-        return (
-            ranking_score_from_logits(out["ranking_logits"]),
-            keep_probs_from_logits(out["pruning_logits"]),
-        )
+        ranking, keep = forward_logits(self.module, self.device, input_ids, attention_mask)
+        return ranking_score_from_logits(ranking), keep
 
     @staticmethod
     def _frag_cap(n_frags: int) -> int:
@@ -362,6 +455,146 @@ class OpenProvenceModel:
                         t.cpu()
                     warmed.append((rows, seq_len, f_cap))
         return warmed
+
+    # --- raw prediction APIs ---------------------------------------------------
+
+    def get_raw_predictions(
+        self, query: str, contexts: Sequence[str]
+    ) -> OpenProvenceRawPrediction:
+        return self.get_raw_predictions_batch(query, [list(contexts)])[0]
+
+    def _queries_for_batch(
+        self, query: str | Sequence[str], n_rows: int
+    ) -> list[str]:
+        """Broadcast a scalar query / validate a per-row query list."""
+        if isinstance(query, str) or not isinstance(query, Sequence):
+            return [str(query)] * n_rows
+        rows = [str(entry) for entry in query]
+        if len(rows) != n_rows:
+            raise ValueError(
+                "When providing multiple queries, their count must match contexts_batch."
+            )
+        return rows
+
+    def get_raw_predictions_batch(
+        self,
+        query: str | Sequence[str],
+        contexts_batch: Sequence[Sequence[str]],
+        batch_size: int | None = None,
+    ) -> list[OpenProvenceRawPrediction]:
+        """Joint forward over ``query [SEP] ctx0 ctx1 …`` rows, returning
+        per-token keep probabilities (fp32 numpy) plus each context's token
+        range (behavior of standalone:1752-1841)."""
+        if not contexts_batch:
+            return []
+        step = batch_size if batch_size and batch_size > 0 else len(contexts_batch)
+        queries = self._queries_for_batch(query, len(contexts_batch))
+        sep = self.tokenizer.sep_token or ""
+        buckets = length_buckets(self.max_length, self.bucket_step)
+
+        out: list[OpenProvenceRawPrediction] = []
+        for lo in range(0, len(contexts_batch), step):
+            rows = [
+                (queries[i], [str(c) for c in contexts_batch[i]])
+                for i in range(lo, min(lo + step, len(contexts_batch)))
+            ]
+            id_rows = self.tokenizer.tokenizer(
+                [q + sep + "".join(ctxs) for q, ctxs in rows],
+                padding=False,
+                truncation=True,
+                max_length=self.max_length,
+            )["input_ids"]
+            longest = max((len(ids) for ids in id_rows), default=1)
+            padded = pad_block_batch(
+                [{"input_ids": ids, "attention_mask": [1] * len(ids)} for ids in id_rows],
+                bucket_length(longest, buckets),
+                bucket_batch(len(id_rows), max(len(id_rows), 1)),
+                self.tokenizer.pad_token_id,
+            )
+            rank, keep = (
+                t.cpu().numpy()
+                for t in self._forward(padded["input_ids"], padded["attention_mask"])
+            )
+            for row_idx, (q, ctxs) in enumerate(rows):
+                if not ctxs:
+                    continue
+                out.append(
+                    OpenProvenceRawPrediction(
+                        query=q,
+                        contexts=ctxs,
+                        ranking_score=float(rank[row_idx]),
+                        pruning_probs=keep[row_idx][: len(id_rows[row_idx])],
+                        context_ranges=self._token_windows_per_context(q, ctxs),
+                    )
+                )
+        return out
+
+    def _token_windows_per_context(
+        self, query: str, contexts: Sequence[str]
+    ) -> list[tuple[int, int]]:
+        """Token range of each context inside the joint encoding, found by
+        encoding the cumulative prefixes in one batched tokenizer call
+        (behavior of standalone:1926-1969)."""
+        if not contexts:
+            return []
+        head = query + (self.tokenizer.sep_token or "")
+        growing: list[str] = []
+        acc = head
+        for ctx in contexts:
+            acc += ctx
+            growing.append(acc)
+        encoded = self.tokenizer.tokenizer(
+            growing, padding=False, truncation=True, max_length=self.max_length
+        )
+        edges = [len(ids) for ids in encoded["input_ids"]]
+        head_len = len(
+            self.tokenizer.tokenizer([head], padding=False, truncation=False)["input_ids"][0]
+        )
+        return list(zip([head_len, *edges[:-1]], edges))
+
+    def predict_with_thresholds(
+        self,
+        query: str,
+        contexts: Sequence[str],
+        thresholds: Sequence[float],
+        *,
+        use_majority: bool = False,
+    ) -> dict[str, Any]:
+        """Per-context keep decisions swept over thresholds (behavior of
+        standalone:1843-1881): mean-probability rule by default, majority of
+        per-token votes with ``use_majority``. Empty token ranges always
+        predict keep. The forward runs once."""
+        raw_pred = self.get_raw_predictions(query, contexts)
+        probs = np.asarray(raw_pred.pruning_probs, dtype=np.float32)
+        spans = np.asarray(raw_pred.context_ranges, dtype=np.int64).reshape(-1, 2)
+        sizes = np.maximum(spans[:, 1] - spans[:, 0], 0)
+        running = np.concatenate([[0.0], np.cumsum(probs, dtype=np.float64)])
+        sums = running[np.minimum(spans[:, 1], len(probs))] - running[
+            np.minimum(spans[:, 0], len(probs))
+        ]
+        means = np.divide(sums, np.maximum(sizes, 1))
+
+        by_threshold: dict[float, list[int]] = {}
+        for th in thresholds:
+            if use_majority:
+                votes = np.array(
+                    [
+                        np.count_nonzero(probs[lo:hi] > th)
+                        for lo, hi in raw_pred.context_ranges
+                    ]
+                )
+                decided = votes >= sizes / 2
+            else:
+                decided = means > th
+            by_threshold[th] = np.where(sizes == 0, 1, decided.astype(int)).tolist()
+        return {
+            "query": raw_pred.query,
+            "contexts": raw_pred.contexts,
+            "ranking_score": raw_pred.ranking_score,
+            "predictions": by_threshold,
+            "context_ranges": raw_pred.context_ranges,
+            "pruning_probs": raw_pred.pruning_probs,
+        }
 
     # --- process() --------------------------------------------------------------
 

@@ -5,9 +5,13 @@ The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
 sources also one per head dim), all started together, and
 linked into one shared library with a plain C interface, which is loaded
 with ``ctypes``: no ninja and no libtorch headers, so a build takes seconds.
-The library lands in ``_build/`` (listed in ``.gitignore``) under a name
-that carries the hash of the sources, so an edited source rebuilds; a file
-lock keeps concurrent processes from building the same library twice.
+The library lands in ``build_dir()`` under a name that carries the hash of
+the sources, so an edited source rebuilds; a file lock keeps concurrent
+processes from building the same library twice. ``build_dir()`` is the
+directory ``OPEN_PROVENCE_TPU_TORCH_BUILD_DIR`` names when it is set, else
+the package's ``_build/`` (listed in ``.gitignore``) when it is writable,
+else ``~/.cache/open_provence_tpu_torch/kernels`` (an install into a
+read-only ``site-packages``).
 
 Importing this module builds nothing and needs neither ``nvcc`` nor a card.
 
@@ -15,7 +19,11 @@ Every wrapper in ``ops/`` adds one to its kernel's launch count right after
 a successful launch, and nowhere else, so a run can show that the main path
 went through the kernels (``reset_launch_counts`` / ``launch_counts``). A
 wrapper that takes its plain version (a CPU tensor) adds one to that
-kernel's plain count instead (``plain_counts``).
+kernel's plain count instead (``plain_counts``). A tensor on a CUDA card
+never takes the plain version: the library is built for ``sm_90a`` alone,
+so on a card of any compute capability but ``KERNEL_CAPABILITY``
+``on_cuda`` raises, naming the card; a caller who wants plain PyTorch there
+moves the tensors to the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import functools
 import hashlib
 import os
 import shutil
+import stat
 import subprocess
 from pathlib import Path
 
@@ -33,7 +42,12 @@ import torch
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
+# The package's own build directory, used when it is writable; the
+# environment variable names another, and ~/.cache/... takes over where the
+# package lies read-only.
 BUILD_DIR = _HERE / "_build"
+BUILD_DIR_ENV = "OPEN_PROVENCE_TPU_TORCH_BUILD_DIR"
+USER_BUILD_DIR = Path(".cache") / "open_provence_tpu_torch" / "kernels"  # under ~
 SOURCES = (
     "layer_norm.cu", "ln_gemm.cu", "flash_attention.cu", "ln_gemm_bwd.cu",
     "flash_attention_bwd.cu", "mlp_tail.cu", "mlp_tail_bwd.cu",
@@ -43,6 +57,9 @@ HEADERS = (
     "mlp_tail.cuh", "hopper.cuh", "attention_wgmma.cuh", "gemm_wgmma.cuh",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# The one compute capability those flags give machine code for; a tensor
+# on a card of any other is refused.
+KERNEL_CAPABILITY = (9, 0)
 # The rest of the recipe: each unit's compile (with the ptxas report), then
 # the link of the objects into one shared library.
 COMPILE_FLAGS = ("-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -213,8 +230,40 @@ def _source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _writable(directory: Path) -> bool:
+    """True when this process may create files in ``directory`` (or, where
+    it does not exist yet, in its nearest existing ancestor): write access,
+    a write bit in its mode (so a tree made read-only stays so for root too)
+    and a file system mounted read-write."""
+    probe = directory
+    while not probe.exists():
+        if probe.parent == probe:
+            return False
+        probe = probe.parent
+    if not probe.is_dir():
+        return False
+    return (
+        os.access(probe, os.W_OK | os.X_OK)
+        and bool(probe.stat().st_mode & (stat.S_IWUSR | stat.S_IWGRP | stat.S_IWOTH))
+        and not os.statvfs(probe).f_flag & os.ST_RDONLY
+    )
+
+
+def build_dir() -> Path:
+    """Where the library is built and looked for: the directory
+    ``OPEN_PROVENCE_TPU_TORCH_BUILD_DIR`` names, else the package's
+    ``_build/`` when it is writable, else ``~/.cache/open_provence_tpu_torch/
+    kernels``."""
+    override = os.environ.get(BUILD_DIR_ENV)
+    if override:
+        return Path(override).expanduser()
+    if _writable(BUILD_DIR):
+        return BUILD_DIR
+    return Path.home() / USER_BUILD_DIR
+
+
 def library_path() -> Path:
-    return BUILD_DIR / f"libopt_kernels_{_source_digest()}.so"
+    return build_dir() / f"libopt_kernels_{_source_digest()}.so"
 
 
 def build() -> Path:
@@ -223,8 +272,8 @@ def build() -> Path:
     lib_path = library_path()
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib_path.parent / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib_path.exists():  # built by another process while we waited
             return lib_path
@@ -408,14 +457,33 @@ def dtype_code(t: torch.Tensor) -> int:
     return dtype_code_of(t.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def card_capability(index: int) -> tuple[int, int]:
+    """The compute capability of CUDA card ``index``, read once a card."""
+    return tuple(torch.cuda.get_device_capability(index))
+
+
 def on_cuda(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (take the kernel), False for a CPU tensor
-    (take the plain version); any other device raises."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
+    """True for a tensor on a Hopper card (take the kernel); False for a CPU
+    tensor (take the plain version). A tensor on a card of another compute
+    capability raises, since the library holds sm_90a code alone, and so
+    does any other device. The choice reads the card's capability, never a
+    build or launch error: on a Hopper card a failed build or launch raises."""
+    device = t.device
+    if device.type == "cpu":
         return False
-    raise ValueError(f"no kernel or plain path for device {t.device}")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel or plain path for device {device}")
+    index = torch.cuda.current_device() if device.index is None else device.index
+    capability = card_capability(index)
+    if capability != KERNEL_CAPABILITY:
+        raise RuntimeError(
+            f"cuda:{index} ({torch.cuda.get_device_name(index)}) has compute capability "
+            f"{capability[0]}.{capability[1]}; the port's kernel library holds sm_90a code "
+            f"alone (capability {KERNEL_CAPABILITY[0]}.{KERNEL_CAPABILITY[1]}). Pass "
+            'device="cpu" to run the plain PyTorch versions'
+        )
+    return True
 
 
 def first_card() -> torch.device:

@@ -1,7 +1,8 @@
 """Training on one card: the collator, losses, optimizer and trainer.
 
-The data pipeline (``data.py``), the YAML runner and CLI and the encoder
-initializer of the JAX package's ``train/`` are not ported yet.
+``encoder_init`` builds the two-head model from a checkpoint or backbone
+directory. The data pipeline (``data.py``) and the YAML runner and CLI of
+the JAX package's ``train/`` are not ported yet.
 """
 
 from .collator import OpenProvenceDataCollator

@@ -72,6 +72,15 @@ def state_dict_from_flax(
     return sd
 
 
+def module_shapes(config: OpenProvenceConfig) -> dict[str, torch.Size]:
+    """The port's module's state-dict names and shapes for ``config``
+    (built on the meta device: nothing is allocated)."""
+    from ..models.model import build_module
+
+    with torch.device("meta"):
+        return {k: v.shape for k, v in build_module(config).state_dict().items()}
+
+
 # flax's lecun_normal: a normal truncated at ±2 standard units, rescaled so
 # the truncated distribution has variance 1/fan_in.
 _TRUNC_STD = 0.87962566103423978
@@ -84,12 +93,8 @@ def init_params(
     embeddings N(0, 1/hidden); Linear weights lecun-normal (fan_in = in
     features); biases 0; norm scales 1. The numbers differ from flax's for
     the same seed (another generator); the distributions are the same."""
-    from ..models.model import build_module
-
-    with torch.device("meta"):
-        shapes = {k: v.shape for k, v in build_module(config).state_dict().items()}
     sd: dict[str, torch.Tensor] = {}
-    for name, shape in shapes.items():
+    for name, shape in module_shapes(config).items():
         if name.endswith("tok_embeddings.weight"):
             t = torch.empty(shape).normal_(0.0, shape[1] ** -0.5, generator=generator)
         elif name.endswith(".bias"):

@@ -28,6 +28,9 @@ def test_port_imports_no_jax_stack():
         "import open_provence_tpu_torch.ops, open_provence_tpu_torch.kernels\n"
         "import open_provence_tpu_torch.utils.convert\n"
         "import open_provence_tpu_torch.train, open_provence_tpu_torch.utils.safetensors_io\n"
+        "import open_provence_tpu_torch.encoder, open_provence_tpu_torch.utils.hf_convert\n"
+        "import open_provence_tpu_torch.train.encoder_init\n"
+        "open_provence_tpu_torch.OpenProvenceEncoder\n"
         f"bad = [m for m in {FORBIDDEN + ('yaml',)!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -149,6 +152,102 @@ def test_library_name_hashes_the_whole_recipe(monkeypatch):
             (src, tuple(f.replace("=256", "=96") for f in flags)) for src, flags in kernels.UNITS))
         assert kernels.library_path() != path
     assert kernels._lib is None or kernels.library_path() == path
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports cuda:0 as its device, so the route a wrapper
+    takes on a card can be checked where there is none."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("capability,name,takes_kernel", [
+    ((9, 0), "NVIDIA H100 80GB HBM3", True),
+    ((8, 0), "NVIDIA A100-SXM4-80GB", False),
+    ((12, 0), "NVIDIA GeForce RTX 5090", False),
+])
+def test_only_a_hopper_card_takes_the_kernels(monkeypatch, capability, name, takes_kernel):
+    """The route follows the card's compute capability, read once a card: a
+    tensor on any card but (9, 0) raises in every wrapper, naming the card
+    and its capability, and never runs the plain version there."""
+    from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.ops import layer_norm, ln_matmul
+
+    reads = []
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda index: reads.append(index) or capability)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda index: name)
+    kernels.card_capability.cache_clear()
+    try:
+        x = torch.randn(4, 8, 32, generator=torch.Generator().manual_seed(0))
+        on_card = x.as_subclass(_OnCard)
+        assert on_card.device.type == "cuda"
+        if takes_kernel:
+            assert kernels.on_cuda(on_card) is True
+            assert kernels.on_cuda(on_card) is True
+        else:
+            kernels.reset_launch_counts()
+            scale = torch.ones(32)
+            for call in (lambda: kernels.on_cuda(on_card),
+                         lambda: layer_norm(on_card, scale),
+                         lambda: ln_matmul(on_card.reshape(32, 32), scale, torch.randn(96, 32))):
+                with pytest.raises(RuntimeError) as err:
+                    call()
+                message = str(err.value)
+                assert name in message and f"{capability[0]}.{capability[1]}" in message
+                assert "sm_90a" in message
+            assert not any(kernels.plain_counts().values())
+            assert not any(kernels.launch_counts().values())
+        assert reads == [0]  # read once for the card
+        assert kernels.on_cuda(x) is False  # a CPU tensor reads no capability
+        assert reads == [0]
+    finally:
+        kernels.card_capability.cache_clear()
+
+
+def test_library_path_under_the_override(tmp_path, monkeypatch):
+    """OPEN_PROVENCE_TPU_TORCH_BUILD_DIR names the build directory; the
+    library keeps its recipe-hash name. Nothing is built."""
+    from open_provence_tpu_torch import kernels
+
+    name = kernels.library_path().name
+    monkeypatch.setenv(kernels.BUILD_DIR_ENV, str(tmp_path / "kernels"))
+    assert kernels.library_path() == tmp_path / "kernels" / name
+    monkeypatch.delenv(kernels.BUILD_DIR_ENV)
+    assert kernels.library_path().name == name
+
+
+def test_library_path_leaves_a_read_only_package_directory(tmp_path, monkeypatch):
+    """A package directory nobody may write to (an install into a read-only
+    site-packages) sends the build to ~/.cache/open_provence_tpu_torch/
+    kernels, lock included; a writable one keeps it in the package's
+    _build/."""
+    from open_provence_tpu_torch import kernels
+
+    package = tmp_path / "site-packages" / "open_provence_tpu_torch" / "kernels"
+    package.mkdir(parents=True)
+    monkeypatch.setattr(kernels, "BUILD_DIR", package / "_build")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.delenv(kernels.BUILD_DIR_ENV, raising=False)
+    name = kernels.library_path().name
+    assert kernels.library_path() == package / "_build" / name
+    cache = tmp_path / "home" / ".cache" / "open_provence_tpu_torch" / "kernels"
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kernels, "nvcc_path", no_nvcc)
+    package.chmod(0o555)
+    try:
+        assert kernels.library_path() == cache / name
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kernels.build()
+        assert (cache / "build.lock").is_file()
+        assert not (package / "_build").exists()
+    finally:
+        package.chmod(0o755)
 
 
 def test_pyproject_ships_the_ports_host_source():
@@ -954,4 +1053,45 @@ def test_new_wrappers_raise_where_no_kernel_instance_exists(cuda_device):
                         torch.zeros(128, 2048, device=cuda_device),
                         torch.zeros(2048, 64, device=cuda_device), "gelu")
     assert not any(kernels.launch_counts().values())
+    assert not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+def test_from_pretrained_serves_on_the_card_through_the_kernels(cuda_device, tmp_path):
+    """A checkpoint written by the encoder's save_pretrained, served by
+    OpenProvenceModel.from_pretrained and by the encoder on the card: the
+    four forward kernels launch and no plain version runs."""
+    import importlib.util
+
+    from open_provence_tpu_torch import (
+        ModernBertBackboneConfig, OpenProvenceConfig, OpenProvenceEncoder, OpenProvenceModel,
+        init_params, kernels,
+    )
+
+    spec = importlib.util.spec_from_file_location(
+        "dummy_tokenizers", REPO / "tests" / "dummy_tokenizers.py")
+    tokenizers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tokenizers)
+    bb = ModernBertBackboneConfig(
+        vocab_size=512, hidden_size=128, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=2, local_attention=64, pad_token_id=0, num_labels=1,
+    )
+    config = OpenProvenceConfig(base_model_config=bb.to_dict(), num_labels=1, max_length=128,
+                                pruning_config={"hidden_size": 128, "classifier_dropout": 0.0})
+    sd = init_params(config, torch.Generator().manual_seed(0))
+    OpenProvenceEncoder(config=config, state_dict=sd, tokenizer=tokenizers.PairDummyTokenizer(),
+                        device="cpu").save_pretrained(tmp_path)
+    model = OpenProvenceModel.from_pretrained(tmp_path, tokenizer=tokenizers.DummyTokenizer())
+    assert model.device.type == "cuda"
+    assert model.module.ranking_model.classifier.weight.dtype == torch.bfloat16
+    encoder = OpenProvenceEncoder.from_pretrained(tmp_path,
+                                                  tokenizer=tokenizers.PairDummyTokenizer())
+    context = "First sentence about sushi. Second one about work. Third about plants."
+    kernels.reset_launch_counts()
+    result = model.process("what food?", context, threshold=0.0, show_progress=False)
+    scores = encoder.predict([("what food?", context), ("why?", "Because.")])
+    torch.cuda.synchronize()
+    assert result["pruned_context"] == context and np.isfinite(scores).all()
+    counts = kernels.launch_counts()
+    assert min(counts[name] for name in kernels.DEFAULT_PATH_KERNELS[:4]) > 0, counts
     assert not any(kernels.plain_counts().values())
