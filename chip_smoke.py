@@ -134,7 +134,9 @@ import copy
 import hashlib
 import json
 import os
+import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1536,6 +1538,26 @@ def fp32_flips(label: str, config, sd, tokenizer_cls, dev, questions, contexts) 
         raise AssertionError(f"{label}: fp32 keep/drop decisions differ between card and CPU")
 
 
+def check_served(label: str, model, questions, contexts, result) -> np.ndarray:
+    """``result`` (``process()`` at threshold 0.1 on the pairs) holds one
+    payload a pair and finite scores in [0, 1]; on 16 of the pairs threshold
+    0 gives the input back and threshold 1 prunes it all and zeroes the
+    score. Returns the scores."""
+    ranks = np.asarray(result["reranking_score"], dtype=np.float64)
+    if len(result["pruned_context"]) != len(contexts) or not np.all(np.isfinite(ranks)):
+        raise AssertionError(f"{label}: process() payload has the wrong length or non-finite "
+                             "scores")
+    if not np.all((ranks >= 0) & (ranks <= 1)):
+        raise AssertionError(f"{label}: scores outside [0, 1]")
+    keep_all = model.process(questions[:16], contexts[:16], threshold=0.0, show_progress=False)
+    if keep_all["pruned_context"] != contexts[:16]:
+        raise AssertionError(f"{label}: threshold 0.0 did not reproduce the input")
+    drop_all = model.process(questions[:16], contexts[:16], threshold=1.0, show_progress=False)
+    if any(drop_all["pruned_context"]) or any(s != 0.0 for s in drop_all["reranking_score"]):
+        raise AssertionError(f"{label}: threshold 1.0 did not prune everything and zero the score")
+    return ranks
+
+
 def phase5_process(config, sd, tokenizer_cls, dev):
     from open_provence_tpu_torch import OpenProvenceModel, kernels
 
@@ -1550,18 +1572,7 @@ def phase5_process(config, sd, tokenizer_cls, dev):
     missing = [name for name in FORWARD if launches[name] == 0]
     if missing or any(kernels.plain_counts().values()):
         raise AssertionError(f"the serving path never launched {missing} or ran a plain version")
-    ranks = np.asarray(result["reranking_score"], dtype=np.float64)
-    if len(result["pruned_context"]) != 256 or not np.all(np.isfinite(ranks)):
-        raise AssertionError("process() payload has the wrong length or non-finite scores")
-    if not np.all((ranks >= 0) & (ranks <= 1)):
-        raise AssertionError("scores outside [0, 1]")
-
-    keep_all = model.process(questions[:16], contexts[:16], threshold=0.0, show_progress=False)
-    if keep_all["pruned_context"] != contexts[:16]:
-        raise AssertionError("threshold 0.0 did not reproduce the input")
-    drop_all = model.process(questions[:16], contexts[:16], threshold=1.0, show_progress=False)
-    if any(drop_all["pruned_context"]) or any(s != 0.0 for s in drop_all["reranking_score"]):
-        raise AssertionError("threshold 1.0 did not prune everything and zero the score")
+    ranks = check_served("phase 5", model, questions, contexts, result)
     kept = sum(len(c) for c in result["pruned_context"]) / sum(len(c) for c in contexts)
     phase(f"phase 5 process() checks: scores finite in [{ranks.min():.4f}, {ranks.max():.4f}], "
           f"kept {kept:.3f} of the text at threshold 0.1; threshold 0 exact, threshold 1 empty")
@@ -2642,6 +2653,333 @@ def phase13_entry_points(config, sd, tokenizer_cls, pair_tokenizer_cls, dev, car
     return {"serve_from_pretrained": serve, "encoder_512": enc_launches}
 
 
+# Phase 14: the training entry point (the YAML runner, train/data.py and
+# backbone dropout) at base width. The config is configs/open-provence-tpu-
+# reranker-v1.yaml's model_args and training_args on two local JSON-lines
+# sources, with phase 8's batch (16 queries of 2 texts: 32 pairs of 512),
+# logging, eval and saves every 10 steps; save_total_limit and logging_steps
+# come in as CLI overrides, one bare and one qualified.
+P14_TRAIN_ROWS, P14_EVAL_ROWS = 128, 32
+P14_OVERRIDES = ["--save_total_limit", "2", "--training_args.logging_steps", "10"]
+
+
+def long_rows(assets, n_rows: int, n_texts: int, seed: int, teacher: str) -> list[dict]:
+    """Rows in the schema of scripts/make_toy_assets.py::make_row with
+    ``n_texts`` texts of 8-12 sentences each (a pair fills 340-520
+    DummyTokenizer tokens): each text joins the sentences of make_row's
+    texts (2-4 sentences each), alternating its relevant first text and its
+    irrelevant second, with their relevance, label and teacher score."""
+    rng = random.Random(seed)
+    rows = []
+    for _ in range(n_rows):
+        row = {"query": None, "texts": [], "context_spans": [],
+               "context_spans_relevance": [], "labels": [], teacher: []}
+        for t in range(n_texts):
+            sentences, relevance, which = [], [], t % 2
+            while len(sentences) < 8:
+                part = assets.make_row(rng, None, rng.choice(assets.WORDS))
+                row["query"] = row["query"] or part["query"]
+                text = part["texts"][which]
+                sentences += [text[a:b] for a, b in part["context_spans"][which]]
+                relevance += part["context_spans_relevance"][which]
+                label, score = part["labels"][which], part["teacher_score"][which]
+            keep = min(len(sentences), rng.randint(8, 12))
+            spans, pos = [], 0
+            for sentence in sentences[:keep]:
+                spans.append([pos, pos + len(sentence)])
+                pos += len(sentence) + 1
+            row["texts"].append(" ".join(sentences[:keep]))
+            row["context_spans"].append(spans)
+            row["context_spans_relevance"].append(relevance[:keep])
+            row["labels"].append(label)
+            row[teacher].append(score)
+        rows.append(row)
+    return rows
+
+
+def phase14_assets(sd, out_dir: Path) -> dict[str, Path]:
+    """A ModernBERT backbone directory (configs.py's defaults as HF's
+    config.json, phase 4's backbone and prediction-head tensors under HF's
+    names), its copy with every backbone dropout at 0.1, and two JSON-lines
+    sources: A (2 texts a row) and B (4 texts a row, its teacher column
+    named teacher_scores.base)."""
+    from open_provence_tpu_torch import ModernBertBackboneConfig
+    from open_provence_tpu_torch.train.data import write_jsonl_splits
+    from open_provence_tpu_torch.utils import safetensors_io
+
+    assets = load_by_path(REPO / "scripts" / "make_toy_assets.py")
+    dirs = {"backbone": out_dir / "p14_backbone", "dropout": out_dir / "p14_backbone_dropout"}
+    hf = {k.removeprefix("ranking_model."): v for k, v in sd.items()
+          if k.startswith(("ranking_model.model.", "ranking_model.head."))}
+    backbone = ModernBertBackboneConfig(pad_token_id=0, num_labels=1).to_dict()
+    rates = dict(attention_dropout=0.1, embedding_dropout=0.1, mlp_dropout=0.1)
+    for name, config in (("backbone", backbone), ("dropout", {**backbone, **rates})):
+        dirs[name].mkdir(parents=True)
+        (dirs[name] / "config.json").write_text(json.dumps(config, indent=2))
+    safetensors_io.save_file(hf, dirs["backbone"] / "model.safetensors")
+    os.link(dirs["backbone"] / "model.safetensors", dirs["dropout"] / "model.safetensors")
+    for name, texts, teacher, seed in (("a", 2, "teacher_score", 140),
+                                       ("b", 4, "teacher_scores.base", 141)):
+        rows = long_rows(assets, P14_TRAIN_ROWS + P14_EVAL_ROWS, texts, seed, teacher)
+        dirs[name] = write_jsonl_splits({"train": rows[:P14_TRAIN_ROWS],
+                                         "validation": rows[P14_TRAIN_ROWS:]},
+                                        out_dir / f"p14_source_{name}")
+    return dirs
+
+
+def p14_config(path: Path, dirs: dict, run_dir: Path, backbone: str = "backbone",
+               **training) -> Path:
+    """The run's config as a YAML file (pyyaml's ``safe_dump``)."""
+    import yaml
+    config = {
+        "model_args": {"model_name_or_path": str(dirs[backbone]), "classifier_dropout": 0.0,
+                       "max_length": 512},
+        "data_args": {"datasets": [
+            {"dataset_name": str(dirs["a"])},
+            {"dataset_name": str(dirs["b"]), "teacher_column": "teacher_scores.base",
+             "items": 2, "upsample_factor": 1.5},
+        ]},
+        "training_args": {
+            "output_dir": str(run_dir), "overwrite_output_dir": True, "optimizer": "adafactor",
+            "learning_rate": 5.0e-5, "per_device_train_batch_size": 16,
+            "gradient_accumulation_steps": 1, "max_grad_norm": 1.0, "weight_decay": 0.01,
+            "lr_scheduler_type": "cosine", "warmup_ratio": 0.1, "logging_steps": 100,
+            "save_steps": 10, "save_total_limit": 5, "bf16": True,
+            "load_best_model_at_end": True, "num_train_epochs": 1,
+            "per_device_eval_batch_size": 16, "eval_steps": 10, "report_to": [],
+            "mesh_data": None, "mesh_model": 1, "attention_impl": "auto",
+            "gradient_checkpointing": False, **training,
+        },
+    }
+    path.write_text(yaml.safe_dump(config, sort_keys=False))
+    return path
+
+
+def run_train(label: str, config_path: Path, pair_tokenizer, overrides=(), **kwargs):
+    """parse_config_file, apply_cli_overrides and runner.train, as main()
+    does but with the tokenizer given; returns (final_model, args, wall s)."""
+    from open_provence_tpu_torch.train import parse_config_file, runner
+
+    args = parse_config_file(str(config_path))
+    if runner.apply_cli_overrides(list(overrides), *args):
+        raise AssertionError(f"{label}: overrides left arguments over")
+    began = time.perf_counter()
+    final = Path(runner.train(*args, tokenizer=pair_tokenizer, **kwargs))
+    torch.cuda.synchronize()
+    return final, args, time.perf_counter() - began
+
+
+def trainer_state(checkpoint: Path) -> dict:
+    return json.loads((checkpoint / "trainer_state.json").read_text())
+
+
+def logged_losses(history: list[dict], key: str = "loss") -> list[tuple[int, float]]:
+    return [(h["step"], h[key]) for h in history if key in h]
+
+
+def weights_equal(a: Path, b: Path) -> bool:
+    from open_provence_tpu_torch.utils import safetensors_io
+
+    wa, wb = (safetensors_io.load_file(d / "model.safetensors") for d in (a, b))
+    return wa.keys() == wb.keys() and all(torch.equal(wa[k], wb[k]) for k in wa)
+
+
+def serve_final(final: Path, tokenizer_cls, dev) -> str:
+    """Phase 5's 256 pairs and checks through from_pretrained(final)."""
+    from open_provence_tpu_torch import OpenProvenceModel
+
+    model = OpenProvenceModel.from_pretrained(final, tokenizer=tokenizer_cls(), device=dev)
+    questions, contexts = synthetic_pairs(256)
+    result = model.process(questions, contexts, threshold=0.1, show_progress=False)
+    ranks = check_served("phase 14 final_model", model, questions, contexts, result)
+    return f"scores in [{ranks.min():.4f}, {ranks.max():.4f}]; threshold 0 exact, 1 empty"
+
+
+def p14_dropout_trainers(directory: Path, run_dir: Path, data_args, pair_tokenizer, dev):
+    """Phase 8's resume check and the remat check on the dropout backbone:
+    trainers on the card from init_encoder's weights, one batch of the
+    prepared data (16 queries, 32 pairs of 512)."""
+    from open_provence_tpu_torch.train import (
+        OpenProvenceDataCollator, OpenProvenceTrainer, init_encoder, prepare_dataset)
+
+    config, _, sd = init_encoder(directory, max_length=512, classifier_dropout=0.0)
+    train_rows, _ = prepare_dataset(data_args)
+    batch = OpenProvenceDataCollator(
+        tokenizer=pair_tokenizer, max_length=512, scores_column="teacher_score",
+        chunks_pos_column="context_spans", relevant_chunks_column="context_spans_relevance",
+        pad_pairs_to=32)([train_rows[i] for i in range(16)])
+
+    def make(name: str, remat: bool = False):
+        return OpenProvenceTrainer(config, sd, pair_tokenizer, output_dir=run_dir / name,
+                                   learning_rate=5e-5, total_steps=10, device=dev,
+                                   gradient_checkpointing=remat)
+
+    plain, remat = make("plain"), make("remat", remat=True)
+    loss, _, grads = plain.loss_and_grads(batch)
+    loss_r, _, grads_r = remat.loss_and_grads(batch)
+    err = max_rel_err(grads_r, grads)
+    same_bits = all(torch.equal(grads[k], grads_r[k]) for k in grads)
+    same_state = torch.equal(plain.generator.get_state(), remat.generator.get_state())
+    phase(f"phase 14 dropout 0.1 x 3, first step with gradient_checkpointing on vs off: loss "
+          f"{float(loss_r):.6f} vs {float(loss):.6f}; gradients' largest error {err:.3e} of "
+          f"the tensor's largest (bit-equal: {same_bits}; tol {STEP_GRAD_TOL}); generator "
+          f"states equal: {same_state}")
+    if not (err <= STEP_GRAD_TOL and same_state and float(loss_r) == float(loss)):
+        raise AssertionError("phase 14: the recomputed layers drew other dropout masks")
+    del remat
+    plain.apply_gradients(grads)
+    resume_check("phase 14 dropout", plain, make("resumed"), batch)
+
+
+def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
+                      out_dir: Path) -> dict[str, dict[str, int]]:
+    """The training entry point at base width: parse_config_file,
+    apply_cli_overrides and runner.train on a ModernBERT backbone directory
+    and two JSON-lines sources (the path ``train_cli_512``, launch counts
+    read around the call); a resume from checkpoint-10; the same run card
+    against CPU in fp32; and the backbone with every dropout at 0.1."""
+    from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.train import init_encoder, prepare_dataset
+    from open_provence_tpu_torch.utils import safetensors_io
+
+    began = time.perf_counter()
+    dirs = phase14_assets(sd, out_dir)
+    # The backbone directory loads as a ModernBERT checkpoint: backbone and
+    # prediction head from the file, the classifier and pruning head fresh.
+    config, _, loaded = init_encoder(dirs["backbone"], max_length=512, classifier_dropout=0.0)
+    from_file = [k for k in sd if k.startswith(("ranking_model.model.", "ranking_model.head."))]
+    heads = ("ranking_model.classifier.weight", "pruning_head.classifier.weight")
+    if not (all(torch.equal(loaded[k], sd[k]) for k in from_file)
+            and not any(torch.equal(loaded[k], sd[k]) for k in heads)):
+        raise AssertionError("phase 14: the backbone directory did not load as a ModernBERT "
+                             "checkpoint (backbone from the file, heads fresh)")
+    del loaded
+    run_dir = out_dir / "p14_run"
+    config_path = p14_config(out_dir / "p14_config.yaml", dirs, run_dir)
+
+    kernels.reset_launch_counts()
+    final, args, wall = run_train("phase 14", config_path, pair_tokenizer, P14_OVERRIDES)
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    _, data_args, training_args = args
+    train_rows, eval_rows = prepare_dataset(data_args, seed=training_args.seed)
+    sizes = (len(train_rows), len(eval_rows))
+    # A: 128 train + 32 validation rows; B: 128 train rows upsampled x1.5
+    # (64 drawn again), 32 validation; items=2 keeps every row of B.
+    if sizes != (128 + 192, 32 + 32):
+        raise AssertionError(f"phase 14: prepared {sizes} rows, not (320, 64)")
+    state = trainer_state(run_dir / "checkpoint-20")
+    history = state["log_history"]
+    evals = logged_losses(history, "eval_loss")
+    best_step = min(evals, key=lambda e: e[1])[0]
+    checkpoints = sorted(int(p.name.split("-")[1]) for p in run_dir.glob("checkpoint-*"))
+    recorded = json.loads((final / "training_args.json").read_text())["training_args"]
+    all_losses = [v for h in history for k, v in h.items() if k.endswith("loss")]
+    checks = {
+        "20 steps": state["global_step"] == 20,
+        "at most 2 checkpoints and the best": best_step in checkpoints
+        and len([s for s in checkpoints if s != best_step]) <= 2,
+        "final_model holds config.json, model.safetensors": all(
+            (final / f).exists() for f in ("config.json", "model.safetensors")),
+        f"final_model is checkpoint-{best_step}'s weights, bit for bit": weights_equal(
+            final, run_dir / f"checkpoint-{best_step}"),
+        "training_args.json records both overrides": recorded["save_total_limit"] == 2
+        and recorded["logging_steps"] == 10,
+        "every logged loss finite": bool(all_losses) and all(np.isfinite(all_losses)),
+    }
+    missing = [name for name in DEFAULT_EIGHT if launches[name] == 0]
+    phase(f"phase 14 runner.train bf16, ModernBERT backbone directory, sources A + B as JSON "
+          f"lines, prepared {sizes[0]} train / {sizes[1]} eval rows, {state['global_step']} "
+          f"steps of 16 queries (32 pairs of 512): wall {wall:.1f} s [{card}]; train losses "
+          f"{logged_losses(history)}, eval losses {evals}, checkpoints {checkpoints}; "
+          f"launches {json.dumps(launches)}; plain versions {json.dumps(plain)}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed or missing or any(plain.values()):
+        raise AssertionError(f"phase 14: {failed} failed; never launched {missing}; plain "
+                             f"versions {plain}")
+    phase(f"phase 14 checks: {', '.join(checks)}; from_pretrained(final_model), 256 pairs: "
+          + serve_final(final, tokenizer_cls, dev))
+
+    # Resume: the same run directory from checkpoint-10 to step 20; its
+    # history goes on from the checkpoint's.
+    before = trainer_state(run_dir / "checkpoint-10")["log_history"]
+    _, _, wall = run_train("phase 14 resume", config_path, pair_tokenizer,
+                           P14_OVERRIDES + ["--resume_from_checkpoint",
+                                            str(run_dir / "checkpoint-10")])
+    resumed = trainer_state(run_dir / "checkpoint-20")
+    after = resumed["log_history"]
+    if not (resumed["global_step"] == 20 and after[:len(before)] == before
+            and len(after) > len(before) and all(10 < h["step"] <= 20
+                                                 for h in after[len(before):])):
+        raise AssertionError(f"phase 14: the resumed history does not go on from "
+                             f"checkpoint-10's: {before} -> {after}")
+    phase(f"phase 14 resume from checkpoint-10: steps 11-20, wall {wall:.1f} s; history "
+          f"{len(before)} entries, then {logged_losses(after[len(before):])} (train) and "
+          f"{logged_losses(after[len(before):], 'eval_loss')} (eval) [{card}]")
+    shutil.rmtree(run_dir)
+
+    # Card against CPU, fp32, 2 pairs a step, 3 steps, at full depth. Step
+    # 1 is warmup at lr 0, so step 3's loss and the final weights are the
+    # first to depend on an update: the check holds the card's update over
+    # the run (final weights less init_encoder's, at the runner's seed)
+    # against the CPU's. It runs at phase 7's lr, 1e-2: at 5e-5 a weight's
+    # fp32 ulp, where p + u rounds the other way on one side, reaches ~1e-2
+    # of a tensor's largest update.
+    sides = {}
+    for where in (str(dev), "cpu"):
+        side_dir = out_dir / f"p14_{where.replace(':', '')}"
+        path = p14_config(out_dir / f"p14_{where}.yaml", dirs, side_dir, bf16=False,
+                          per_device_train_batch_size=1, logging_steps=1, save_steps=3,
+                          learning_rate=1e-2, device=where)
+        final, side_args, wall = run_train(f"phase 14 {where}", path, pair_tokenizer,
+                                           max_steps_override=3)
+        sides[where] = (logged_losses(trainer_state(side_dir / "checkpoint-3")["log_history"]),
+                        safetensors_io.load_file(final / "model.safetensors"), wall)
+        shutil.rmtree(side_dir)
+    *_, initial = init_encoder(dirs["backbone"], max_length=512, classifier_dropout=0.0,
+                               seed=side_args[2].seed)
+    (card_losses, card_w, card_wall), (cpu_losses, cpu_w, cpu_wall) = sides[str(dev)], sides["cpu"]
+    card_delta = {k: w - initial[k] for k, w in card_w.items()}
+    cpu_delta = {k: w - initial[k] for k, w in cpu_w.items()}
+    loss_err = max(abs(a[1] / b[1] - 1) for a, b in zip(card_losses, cpu_losses))
+    update_err = max_rel_err(card_delta, cpu_delta)
+    largest = max(float(d.abs().max()) for d in cpu_delta.values())
+    unchanged_err = max_rel_err({k: torch.zeros_like(d) for k, d in card_delta.items()},
+                                cpu_delta)
+    phase(f"phase 14 fp32 runner.train, {config.backbone().num_hidden_layers} layers, 1 query "
+          f"(2 pairs of 512) a step, 3 steps at lr 1e-2, card vs cpu: losses {card_losses} vs {cpu_losses} "
+          f"(largest rel err {loss_err:.3e}, tol 1e-4); update over the run (largest "
+          f"{largest:.3e}): largest error {update_err:.3e} of each tensor's largest (tol "
+          f"{STEP_UPDATE_TOL}; weights left unchanged would read {unchanged_err:.3e}); wall "
+          f"card {card_wall:.1f} s, cpu {cpu_wall:.1f} s")
+    if len(card_losses) != 3 or [s for s, _ in card_losses] != [s for s, _ in cpu_losses] \
+            or loss_err > 1e-4 or update_err > STEP_UPDATE_TOL:
+        raise AssertionError("phase 14: the runner on the card disagrees with the CPU")
+    if largest == 0.0 or unchanged_err <= STEP_UPDATE_TOL:
+        raise AssertionError("phase 14: the update check cannot tell unchanged weights from "
+                             "the card's")
+    del card_w, cpu_w, card_delta, cpu_delta, initial
+
+    # Every backbone dropout at 0.1: 10 bf16 steps through the runner, then
+    # the remat and resume checks on trainers of the same weights.
+    drop_dir = out_dir / "p14_dropout"
+    path = p14_config(out_dir / "p14_dropout.yaml", dirs, drop_dir, backbone="dropout",
+                      logging_steps=1, do_eval=False)
+    kernels.reset_launch_counts()
+    _, args, wall = run_train("phase 14 dropout", path, pair_tokenizer, max_steps_override=10)
+    drop_launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    losses = logged_losses(trainer_state(drop_dir / "checkpoint-10")["log_history"])
+    phase(f"phase 14 runner.train bf16, every backbone dropout 0.1, 10 steps: wall {wall:.1f} s; "
+          f"losses {losses}; launches {json.dumps(drop_launches)}; plain versions "
+          f"{json.dumps(plain)} [{card}]")
+    if len(losses) != 10 or not all(np.isfinite([v for _, v in losses])) \
+            or any(drop_launches[k] == 0 for k in ("ln_matmul", "ln_geglu")) or any(plain.values()):
+        raise AssertionError("phase 14: training with backbone dropout failed its checks")
+    p14_dropout_trainers(dirs["dropout"], drop_dir, args[1], pair_tokenizer, dev)
+    shutil.rmtree(drop_dir)
+    phase(f"phase 14 took {time.perf_counter() - began:.0f} s")
+    return {"train_cli_512": launches}
+
+
 def rates_main(tree: Path) -> int:
     """Serving and training rates at B=32, S=512 of the package under
     ``tree``: the forward, ``process()`` on 256 pairs and the bf16 training
@@ -3237,17 +3575,20 @@ def dw_split_sweep(kernel, m: int, n: int, k: int) -> dict:
     return sweep
 
 
-def load_dummy_tokenizers():
-    """tests/dummy_tokenizers.py's DummyTokenizer and PairDummyTokenizer,
-    loaded by path (an installed package may own the top-level name
-    ``tests``)."""
+def load_by_path(path: Path):
+    """The module in the file at ``path``, loaded by path (an installed
+    package may own the top-level name ``tests``)."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "dummy_tokenizers", REPO / "tests" / "dummy_tokenizers.py"
-    )
+    spec = importlib.util.spec_from_file_location(path.stem, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    return module
+
+
+def load_dummy_tokenizers():
+    """tests/dummy_tokenizers.py's DummyTokenizer and PairDummyTokenizer."""
+    module = load_by_path(REPO / "tests" / "dummy_tokenizers.py")
     return module.DummyTokenizer, module.PairDummyTokenizer
 
 
@@ -3331,6 +3672,9 @@ def main() -> int:
         by_path.update(phase13_entry_points(config, sd, DummyTokenizer, PairDummyTokenizer, dev,
                                             card, Path(tmp), rates["forward_pairs_per_s"]))
         elapsed("the checkpoint and encoder entry points")
+        by_path.update(phase14_train_cli(sd, DummyTokenizer, PairDummyTokenizer(), dev, card,
+                                         Path(tmp)))
+        elapsed("the training entry point")
 
     # Every kernel must have launched on a main path (the comparisons of
     # phase 3 are outside every count), rows 5 and 15 on the long ones.

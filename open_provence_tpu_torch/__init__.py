@@ -27,12 +27,28 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # The encoder loads lazily, as in the JAX package's __init__, so
-    # ``import open_provence_tpu_torch`` stays light.
+    # The encoder and the training names load lazily, as in the JAX
+    # package's __init__, so ``import open_provence_tpu_torch`` stays light.
     if name == "OpenProvenceEncoder":
         from .encoder import OpenProvenceEncoder
 
         return OpenProvenceEncoder
+    if name == "OpenProvenceDataCollator":
+        from .train.collator import OpenProvenceDataCollator
+
+        return OpenProvenceDataCollator
+    if name == "OpenProvenceLoss":
+        from .train.losses import OpenProvenceLoss
+
+        return OpenProvenceLoss
+    if name == "OpenProvenceTrainer":
+        from .train.trainer import OpenProvenceTrainer
+
+        return OpenProvenceTrainer
+    if name == "runner":
+        from .train import runner
+
+        return runner
     raise AttributeError(name)
 
 

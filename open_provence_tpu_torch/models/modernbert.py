@@ -40,13 +40,17 @@ Attribute names follow the HF / reference state-dict names
 ``….bias`` beside ``….weight``), so a reference-layout state dict loads with
 ``load_state_dict`` as is.
 
-Training: in ``train()`` mode the classifier dropout applies before the
-ranking classifier, with masks drawn from a ``torch.Generator`` the caller
-passes in (never the global RNG); a nonzero backbone dropout
-(``attention_dropout``, ``embedding_dropout``, ``mlp_dropout``; 0.0 in
-ModernBERT-base) raises ``NotImplementedError``. ``gradient_checkpointing``
-recomputes each layer in the backward (``torch.utils.checkpoint``), as
-``remat`` does in the JAX package.
+Training: in ``train()`` mode every dropout of the JAX module applies,
+with masks drawn from a ``torch.Generator`` the caller passes in (never the
+global RNG): the classifier dropout before the ranking classifier, and the
+backbone's (0.0 in ModernBERT-base) at the JAX module's sites:
+``embedding_dropout`` after the embedding norm, ``attention_dropout`` after
+attention's Wo, ``mlp_dropout`` between act·gate and Wo (the MLP then
+leaves the whole-MLP kernels: kernel 4, the mask, a plain Wo).
+``gradient_checkpointing`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), as ``remat`` does in the JAX package; the
+recompute draws the forward's masks again from the generator state the
+layer began with.
 """
 
 from __future__ import annotations
@@ -100,11 +104,15 @@ class LayerNorm(nn.Module):
 class ModernBertEmbeddings(nn.Module):
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
+        self.dropout = cfg.embedding_dropout
         self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.norm(self.tok_embeddings(input_ids))
+    def forward(
+        self, input_ids: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        x = self.norm(self.tok_embeddings(input_ids))
+        return dropout(x, self.dropout, generator) if self.training else x
 
 
 class ModernBertAttention(nn.Module):
@@ -116,6 +124,7 @@ class ModernBertAttention(nn.Module):
         self.head_dim = cfg.head_dim
         self.theta = cfg.layer_rope_theta(layer_id)
         self.window = cfg.layer_window(layer_id)
+        self.dropout = cfg.attention_dropout
         self.Wqkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, bias=cfg.attention_bias)
         self.Wo = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=cfg.attention_bias)
 
@@ -125,6 +134,7 @@ class ModernBertAttention(nn.Module):
         padding_mask: torch.Tensor | None,
         ln_scale: torch.Tensor | None = None,
         ln_eps: float = 1e-5,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """``ln_scale`` (a deferred, bias-free attn_norm) folds the norm into a
         bias-free Wqkv; without it x goes through Wqkv as a plain linear."""
@@ -140,7 +150,8 @@ class ModernBertAttention(nn.Module):
             qkv, num_heads=self.num_heads, padding_mask=padding_mask,
             window=self.window, rope=rope,
         )
-        return self.Wo(out)
+        out = self.Wo(out)
+        return dropout(out, self.dropout, generator) if self.training else out
 
 
 MLP_TAIL_GATE = "OPEN_PROVENCE_TPU_FUSED_MLP_TAIL"
@@ -164,6 +175,7 @@ class ModernBertMLP(nn.Module):
 
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
+        self.dropout = cfg.mlp_dropout
         self.fused_tail = mlp_tail_gate() if cfg.mlp_dropout == 0.0 else "0"
         self.activation = cfg.hidden_activation
         self.act = lookup_activation(cfg.hidden_activation)[1]
@@ -171,13 +183,17 @@ class ModernBertMLP(nn.Module):
         self.Wo = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=cfg.mlp_bias)
 
     def forward(
-        self, x: torch.Tensor, ln_scale: torch.Tensor | None = None, ln_eps: float = 1e-5
+        self,
+        x: torch.Tensor,
+        ln_scale: torch.Tensor | None = None,
+        ln_eps: float = 1e-5,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """``ln_scale`` (a deferred, bias-free mlp_norm) folds the norm into
         the Wi GEMM; without it x is normalized already."""
         if self.Wi.bias is not None:
             inp, gate = self.Wi(x).chunk(2, dim=-1)
-            return self.Wo(self.act(inp) * gate)
+            return self.Wo(self._drop(self.act(inp) * gate, generator))
         x2d = x.reshape(-1, x.shape[-1])
         if (
             ln_scale is not None
@@ -192,7 +208,10 @@ class ModernBertMLP(nn.Module):
             hidden = geglu(x2d, self.Wi.weight, self.activation)
         else:
             hidden = ln_geglu(x2d, ln_scale, self.Wi.weight, self.activation, ln_eps)
-        return self.Wo(hidden).reshape(x.shape)
+        return self.Wo(self._drop(hidden, generator)).reshape(x.shape)
+
+    def _drop(self, hidden: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        return dropout(hidden, self.dropout, generator) if self.training else hidden
 
 
 class ModernBertEncoderLayer(nn.Module):
@@ -212,23 +231,45 @@ class ModernBertEncoderLayer(nn.Module):
         self.mlp_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
         self.mlp = ModernBertMLP(cfg)
 
-    def forward(self, x: torch.Tensor, padding_mask: torch.Tensor | None) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        padding_mask: torch.Tensor | None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
         if self.attn_norm is None:
             attn_in, attn_scale = x, None
         elif self.fold_attn_norm:
             attn_in, attn_scale = x, self.attn_norm.weight
         else:
             attn_in, attn_scale = self.attn_norm(x), None
-        attn_out = self.attn(attn_in, padding_mask, attn_scale, self.eps)
+        attn_out = self.attn(attn_in, padding_mask, attn_scale, self.eps, generator)
         if self.fold_mlp_norm:
             x = x + attn_out
-            return x + self.mlp(x, self.mlp_norm.weight, self.eps)
+            return x + self.mlp(x, self.mlp_norm.weight, self.eps, generator)
         x, mlp_in = self.mlp_norm.add(x, attn_out)
-        return x + self.mlp(mlp_in)
+        return x + self.mlp(mlp_in, generator=generator)
 
 
-def _layer_call(layer, names, x, padding_mask, *tensors):
-    return functional_call(layer, dict(zip(names, tensors)), (x, padding_mask))
+def _layer_call(layer, names, x, padding_mask, generator, start, ends, *tensors):
+    """One layer under ``functional_call``, for ``torch.utils.checkpoint``,
+    which restores the global RNG but not an explicit generator. With a
+    dropout ``generator`` the layer draws its masks from ``start`` (the
+    generator's state when the forward reached the layer) and leaves the
+    generator as it found it, so the recompute in the backward draws the
+    forward's masks and disturbs nothing; the state the forward's draws end
+    in is appended to ``ends``."""
+    params = dict(zip(names, tensors))
+    if generator is None:
+        return functional_call(layer, params, (x, padding_mask))
+    resume = generator.get_state()
+    generator.set_state(start)
+    try:
+        out = functional_call(layer, params, (x, padding_mask), {"generator": generator})
+        ends.append(generator.get_state())
+    finally:
+        generator.set_state(resume)
+    return out
 
 
 class ModernBertModel(nn.Module):
@@ -236,11 +277,7 @@ class ModernBertModel(nn.Module):
 
     def __init__(self, cfg: ModernBertBackboneConfig):
         super().__init__()
-        self.backbone_dropouts = {
-            n: getattr(cfg, n)
-            for n in ("attention_dropout", "embedding_dropout", "mlp_dropout")
-            if getattr(cfg, n)
-        }
+        self.layer_dropout = bool(cfg.attention_dropout or cfg.mlp_dropout)
         self.gradient_checkpointing = False
         self.embeddings = ModernBertEmbeddings(cfg)
         self.layers = nn.ModuleList(
@@ -249,25 +286,30 @@ class ModernBertModel(nn.Module):
         self.final_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
 
     def forward(
-        self, input_ids: torch.Tensor, padding_mask: torch.Tensor | None = None
+        self,
+        input_ids: torch.Tensor,
+        padding_mask: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
     ) -> dict[str, torch.Tensor]:
-        if self.training and self.backbone_dropouts:
-            raise NotImplementedError(
-                f"backbone dropout {self.backbone_dropouts} is not ported yet; "
-                "ModernBERT-base trains with 0.0"
-            )
+        """``generator`` draws the backbone's dropout masks in training mode."""
         remat = self.gradient_checkpointing and self.training and torch.is_grad_enabled()
-        x = self.embeddings(input_ids)
+        layer_generator = generator if self.training and self.layer_dropout else None
+        x = self.embeddings(input_ids, generator)
         for layer in self.layers:
             if remat:
                 # The layer's parameters go in as inputs, so the recompute in
                 # the backward sees the tensors this forward saw, also when
                 # they were swapped in by torch.func.functional_call.
                 names, tensors = zip(*layer.named_parameters())
-                x = checkpoint(_layer_call, layer, names, x, padding_mask, *tensors,
-                               use_reentrant=False)
+                start, ends = None, []
+                if layer_generator is not None:
+                    start = layer_generator.get_state()
+                x = checkpoint(_layer_call, layer, names, x, padding_mask, layer_generator,
+                               start, ends, *tensors, use_reentrant=False)
+                if layer_generator is not None:
+                    layer_generator.set_state(ends[0])
             else:
-                x = layer(x, padding_mask)
+                x = layer(x, padding_mask, generator)
         return {"last_hidden_pre_norm": x, "last_hidden_state": self.final_norm(x)}
 
 
@@ -305,8 +347,9 @@ class ModernBertForSequenceClassification(nn.Module):
         *,
         generator: torch.Generator | None = None,
     ) -> dict[str, torch.Tensor]:
-        """``generator`` draws the classifier dropout mask in training mode."""
-        outputs = self.model(input_ids, padding_mask)
+        """``generator`` draws the dropout masks in training mode (the
+        backbone's, then the classifier's)."""
+        outputs = self.model(input_ids, padding_mask, generator)
         hidden = outputs["last_hidden_state"]
         if self.pooling == "cls":
             pooled = hidden[:, 0]

@@ -4,6 +4,11 @@ Mirrors the reference's config system (open_provence/trainer.py:225-402,
 1280-1386): ``model_args`` / ``data_args`` / ``training_args`` sections with
 the same keys and defaults (adafactor, bf16, cosine, lr 5e-5, batch 32 ×
 accum 2, warmup 0.1, ranking_weight 0.05 / pruning_weight 1.0).
+
+The port trains on one device: ``training_args.device`` names it (``None``:
+the first CUDA card), where the JAX package takes a mesh (``mesh_data``,
+``mesh_model``); a mesh of more than one device raises (ROADMAP A.6).
+``attention_impl`` is read and ignored: the port has one attention path.
 """
 
 from __future__ import annotations
@@ -78,6 +83,19 @@ class PruningTrainingArguments:
     mesh_model: int = 1  # tensor-parallel axis size
     attention_impl: str = "auto"
     gradient_checkpointing: bool = False  # remat transformer layers
+    # The port's device ("cuda", "cuda:1", "cpu"; None = the first CUDA card).
+    device: str | None = None
+
+
+def check_single_device(training_args: PruningTrainingArguments) -> None:
+    """Raise for a mesh of more than one device: the port trains on one
+    (``training_args.device``); multi-GPU is ROADMAP A.6."""
+    if training_args.mesh_data not in (None, 1) or training_args.mesh_model != 1:
+        raise NotImplementedError(
+            f"mesh_data={training_args.mesh_data}, mesh_model={training_args.mesh_model}: "
+            "the port trains on one device (training_args.device); data and tensor "
+            "parallelism are not ported yet (ROADMAP A.6)"
+        )
 
 
 def parse_config_file(
@@ -164,5 +182,7 @@ def parse_config_file(
         mesh_model=training_config.get("mesh_model", 1),
         attention_impl=training_config.get("attention_impl", "auto"),
         gradient_checkpointing=training_config.get("gradient_checkpointing", False),
+        device=training_config.get("device"),
     )
+    check_single_device(training_args)
     return model_args, data_args, training_args

@@ -460,6 +460,10 @@ class OpenProvenceTrainer:
                 self.generator.set_state(
                     torch.tensor(payload["generator_state"], dtype=torch.uint8)
                 )
+            if restore_opt_state and payload.get("log_history") is not None:
+                # A resumed run's history goes on from the checkpoint's, as
+                # HF's Trainer keeps it (the JAX trainer starts it anew).
+                self.log_history = list(payload["log_history"])
 
     def export_model(self, directory: str | Path) -> Path:
         """The self-describing HF-layout artifact: config.json +

@@ -30,8 +30,12 @@ def test_port_imports_no_jax_stack():
         "import open_provence_tpu_torch.train, open_provence_tpu_torch.utils.safetensors_io\n"
         "import open_provence_tpu_torch.encoder, open_provence_tpu_torch.utils.hf_convert\n"
         "import open_provence_tpu_torch.train.encoder_init\n"
+        "import open_provence_tpu_torch.train.data, open_provence_tpu_torch.train.runner\n"
+        "import open_provence_tpu_torch.train.cli\n"
         "open_provence_tpu_torch.OpenProvenceEncoder\n"
-        f"bad = [m for m in {FORBIDDEN + ('yaml',)!r} if m in sys.modules]\n"
+        "open_provence_tpu_torch.OpenProvenceTrainer, open_provence_tpu_torch.OpenProvenceLoss\n"
+        "open_provence_tpu_torch.OpenProvenceDataCollator, open_provence_tpu_torch.runner\n"
+        f"bad = [m for m in {FORBIDDEN + ('yaml', 'datasets')!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -275,8 +279,9 @@ def test_native_host_library_builds_where_gxx_is():
 
 def test_unported_bias_configs_raise():
     """The bias-carrying layouts build and run (they were refused until their
-    kernels were ported); what is still unported, backbone dropout in
-    training, is what raises."""
+    kernels were ported), and so does backbone dropout in training (it
+    raised until it was ported): what raises now is training-mode dropout
+    without a generator to draw its masks from."""
     from open_provence_tpu_torch import ModernBertBackboneConfig, OpenProvenceConfig, build_module
 
     ids = torch.arange(1, 9).reshape(1, 8)
@@ -296,8 +301,10 @@ def test_unported_bias_configs_raise():
         num_attention_heads=2, mlp_dropout=0.1,
     )
     module = build_module(OpenProvenceConfig(base_model_config=bb.to_dict(), max_length=32))
-    with pytest.raises(NotImplementedError, match="mlp_dropout"):
+    with pytest.raises(ValueError, match="generator"):
         module.train()(ids, torch.ones(1, 8, dtype=torch.int32))
+    out = module.train()(ids, torch.ones(1, 8, dtype=torch.int32), generator=torch.Generator())
+    assert torch.isfinite(out["pruning_logits"]).all()
 
 
 def test_host_ops_source_is_the_ports_own_copy():
