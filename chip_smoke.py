@@ -67,13 +67,15 @@ card and check it, in phases:
    attention_bias) at base width: fp32 card against CPU, ``process()`` and
    20 training steps each, with the launch counts of their kernels;
 11. head layouts the packed TPU kernel refuses (24 heads of 32; 3 heads of
-   256) at base width: fp32 card against CPU (model, keep/drop flips, one
-   training step), ``process()`` on 256 pairs and 20 bf16 training steps,
+   256) at base width: fp32 card against CPU (the model; keep/drop flips
+   and one training step on the first 3 layers), ``process()`` on 256 pairs
+   and 20 bf16 training steps,
    with kernels 9 and 16 launched and no plain version;
 12. the whole-MLP fusion (gate OPEN_PROVENCE_TPU_FUSED_MLP_TAIL): the
-   forward, the training step's wall and device time with the gate at 0, 1
-   and bwd in turn; with 1: ``process()``, fp32 card against CPU, training
-   steps and the bit-exact resume; with bwd: the training steps again;
+   forward with the gate at 0, 1 and bwd in turns, the training step's
+   wall and device time at each once; with 1: ``process()``, fp32 card
+   against CPU (as in 11), training steps and the bit-exact resume; with
+   bwd: the training steps again;
 13. the checkpoint and encoder entry points at base width, bf16,
    max_length 512: phase 4's weights written by the trainer's export_model,
    by the encoder's save_pretrained and in the legacy root-level and
@@ -82,8 +84,25 @@ card and check it, in phases:
    from_pretrained (predict, predict_with_pruning at thresholds 0 and 1,
    prune_texts, predict_context) and the engine's get_raw_predictions_batch
    and predict_with_thresholds on 64 pairs; both paths launch kernels 1-4
-   and no plain version; fp32 card against CPU on 8 pairs; encoder.predict
-   pairs/s at B=32, S=512.
+   and no plain version; the bf16 encoder against the fp32 CPU encoder on
+   16 of the pairs; fp32 card against CPU on 8 pairs; encoder.predict
+   pairs/s at B=32, S=512;
+14. the training entry point at base width: parse_config_file,
+   apply_cli_overrides and runner.train on a ModernBERT backbone directory
+   of phase 4's weights and two JSON-lines sources (20 bf16 steps of 32
+   pairs of 512), its eval_datasets hook evaluating the final model on the
+   card after the trainer is released; a resume from checkpoint-10; fp32
+   card against CPU through the runner; every backbone dropout at 0.1;
+15. the release surface at base width, bf16: both HF-style wrappers from
+   phase 13's trainer export at B=32 S=512, B=1 S=77 and B=3 S=300, their
+   logits bit-equal to the engine's forward_logits, and their fp32 losses
+   card against CPU on 8 pairs; the standalone bundle written into a copy of
+   that checkpoint and served on phase 5's 256 pairs in a process of its
+   own without the repository on sys.path, its kernels built from its own
+   sources into an empty build directory, bit-equal to the in-repo
+   package; the eval-only mode of the trainer's CLI on phase 14's final
+   model (both reports, contexts/s) and fp32 card against CPU span
+   decisions on 8 queries.
 
 The library's attention (``scaled_dot_product_attention``) is timed beside
 the kernels at every shape of phases 3c and 3d, global and +-64 (a boolean
@@ -2179,14 +2198,32 @@ def phase10_bias_layouts(tokenizer_cls, pair_tokenizer, dev, out_dir: Path):
     return all_launches
 
 
+# The fp32 card-vs-CPU checks of phases 11 and 12 (drive_path) run on the
+# first 3 layers (one global, two local), where the CPU's share of them
+# takes seconds; phase 4's model check per layout, phase 5's flips and phase
+# 7's steps keep all 22 (a cut that keeps chip_smoke.py under 600 s).
+CPU_CHECK_LAYERS = 3
+
+
+def cut_depth(config, sd, layers: int):
+    """``config`` and ``sd`` cut to their first ``layers`` backbone layers."""
+    cut = copy.deepcopy(config)
+    cut.base_model_config = {**cut.base_model_config, "num_hidden_layers": layers}
+    prefix = "ranking_model.model.layers."
+    kept = {k: v for k, v in sd.items()
+            if not (k.startswith(prefix) and int(k[len(prefix):].split(".")[0]) >= layers)}
+    return cut, kept
+
+
 def drive_path(label: str, config, sd, tokenizer_cls, pair_tokenizer, dev, card: str,
                out_dir: Path, serve_required, train_required, resume: bool = False):
     """One configuration end to end at base width: the model in fp32 and
     bf16 on the card against fp32 on the CPU; ``process()`` in bf16 on the 256
     pairs of phase 5 with the launch counts read around it; fp32 keep/drop
-    flips on 8 of them; one fp32 training step (B=2, S=512, 22 layers) against
-    the CPU; 20 bf16 training steps at B=32, S=512 (phase 8's schedule) whose
-    eval loss must fall and, with ``resume``, phase 8's bit-exact resume.
+    flips on 8 of them and one fp32 training step (B=2, S=512) against the
+    CPU, both on the first CPU_CHECK_LAYERS layers; 20 bf16 training steps
+    at B=32, S=512 (phase 8's schedule) whose eval loss must fall and, with
+    ``resume``, phase 8's bit-exact resume.
     Every kernel in ``serve_required`` / ``train_required`` must have launched
     and no plain version may have run. Returns (serving launches, training
     launches)."""
@@ -2222,10 +2259,11 @@ def drive_path(label: str, config, sd, tokenizer_cls, pair_tokenizer, dev, card:
           f"{median:.3f} s) [{card}]")
     forward_ms(model, 32, 512, label, card, with_plain=False, profile=False)
     del model
-    fp32_flips(label, config, sd, tokenizer_cls, dev, questions[:8], contexts[:8])
+    cut, cut_sd = cut_depth(config, sd, CPU_CHECK_LAYERS)
+    fp32_flips(label, cut, cut_sd, tokenizer_cls, dev, questions[:8], contexts[:8])
 
     tag = label.replace(" ", "_").replace("=", "_")
-    phase7_train_step(config, sd, pair_tokenizer, dev, out_dir / f"{tag}_fp32", steps=(1,),
+    phase7_train_step(cut, cut_sd, pair_tokenizer, dev, out_dir / f"{tag}_fp32", steps=(1,),
                       label=label)
     batches = [training_batch(pair_tokenizer, 31, 512, seed=s) for s in (110, 111)]
     sd_card = {k: v.to(dev) for k, v in sd.items()}
@@ -2330,7 +2368,7 @@ def phase12_whole_mlp(sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir
     the gate beside each other in this process: the forward at B=32, S=512 and
     B=8, S=2048; the fused gates' loss, gradients and first step losses held
     to gate 0's (``gates_agree``); the training step's wall and device time at
-    B=32, S=512, each value in turn (0, 1, bwd, bwd, 1, 0). Then gate 1 end to end
+    B=32, S=512, each value once (0, 1, bwd). Then gate 1 end to end
     (``drive_path``, with the bit-exact resume), and gate bwd's training."""
     from open_provence_tpu_torch import OpenProvenceModel, kernels
     from open_provence_tpu_torch.models.modernbert import MLP_TAIL_DEFAULT
@@ -2373,15 +2411,15 @@ def phase12_whole_mlp(sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir
     gates_agree(trainers, batches)
     wall = {gate: [] for gate in gates}
     device = {gate: [] for gate in gates}
-    for gate in turns:
+    for gate in gates:
         pairs_s = train_rate(trainers[gate], batches, 4)[0]
         wall[gate].append(31 / pairs_s * 1e3)
         device[gate].append(profile_by_kernel(
             f"phase 12 profile of 3 bf16 steps B=32 S=512, gate {gate}",
             lambda: train_steps(trainers[gate], batches, 1), 3))
-    phase("phase 12 train step B=32 S=512 bf16 by gate (each twice, in turns): "
-          + "; ".join(f"{gate}: wall {wall[gate][0]:.1f}, {wall[gate][1]:.1f} ms, device "
-                      f"{device[gate][0]:.1f}, {device[gate][1]:.1f} ms" for gate in gates)
+    phase("phase 12 train step B=32 S=512 bf16 by gate (once each): "
+          + "; ".join(f"{gate}: wall {wall[gate][0]:.1f} ms, device {device[gate][0]:.1f} ms"
+                      for gate in gates)
           + f"; the default is {MLP_TAIL_DEFAULT} [{card}]")
     del trainers
 
@@ -2421,6 +2459,7 @@ ENCODER_SCORE_TOL, KEEP_MARGIN = 1e-3, 1e-4
 # bf16 model tolerance on each score and keep probability, and on the mean
 # keep-probability error four times the mean phase 4 reads (7.5e-3).
 ENCODER_BF16_TOL, ENCODER_BF16_MEAN_TOL = 0.15, 0.03
+ENCODER_BF16_PAIRS = 16
 
 
 def checkpoint_dirs(config, sd, pair_tokenizer_cls, out_dir: Path) -> dict[str, Path]:
@@ -2630,8 +2669,9 @@ def phase13_entry_points(config, sd, tokenizer_cls, pair_tokenizer_cls, dev, car
           f"prune_texts (kept {kept:.3f} at 0.5), predict_context, get_raw_predictions_batch, "
           f"predict_with_thresholds: {', '.join(checks)}; launches {json.dumps(enc_launches)}")
     del model
-    phase(encoder_bf16_check(dirs["encoder_save"], pair_tokenizer_cls, pairs, chunks, scores,
-                             chunked))
+    n = ENCODER_BF16_PAIRS  # the CPU's fp32 encoder on all 64 pairs takes ~35 s
+    phase(encoder_bf16_check(dirs["encoder_save"], pair_tokenizer_cls, pairs[:n], chunks[:n],
+                             scores[:n], chunked[:n]))
 
     phase("phase 13 fp32 card vs cpu, 8 pairs: " + encoder_fp32_checks(
         dirs["encoder_save"], tokenizer_cls, pair_tokenizer_cls, dev))
@@ -2661,14 +2701,21 @@ def phase13_entry_points(config, sd, tokenizer_cls, pair_tokenizer_cls, dev, car
 # come in as CLI overrides, one bare and one qualified.
 P14_TRAIN_ROWS, P14_EVAL_ROWS = 128, 32
 P14_OVERRIDES = ["--save_total_limit", "2", "--training_args.logging_steps", "10"]
+# What phase 14 leaves in the run's directory for phase 15: the main run's
+# config, its final model and the eval set of its eval_datasets hook.
+P14_CONFIG, P14_FINAL, P15_EVAL_SET = "p14_config.yaml", "p14_final_model", "p14_eval_set"
+P15_EVAL_QUERIES, P15_EVAL_SPANS = 128, 24
 
 
-def long_rows(assets, n_rows: int, n_texts: int, seed: int, teacher: str) -> list[dict]:
+def long_rows(assets, n_rows: int, n_texts: int, seed: int, teacher: str,
+              sentences_per_text: tuple[int, int] = (8, 12)) -> list[dict]:
     """Rows in the schema of scripts/make_toy_assets.py::make_row with
-    ``n_texts`` texts of 8-12 sentences each (a pair fills 340-520
-    DummyTokenizer tokens): each text joins the sentences of make_row's
-    texts (2-4 sentences each), alternating its relevant first text and its
-    irrelevant second, with their relevance, label and teacher score."""
+    ``n_texts`` texts of 8-12 sentences each by default (a pair fills
+    340-520 DummyTokenizer tokens): each text joins the sentences of
+    make_row's texts (2-4 sentences each), alternating its relevant first
+    text and its irrelevant second, with their relevance, label and teacher
+    score."""
+    low, high = sentences_per_text
     rng = random.Random(seed)
     rows = []
     for _ in range(n_rows):
@@ -2676,14 +2723,14 @@ def long_rows(assets, n_rows: int, n_texts: int, seed: int, teacher: str) -> lis
                "context_spans_relevance": [], "labels": [], teacher: []}
         for t in range(n_texts):
             sentences, relevance, which = [], [], t % 2
-            while len(sentences) < 8:
+            while len(sentences) < low:
                 part = assets.make_row(rng, None, rng.choice(assets.WORDS))
                 row["query"] = row["query"] or part["query"]
                 text = part["texts"][which]
                 sentences += [text[a:b] for a, b in part["context_spans"][which]]
                 relevance += part["context_spans_relevance"][which]
                 label, score = part["labels"][which], part["teacher_score"][which]
-            keep = min(len(sentences), rng.randint(8, 12))
+            keep = min(len(sentences), rng.randint(low, high))
             spans, pos = [], 0
             for sentence in sentences[:keep]:
                 spans.append([pos, pos + len(sentence)])
@@ -2700,9 +2747,11 @@ def long_rows(assets, n_rows: int, n_texts: int, seed: int, teacher: str) -> lis
 def phase14_assets(sd, out_dir: Path) -> dict[str, Path]:
     """A ModernBERT backbone directory (configs.py's defaults as HF's
     config.json, phase 4's backbone and prediction-head tensors under HF's
-    names), its copy with every backbone dropout at 0.1, and two JSON-lines
+    names), its copy with every backbone dropout at 0.1, two JSON-lines
     sources: A (2 texts a row) and B (4 texts a row, its teacher column
-    named teacher_scores.base)."""
+    named teacher_scores.base), and the context-relevance eval set of the
+    runner's eval_datasets hook (P15_EVAL_QUERIES queries of 2 texts of
+    P15_EVAL_SPANS spans, a ``test.jsonl``) with its eval config."""
     from open_provence_tpu_torch import ModernBertBackboneConfig
     from open_provence_tpu_torch.train.data import write_jsonl_splits
     from open_provence_tpu_torch.utils import safetensors_io
@@ -2724,6 +2773,12 @@ def phase14_assets(sd, out_dir: Path) -> dict[str, Path]:
         dirs[name] = write_jsonl_splits({"train": rows[:P14_TRAIN_ROWS],
                                          "validation": rows[P14_TRAIN_ROWS:]},
                                         out_dir / f"p14_source_{name}")
+    rows = long_rows(assets, P15_EVAL_QUERIES, 2, 150, "teacher_score",
+                     sentences_per_text=(P15_EVAL_SPANS, P15_EVAL_SPANS))
+    dirs["eval_set"] = write_jsonl_splits({"test": rows}, out_dir / P15_EVAL_SET)
+    dirs["eval_config"] = out_dir / "p14_eval.yaml"
+    dirs["eval_config"].write_text(
+        f'split: test\ndatasets:\n  - dataset_name: "{dirs["eval_set"]}"\n')
     return dirs
 
 
@@ -2835,10 +2890,13 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
                       out_dir: Path) -> dict[str, dict[str, int]]:
     """The training entry point at base width: parse_config_file,
     apply_cli_overrides and runner.train on a ModernBERT backbone directory
-    and two JSON-lines sources (the path ``train_cli_512``, launch counts
-    read around the call); a resume from checkpoint-10; the same run card
-    against CPU in fp32; and the backbone with every dropout at 0.1."""
+    and two JSON-lines sources, its eval_datasets hook evaluating the final
+    model on the card (the path ``train_cli_512``, launch counts read around
+    the call); a resume from checkpoint-10; the same run card against CPU in
+    fp32; and the backbone with every dropout at 0.1. The final model, its
+    config and its eval set stay for phase 15."""
     from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.eval import cli as eval_cli
     from open_provence_tpu_torch.train import init_encoder, prepare_dataset
     from open_provence_tpu_torch.utils import safetensors_io
 
@@ -2855,10 +2913,27 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
                              "checkpoint (backbone from the file, heads fresh)")
     del loaded
     run_dir = out_dir / "p14_run"
-    config_path = p14_config(out_dir / "p14_config.yaml", dirs, run_dir)
+    config_path = p14_config(out_dir / P14_CONFIG, dirs, run_dir, eval_datasets={
+        "config": str(dirs["eval_config"]), "threshold": 0.1, "batch_size": 64})
 
+    # What the card holds when the hook's eval begins, against before the
+    # run: the trainer's weights and optimizer state must be gone by then.
+    real_eval, at_eval = eval_cli.main, {}
+
+    def eval_main(argv, *, tokenizer=None):
+        torch.cuda.synchronize()
+        at_eval.update(allocated=torch.cuda.memory_allocated(), argv=list(argv),
+                       same_tokenizer=tokenizer is pair_tokenizer)
+        return real_eval(argv, tokenizer=tokenizer)
+
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    eval_cli.main = eval_main
     kernels.reset_launch_counts()
-    final, args, wall = run_train("phase 14", config_path, pair_tokenizer, P14_OVERRIDES)
+    try:
+        final, args, wall = run_train("phase 14", config_path, pair_tokenizer, P14_OVERRIDES)
+    finally:
+        eval_cli.main = real_eval
     launches, plain = kernels.launch_counts(), kernels.plain_counts()
     _, data_args, training_args = args
     train_rows, eval_rows = prepare_dataset(data_args, seed=training_args.seed)
@@ -2885,7 +2960,14 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
         "training_args.json records both overrides": recorded["save_total_limit"] == 2
         and recorded["logging_steps"] == 10,
         "every logged loss finite": bool(all_losses) and all(np.isfinite(all_losses)),
+        "the eval_datasets hook wrote results.json and results.md": all(
+            (final / "eval_datasets" / f).exists() for f in ("results.json", "results.md")),
+        "the hook's eval got the run's tokenizer and device": at_eval.get("same_tokenizer")
+        and at_eval["argv"][at_eval["argv"].index("--device") + 1] == str(dev),
     }
+    weights_mb = sum(t.numel() for t in sd.values()) * 4 / 2**20
+    held_mb = (at_eval.get("allocated", 0) - allocated_before) / 2**20
+    checks["the trainer is released before the eval model loads"] = held_mb < weights_mb / 2
     missing = [name for name in DEFAULT_EIGHT if launches[name] == 0]
     phase(f"phase 14 runner.train bf16, ModernBERT backbone directory, sources A + B as JSON "
           f"lines, prepared {sizes[0]} train / {sizes[1]} eval rows, {state['global_step']} "
@@ -2896,15 +2978,17 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     if failed or missing or any(plain.values()):
         raise AssertionError(f"phase 14: {failed} failed; never launched {missing}; plain "
                              f"versions {plain}")
-    phase(f"phase 14 checks: {', '.join(checks)}; from_pretrained(final_model), 256 pairs: "
-          + serve_final(final, tokenizer_cls, dev))
+    phase(f"phase 14 checks: {', '.join(checks)} (the card held {held_mb:.1f} MB more than "
+          f"before the run when the eval began; the fp32 weights alone are {weights_mb:.1f} MB); "
+          "from_pretrained(final_model), 256 pairs: " + serve_final(final, tokenizer_cls, dev))
 
     # Resume: the same run directory from checkpoint-10 to step 20; its
     # history goes on from the checkpoint's.
     before = trainer_state(run_dir / "checkpoint-10")["log_history"]
     _, _, wall = run_train("phase 14 resume", config_path, pair_tokenizer,
                            P14_OVERRIDES + ["--resume_from_checkpoint",
-                                            str(run_dir / "checkpoint-10")])
+                                            str(run_dir / "checkpoint-10"),
+                                            "--eval_datasets", "none"])
     resumed = trainer_state(run_dir / "checkpoint-20")
     after = resumed["log_history"]
     if not (resumed["global_step"] == 20 and after[:len(before)] == before
@@ -2915,6 +2999,7 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     phase(f"phase 14 resume from checkpoint-10: steps 11-20, wall {wall:.1f} s; history "
           f"{len(before)} entries, then {logged_losses(after[len(before):])} (train) and "
           f"{logged_losses(after[len(before):], 'eval_loss')} (eval) [{card}]")
+    shutil.move(final, out_dir / P14_FINAL)
     shutil.rmtree(run_dir)
 
     # Card against CPU, fp32, 2 pairs a step, 3 steps, at full depth. Step
@@ -2978,6 +3063,289 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     shutil.rmtree(drop_dir)
     phase(f"phase 14 took {time.perf_counter() - began:.0f} s")
     return {"train_cli_512": launches}
+
+
+# Phase 15: the release surface at base width, bf16, max_length 512: the
+# HF-style wrappers at shapes the engine never sends (no bucketing: S of no
+# multiple of 64, B = 1), the standalone bundle served in a process of its
+# own, and the evaluation of phase 14's final model through the eval-only
+# mode of the trainer's CLI.
+WRAPPER_SHAPES = ((32, 512), (1, 77), (3, 300))
+LOSS_RTOL = 1e-4
+BUNDLE_SERVE = r"""
+import importlib.util, json, sys, time
+import modeling_open_provence_tpu as m
+from open_provence_tpu_torch import kernels
+
+started = time.perf_counter()
+tokenizers_file, pairs_file, device = sys.argv[1:4]
+spec = importlib.util.spec_from_file_location("dummy_tokenizers", tokenizers_file)
+dummy = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(dummy)
+with open(pairs_file) as f:
+    questions, contexts = json.load(f)
+began = time.perf_counter()
+if device != "cpu":
+    kernels.library()
+build_s = time.perf_counter() - began
+model = m.OpenProvenceModel.from_pretrained(".", tokenizer=dummy.DummyTokenizer(), device=device)
+kernels.reset_launch_counts()
+result = model.process(questions, contexts, threshold=0.1, show_progress=False)
+launches, plain = kernels.launch_counts(), kernels.plain_counts()
+print(json.dumps({
+    "build_s": build_s, "total_s": time.perf_counter() - started,
+    "library": str(kernels.library_path()), "launches": launches,
+    "plain": plain, "pruned": result["pruned_context"], "scores": result["reranking_score"],
+    "package": sys.modules["open_provence_tpu_torch"].__file__,
+    "foreign": sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "open_provence_tpu")),
+}))
+"""
+
+
+def wrapper_inputs(batch: int, seq: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """int32 ids and mask; the last row of a batch is padded from S/2 on."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, 50000, (batch, seq), generator=gen, dtype=torch.int32)
+    mask = torch.ones(batch, seq, dtype=torch.int32)
+    if batch > 1:
+        mask[-1, seq // 2:] = 0
+    ids[mask == 0] = 0
+    return ids.numpy(), mask.numpy()
+
+
+def require_forward(label: str, launches: dict, plain: dict) -> None:
+    missing = [name for name in FORWARD if launches[name] == 0]
+    if missing or any(plain.values()):
+        raise AssertionError(f"{label} never launched {missing} or ran a plain version: {plain}")
+
+
+def p15_wrappers(directory: Path, tokenizer_cls, dev, card: str) -> dict[str, int]:
+    """Both wrappers from a checkpoint directory on the card at
+    WRAPPER_SHAPES (launch counts read around their calls alone), their
+    logits and keep probabilities bit-equal to the engine's forward_logits
+    at each shape; then fp32 card against fp32 CPU losses on 8 pairs."""
+    from open_provence_tpu_torch import OpenProvenceModel, kernels, keep_probs_from_logits
+    from open_provence_tpu_torch.inference.engine import forward_logits
+    from open_provence_tpu_torch.models.hf_wrappers import (
+        OpenProvenceForSequenceClassification, OpenProvenceForTokenClassification)
+    from open_provence_tpu_torch.utils.hf_convert import load_checkpoint
+
+    seq_cls = OpenProvenceForSequenceClassification.from_pretrained(directory, device=dev)
+    tok_cls = OpenProvenceForTokenClassification.from_pretrained(directory, device=dev)
+    inputs = {shape: wrapper_inputs(*shape, seed=150 + i) for i, shape in enumerate(WRAPPER_SHAPES)}
+    kernels.reset_launch_counts()
+    outs = {shape: (seq_cls(ids, mask), tok_cls(ids, mask))
+            for shape, (ids, mask) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    require_forward("phase 15 wrappers", launches, kernels.plain_counts())
+
+    engine = OpenProvenceModel.from_pretrained(directory, tokenizer=tokenizer_cls(), device=dev)
+    for (batch, seq), (ids, mask) in inputs.items():
+        ranking, keep = forward_logits(engine.module, dev, ids, mask)
+        seq_out, tok_out = outs[(batch, seq)]
+        same = {
+            "ranking logits": torch.equal(seq_out.logits.float(), ranking),
+            "keep probabilities": torch.equal(keep_probs_from_logits(seq_out.pruning_logits), keep),
+            "token view": torch.equal(tok_out.logits, seq_out.pruning_logits)
+            and torch.equal(tok_out.ranking_logits, seq_out.logits),
+        }
+        if not all(same.values()):
+            raise AssertionError(f"phase 15 wrappers B={batch} S={seq}: not bit-equal to the "
+                                 f"engine's forward_logits: {same}")
+    phase(f"phase 15 wrappers bf16 from {directory.name} at (B, S) {list(WRAPPER_SHAPES)}: "
+          "logits, keep probabilities and the token view bit-equal to the engine's "
+          f"forward_logits at each shape; launches {json.dumps(launches)} [{card}]")
+    del seq_cls, tok_cls, engine, outs
+
+    config, state_dict = load_checkpoint(directory)
+    ids, mask = wrapper_inputs(8, 256, seed=153)
+    rng = np.random.default_rng(15)
+    targets = rng.random(8).astype(np.float32)
+    labels = rng.integers(0, 2, (8, 256))
+    labels[0, :5] = -100
+    losses = {}
+    for where in (dev, "cpu"):
+        kw = dict(device=where, dtype=torch.float32)
+        seq_loss = OpenProvenceForSequenceClassification(config, state_dict, **kw)(
+            ids, mask, labels=targets).loss
+        tok_loss = OpenProvenceForTokenClassification(config, state_dict, **kw)(
+            ids, mask, labels=labels).loss
+        losses[str(where)] = (float(seq_loss), float(tok_loss))
+    (card_bce, card_ce), (cpu_bce, cpu_ce) = losses[str(dev)], losses["cpu"]
+    errs = (abs(card_bce / cpu_bce - 1), abs(card_ce / cpu_ce - 1))
+    phase(f"phase 15 wrapper losses fp32 card vs cpu, 8 pairs of 256: BCE {card_bce:.7f} vs "
+          f"{cpu_bce:.7f}, token CE {card_ce:.7f} vs {cpu_ce:.7f} (rel err {errs[0]:.3e}, "
+          f"{errs[1]:.3e}; tol {LOSS_RTOL})")
+    if max(errs) > LOSS_RTOL:
+        raise AssertionError("phase 15: the wrappers' fp32 losses on the card disagree with "
+                             "the CPU")
+    return launches
+
+
+def p15_bundle(directory: Path, tokenizer_cls, dev, card: str, out_dir: Path,
+               meanwhile) -> dict[str, int]:
+    """The standalone bundle written into a copy of ``directory``, served in a
+    subprocess whose working directory is the copy, without the repository
+    on sys.path and with OPEN_PROVENCE_TPU_TORCH_BUILD_DIR an empty
+    directory: it builds the kernels from its own sources, and process() on
+    phase 5's 256 pairs gives the in-repo package's bits. ``meanwhile()``
+    runs in this process while the subprocess builds and serves."""
+    from open_provence_tpu_torch import OpenProvenceModel
+    from open_provence_tpu_torch.utils.modeling_export import write_standalone_bundle
+
+    bundle = out_dir / "p15_bundle"
+    shutil.copytree(directory, bundle, copy_function=os.link)
+    write_standalone_bundle(bundle)
+    shipped = {p.relative_to(bundle).as_posix() for p in bundle.rglob("*") if p.is_file()}
+    if not (any(f.startswith("open_provence_tpu_torch/kernels/csrc/") and f.endswith(".cu")
+                for f in shipped)
+            and not any(f.endswith((".so", ".o")) or "/_build/" in f for f in shipped)):
+        raise AssertionError("phase 15: the bundle lacks kernel sources or ships a build")
+    build_dir = out_dir / "p15_build"
+    build_dir.mkdir()
+    questions, contexts = synthetic_pairs(256)
+    pairs_file = out_dir / "p15_pairs.json"
+    pairs_file.write_text(json.dumps([questions, contexts]))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OPEN_PROVENCE_TPU_TORCH_BUILD_DIR"] = str(build_dir)
+    stdout, stderr = out_dir / "p15_bundle.out", out_dir / "p15_bundle.err"
+    with open(stdout, "w") as out, open(stderr, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", BUNDLE_SERVE, str(REPO / "tests" / "dummy_tokenizers.py"),
+             str(pairs_file), str(dev)],
+            cwd=bundle, env=env, stdout=out, stderr=err, text=True)
+    try:
+        meanwhile()
+        returncode = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if returncode != 0:
+        raise AssertionError(f"phase 15 bundle process failed:\n{stderr.read_text()[-4000:]}")
+    got = json.loads(stdout.read_text().strip().splitlines()[-1])
+    library = Path(got["library"])
+    want = OpenProvenceModel.from_pretrained(directory, tokenizer=tokenizer_cls(),
+                                             device=dev).process(
+        questions, contexts, threshold=0.1, show_progress=False)
+    checks = {
+        "the package imported is the bundle's": Path(got["package"]).resolve().is_relative_to(
+            bundle.resolve()),
+        "no jax, no open_provence_tpu": got["foreign"] == [],
+        "the library built into the empty build directory": library.parent == build_dir
+        and library.exists(),
+        "pruned contexts equal": got["pruned"] == want["pruned_context"],
+        "scores bit-equal": np.array_equal(np.asarray(got["scores"]),
+                                           np.asarray(want["reranking_score"])),
+    }
+    phase(f"phase 15 bundle: {len(shipped)} files ({sum(f.endswith('.cu') for f in shipped)} "
+          f".cu sources, no build); its process (beside this one's wrapper and fp32 eval "
+          f"checks) served 256 pairs bf16 {got['total_s']:.1f} s after its imports, the "
+          f"kernels built from its own csrc in {got['build_s']:.1f} s into "
+          f"{library.relative_to(out_dir)}; {', '.join(checks)}; launches "
+          f"{json.dumps(got['launches'])} [{card}]")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 15 bundle: {failed} failed")
+    require_forward("phase 15 bundle", got["launches"], got["plain"])
+    return got["launches"]
+
+
+def p15_eval(pair_tokenizer, dev, card: str, out_dir: Path) -> dict[str, int]:
+    """The eval-only mode of the trainer's CLI (``--eval-datasets-model``)
+    on phase 14's final model, handed the tokenizer: both reports rewritten,
+    and the eval rate."""
+    from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.train import runner
+
+    final, reports = out_dir / P14_FINAL, out_dir / P14_FINAL / "eval_datasets"
+    stamp = json.loads((reports / "results.json").read_text())["args"]["timestamp_utc"]
+    kernels.reset_launch_counts()
+    began = time.perf_counter()
+    runner.main([str(out_dir / P14_CONFIG), "--eval-datasets-model", str(final)],
+                tokenizer=pair_tokenizer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - began
+    launches = kernels.launch_counts()
+    require_forward("phase 15 eval", launches, kernels.plain_counts())
+    payload = json.loads((reports / "results.json").read_text())
+    (metrics,) = payload["results"]["0.1"].values()
+    contexts = P15_EVAL_QUERIES * 2
+    checks = {
+        "results.json rewritten": payload["args"]["timestamp_utc"] != stamp,
+        "results.md holds the threshold's table": "### Threshold 0.1"
+        in (reports / "results.md").read_text(),
+        f"{contexts} contexts of {P15_EVAL_SPANS} spans": metrics["contexts"] == contexts
+        and metrics["span_total"] == contexts * P15_EVAL_SPANS and metrics["span_skipped"] == 0,
+        "F2, precision and recall present": all(metrics[k] is not None
+                                                for k in ("f2", "precision", "recall")),
+    }
+    rate = metrics["contexts"] / metrics["process_time_seconds"]
+    cm = metrics["confusion_matrix"]
+    phase(f"phase 15 eval-only CLI bf16 on {P14_FINAL}, threshold 0.1: {contexts} contexts in "
+          f"{metrics['process_time_seconds']:.3f} s of process() = {rate:.1f} contexts/s "
+          f"(wall {wall:.1f} s, loading included); F2 {metrics['f2']:.4f}, precision "
+          f"{metrics['precision']:.4f}, recall {metrics['recall']:.4f}, confusion {cm}; "
+          f"{', '.join(checks)}; launches {json.dumps(launches)} [{card}]")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 15 eval: {failed} failed")
+    return launches
+
+
+def p15_eval_parity(pair_tokenizer, dev, out_dir: Path) -> None:
+    """fp32 card against fp32 CPU span decisions of phase 14's final model on
+    the first 8 queries of the eval set: no flip outside KEEP_MARGIN of the
+    threshold, and equal confusion counts where nothing flipped."""
+    from open_provence_tpu_torch import OpenProvenceModel
+    from open_provence_tpu_torch.eval import DatasetSpec, evaluate_dataset, load_dataset_split
+
+    final = out_dir / P14_FINAL
+    rows = load_dataset_split(DatasetSpec(dataset_name=str(out_dir / P15_EVAL_SET),
+                                          n_samples=8), "test")
+    th = 0.1
+    side = {}
+    for where in (dev, "cpu"):
+        model = OpenProvenceModel.from_pretrained(final, tokenizer=pair_tokenizer, device=where,
+                                                  dtype=torch.float32)
+        side[str(where)] = evaluate_dataset(model, rows, threshold=th, batch_size=64)
+        del model
+    card_m, cpu_m = side[str(dev)], side["cpu"]
+    scores = np.asarray(cpu_m["roc_data"]["scores"])
+    near = np.abs(scores - th) <= KEEP_MARGIN
+    flips = (np.asarray(card_m["roc_data"]["predictions"])
+             != np.asarray(cpu_m["roc_data"]["predictions"]))
+    err = float(np.max(np.abs(np.asarray(card_m["roc_data"]["scores"]) - scores)))
+    phase(f"phase 15 eval fp32 card vs cpu, 8 queries ({cpu_m['contexts']} contexts, "
+          f"{cpu_m['span_total']} spans): {int(np.sum(flips & ~near))} flips outside "
+          f"{KEEP_MARGIN} of the threshold ({int(near.sum())} spans within it), confusion "
+          f"{card_m['confusion_matrix']} vs {cpu_m['confusion_matrix']}, sentence-prob "
+          f"max_abs_err {err:.3e}")
+    if np.any(flips & ~near) or (not flips.any()
+                                 and card_m["confusion_matrix"] != cpu_m["confusion_matrix"]):
+        raise AssertionError("phase 15: fp32 span decisions differ between card and CPU")
+
+
+def phase15_release(tokenizer_cls, pair_tokenizer, dev, card: str,
+                    out_dir: Path) -> dict[str, dict[str, int]]:
+    """The release surface (see above): phase 13's trainer export of phase
+    4's weights for the wrappers and the bundle, phase 14's final model for
+    the evaluation. The wrappers and the fp32 eval check run while the
+    bundle's process builds and serves; the eval rate is taken after it."""
+    began = time.perf_counter()
+    checkpoint = out_dir / "p13_trainer_export"
+    by_path = {}
+
+    def meanwhile():
+        by_path["wrappers_512"] = p15_wrappers(checkpoint, tokenizer_cls, dev, card)
+        p15_eval_parity(pair_tokenizer, dev, out_dir)
+
+    by_path["bundle_serve_512"] = p15_bundle(checkpoint, tokenizer_cls, dev, card, out_dir,
+                                             meanwhile)
+    by_path["eval_512"] = p15_eval(pair_tokenizer, dev, card, out_dir)
+    phase(f"phase 15 took {time.perf_counter() - began:.0f} s")
+    return by_path
 
 
 def rates_main(tree: Path) -> int:
@@ -3672,9 +4040,12 @@ def main() -> int:
         by_path.update(phase13_entry_points(config, sd, DummyTokenizer, PairDummyTokenizer, dev,
                                             card, Path(tmp), rates["forward_pairs_per_s"]))
         elapsed("the checkpoint and encoder entry points")
-        by_path.update(phase14_train_cli(sd, DummyTokenizer, PairDummyTokenizer(), dev, card,
+        pair_tokenizer = PairDummyTokenizer()
+        by_path.update(phase14_train_cli(sd, DummyTokenizer, pair_tokenizer, dev, card,
                                          Path(tmp)))
         elapsed("the training entry point")
+        by_path.update(phase15_release(DummyTokenizer, pair_tokenizer, dev, card, Path(tmp)))
+        elapsed("the release surface")
 
     # Every kernel must have launched on a main path (the comparisons of
     # phase 3 are outside every count), rows 5 and 15 on the long ones.

@@ -27,8 +27,9 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # The encoder and the training names load lazily, as in the JAX
-    # package's __init__, so ``import open_provence_tpu_torch`` stays light.
+    # The encoder, the wrappers and the training names load lazily, as in
+    # the JAX package's __init__, so ``import open_provence_tpu_torch`` stays
+    # light.
     if name == "OpenProvenceEncoder":
         from .encoder import OpenProvenceEncoder
 
@@ -49,6 +50,13 @@ def __getattr__(name):
         from .train import runner
 
         return runner
+    if name in (
+        "OpenProvenceForSequenceClassification",
+        "OpenProvenceForTokenClassification",
+    ):
+        from .models import hf_wrappers
+
+        return getattr(hf_wrappers, name)
     raise AttributeError(name)
 
 
@@ -59,6 +67,8 @@ __all__ = [
     "PruningHeadConfig",
     "OpenProvenceEncoder",
     "OpenProvenceModel",
+    "OpenProvenceForSequenceClassification",
+    "OpenProvenceForTokenClassification",
     "OpenProvenceModule",
     "build_module",
     "keep_probs_from_logits",

@@ -38,25 +38,10 @@ from .configs import OpenProvenceConfig
 from .data_structures import OpenProvenceOutput, RerankingOpenProvenceOutput
 from .inference.batching import bucket_batch, bucket_length, length_buckets, pad_block_batch
 from .inference.engine import check_attention_impl, forward_logits, place_module
+from .models.hf_wrappers import ARCHITECTURES, AUTO_MAP
 from .utils import safetensors_io
 
 logger = logging.getLogger(__name__)
-
-# Exported-config metadata, as the JAX package's models/hf_wrappers.py
-# writes it: the reference makes checkpoints self-describing
-# (encoder.py:1079-1085), the module path naming the bundle shim written
-# next to exported weights.
-ARCHITECTURES = ["OpenProvenceForSequenceClassification"]
-AUTO_MAP = {
-    "AutoConfig": "modeling_open_provence_tpu.OpenProvenceConfig",
-    "AutoModel": "modeling_open_provence_tpu.OpenProvenceForSequenceClassification",
-    "AutoModelForSequenceClassification": (
-        "modeling_open_provence_tpu.OpenProvenceForSequenceClassification"
-    ),
-    "AutoModelForTokenClassification": (
-        "modeling_open_provence_tpu.OpenProvenceForTokenClassification"
-    ),
-}
 
 
 def _ranking_scores_from_logits(logits: np.ndarray) -> np.ndarray:
@@ -281,6 +266,11 @@ class OpenProvenceEncoder:
             bucket_batch(len(ids_list), max(len(ids_list), 1)),
             getattr(self.tokenizer, "pad_token_id", 0) or 0,
         )
+        # The tokenizer pads the batch to its longest pair; its own mask
+        # keeps those pads out of attention, so that a pair's outputs do not
+        # depend on the pairs batched with it.
+        for row, mask in enumerate(encoded.get("attention_mask") or []):
+            padded["attention_mask"][row, : len(mask)] = mask
         ranking, keep = (
             t.cpu().numpy()
             for t in forward_logits(

@@ -437,10 +437,12 @@ def _source_specs(data_args: Any) -> list[_SourceSpec]:
     ]
 
 
-def _open_source(spec: _SourceSpec) -> dict[str, RowTable]:
+def _open_source(spec: _SourceSpec) -> dict[str | None, RowTable]:
     """Resolve a spec to its splits. A local directory takes priority over a
     hub identifier (reference trainer.py:104-121): a ``save_to_disk``
-    directory, else its ``<split>.jsonl`` files."""
+    directory, else its ``<split>.jsonl`` files. A ``save_to_disk``
+    directory of one ``Dataset`` (no splits) comes back under the key
+    None."""
     if spec.name and Path(spec.name).expanduser().exists():
         path = Path(spec.name).expanduser()
         split_files = sorted(path.glob("*.jsonl"))
@@ -450,6 +452,8 @@ def _open_source(spec: _SourceSpec) -> dict[str, RowTable]:
         datasets = _import_datasets(f"the save_to_disk directory {path}")
         logger.info("Loading local dataset from %s", path)
         loaded = datasets.load_from_disk(str(path))
+        if isinstance(loaded, datasets.Dataset):
+            return {None: _from_hf(loaded)}
         return {name: _from_hf(split) for name, split in loaded.items()}
     datasets = _import_datasets(f"the hub dataset {spec.name!r}")
     loaded = datasets.load_dataset(spec.name or "", spec.subset or None)

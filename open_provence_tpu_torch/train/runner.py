@@ -3,7 +3,7 @@
 
 Flow: parse the YAML config → prepare datasets → dynamic step cadence →
 init encoder → collator → trainer on one device → final_model export →
-reload check. The step arithmetic is the JAX runner's with a data axis of
+reload check → the ``eval_datasets`` hook. The step arithmetic is the JAX runner's with a data axis of
 1. Differences from it:
 
 * the device is ``training_args.device`` (``None``: the first CUDA card,
@@ -12,10 +12,9 @@ reload check. The step arithmetic is the JAX runner's with a data axis of
 * the reload of ``final_model`` with the port's ``from_pretrained`` on the
   run's device raises when it fails, where the JAX runner logs the failure
   and returns;
-* the ``eval_datasets`` hook (``scripts/eval_datasets.py``, which loads the
-  JAX model) is not ported: a config that sets it, and
-  ``--eval-datasets-model``, raise (ROADMAP A.7); ``--eval_datasets none``
-  clears it.
+* the ``eval_datasets`` hook calls the port's ``eval.cli.main`` in this
+  process, where the JAX runner starts ``scripts/eval_datasets.py`` in a
+  subprocess (see ``run_eval_datasets_for_model``).
 
 A resumed run replays its epoch from the first batch, as the JAX runner
 does (ROADMAP C, faults in the reference).
@@ -23,6 +22,7 @@ does (ROADMAP C, faults in the reference).
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
@@ -51,12 +51,6 @@ from .trainer import (
 )
 
 logger = logging.getLogger(__name__)
-
-EVAL_DATASETS_NOT_PORTED = (
-    "the eval_datasets hook runs scripts/eval_datasets.py on the JAX model and is not "
-    "ported yet (ROADMAP A.7); clear it with --eval_datasets none"
-)
-
 
 def _max_docs(dataset, texts_column: str = "texts", probe: int = 256) -> int:
     max_docs = 1
@@ -88,8 +82,6 @@ def train(
     from ..inference.engine import OpenProvenceModel, check_attention_impl
 
     logging.basicConfig(level=logging.INFO)
-    if training_args.eval_datasets:
-        raise NotImplementedError(EVAL_DATASETS_NOT_PORTED)
     check_single_device(training_args)
     check_attention_impl(training_args.attention_impl)
     device = train_device(training_args)
@@ -280,8 +272,64 @@ def train(
     logger.info("✓ Final model reloads; max_length=%s", reloaded.max_length)
     del reloaded
 
+    eval_settings = training_args.eval_datasets
+    if eval_settings:
+        run_eval_datasets_for_model(
+            final_model_path, eval_settings, tokenizer=tokenizer, device=device
+        )
+
     logger.info("Training completed. Model saved to %s", final_model_path)
     return str(final_model_path)
+
+
+def run_eval_datasets_for_model(
+    model_path: str | Path,
+    eval_settings: dict[str, Any],
+    *,
+    tokenizer: Any = None,
+    device: torch.device | str | None = None,
+) -> None:
+    """Post-train dataset-retention eval (reference trainer.py:155-222):
+    ``eval.cli`` on ``model_path`` with the settings' ``config``,
+    ``threshold`` (else the old ``threadshold`` key, else 0.1) and
+    ``batch_size`` (256), writing ``<model_path>/eval_datasets/results.{json,md}``.
+
+    The JAX runner starts ``scripts/eval_datasets.py`` in a subprocess; the
+    port calls ``eval.cli.main`` in this process instead, so that it can
+    hand over ``tokenizer`` (a subprocess could load only a saved one) and
+    ``device`` (None: the first CUDA card). What the trainer held on the
+    card is released first: the eval model never shares it with the
+    trainer's parameters and optimizer state."""
+    config_path = eval_settings.get("config")
+    if not config_path:
+        logger.warning("eval_datasets config not specified; skipping dataset evaluation.")
+        return
+    threshold = eval_settings.get("threshold")
+    if threshold is None:
+        threshold = eval_settings.get("threadshold")  # back-compat typo
+    if threshold is None:
+        threshold = 0.1
+    batch_size = eval_settings.get("batch_size", 256)
+    model_path = Path(model_path)
+    output_dir = model_path / "eval_datasets"
+    output_dir.mkdir(parents=True, exist_ok=True)
+    argv = [
+        "--config", str(config_path),
+        "--model", str(model_path),
+        "--threshold", str(threshold),
+        "--batch-size", str(batch_size),
+        "--output-json", str(output_dir / "results.json"),
+        "--output-file", str(output_dir / "results.md"),
+    ]
+    if device is not None:
+        argv += ["--device", str(device)]
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    from ..eval.cli import main as eval_main
+
+    logger.info("Running eval_datasets: %s", " ".join(argv))
+    eval_main(argv, tokenizer=tokenizer)
 
 
 def _coerce_override(current: Any, raw: str) -> Any:
@@ -333,18 +381,19 @@ def apply_cli_overrides(argv: list[str], *arg_objects: Any) -> list[str]:
     return leftovers
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None, *, tokenizer: Any = None) -> None:
     """CLI: open_provence_tpu_torch_trainer <config.yaml> [--checkpoint path]
-    [--<field> value ...]
+    [--eval-datasets-model path] [--<field> value ...]
 
     Any argument dataclass field can be overridden from the CLI, e.g.
     ``--learning_rate 1e-4 --data_args.subset freq2 --device cpu``.
-    ``--eval-datasets-model`` (alias ``--only-eval-datasets-model``) is the
-    JAX CLI's eval-only mode; it raises here until ROADMAP A.7."""
+
+    ``--eval-datasets-model <path>`` (alias ``--only-eval-datasets-model``)
+    skips training and runs only the config's eval_datasets hook against the
+    given model directory on ``training_args.device`` (reference
+    runner.py:196-209, 318-324). ``tokenizer`` (an object) goes to training
+    and to the hook in place of the one read from the model's directory."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag in ("--eval-datasets-model", "--only-eval-datasets-model"):
-        if flag in argv:
-            raise NotImplementedError(f"{flag}: {EVAL_DATASETS_NOT_PORTED}")
     checkpoint = None
     if "--checkpoint" in argv:
         idx = argv.index("--checkpoint")
@@ -352,10 +401,18 @@ def main(argv: list[str] | None = None) -> None:
             raise SystemExit("--checkpoint requires a path argument")
         checkpoint = argv[idx + 1]
         del argv[idx : idx + 2]
+    eval_model = None
+    for flag in ("--eval-datasets-model", "--only-eval-datasets-model"):
+        if flag in argv:
+            idx = argv.index(flag)
+            if idx + 1 >= len(argv):
+                raise SystemExit(f"{flag} requires a model path argument")
+            eval_model = argv[idx + 1]
+            del argv[idx : idx + 2]
     if not argv:
         print(
             "usage: python -m open_provence_tpu_torch.train.cli <config.yaml> "
-            "[--checkpoint path] [--<field> value ...]"
+            "[--checkpoint path] [--eval-datasets-model path] [--<field> value ...]"
         )
         raise SystemExit(2)
     config_file = argv[0]
@@ -363,7 +420,16 @@ def main(argv: list[str] | None = None) -> None:
     leftovers = apply_cli_overrides(argv[1:], model_args, data_args, training_args)
     if leftovers:
         raise SystemExit(f"Unrecognized arguments: {leftovers}")
+    if eval_model:
+        eval_settings = training_args.eval_datasets
+        if not eval_settings:
+            print("No eval_datasets configuration found; nothing to evaluate.")
+            return
+        run_eval_datasets_for_model(
+            eval_model, eval_settings, tokenizer=tokenizer, device=training_args.device
+        )
+        return
     if checkpoint:
         training_args.resume_from_checkpoint = checkpoint
     run_name = Path(config_file).stem
-    train(model_args, data_args, training_args, run_name=run_name)
+    train(model_args, data_args, training_args, run_name=run_name, tokenizer=tokenizer)

@@ -52,7 +52,25 @@ def encoders(tmp_path_factory):
     torch_encoder = OpenProvenceEncoder.from_pretrained(
         saved, tokenizer=tokenizer, device="cpu", bucket_step=16
     )
+    jax_encoder.tokenizer = Unpadded(tokenizer)
     return jax_encoder, torch_encoder, tmp
+
+
+class Unpadded:
+    """The tokenizer with ``padding`` off, for the JAX encoder: it attends
+    every id the tokenizer gives it (its mask is each row's length), so the
+    tokenizer's pads inside a batch would count as tokens. Without them it
+    attends each pair's own tokens, as the port does with the tokenizer's
+    mask."""
+
+    def __init__(self, tokenizer):
+        self._tokenizer = tokenizer
+
+    def __call__(self, *args, **kwargs):
+        return self._tokenizer(*args, **{**kwargs, "padding": False})
+
+    def __getattr__(self, name):
+        return getattr(self._tokenizer, name)
 
 
 def _doc_boundary():
@@ -118,6 +136,22 @@ def test_encoder_matches_jax(encoders, case):
     _same(ref, out)
 
 
+def test_a_pair_scores_the_same_whatever_its_batch(encoders):
+    """The tokenizer pads a batch to its longest pair; those pads are no
+    tokens: a pair's score and keep probabilities do not depend on the pairs
+    batched with it (the second pair is a token shorter than the first)."""
+    _, enc, _ = encoders
+    short = PAIRS[1]
+    alone = enc.predict([short], batch_size=1)
+    beside = enc.predict([PAIRS[0], short], batch_size=2)
+    np.testing.assert_allclose(beside[1], alone[0], atol=1e-5)
+    chunks = [[(0, len(pair[1]))] for pair in PAIRS]
+    want = enc.predict_context([short], chunks[1:])[0]
+    got = enc.predict_context(PAIRS, chunks)[1]
+    assert len(got.token_scores) == len(want.token_scores) > 0
+    np.testing.assert_allclose(got.token_scores, want.token_scores, atol=1e-5)
+
+
 def test_encoder_thresholds_keep_and_empty_the_document(encoders):
     """The contract of tests/test_encoder_api.py on the port alone."""
     _, enc, _ = encoders
@@ -147,7 +181,7 @@ def test_save_pretrained_round_trips_through_both_packages(encoders, tmp_path):
     again = OpenProvenceEncoder.from_pretrained(saved, tokenizer=torch_encoder.tokenizer,
                                                 device="cpu", bucket_step=16)
     np.testing.assert_array_equal(again.predict(PAIRS), orig)
-    in_jax = JaxEncoder.from_pretrained(saved, tokenizer=torch_encoder.tokenizer,
+    in_jax = JaxEncoder.from_pretrained(saved, tokenizer=Unpadded(torch_encoder.tokenizer),
                                         attention_impl="xla", bucket_step=16)
     np.testing.assert_allclose(in_jax.predict(PAIRS), orig, atol=1e-5)
     # The same checkpoint serves through the port's inference engine.

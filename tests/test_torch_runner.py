@@ -7,8 +7,13 @@ dropout, on the CPU.
   checkpoint directory written from the JAX init (``flax_params_to_hf``):
   the toy 2-layer backbone of ``scripts/make_toy_assets.py``, max_length
   64, fp32, no dropout; the losses logged in ``checkpoint-3`` agree at REL.
-* What the port refuses: the ``eval_datasets`` hook (ROADMAP A.7), a mesh
-  (A.6), ``device=None`` without a card.
+* The ``eval_datasets`` hook: ``train()`` evaluates ``final_model`` into
+  ``final_model/eval_datasets/results.{json,md}`` on the run's device with
+  the run's tokenizer, after the trainer is released; the eval-only mode
+  (``--eval-datasets-model``) rewrites them; the JAX runner's defaults
+  (``threadshold``, batch size 256), its skip without a ``config`` and its
+  message without settings; ``--eval_datasets none`` clears the hook.
+* What the port refuses: a mesh (A.6), ``device=None`` without a card.
 * Backbone dropout: the rate and 1/(1 - rate) scaling at each of the JAX
   module's sites, the identity in eval mode, gradients equal with and
   without per-layer recompute, and a bit-exact resume.
@@ -146,14 +151,90 @@ def test_runner_losses_match_jax(toy):
     assert port_logs[-1]["loss"] != port_logs[0]["loss"]
 
 
-def test_eval_datasets_hook_raises_until_ported(toy):
-    model_args, data_args, training_args = _parse(port_config, toy, "eval_hook")
-    data_args.dataset_name = str(toy["root"] / "no_such_dataset")  # never read
-    training_args.eval_datasets = {"config": "configs/eval_datasets/ja.yaml"}
-    with pytest.raises(NotImplementedError, match="A.7"):
-        port_runner.train(model_args, data_args, training_args, tokenizer=toy["tokenizer"])
-    with pytest.raises(NotImplementedError, match="A.7"):
-        port_runner.main([str(toy["root"] / "eval_hook.yaml"), "--eval-datasets-model", "x"])
+def _eval_yaml(toy) -> Path:
+    path = toy["root"] / "eval_toy.yaml"
+    path.write_text(f'split: validation\ndatasets:\n  - dataset_name: "{toy["dataset"]}"\n'
+                    "    n_samples: 4\n")
+    return path
+
+
+@pytest.fixture(scope="module")
+def eval_run(toy):
+    """``train()`` for 2 steps with the hook set: the final model's path,
+    what the hook's eval saw (its argv, whether every trainer was released
+    when it began) and the config file of the run."""
+    import weakref
+
+    from open_provence_tpu_torch.eval import cli as eval_cli
+
+    settings = {"config": str(_eval_yaml(toy)), "threshold": 0.5, "batch_size": 4}
+    args = _parse(port_config, toy, "eval_hook", do_eval=False, eval_datasets=settings)
+    trainers, seen = [], {}
+
+    class Tracked(OpenProvenceTrainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            trainers.append(weakref.ref(self))
+
+    def spy(argv, *, tokenizer=None):
+        seen.update(argv=list(argv), tokenizer=tokenizer,
+                    released=[ref() is None for ref in trainers])
+        return real_main(argv, tokenizer=tokenizer)
+
+    real_main = eval_cli.main
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_runner, "OpenProvenceTrainer", Tracked)
+        mp.setattr(eval_cli, "main", spy)
+        final = Path(port_runner.train(*args, tokenizer=toy["tokenizer"], max_steps_override=2))
+    return {"final": final, "seen": seen, "yaml": toy["root"] / "eval_hook.yaml"}
+
+
+def test_train_runs_the_eval_datasets_hook(eval_run, toy):
+    final, seen = eval_run["final"], eval_run["seen"]
+    payload = json.loads((final / "eval_datasets" / "results.json").read_text())
+    assert list(payload["results"]) == ["0.5"]
+    (metrics,) = payload["results"]["0.5"].values()
+    assert metrics["contexts"] == 8 and metrics["span_total"] > 0  # 4 rows of 2 texts
+    assert payload["args"]["batch_size"] == 4 and payload["args"]["model"] == str(final)
+    assert "### Threshold 0.5" in (final / "eval_datasets" / "results.md").read_text()
+    argv = seen["argv"]
+    assert argv[argv.index("--device") + 1] == "cpu"
+    assert seen["tokenizer"] is toy["tokenizer"]
+    assert seen["released"] == [True], "the trainer outlived train() into the eval"
+
+
+def test_eval_only_mode_rewrites_the_reports(eval_run, toy):
+    """``--eval-datasets-model`` skips training: no new checkpoint; the
+    reports are rewritten with the settings' ``threadshold`` and the default
+    batch size, the tokenizer read from the model's directory."""
+    final = eval_run["final"]
+    results = final / "eval_datasets" / "results.json"
+    before = json.loads(results.read_text())["args"]["timestamp_utc"]
+    checkpoints = sorted(final.parent.glob("checkpoint-*"))
+    _parse(port_config, toy, "eval_only",
+           eval_datasets={"config": str(_eval_yaml(toy)), "threadshold": 0.3})
+    port_runner.main([str(toy["root"] / "eval_only.yaml"), "--only-eval-datasets-model",
+                      str(final)])
+    assert sorted(final.parent.glob("checkpoint-*")) == checkpoints
+    payload = json.loads(results.read_text())
+    assert payload["args"]["timestamp_utc"] != before
+    assert list(payload["results"]) == ["0.3"] and payload["args"]["batch_size"] == 256
+    assert "### Threshold 0.3" in (final / "eval_datasets" / "results.md").read_text()
+
+
+def test_eval_only_mode_without_settings_and_a_hook_without_config(eval_run, toy, capsys,
+                                                                   caplog):
+    port_runner.main([str(eval_run["yaml"]), "--eval_datasets", "none",
+                      "--eval-datasets-model", str(toy["root"] / "no_such_model")])
+    assert "No eval_datasets configuration found; nothing to evaluate." in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="requires a model path"):
+        port_runner.main([str(eval_run["yaml"]), "--eval-datasets-model"])
+    target = toy["root"] / "no_config_model"
+    with caplog.at_level("WARNING"):
+        port_runner.run_eval_datasets_for_model(target, {"threshold": 0.1})
+    assert "eval_datasets config not specified" in caplog.text and not target.exists()
+    model_args, data_args, training_args = _parse(port_config, toy, "eval_none",
+                                                  eval_datasets={"config": "x.yaml"})
     port_runner.apply_cli_overrides(["--eval_datasets", "none"], model_args, data_args,
                                     training_args)
     assert training_args.eval_datasets is None
