@@ -102,7 +102,20 @@ card and check it, in phases:
    sources into an empty build directory, bit-equal to the in-repo
    package; the eval-only mode of the trainer's CLI on phase 14's final
    model (both reports, contexts/s) and fp32 card against CPU span
-   decisions on 8 queries.
+   decisions on 8 queries;
+16. the mesh (data and tensor parallelism over torch.distributed): kernels
+   2, 3, 4, 11, 12 and 14 at the widths a rank of a tp = 2 mesh gives them
+   (Wqkv's 1152 rows, 6 heads of 64, 576 intermediate columns) against
+   their plain versions, with bf16 times; then four ranks spawned on the
+   one card over gloo: phase 8's batch trained in fp32 for 3 steps at base
+   width and depth under meshes 2 x 1 and 1 x 2 (side by side on ranks
+   {0, 1} and {2, 3}) and 2 x 2, each held to one process on the same batch
+   and weights (losses 1e-4 relative, the update over the run 1e-3 of each
+   tensor's largest); 2 bf16 steps under 2 x 2 (every default kernel
+   launched on every rank, no plain version); phase 5's 256 pairs served
+   under 2 x 1 in bf16 and, on the first 3 layers (CPU_CHECK_LAYERS: gloo
+   carries every activation sum through the host), 1 x 2 in fp32, against
+   one process; no rank imports jax; dryrun_multichip(4) on the card.
 
 The library's attention (``scaled_dot_product_attention``) is timed beside
 the kernels at every shape of phases 3c and 3d, global and +-64 (a boolean
@@ -138,6 +151,11 @@ projection, the GeGLU chain, dW, dW's chunk sum, dy, the LN adjoint; from
 torch.profiler) beside torch.matmul on each bare product, kernel 12 with
 dW cut into 1 to 14 chunks, and phase 3b's backward edge cases.
 
+``python3 -m torch.distributed.run --nproc-per-node 4 chip_smoke.py
+--mesh-cards`` runs the mesh across four cards, one rank a card, under the
+process group the trainer's CLI starts (nccl): phase 16's fp32 training and
+fp32 serving under 2 x 2 against one process on rank 0's card.
+
 Every phase prints a line; any failure raises and the script exits
 non-zero without printing a result. The line before the last is the JSON
 kernel table; the last is {"ok": true, "device": {...}}.
@@ -160,6 +178,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -312,9 +331,11 @@ def attention_bound(mask: torch.Tensor, window: int | None, backward: bool,
     return bound((10 if backward else 4) * head_dim * heads * scored_pairs(mask, window), nbytes)
 
 
-def gemm_bounds(rows: int) -> dict[str, dict]:
-    """Bounds of the row-wise and GEMM kernels at M = rows, base width, bf16."""
-    m, k, n, i, e = rows, HIDDEN, 3 * HIDDEN, INTER, 2
+def gemm_bounds(rows: int, n: int = 3 * HIDDEN, i: int = INTER) -> dict[str, dict]:
+    """Bounds of the row-wise and GEMM kernels at M = rows, base width, bf16
+    (Wqkv's ``n`` rows and the MLP's ``i`` intermediate columns: a
+    tensor-parallel rank's shard gives less of each)."""
+    m, k, e = rows, HIDDEN, 2
     return {
         "layer_norm": bound(8 * m * k, (2 * m * k + k) * e),
         "add_layer_norm": bound(9 * m * k, (4 * m * k + k) * e),
@@ -3348,6 +3369,464 @@ def phase15_release(tokenizer_cls, pair_tokenizer, dev, card: str,
     return by_path
 
 
+# --- phase 16: the mesh --------------------------------------------------------
+
+# A rank's shard of base width under tensor parallelism over 2 ranks: Wqkv's
+# 3 x 6 x 64 rows (6 of the 12 heads) and 576 of the MLP's 1152 columns (Wi's
+# 1152 rows, 576 inputs paired with their 576 gates).
+TP = 2
+TP_QKV, TP_HEADS, TP_INTER = 3 * HIDDEN // TP, HEADS // TP, INTER // TP
+SHARDED = ("ln_matmul", "flash_attention_packed", "ln_geglu", "ln_geglu_bwd",
+           "ln_matmul_bwd", "flash_attention_packed_bwd")
+P16_STEPS, P16_LR, P16_THRESHOLD = 3, 3e-4, 0.1
+# Phase 14's limits on an fp32 run held to another: losses 1e-4 relative,
+# the update over the run 1e-3 of each tensor's largest.
+P16_LOSS_TOL, P16_UPDATE_TOL = 1e-4, STEP_UPDATE_TOL
+# bf16 process() under data parallelism against one process: a score moves
+# only where a product's algorithm changes with the rows it is given.
+P16_BF16_TOL = TOL[torch.bfloat16][0]
+
+
+def phase16_kernels(dev, stats: dict[str, dict]) -> None:
+    """Kernels 2, 3, 4, 11, 12 and 14 at the widths a rank of a tp = 2 mesh
+    gives them at base width, against their plain versions: fp32 and bf16,
+    M = 16384 (a 1 x 2 rank at B=32, S=512) and 8192 - 37 (a 2 x 2 rank's
+    rows, ragged), attention at B = 32 and 16 with ragged masks and a
+    padding row, global and +-64; then bf16 times at M = 16384 beside the
+    bound, the plain version and the library's call, into the kernel
+    table's ``tp2`` entries."""
+    from open_provence_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(16)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(device=dev, dtype=dtype)
+
+    errs = {name: {} for name in SHARDED}
+
+    def note(name, dtype, *values):
+        errs[name][dtype] = max(errs[name].get(dtype, 0.0), *values)
+
+    def grads(name, got, want, dtype):
+        return [check_grad(f"{name} tp2 {dtype}", a, b, dtype) for a, b in zip(got, want)]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        scale = randn(HIDDEN, scale=0.1, dtype=dtype) + 1
+        w_qkv = randn(TP_QKV, HIDDEN, scale=HIDDEN**-0.5, dtype=dtype)
+        w_i = randn(2 * TP_INTER, HIDDEN, scale=HIDDEN**-0.5, dtype=dtype)
+        for m in (16384, 8192 - 37):
+            x = randn(m, HIDDEN, scale=2.0, dtype=dtype)
+            note("ln_matmul", dtype, check_close(f"ln_matmul tp2 {dtype} M={m}",
+                 ops.ln_matmul(x, scale, w_qkv), ops.ln_matmul_plain(x, scale, w_qkv), dtype))
+            note("ln_geglu", dtype, check_close(f"ln_geglu tp2 {dtype} M={m}",
+                 ops.ln_geglu(x, scale, w_i, "gelu"), ops.ln_geglu_plain(x, scale, w_i, "gelu"),
+                 dtype))
+            g_qkv, g_mlp = randn(m, TP_QKV, scale=0.1, dtype=dtype), randn(m, TP_INTER, scale=0.1,
+                                                                         dtype=dtype)
+            note("ln_matmul_bwd", dtype, *grads("ln_matmul_bwd",
+                 ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
+                 ops.ln_matmul_bwd_plain(x, scale, w_qkv, g_qkv), dtype))
+            note("ln_geglu_bwd", dtype, *grads("ln_geglu_bwd",
+                 ops.ln_geglu_bwd(x, scale, w_i, g_mlp, "gelu"),
+                 ops.ln_geglu_bwd_plain(x, scale, w_i, g_mlp, "gelu"), dtype))
+        for batch in (32, 16):
+            qkv = randn(batch, 512, TP_QKV, dtype=dtype)
+            mask = ragged_mask(batch, 512, gen, dev)
+            mask[-1] = 0
+            valid = mask.bool()
+            g = randn(batch, 512, TP_QKV // 3, dtype=dtype) * mask[..., None].to(dtype)
+            for window, theta in ((None, 160000.0), (64, 10000.0)):
+                rope = ops.rope_tables(512, HEAD_DIM, theta, dtype, dev)
+                kw = dict(num_heads=TP_HEADS, padding_mask=mask, window=window, rope=rope)
+                out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+                note("flash_attention_packed", dtype, check_close(
+                    f"flash_attention_packed tp2 {dtype} B={batch}", out[valid],
+                    ops.attention_packed_plain(qkv, **kw)[valid], dtype))
+                note("flash_attention_packed_bwd", dtype, *grads(
+                    "flash_attention_packed_bwd", (ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),),
+                    (ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw),), dtype))
+        torch.cuda.synchronize()
+
+    # bf16 times at a 1 x 2 rank's rows, B=32, S=512 (the last dtype above).
+    x = randn(16384, HIDDEN, scale=2.0, dtype=dtype)
+    g_qkv, g_mlp = randn(16384, TP_QKV, scale=0.1, dtype=dtype), randn(16384, TP_INTER, scale=0.1,
+                                                                     dtype=dtype)
+    qkv = randn(32, 512, TP_QKV, dtype=dtype)
+    mask = ragged_mask(32, 512, gen, dev)
+    g = randn(32, 512, TP_QKV // 3, dtype=dtype) * mask[..., None].to(dtype)
+    rope = ops.rope_tables(512, HEAD_DIM, 160000.0, dtype, dev)
+    kw = dict(num_heads=TP_HEADS, padding_mask=mask, window=None, rope=rope)
+    out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+    # The forwards take ~0.06-0.09 ms here, near the host's time to issue a
+    # call through the wrapper: they are timed as CUDA-graph replays.
+    timings = {
+        "ln_matmul": paired_ms(lambda: ops.ln_matmul(x, scale, w_qkv),
+                               lambda: ops.ln_matmul_plain(x, scale, w_qkv), graph_ms),
+        "flash_attention_packed": paired_ms(lambda: ops.flash_attention_packed(qkv, **kw),
+                                            lambda: ops.attention_packed_plain(qkv, **kw),
+                                            graph_ms),
+        "ln_geglu": paired_ms(lambda: ops.ln_geglu(x, scale, w_i, "gelu"),
+                              lambda: ops.ln_geglu_plain(x, scale, w_i, "gelu"), graph_ms),
+        "ln_geglu_bwd": paired_ms(lambda: ops.ln_geglu_bwd(x, scale, w_i, g_mlp, "gelu"),
+                                  lambda: ops.ln_geglu_bwd_plain(x, scale, w_i, g_mlp, "gelu")),
+        "ln_matmul_bwd": paired_ms(lambda: ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
+                                   lambda: ops.ln_matmul_bwd_plain(x, scale, w_qkv, g_qkv)),
+        "flash_attention_packed_bwd": paired_ms(
+            lambda: ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),
+            lambda: ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw)),
+    }
+    bounds = gemm_bounds(16384, n=TP_QKV, i=TP_INTER)
+    bounds["flash_attention_packed"] = attention_bound(mask, None, False, heads=TP_HEADS)
+    bounds["flash_attention_packed_bwd"] = attention_bound(mask, None, True, heads=TP_HEADS)
+    # The library: sdpa and its backward on the same heads; for the GEMM
+    # kernels, which no one call computes, torch.matmul on their products
+    # (kernel 12: dy and dW; kernel 11: the projection, dy and dW).
+    xn = ops.layer_norm(x, scale)
+    sdpa = library_attention_ms(qkv, rope, mask, g, heads=TP_HEADS)
+    library = {
+        "flash_attention_packed": sdpa[0], "flash_attention_packed_bwd": sdpa[1],
+        "ln_matmul": None, "ln_geglu": None, "ln_matmul_bwd": None, "ln_geglu_bwd": None,
+    }
+    g_wi = torch.cat([g_mlp, g_mlp], 1)  # the cotangent of Wi's output, [M, 2I/tp]
+    matmul = {
+        "ln_matmul": graph_ms(lambda: torch.matmul(xn, w_qkv.t())),
+        "ln_geglu": graph_ms(lambda: torch.matmul(xn, w_i.t())),
+        "ln_matmul_bwd": cuda_ms(lambda: (g_qkv @ w_qkv, g_qkv.t() @ xn)),
+        "ln_geglu_bwd": cuda_ms(lambda: (xn @ w_i.t(), g_wi @ w_i, g_wi.t() @ xn)),
+    }
+    for name in SHARDED:
+        ms, plain_ms = timings[name]
+        entry = {"max_abs_err": errs[name][torch.bfloat16],
+                 "max_abs_err_fp32": errs[name][torch.float32], "ms": ms, "plain_ms": plain_ms,
+                 **bounds[name], "library_ms": library[name]}
+        if name in matmul:
+            entry["matmul_ms"] = matmul[name]
+        stats[name]["tp2"] = entry
+        extra = (f"torch.matmul on its products {matmul[name]:.4f} ms" if name in matmul
+                 else f"library {library[name]:.4f} ms")
+        phase(f"phase 16 {name} at the tp = 2 shard: max_abs_err fp32 "
+              f"{entry['max_abs_err_fp32']:.3e}, bf16 {entry['max_abs_err']:.3e}; bf16 B=32 S=512 "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms by "
+              f"{entry['bound_by']}, {extra}")
+
+
+def p16_train(mesh, sd, batches, steps: int, bf16: bool, ref_path: str | None,
+              out_dir: Path, device: torch.device = torch.device("cuda", 0)) -> dict:
+    """``steps`` trainer steps over ``mesh`` on phase 8's batches in turn:
+    the losses, each parameter's sum (ranks of a mesh must agree), the wall,
+    the launches it made and, on the main rank with ``ref_path``, the update
+    over the run against one process's."""
+    from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.train import OpenProvenceTrainer
+
+    before = kernels.launch_counts()
+    began = time.perf_counter()
+    trainer = OpenProvenceTrainer(base_config(), sd, None, output_dir=out_dir, bf16=bf16,
+                                  learning_rate=P16_LR, total_steps=10, mesh=mesh,
+                                  tensor_parallel=True, device=device)
+    losses = [trainer.train_one_step(batches[i % len(batches)])["loss"] for i in range(steps)]
+    torch.cuda.synchronize()
+    out = {"losses": losses, "wall": time.perf_counter() - began, "device": str(trainer.device),
+           "sums": [float(p.detach().double().sum()) for p in trainer.params.values()],
+           "launches": {k: v - before[k] for k, v in kernels.launch_counts().items()}}
+    if ref_path is not None and mesh.is_main:
+        ref = torch.load(ref_path, mmap=True, weights_only=True)
+        errs = rel_errs({k: trainer.params[k].detach().cpu() - sd[k] for k in sd}, ref)
+        out["update_err"], out["worst"] = max(errs.values()), max(errs, key=errs.get)
+    return out
+
+
+def p16_serve(model, pairs) -> dict:
+    """process() on ``pairs`` at threshold 0.1 with the sentence metrics."""
+    began = time.perf_counter()
+    out = model.process(*pairs, threshold=P16_THRESHOLD, show_progress=False,
+                        return_sentence_metrics=True)
+    torch.cuda.synchronize()
+    return {"scores": np.asarray(out["reranking_score"], dtype=np.float64),
+            "probs": np.concatenate([np.asarray(p) for p in out["sentence_probabilities"]]),
+            "pruned": out["pruned_context"], "wall": time.perf_counter() - began,
+            "device": str(model.device)}
+
+
+def p16_all_reduce_ms(mesh, device: torch.device = torch.device("cuda", 0)) -> float:
+    """Milliseconds of one gloo all-reduce of 50 MB of fp32 on the card
+    over ``mesh``'s model group (two ranks), the lowest of three: the size
+    of one activation sum of tensor parallelism at B=32, S=512."""
+    t = torch.ones(50 * 2**20 // 4, device=device)
+    times = []
+    for _ in range(3):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        mesh.all_reduce(t, "model")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - began) * 1e3)
+    return min(times)
+
+
+def p16_rank(rank: int, sd_path: str, batches: list, ref_path: str, out_dir: str) -> dict:
+    """One of phase 16's four ranks, all on card 0. Ranks 0 and 1 serve
+    (process() under 2 x 1 in bf16 at 22 layers, under 1 x 2 in fp32 at
+    CPU_CHECK_LAYERS) and train fp32 under 2 x 1 while ranks 2 and 3 train
+    fp32 under 1 x 2, which evens out the two pairs' walls: gloo carries
+    every activation sum of tensor parallelism through the host at about
+    1 GB/s (phase 16 prints it), so at full depth the fp32 1 x 2 serve
+    alone outlasts both pairs' training. Then all four train fp32 and
+    briefly bf16 under 2 x 2. Returns what it measured and the launches of
+    every kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)
+    from open_provence_tpu_torch import OpenProvenceModel, kernels
+    from open_provence_tpu_torch.parallel.mesh import create_mesh
+
+    out_dir = Path(out_dir)
+    sd = torch.load(sd_path, mmap=True, weights_only=True)
+    pairs = {(devices, shape): create_mesh(*shape, devices=devices)
+             for devices in ((0, 1), (2, 3)) for shape in ((2, 1), (1, 2))}
+    full = create_mesh(2, 2)
+    mine = (0, 1) if rank < 2 else (2, 3)
+    kernels.reset_launch_counts()
+    result = {"role": "serve" if rank < 2 else "train", "rank": rank,
+              "gloo_ms": p16_all_reduce_ms(pairs[mine, (1, 2)])}
+    if rank < 2:
+        DummyTokenizer, _ = load_dummy_tokenizers()
+        for shape, label, dtype, (config, weights) in (
+                ((2, 1), "2x1", torch.bfloat16, (base_config(), sd)),
+                ((1, 2), "1x2", torch.float32, cut_depth(base_config(), sd, CPU_CHECK_LAYERS))):
+            mesh = pairs[mine, shape]
+            model = OpenProvenceModel(config, weights, DummyTokenizer(),
+                                      device=torch.device("cuda", 0), dtype=dtype, mesh=mesh,
+                                      tensor_parallel=mesh.model > 1)
+            result[f"serve {label}"] = p16_serve(model, synthetic_pairs(256))
+            del model
+    label = "2x1" if rank < 2 else "1x2"
+    result[f"fp32 {label}"] = p16_train(pairs[mine, (2, 1) if rank < 2 else (1, 2)], sd, batches,
+                                        P16_STEPS, False, ref_path, out_dir / f"p16_{label}")
+    result["fp32 2x2"] = p16_train(full, sd, batches, P16_STEPS, False, ref_path,
+                                   out_dir / "p16_2x2")
+    result["bf16 2x2"] = p16_train(full, sd, batches, 2, True, None, out_dir / "p16_2x2_bf16")
+    result["launches"], result["plain"] = kernels.launch_counts(), kernels.plain_counts()
+    result["jax_modules"] = sorted(m for m in sys.modules
+                                   if m.split(".")[0] in ("jax", "open_provence_tpu"))
+    return result
+
+
+def p16_flips(got: np.ndarray, want: np.ndarray, margin: float) -> tuple[int, int]:
+    """(keep/drop flips, sentences decided) among sentences further than
+    ``margin`` from the threshold in ``want``."""
+    decided = np.abs(want - P16_THRESHOLD) > margin
+    flips = int(np.sum((got > P16_THRESHOLD)[decided] != (want > P16_THRESHOLD)[decided]))
+    return flips, int(decided.sum())
+
+
+def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir: Path,
+                 stats: dict[str, dict]) -> dict[str, dict[str, int]]:
+    """The mesh (see above). Returns the launches of the four ranks, summed."""
+    from open_provence_tpu_torch import OpenProvenceModel, kernels
+    from open_provence_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
+    from open_provence_tpu_torch.train import OpenProvenceTrainer
+
+    began = time.perf_counter()
+    phase16_kernels(dev, stats)
+    batches = [training_batch(pair_tokenizer, 31, 512, seed=s) for s in (80, 81)]
+    one = OpenProvenceTrainer(config, sd, None, output_dir=out_dir / "p16_one", bf16=False,
+                              learning_rate=P16_LR, total_steps=10, device=dev)
+    t0 = time.perf_counter()
+    want_losses = [one.train_one_step(batches[i % 2])["loss"] for i in range(P16_STEPS)]
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    update = {k: one.params[k].detach().cpu() - sd[k] for k in sd}
+    del one
+    sd_path, ref_path = out_dir / "p16_weights.pt", out_dir / "p16_update.pt"
+    torch.save(sd, sd_path)
+    torch.save(update, ref_path)
+    pairs = synthetic_pairs(256)
+    want_serve = {}
+    for dtype, (cfg, weights) in ((torch.bfloat16, (config, sd)),
+                                  (torch.float32, cut_depth(config, sd, CPU_CHECK_LAYERS))):
+        model = OpenProvenceModel(cfg, weights, tokenizer_cls(), device=dev, dtype=dtype)
+        want_serve[dtype] = p16_serve(model, pairs)
+        del model
+    torch.cuda.empty_cache()
+    phase(f"phase 16 one process: fp32 {P16_STEPS} steps B=32 S=512, losses "
+          f"{', '.join(f'{v:.6f}' for v in want_losses)}, wall {one_wall:.1f} s; process() 256 "
+          f"pairs bf16 {want_serve[torch.bfloat16]['wall']:.1f} s, fp32 at {CPU_CHECK_LAYERS} "
+          f"layers {want_serve[torch.float32]['wall']:.1f} s [{card}]")
+
+    # dryrun_multichip(4) spawns its four ranks beside these four.
+    dryrun = {}
+
+    def run_dryrun():
+        t = time.perf_counter()
+        try:
+            dryrun["loss"] = dryrun_multichip(4)
+        except Exception as e:  # raised after the join below
+            dryrun["error"] = e
+        dryrun["wall"] = time.perf_counter() - t
+
+    side = threading.Thread(target=run_dryrun)
+    t0 = time.perf_counter()
+    side.start()
+    ranks = run_ranks(p16_rank, 4, str(sd_path), batches, str(ref_path), str(out_dir))
+    spawn_wall = time.perf_counter() - t0
+    side.join()
+    if "error" in dryrun:
+        raise AssertionError(f"phase 16: dryrun_multichip(4) failed: {dryrun['error']!r}")
+    leaked = sorted({m for r in ranks for m in r["jax_modules"]})
+    if leaked:
+        raise AssertionError(f"phase 16: a rank imported {leaked[:5]}")
+    for r in ranks:
+        runs = [v for k, v in r.items() if k.startswith(("fp32", "bf16", "serve"))]
+        if any(r["plain"].values()) or any(v["device"] != "cuda:0" for v in runs):
+            raise AssertionError(f"phase 16 rank {r['rank']} ran a plain version or left the "
+                                 f"card: {r['plain']}")
+    layers = config.backbone().num_hidden_layers
+    for label, members in (("2x1", ranks[:2]), ("1x2", ranks[2:]), ("2x2", ranks)):
+        runs = [r[f"fp32 {label}"] for r in members]
+        main = next(run for run in runs if "update_err" in run)
+        loss_err = max(abs(a / b - 1) for a, b in zip(main["losses"], want_losses))
+        agree = all(run["sums"] == main["sums"] and run["losses"] == main["losses"] for run in runs)
+        walls = ", ".join(f"{run['wall']:.1f}" for run in runs)
+        phase(f"phase 16 fp32 {label} mesh, {P16_STEPS} steps B=32 S=512, {layers} layers: losses "
+              f"{', '.join(f'{v:.6f}' for v in main['losses'])} (largest rel err {loss_err:.3e}, "
+              f"tol {P16_LOSS_TOL}); update over the run: largest error {main['update_err']:.3e} "
+              f"of each tensor's largest ({main['worst']}; tol {P16_UPDATE_TOL}); ranks agree "
+              f"{agree}; walls {walls} s")
+        if not (loss_err <= P16_LOSS_TOL and main["update_err"] <= P16_UPDATE_TOL and agree):
+            raise AssertionError(f"phase 16: the {label} mesh's fp32 run is not one process's")
+    bf16 = [r["bf16 2x2"] for r in ranks]
+    for run in bf16:
+        missing = [name for name in DEFAULT_EIGHT if run["launches"][name] == 0]
+        if missing or not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"phase 16 bf16 2x2: losses {run['losses']}, never launched "
+                                 f"{missing}")
+    losses = ", ".join(f"{v:.4f}" for v in bf16[0]["losses"])
+    walls = ", ".join(f"{run['wall']:.1f}" for run in bf16)
+    counts = "; ".join("/".join(str(run["launches"][k]) for k in FORWARD) for run in bf16)
+    phase(f"phase 16 bf16 2x2 mesh, 2 steps: losses {losses}; walls {walls} s; kernels 1-4 "
+          f"launched a rank {counts}")
+
+    served = {label: [r[f"serve {label}"] for r in ranks[:2]] for label in ("2x1", "1x2")}
+    for label, dtype, tol, margin in (("2x1", torch.bfloat16, P16_BF16_TOL, P16_BF16_TOL),
+                                      ("1x2", torch.float32, 1e-3, 1e-4)):
+        want = want_serve[dtype]
+        for got in served[label]:
+            score_err = float(np.max(np.abs(got["scores"] - want["scores"])))
+            equal = int(np.sum(got["scores"] == want["scores"]))
+            flips, decided = p16_flips(got["probs"], want["probs"], margin)
+            depth = layers if label == "2x1" else CPU_CHECK_LAYERS
+            phase(f"phase 16 process() {label} {str(dtype)[6:]} at {depth} layers, 256 pairs "
+                  "against one process: "
+                  f"{equal} of 256 scores bit-equal, score max_abs_err {score_err:.3e} (tol {tol}), "
+                  f"sentence-prob max_abs_err {np.max(np.abs(got['probs'] - want['probs'])):.3e}, "
+                  f"{flips} keep/drop flips among {decided} sentences decided by > {margin}; "
+                  f"wall {got['wall']:.1f} s")
+            if score_err > tol or flips:
+                raise AssertionError(f"phase 16: process() under {label} is not one process's")
+    for r in ranks:
+        phase(f"phase 16 rank {r['rank']} ({r['role']}) launches: {json.dumps(r['launches'])}")
+    gloo_ms = ", ".join(f"{r['gloo_ms']:.1f}" for r in ranks)
+    phase(f"phase 16 four ranks on card 0 over gloo: {spawn_wall:.1f} s from spawn to join; one "
+          f"all-reduce of 50 MB of fp32 on the card between two ranks {gloo_ms} ms (each rank's "
+          f"lowest of 3) [{card}]; the ranks share one card, so no wall here says anything of "
+          "scaling")
+
+    phase(f"phase 16 dryrun_multichip(4) on card 0, beside the four ranks: loss "
+          f"{dryrun['loss']:.4f}, {dryrun['wall']:.1f} s")
+    phase(f"phase 16 took {time.perf_counter() - began:.0f} s")
+    total = {name: sum(r["launches"][name] for r in ranks) for name in kernels.KERNELS}
+    return {"mesh_16": total}
+
+
+def mesh_cards_main(tree: Path) -> int:
+    try:
+        return mesh_cards(tree)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_cards(tree: Path) -> int:
+    """``torchrun --nproc-per-node 4 chip_smoke.py --mesh-cards``: the mesh
+    across cards, one rank a card, with the process group the trainer's CLI
+    starts (``parallel.mesh.init_from_env``: nccl). Phase 8's batch trained
+    in fp32 for 3 steps at base width and depth under 2 x 2 against one
+    process on rank 0's card (losses 1e-4 relative, the update 1e-3 of each
+    tensor's largest), phase 5's 256 pairs served in fp32 under 2 x 2
+    against one process (scores 1e-3, no flips), and one all-reduce of 50 MB
+    between two cards. Prints on rank 0; any rank's failure fails the run."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(tree))
+    from open_provence_tpu_torch import OpenProvenceModel, init_params
+    from open_provence_tpu_torch.parallel.mesh import Mesh, create_mesh, init_from_env, local_rank
+
+    if not init_from_env(None) or dist.get_world_size() != 4:
+        print("--mesh-cards runs under torchrun --nproc-per-node 4", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", local_rank())
+    rank = dist.get_rank()
+    mesh = create_mesh(2, 2)
+    DummyTokenizer, PairDummyTokenizer = load_dummy_tokenizers()
+    config = base_config()
+    sd = init_params(config, torch.Generator().manual_seed(0))
+    batches = [training_batch(PairDummyTokenizer(), 31, 512, seed=s) for s in (80, 81)]
+    pairs = synthetic_pairs(256)
+    # One directory for every rank of this run: the reference update goes
+    # through it.
+    out = Path(tempfile.gettempdir()) / f"op_mesh_cards_{os.environ['MASTER_PORT']}"
+    ref_path = out / "update.pt"
+    if rank == 0:
+        from open_provence_tpu_torch.train import OpenProvenceTrainer
+
+        out.mkdir(parents=True, exist_ok=True)
+        # One process: a 1 x 1 mesh (the default would span the group).
+        one = OpenProvenceTrainer(config, sd, None, output_dir=out / "one", bf16=False,
+                                  learning_rate=P16_LR, total_steps=10, device=dev, mesh=Mesh())
+        began = time.perf_counter()
+        want_losses = [one.train_one_step(batches[i % 2])["loss"] for i in range(P16_STEPS)]
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - began
+        torch.save({k: one.params[k].detach().cpu() - sd[k] for k in sd}, ref_path)
+        del one
+        want = p16_serve(OpenProvenceModel(config, sd, DummyTokenizer(), device=dev,
+                                           dtype=torch.float32), pairs)
+    mesh.barrier()
+    nccl_ms = p16_all_reduce_ms(mesh, dev)
+    got = p16_train(mesh, sd, batches, P16_STEPS, False, str(ref_path), out / "mesh", dev)
+    served = p16_serve(OpenProvenceModel(config, sd, DummyTokenizer(), device=dev,
+                                         dtype=torch.float32, mesh=mesh, tensor_parallel=True),
+                       pairs)
+    mesh.barrier()
+    if rank != 0:
+        return 0
+    shutil.rmtree(out, ignore_errors=True)
+    loss_err = max(abs(a / b - 1) for a, b in zip(got["losses"], want_losses))
+    score_err = float(np.max(np.abs(served["scores"] - want["scores"])))
+    flips, decided = p16_flips(served["probs"], want["probs"], 1e-4)
+    phase(f"mesh-cards: backend {dist.get_backend()}, {torch.cuda.device_count()} cards "
+          f"[{card_line()}]; one all-reduce of 50 MB between two cards {nccl_ms:.2f} ms")
+    phase(f"mesh-cards fp32 2x2, {P16_STEPS} steps B=32 S=512: losses "
+          f"{', '.join(f'{v:.6f}' for v in got['losses'])} against one process's "
+          f"{', '.join(f'{v:.6f}' for v in want_losses)} (largest rel err {loss_err:.3e}, tol "
+          f"{P16_LOSS_TOL}); update over the run: largest error {got['update_err']:.3e} of "
+          f"each tensor's largest (tol {P16_UPDATE_TOL}); walls {got['wall']:.1f} s against "
+          f"{one_wall:.1f} s")
+    phase(f"mesh-cards process() fp32 2x2, 256 pairs: score max_abs_err {score_err:.3e} (tol "
+          f"1e-3), {flips} flips among {decided} sentences decided by > 1e-4; wall "
+          f"{served['wall']:.1f} s against {want['wall']:.1f} s")
+    ok = (loss_err <= P16_LOSS_TOL and got["update_err"] <= P16_UPDATE_TOL
+          and score_err <= 1e-3 and not flips)
+    print(json.dumps({"ok": ok, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}), flush=True)
+    return 0 if ok else 1
+
+
 def rates_main(tree: Path) -> int:
     """Serving and training rates at B=32, S=512 of the package under
     ``tree``: the forward, ``process()`` on 256 pairs and the bf16 training
@@ -3971,7 +4450,7 @@ def main() -> int:
     if len(sys.argv) > 1:
         modes = {"--rates": rates_main, "--attention": attention_main, "--gemm": gemm_main,
                  "--layouts": layouts_main, "--same-buffers": same_buffers_main,
-                 "--ln-adjoint": ln_adjoint_main}
+                 "--ln-adjoint": ln_adjoint_main, "--mesh-cards": mesh_cards_main}
         if sys.argv[1] not in modes or len(sys.argv) > 3:
             print(f"usage: chip_smoke.py [{' | '.join(modes)} [TREE]]", file=sys.stderr)
             return 2
@@ -4046,6 +4525,9 @@ def main() -> int:
         elapsed("the training entry point")
         by_path.update(phase15_release(DummyTokenizer, pair_tokenizer, dev, card, Path(tmp)))
         elapsed("the release surface")
+        by_path.update(phase16_mesh(config, sd, DummyTokenizer, pair_tokenizer, dev, card,
+                                    Path(tmp), stats))
+        elapsed("the mesh")
 
     # Every kernel must have launched on a main path (the comparisons of
     # phase 3 are outside every count), rows 5 and 15 on the long ones.

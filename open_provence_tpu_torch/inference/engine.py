@@ -18,6 +18,13 @@ postprocess (SURVEY §3.2). ``from_pretrained`` loads a checkpoint directory
 (config.json + model.safetensors, utils/hf_convert.py); the raw-prediction
 APIs (``get_raw_predictions*``, ``predict_with_thresholds``) are host code
 around the same bucketed forward.
+
+Over a ``mesh`` of ``torch.distributed`` ranks (``parallel/mesh.py``) every
+rank runs ``process()`` on the same inputs, as the JAX engine's one program
+runs over its devices: a forward's rows pad to a multiple of the data axis,
+each data rank runs its share of them (with ``tensor_parallel``, on its
+shard of the attention and MLP weights) and the outputs are gathered, so
+every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..models.model import (
     ranking_score_from_logits,
 )
 from ..ops.segment import fragment_mean_pool_ranges
+from ..parallel.mesh import DATA_AXIS, Mesh, shard_state_dict
 from ..text.fragmentation import (
     FragmentRecord,
     assemble_blocks,
@@ -80,14 +88,20 @@ def place_module(
     state_dict: Mapping[str, torch.Tensor],
     device: torch.device | str | None,
     dtype: torch.dtype | None,
+    mesh: Mesh | None = None,
+    tensor_parallel: bool = False,
 ) -> tuple[torch.device, OpenProvenceModule]:
     """The module of ``config`` holding ``state_dict``, in eval mode, on
     ``device`` (None: the first CUDA card, raising where there is none) in
-    ``dtype`` (None: bf16 on a card, the weights' own dtype on the CPU)."""
+    ``dtype`` (None: bf16 on a card, the weights' own dtype on the CPU).
+    With ``tensor_parallel`` over ``mesh`` it holds this rank's shards of
+    the full ``state_dict``."""
     device = kernels.first_card() if device is None else torch.device(device)
     if dtype is None and device.type == "cuda":
         dtype = torch.bfloat16
-    module = OpenProvenceModule(config.backbone(), config.pruning_head())
+    module = OpenProvenceModule(config.backbone(), config.pruning_head(), mesh, tensor_parallel)
+    if tensor_parallel and mesh is not None:
+        state_dict = shard_state_dict(state_dict, mesh)
     module.load_state_dict(dict(state_dict))
     module.to(device=device, dtype=dtype).eval()
     return device, module
@@ -227,7 +241,7 @@ class _BlockDispatcher:
 
     def _dispatch(self, seq_len: int, chunk: list[dict[str, Any]]) -> None:
         model = self.model
-        n_rows = bucket_batch(len(chunk), self.batch_size)
+        n_rows = model._bucket_rows(len(chunk), self.batch_size)
         batch_arrays = pad_block_batch(
             chunk, seq_len, n_rows, model.tokenizer.pad_token_id
         )
@@ -309,7 +323,8 @@ class OpenProvenceRawPrediction:
 
 
 class OpenProvenceModel:
-    """Inference runtime: config + module + tokenizer on one device."""
+    """Inference runtime: config + module + tokenizer on one device, or on
+    each rank of a mesh."""
 
     def __init__(
         self,
@@ -320,6 +335,8 @@ class OpenProvenceModel:
         dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
         bucket_step: int = 64,
+        mesh: Mesh | None = None,
+        tensor_parallel: bool = False,
         device_pooling: bool = True,
     ):
         """``state_dict`` has the reference checkpoint names (see
@@ -328,9 +345,16 @@ class OpenProvenceModel:
         ``device="cpu"``. ``dtype`` defaults to bf16 on CUDA and to the
         weights' own dtype on the CPU. ``bucket_step`` is the length
         bucket granularity: the kernels take any S, so 64 wastes at most 63
-        padded positions a row."""
+        padded positions a row. ``mesh`` (``parallel.create_mesh``) splits
+        each forward's rows over its data axis and, with
+        ``tensor_parallel``, the weights over its model axis; every rank
+        calls ``process()`` alike and gets the whole result."""
         self.config = config
-        self.device, self.module = place_module(config, state_dict, device, dtype)
+        self.mesh = mesh
+        self._data_axis = mesh.data if mesh is not None else 1
+        self.device, self.module = place_module(
+            config, state_dict, device, dtype, mesh, tensor_parallel
+        )
         self.tokenizer = (
             tokenizer
             if isinstance(tokenizer, TokenizerAdapter)
@@ -366,7 +390,8 @@ class OpenProvenceModel:
         the JAX engine's choice of attention route: it must be one of
         ``auto``, ``xla``, ``pallas`` and is then ignored, since the port
         runs one attention kernel for every shape. ``kwargs`` go to the
-        constructor (``bucket_step``, ``device_pooling``)."""
+        constructor (``bucket_step``, ``mesh``, ``tensor_parallel``,
+        ``device_pooling``)."""
         from ..utils.hf_convert import load_checkpoint
 
         check_attention_impl(attention_impl)
@@ -384,14 +409,45 @@ class OpenProvenceModel:
     def _inputs(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         return [torch.from_numpy(a).to(self.device, non_blocking=True) for a in arrays]
 
+    def _bucket_rows(self, n: int, batch_size: int) -> int:
+        """Pad the row count to a power of two (capped at batch_size) and,
+        under a mesh, to a multiple of the data axis."""
+        rows = bucket_batch(n, batch_size)
+        d = self._data_axis
+        return -(-rows // d) * d
+
+    def _my_rows(self, *arrays: np.ndarray) -> list[np.ndarray]:
+        """This data rank's share of each array's rows."""
+        if self._data_axis == 1:
+            return list(arrays)
+        share = arrays[0].shape[0] // self._data_axis
+        lo = self.mesh.data_rank * share
+        return [a[lo : lo + share] for a in arrays]
+
+    def _gather_rows(self, *local: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Every data rank's rows of each output, in order, on every rank:
+        each rank writes its rows into a zero buffer and the buffers are
+        summed (an all-reduce, which gloo also takes on CUDA tensors where
+        ranks share a card; its all_gather takes only CPU tensors)."""
+        if self._data_axis == 1:
+            return local
+        out = []
+        for t in local:
+            full = t.new_zeros((t.shape[0] * self._data_axis, *t.shape[1:]))
+            full[self.mesh.data_rank * t.shape[0] : (self.mesh.data_rank + 1) * t.shape[0]] = t
+            out.append(self.mesh.all_reduce(full, DATA_AXIS))
+        return tuple(out)
+
     @torch.inference_mode()
     def _forward(
         self, input_ids: np.ndarray, attention_mask: np.ndarray
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One bucketed forward: ([B] ranking scores, [B, S] keep probs),
-        fp32, left on the device."""
-        ranking, keep = forward_logits(self.module, self.device, input_ids, attention_mask)
-        return ranking_score_from_logits(ranking), keep
+        fp32, left on the device (under a mesh, every data rank's rows)."""
+        ranking, keep = forward_logits(
+            self.module, self.device, *self._my_rows(input_ids, attention_mask)
+        )
+        return self._gather_rows(ranking_score_from_logits(ranking), keep)
 
     @staticmethod
     def _frag_cap(n_frags: int) -> int:
@@ -439,7 +495,7 @@ class OpenProvenceModel:
             batch_size = DEFAULT_BATCH_SIZE
         if lengths is None:
             lengths = length_buckets(self.max_length, self.bucket_step)
-        rows = bucket_batch(batch_size, batch_size)
+        rows = self._bucket_rows(batch_size, batch_size)
         warmed: list[tuple[int, ...]] = []
         for seq_len in lengths:
             ids = np.zeros((rows, seq_len), dtype=np.int32)
@@ -508,7 +564,7 @@ class OpenProvenceModel:
             padded = pad_block_batch(
                 [{"input_ids": ids, "attention_mask": [1] * len(ids)} for ids in id_rows],
                 bucket_length(longest, buckets),
-                bucket_batch(len(id_rows), max(len(id_rows), 1)),
+                self._bucket_rows(len(id_rows), max(len(id_rows), 1)),
                 self.tokenizer.pad_token_id,
             )
             rank, keep = (

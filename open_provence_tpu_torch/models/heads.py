@@ -16,31 +16,53 @@ import torch
 from torch import nn
 
 from ..configs import PruningHeadConfig
+from ..parallel.mesh import Mesh
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    generator: torch.Generator | None,
+    mesh: Mesh | None = None,
+    split_columns: bool = False,
+) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout`` applies it (keep with
     probability 1 − rate, scale kept values by 1 / (1 − rate)), the mask
-    drawn from ``generator`` on x's device. Rate 0 is the identity."""
+    drawn from ``generator`` on x's device. Rate 0 is the identity.
+
+    Under a ``mesh`` x holds this rank's rows of the activation (its data
+    coordinate's share of dim 0) and, with ``split_columns``, its model
+    coordinate's share of the last dim: the mask is drawn for the whole
+    activation and this rank's part taken, so the mesh changes no random
+    number and every rank's generator stays in step."""
     if rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("training-mode dropout needs a torch.Generator (generator=...)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    rows, cols = 1, 1
+    if mesh is not None:
+        rows, cols = mesh.data, (mesh.model if split_columns else 1)
+    shape = (x.shape[0] * rows, *x.shape[1:-1], x.shape[-1] * cols)
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if rows > 1:
+        keep = keep.narrow(0, mesh.data_rank * x.shape[0], x.shape[0])
+    if cols > 1:
+        keep = keep.narrow(-1, mesh.model_rank * x.shape[-1], x.shape[-1])
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PruningHead(nn.Module):
-    def __init__(self, config: PruningHeadConfig):
+    def __init__(self, config: PruningHeadConfig, mesh: Mesh | None = None):
         super().__init__()
         self.classifier_dropout = config.classifier_dropout
+        self.mesh = mesh
         self.classifier = nn.Linear(config.hidden_size, config.num_labels)
 
     def forward(
         self, hidden_states: torch.Tensor, generator: torch.Generator | None = None
     ) -> torch.Tensor:
         if self.training:
-            hidden_states = dropout(hidden_states, self.classifier_dropout, generator)
+            hidden_states = dropout(hidden_states, self.classifier_dropout, generator, self.mesh)
         return self.classifier(hidden_states)
 
 

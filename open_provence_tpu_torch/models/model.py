@@ -19,19 +19,29 @@ import torch
 from torch import nn
 
 from ..configs import ModernBertBackboneConfig, OpenProvenceConfig, PruningHeadConfig
+from ..parallel.mesh import Mesh
 from .heads import PruningHead
 from .modernbert import ModernBertForSequenceClassification
 
 
 class OpenProvenceModule(nn.Module):
-    """ranking_model (ModernBERT + classifier) + pruning_head."""
+    """ranking_model (ModernBERT + classifier) + pruning_head. Under a
+    ``mesh`` (``parallel.Mesh``) the module runs this rank's rows of a
+    batch and, with ``tensor_parallel``, holds this rank's shards of the
+    attention and MLP weights (``parallel.shard_state_dict``)."""
 
     def __init__(
-        self, backbone_config: ModernBertBackboneConfig, pruning_config: PruningHeadConfig
+        self,
+        backbone_config: ModernBertBackboneConfig,
+        pruning_config: PruningHeadConfig,
+        mesh: Mesh | None = None,
+        tensor_parallel: bool = False,
     ):
         super().__init__()
-        self.ranking_model = ModernBertForSequenceClassification(backbone_config)
-        self.pruning_head = PruningHead(pruning_config)
+        self.ranking_model = ModernBertForSequenceClassification(
+            backbone_config, mesh, tensor_parallel
+        )
+        self.pruning_head = PruningHead(pruning_config, mesh)
 
     def forward(
         self,
@@ -49,8 +59,10 @@ class OpenProvenceModule(nn.Module):
         }
 
 
-def build_module(config: OpenProvenceConfig) -> OpenProvenceModule:
-    return OpenProvenceModule(config.backbone(), config.pruning_head())
+def build_module(
+    config: OpenProvenceConfig, mesh: Mesh | None = None, tensor_parallel: bool = False
+) -> OpenProvenceModule:
+    return OpenProvenceModule(config.backbone(), config.pruning_head(), mesh, tensor_parallel)
 
 
 def ranking_score_from_logits(ranking_logits: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,16 @@ leaves the whole-MLP kernels: kernel 4, the mask, a plain Wo).
 (``torch.utils.checkpoint``), as ``remat`` does in the JAX package; the
 recompute draws the forward's masks again from the generator state the
 layer began with.
+
+Over a mesh (``parallel/mesh.py``) a module holds one rank's part: its rows
+of each batch (dropout takes those rows of the mask drawn for the whole
+batch) and, with ``tensor_parallel``, its heads and intermediate columns.
+Wqkv and Wi are column-parallel (their input enters through
+``copy_to_model``, as does a norm scale folded into them, so the kernels'
+backward partial dx and dscale are summed over the model group), attention
+runs on the rank's heads, and Wo (or the whole-MLP kernel) is row-parallel:
+its partial output is summed by ``reduce_from_model`` before the bias.
+Embeddings, norms, heads and classifiers stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
@@ -74,6 +85,7 @@ from ..ops.geglu import (
 )
 from ..ops.layer_norm import add_layer_norm, layer_norm, layer_norm_plain
 from ..ops.rotary import rope_tables
+from ..parallel.mesh import Mesh, check_tensor_parallel, copy_to_model, reduce_from_model
 from .heads import dropout
 
 
@@ -102,9 +114,10 @@ class LayerNorm(nn.Module):
 
 
 class ModernBertEmbeddings(nn.Module):
-    def __init__(self, cfg: ModernBertBackboneConfig):
+    def __init__(self, cfg: ModernBertBackboneConfig, mesh: Mesh | None = None):
         super().__init__()
         self.dropout = cfg.embedding_dropout
+        self.mesh = mesh
         self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
 
@@ -112,21 +125,43 @@ class ModernBertEmbeddings(nn.Module):
         self, input_ids: torch.Tensor, generator: torch.Generator | None = None
     ) -> torch.Tensor:
         x = self.norm(self.tok_embeddings(input_ids))
-        return dropout(x, self.dropout, generator) if self.training else x
+        return dropout(x, self.dropout, generator, self.mesh) if self.training else x
+
+
+def row_parallel(linear: nn.Linear, x: torch.Tensor, tp: Mesh | None) -> torch.Tensor:
+    """``linear(x)`` for a row-parallel ``linear`` (its input columns split
+    over ``tp``'s model group): the partial products summed over the group,
+    then the bias, once."""
+    if tp is None:
+        return linear(x)
+    out = reduce_from_model(F.linear(x, linear.weight), tp)
+    return out if linear.bias is None else out + linear.bias
 
 
 class ModernBertAttention(nn.Module):
-    """Fused-QKV attention with per-layer rotary theta and window."""
+    """Fused-QKV attention with per-layer rotary theta and window. Under
+    tensor parallelism (``tp``, a mesh whose model axis splits the heads)
+    the layer holds this rank's heads: Wqkv their q, k, v rows, Wo their
+    input columns."""
 
-    def __init__(self, cfg: ModernBertBackboneConfig, layer_id: int):
+    def __init__(
+        self,
+        cfg: ModernBertBackboneConfig,
+        layer_id: int,
+        mesh: Mesh | None = None,
+        tp: Mesh | None = None,
+    ):
         super().__init__()
-        self.num_heads = cfg.num_attention_heads
+        parts = tp.model if tp is not None else 1
+        self.mesh, self.tp = mesh, tp
+        self.num_heads = cfg.num_attention_heads // parts
         self.head_dim = cfg.head_dim
         self.theta = cfg.layer_rope_theta(layer_id)
         self.window = cfg.layer_window(layer_id)
         self.dropout = cfg.attention_dropout
-        self.Wqkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, bias=cfg.attention_bias)
-        self.Wo = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=cfg.attention_bias)
+        width = self.num_heads * self.head_dim
+        self.Wqkv = nn.Linear(cfg.hidden_size, 3 * width, bias=cfg.attention_bias)
+        self.Wo = nn.Linear(width, cfg.hidden_size, bias=cfg.attention_bias)
 
     def forward(
         self,
@@ -139,19 +174,20 @@ class ModernBertAttention(nn.Module):
         """``ln_scale`` (a deferred, bias-free attn_norm) folds the norm into a
         bias-free Wqkv; without it x goes through Wqkv as a plain linear."""
         batch, seq_len, hidden = x.shape
+        x, ln_scale = copy_to_model(x, self.tp), copy_to_model(ln_scale, self.tp)
         if ln_scale is None:
             qkv = self.Wqkv(x)
         else:
             qkv = ln_matmul(
                 x.reshape(batch * seq_len, hidden), ln_scale, self.Wqkv.weight, ln_eps
-            ).reshape(batch, seq_len, 3 * hidden)
+            ).reshape(batch, seq_len, self.Wqkv.out_features)
         rope = rope_tables(seq_len, self.head_dim, self.theta, qkv.dtype, qkv.device)
         out = flash_attention_packed(
             qkv, num_heads=self.num_heads, padding_mask=padding_mask,
             window=self.window, rope=rope,
         )
-        out = self.Wo(out)
-        return dropout(out, self.dropout, generator) if self.training else out
+        out = row_parallel(self.Wo, out, self.tp)
+        return dropout(out, self.dropout, generator, self.mesh) if self.training else out
 
 
 MLP_TAIL_GATE = "OPEN_PROVENCE_TPU_FUSED_MLP_TAIL"
@@ -171,16 +207,23 @@ def mlp_tail_gate() -> str:
 class ModernBertMLP(nn.Module):
     """GeGLU MLP: Wi → act(input)·gate, then Wo. Bias-free, Wi and the gate
     run in one kernel, with mlp_norm folded in when its scale is passed; the
-    gate (read here, when the module is built) folds Wo in too."""
+    gate (read here, when the module is built) folds Wo in too. Under
+    tensor parallelism (``tp``) the layer holds this rank's intermediate
+    columns: Wi their input rows followed by their gate rows, Wo their
+    input columns."""
 
-    def __init__(self, cfg: ModernBertBackboneConfig):
+    def __init__(
+        self, cfg: ModernBertBackboneConfig, mesh: Mesh | None = None, tp: Mesh | None = None
+    ):
         super().__init__()
+        self.mesh, self.tp = mesh, tp
         self.dropout = cfg.mlp_dropout
         self.fused_tail = mlp_tail_gate() if cfg.mlp_dropout == 0.0 else "0"
         self.activation = cfg.hidden_activation
         self.act = lookup_activation(cfg.hidden_activation)[1]
-        self.Wi = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=cfg.mlp_bias)
-        self.Wo = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=cfg.mlp_bias)
+        width = cfg.intermediate_size // (tp.model if tp is not None else 1)
+        self.Wi = nn.Linear(cfg.hidden_size, 2 * width, bias=cfg.mlp_bias)
+        self.Wo = nn.Linear(width, cfg.hidden_size, bias=cfg.mlp_bias)
 
     def forward(
         self,
@@ -191,31 +234,46 @@ class ModernBertMLP(nn.Module):
     ) -> torch.Tensor:
         """``ln_scale`` (a deferred, bias-free mlp_norm) folds the norm into
         the Wi GEMM; without it x is normalized already."""
+        x, ln_scale = copy_to_model(x, self.tp), copy_to_model(ln_scale, self.tp)
         if self.Wi.bias is not None:
             inp, gate = self.Wi(x).chunk(2, dim=-1)
-            return self.Wo(self._drop(self.act(inp) * gate, generator))
+            return row_parallel(self.Wo, self._drop(self.act(inp) * gate, generator), self.tp)
         x2d = x.reshape(-1, x.shape[-1])
         if (
             ln_scale is not None
             and self.fused_tail != "0"
             and geglu_wo_supported(x2d.shape[1], self.Wo.in_features, x.dtype, self.activation)
         ):
-            return ln_geglu_wo(
+            # Under tensor parallelism kernel 8's output is a partial sum.
+            return reduce_from_model(ln_geglu_wo(
                 x2d, ln_scale, self.Wi.weight, self.Wo.weight, self.activation, ln_eps,
                 fuse_forward=self.fused_tail == "1",
-            ).reshape(x.shape)
+            ), self.tp).reshape(x.shape)
         if ln_scale is None:
             hidden = geglu(x2d, self.Wi.weight, self.activation)
         else:
             hidden = ln_geglu(x2d, ln_scale, self.Wi.weight, self.activation, ln_eps)
-        return self.Wo(self._drop(hidden, generator)).reshape(x.shape)
+        return row_parallel(self.Wo, self._drop(hidden, generator), self.tp).reshape(x.shape)
 
     def _drop(self, hidden: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
-        return dropout(hidden, self.dropout, generator) if self.training else hidden
+        if not self.training:
+            return hidden
+        return dropout(hidden, self.dropout, generator, self.mesh, split_columns=self.tp is not None)
 
 
 class ModernBertEncoderLayer(nn.Module):
-    def __init__(self, cfg: ModernBertBackboneConfig, layer_id: int):
+    """Under tensor parallelism the norms stay whole on every rank; a norm
+    folded into a column-parallel GEMM (kernels 2, 4, 8) enters it through
+    ``copy_to_model``, so its scale's gradient, which that GEMM's backward
+    gives from this rank's columns alone, is summed over the group."""
+
+    def __init__(
+        self,
+        cfg: ModernBertBackboneConfig,
+        layer_id: int,
+        mesh: Mesh | None = None,
+        tp: Mesh | None = None,
+    ):
         super().__init__()
         self.eps = cfg.norm_eps
         # A norm folds into the GEMM it feeds only when neither carries a
@@ -227,9 +285,9 @@ class ModernBertEncoderLayer(nn.Module):
         self.attn_norm = (
             None if layer_id == 0 else LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
         )
-        self.attn = ModernBertAttention(cfg, layer_id)
+        self.attn = ModernBertAttention(cfg, layer_id, mesh, tp)
         self.mlp_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
-        self.mlp = ModernBertMLP(cfg)
+        self.mlp = ModernBertMLP(cfg, mesh, tp)
 
     def forward(
         self,
@@ -273,15 +331,26 @@ def _layer_call(layer, names, x, padding_mask, generator, start, ends, *tensors)
 
 
 class ModernBertModel(nn.Module):
-    """Backbone returning the last hidden state before and after final_norm."""
+    """Backbone returning the last hidden state before and after final_norm.
+    ``mesh`` (a ``parallel.Mesh``) says which rows of a batch this rank
+    holds, for dropout; with ``tensor_parallel`` its model axis splits the
+    heads and the MLP's intermediate columns."""
 
-    def __init__(self, cfg: ModernBertBackboneConfig):
+    def __init__(
+        self,
+        cfg: ModernBertBackboneConfig,
+        mesh: Mesh | None = None,
+        tensor_parallel: bool = False,
+    ):
         super().__init__()
+        tp = mesh if tensor_parallel and mesh is not None and mesh.model > 1 else None
+        if tp is not None:
+            check_tensor_parallel(cfg.num_attention_heads, cfg.intermediate_size, tp.model)
         self.layer_dropout = bool(cfg.attention_dropout or cfg.mlp_dropout)
         self.gradient_checkpointing = False
-        self.embeddings = ModernBertEmbeddings(cfg)
+        self.embeddings = ModernBertEmbeddings(cfg, mesh)
         self.layers = nn.ModuleList(
-            ModernBertEncoderLayer(cfg, i) for i in range(cfg.num_hidden_layers)
+            ModernBertEncoderLayer(cfg, i, mesh, tp) for i in range(cfg.num_hidden_layers)
         )
         self.final_norm = LayerNorm(cfg.hidden_size, cfg.norm_eps, cfg.norm_bias)
 
@@ -330,13 +399,19 @@ class ModernBertForSequenceClassification(nn.Module):
     """Backbone + pooled classification head (ranking logits): pool (cls or
     masked mean) → prediction head → dropout (training) → classifier."""
 
-    def __init__(self, cfg: ModernBertBackboneConfig):
+    def __init__(
+        self,
+        cfg: ModernBertBackboneConfig,
+        mesh: Mesh | None = None,
+        tensor_parallel: bool = False,
+    ):
         super().__init__()
         if cfg.classifier_pooling not in ("cls", "mean"):
             raise ValueError(f"Unknown classifier_pooling: {cfg.classifier_pooling!r}")
         self.pooling = cfg.classifier_pooling
         self.classifier_dropout = cfg.classifier_dropout
-        self.model = ModernBertModel(cfg)
+        self.mesh = mesh
+        self.model = ModernBertModel(cfg, mesh, tensor_parallel)
         self.head = ModernBertPredictionHead(cfg)
         self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
 
@@ -360,5 +435,5 @@ class ModernBertForSequenceClassification(nn.Module):
             pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1)
         pooled = self.head(pooled)
         if self.training:
-            pooled = dropout(pooled, self.classifier_dropout, generator)
+            pooled = dropout(pooled, self.classifier_dropout, generator, self.mesh)
         return {"logits": self.classifier(pooled), **outputs}

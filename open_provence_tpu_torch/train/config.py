@@ -5,9 +5,10 @@ Mirrors the reference's config system (open_provence/trainer.py:225-402,
 the same keys and defaults (adafactor, bf16, cosine, lr 5e-5, batch 32 ×
 accum 2, warmup 0.1, ranking_weight 0.05 / pruning_weight 1.0).
 
-The port trains on one device: ``training_args.device`` names it (``None``:
-the first CUDA card), where the JAX package takes a mesh (``mesh_data``,
-``mesh_model``); a mesh of more than one device raises (ROADMAP A.6).
+``mesh_data`` / ``mesh_model`` are the data- and tensor-parallel axes over
+the ranks of the process group (``parallel/mesh.py``), as in the JAX
+package; ``training_args.device`` names each rank's device (``None``: the
+first CUDA card, card ``LOCAL_RANK`` under torchrun).
 ``attention_impl`` is read and ignored: the port has one attention path.
 """
 
@@ -85,17 +86,6 @@ class PruningTrainingArguments:
     gradient_checkpointing: bool = False  # remat transformer layers
     # The port's device ("cuda", "cuda:1", "cpu"; None = the first CUDA card).
     device: str | None = None
-
-
-def check_single_device(training_args: PruningTrainingArguments) -> None:
-    """Raise for a mesh of more than one device: the port trains on one
-    (``training_args.device``); multi-GPU is ROADMAP A.6."""
-    if training_args.mesh_data not in (None, 1) or training_args.mesh_model != 1:
-        raise NotImplementedError(
-            f"mesh_data={training_args.mesh_data}, mesh_model={training_args.mesh_model}: "
-            "the port trains on one device (training_args.device); data and tensor "
-            "parallelism are not ported yet (ROADMAP A.6)"
-        )
 
 
 def parse_config_file(
@@ -184,5 +174,4 @@ def parse_config_file(
         gradient_checkpointing=training_config.get("gradient_checkpointing", False),
         device=training_config.get("device"),
     )
-    check_single_device(training_args)
     return model_args, data_args, training_args

@@ -10,13 +10,19 @@ Counterpart of the JAX package's ``train/losses.py``, with the reference
   pruning loss becomes 0.001.
 
 Pure functions of (model outputs, batch), with the components returned for
-logging.
+logging. Under a data-parallel ``mesh`` each rank holds some rows of the
+global batch, and every normalizer and special case is that of the global
+batch, as in the JAX step: a rank divides its local sum by the count summed
+over the data group, so its loss is its share of the global loss, the
+shares sum to it and the data group sums its gradients.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import DATA_AXIS, Mesh
 
 IGNORE_INDEX = -100
 
@@ -28,12 +34,13 @@ def ranking_loss(
     *,
     is_regression: bool = True,
     use_raw_logits: bool = True,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     scores = ranking_logits[..., 0] if ranking_logits.dim() > 1 else ranking_logits
     scores = scores.float()
     targets = targets.float()
     pair_mask = pair_mask.float()
-    denom = pair_mask.sum().clamp_min(1.0)
+    denom = _global_sum(pair_mask.sum(), mesh).clamp_min(1.0)
     if is_regression and use_raw_logits:
         per_pair = (scores - targets) ** 2
     elif is_regression:
@@ -47,15 +54,27 @@ def pruning_loss(
     pruning_logits: torch.Tensor,  # [P, L, 2]
     pruning_labels: torch.Tensor,  # [P, L] int, -100 = ignore
     pair_mask: torch.Tensor,  # [P]
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     valid = (pruning_labels != IGNORE_INDEX) & (pair_mask[:, None] > 0)
     labels = torch.where(valid, pruning_labels, 0).long()
     log_probs = F.log_softmax(pruning_logits.float(), dim=-1)
     picked = log_probs.gather(-1, labels[..., None])[..., 0]
-    num_valid = valid.sum()
+    num_valid = _global_sum(valid.sum(), mesh)
     loss = -torch.where(valid, picked, 0.0).sum() / num_valid.clamp_min(1)
     loss = torch.where(num_valid == 0, torch.zeros_like(loss), loss)
-    return torch.where(torch.isfinite(loss), loss, torch.full_like(loss, 0.001))
+    # Decided on the global loss: every rank's share, or 0.001 in all.
+    shares = 1 if mesh is None else mesh.data
+    finite = torch.isfinite(_global_sum(loss.detach(), mesh))
+    return torch.where(finite, loss, torch.full_like(loss, 0.001 / shares))
+
+
+def _global_sum(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """``t`` summed over the data group (a detached copy; ``t`` itself
+    without a mesh)."""
+    if mesh is None or mesh.data == 1:
+        return t
+    return mesh.all_reduce(t.detach().clone(), DATA_AXIS)
 
 
 def joint_loss(
@@ -66,15 +85,20 @@ def joint_loss(
     pruning_weight: float = 1.0,
     is_regression: bool = True,
     use_raw_logits: bool = True,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(total, components); under a ``mesh`` this rank's shares of them."""
     r_loss = ranking_loss(
         outputs["ranking_logits"],
         batch["ranking_targets"],
         batch["pair_mask"],
         is_regression=is_regression,
         use_raw_logits=use_raw_logits,
+        mesh=mesh,
     )
-    p_loss = pruning_loss(outputs["pruning_logits"], batch["pruning_labels"], batch["pair_mask"])
+    p_loss = pruning_loss(
+        outputs["pruning_logits"], batch["pruning_labels"], batch["pair_mask"], mesh
+    )
     total = ranking_weight * r_loss + pruning_weight * p_loss
     return total, {"ranking_loss": r_loss, "pruning_loss": p_loss}
 

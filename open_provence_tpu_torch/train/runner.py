@@ -1,14 +1,22 @@
 """train() orchestration + CLI: the port's counterpart of the JAX package's
 ``train/runner.py`` (reference trainer.py:1389-1737 and runner.py).
 
-Flow: parse the YAML config → prepare datasets → dynamic step cadence →
-init encoder → collator → trainer on one device → final_model export →
-reload check → the ``eval_datasets`` hook. The step arithmetic is the JAX runner's with a data axis of
-1. Differences from it:
+Flow: parse the YAML config → prepare datasets → the mesh → dynamic step
+cadence → init encoder → collator → trainer → final_model export → reload
+check → the ``eval_datasets`` hook. The step and batch arithmetic is the
+JAX runner's: ``per_device_train_batch_size`` queries per data rank, the
+pair count padded to a multiple of the data axis. Differences from it:
 
-* the device is ``training_args.device`` (``None``: the first CUDA card,
-  and a RuntimeError where there is none), not a mesh; a mesh of more than
-  one device raises (ROADMAP A.6);
+* the mesh is ``create_mesh(mesh_data, mesh_model)`` over the ranks of the
+  process group (``parallel/mesh.py``; the CLI starts one from torchrun's
+  environment), and ``mesh_model > 1`` trains tensor-parallel (the JAX
+  runner passes its mesh without ``tensor_parallel``, so its model axis
+  replicates the computation);
+* each rank runs on ``training_args.device`` (``None``: the first CUDA
+  card, card ``LOCAL_RANK`` under a process group, and a RuntimeError where
+  there is none);
+* the export, the reload check and the ``eval_datasets`` hook run on the
+  main rank while the others wait;
 * the reload of ``final_model`` with the port's ``from_pretrained`` on the
   run's device raises when it fails, where the JAX runner logs the failure
   and returns;
@@ -34,12 +42,12 @@ from typing import Any
 import torch
 
 from .. import kernels
+from ..parallel.mesh import create_mesh, init_from_env, local_rank
 from .collator import OpenProvenceDataCollator
 from .config import (
     DataArguments,
     ModelArguments,
     PruningTrainingArguments,
-    check_single_device,
     parse_config_file,
 )
 from .data import batch_iterator, prepare_dataset
@@ -62,9 +70,13 @@ def _max_docs(dataset, texts_column: str = "texts", probe: int = 256) -> int:
 
 
 def train_device(training_args: PruningTrainingArguments) -> torch.device:
-    """``training_args.device``, or the first CUDA card (raising without one)."""
+    """``training_args.device``, or the first CUDA card (raising without
+    one), which is card ``LOCAL_RANK`` under a process group."""
     if training_args.device is None:
-        return kernels.first_card()
+        card = kernels.first_card()
+        if torch.distributed.is_initialized():
+            card = torch.device("cuda", local_rank())
+        return card
     return torch.device(training_args.device)
 
 
@@ -82,9 +94,14 @@ def train(
     from ..inference.engine import OpenProvenceModel, check_attention_impl
 
     logging.basicConfig(level=logging.INFO)
-    check_single_device(training_args)
     check_attention_impl(training_args.attention_impl)
     device = train_device(training_args)
+    mesh = create_mesh(data=training_args.mesh_data, model=training_args.mesh_model)
+    if mesh is None:
+        raise ValueError(
+            f"mesh {training_args.mesh_data}x{training_args.mesh_model} leaves this rank out"
+        )
+    data_axis = mesh.data
 
     if training_args.output_dir is None:
         stamp = timestamp or time.strftime("%Y%m%d_%H%M%S")
@@ -109,7 +126,7 @@ def train(
         per_device_batch_size=training_args.per_device_train_batch_size,
         gradient_accumulation_steps=training_args.gradient_accumulation_steps,
         num_epochs=training_args.num_train_epochs,
-        num_devices=1,
+        num_devices=data_axis,
     )
     if max_steps_override is not None:
         total_steps = max_steps_override
@@ -122,13 +139,13 @@ def train(
     save_steps = training_args.save_steps or eval_steps
 
     logger.info(
-        "Dynamic steps: total=%s eval=%s logging=%s save=%s (device=%s)",
-        total_steps, eval_steps, logging_steps, save_steps, device,
+        "Dynamic steps: total=%s eval=%s logging=%s save=%s (device=%s, mesh=%sx%s)",
+        total_steps, eval_steps, logging_steps, save_steps, device, *mesh.shape,
     )
 
     # wandb logging (reference trainer.py:1463-1483); gated on availability.
     log_fn = None
-    if training_args.report_to and "wandb" in training_args.report_to:
+    if mesh.is_main and training_args.report_to and "wandb" in training_args.report_to:
         try:
             import wandb
 
@@ -171,12 +188,15 @@ def train(
             model_args.tokenizer_name or model_args.model_name_or_path
         )
 
-    # ``per_device_train_batch_size`` means queries per device (the
-    # reference/HF convention, trainer.py:1509-1515); one device here, and a
-    # batch is padded to a fixed number of pairs so its shape never changes.
+    # ``per_device_train_batch_size`` means queries per data rank (the
+    # reference/HF convention, trainer.py:1509-1515): the global batch is
+    # that times the data axis, padded to a fixed number of pairs, a
+    # multiple of the data axis, so its shape never changes and it splits
+    # evenly.
     max_docs = _max_docs(train_dataset)
-    queries_per_batch = training_args.per_device_train_batch_size
+    queries_per_batch = training_args.per_device_train_batch_size * data_axis
     pad_pairs_to = queries_per_batch * max_docs
+    pad_pairs_to = -(-pad_pairs_to // data_axis) * data_axis
 
     collator = OpenProvenceDataCollator(
         tokenizer=tokenizer,
@@ -205,6 +225,8 @@ def train(
         gradient_checkpointing=training_args.gradient_checkpointing,
         gradient_accumulation_steps=training_args.gradient_accumulation_steps,
         seed=training_args.seed,
+        mesh=mesh,
+        tensor_parallel=mesh.model > 1,
         save_total_limit=training_args.save_total_limit,
         device=device,
         log_fn=log_fn,
@@ -250,6 +272,10 @@ def train(
 
     final_model_path = output_dir / "final_model"
     trainer.export_model(final_model_path)
+    del trainer
+    if not mesh.is_main:
+        mesh.barrier()  # the main rank's reload check and eval hook
+        return str(final_model_path)
     (final_model_path / "training_args.json").write_text(
         json.dumps(
             {
@@ -263,7 +289,6 @@ def train(
             default=str,
         )
     )
-    del trainer
 
     # Reload check (reference trainer.py:1684-1711): a failure raises.
     reloaded = OpenProvenceModel.from_pretrained(
@@ -279,6 +304,7 @@ def train(
         )
 
     logger.info("Training completed. Model saved to %s", final_model_path)
+    mesh.barrier()
     return str(final_model_path)
 
 
@@ -432,4 +458,11 @@ def main(argv: list[str] | None = None, *, tokenizer: Any = None) -> None:
     if checkpoint:
         training_args.resume_from_checkpoint = checkpoint
     run_name = Path(config_file).stem
-    train(model_args, data_args, training_args, run_name=run_name, tokenizer=tokenizer)
+    # Under torchrun, one process group for the run (nccl or gloo: see
+    # parallel.mesh.init_from_env).
+    owned = not torch.distributed.is_initialized() and init_from_env(training_args.device)
+    try:
+        train(model_args, data_args, training_args, run_name=run_name, tokenizer=tokenizer)
+    finally:
+        if owned:
+            torch.distributed.destroy_process_group()

@@ -1,8 +1,9 @@
-"""Training loop on one card: bf16 compute, fp32 master parameters,
-checkpoints as safetensors plus ``trainer_state.json``.
+"""Training loop: bf16 compute, fp32 master parameters, checkpoints as
+safetensors plus ``trainer_state.json``, on one device or over a (data,
+model) mesh of ``torch.distributed`` ranks.
 
 Counterpart of the JAX package's ``train/trainer.py`` (itself the reference
-``OpenProvenceTrainer``, open_provence/trainer.py:404-588) for one device:
+``OpenProvenceTrainer``, open_provence/trainer.py:404-588):
 
 * each step runs the module with ``torch.func.functional_call`` on a bf16
   copy of the fp32 master parameters, as ``_loss_for_batch`` casts them;
@@ -17,8 +18,25 @@ Counterpart of the JAX package's ``train/trainer.py`` (itself the reference
   and ``trainer_state.json`` (step, best eval loss, log history and the
   dropout generator's state), with rotation and resume resolution.
 
-There is no mesh: the module runs on ``device``, on the port's kernels for
-a CUDA device and their plain versions on the CPU.
+The module runs on ``device``, on the port's kernels for a CUDA device and
+their plain versions on the CPU. Under a ``mesh`` (``parallel.mesh``) every
+rank runs this same program on the same global batch, as the JAX program
+runs over its devices:
+
+* a rank computes on its data coordinate's rows of each batch, with loss
+  normalizers over the global batch (``losses.py``);
+* with ``tensor_parallel`` the module holds this rank's shards of the
+  attention and MLP weights, sliced from the full master parameters at
+  every step, so their gradients come back full-size and zero outside the
+  shard;
+* the gradients are summed over the mesh (the sharded ones over the whole
+  mesh, the rest over the data group), and every rank then runs the
+  optimizer on the same full tensors: the master parameters and optimizer
+  state stay whole and identical on every rank, and the optimizer reads
+  whole tensors (global norm, factored dims, block RMS) as on one device;
+* files (checkpoints, exports) and logs are written by data rank 0 of
+  model rank 0 while the others wait; a checkpoint holds whole tensors and
+  resumes under any mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +57,7 @@ from torch.func import functional_call
 from .. import kernels
 from ..configs import OpenProvenceConfig
 from ..models.model import build_module
+from ..parallel.mesh import DATA_AXIS, Mesh, create_mesh, param_sharding_rules, shard_state_dict
 from ..utils import safetensors_io
 from .losses import joint_loss
 from .optim import make_optimizer
@@ -131,7 +150,9 @@ class OpenProvenceTrainer:
     names, e.g. from ``init_params`` or ``state_dict_from_flax``; the
     trainer keeps its own fp32 copy on ``device`` (by default where the
     parameters lie, or the first CUDA card for CPU or numpy parameters:
-    ``resolve_device``)."""
+    ``resolve_device``). ``mesh`` (``parallel.create_mesh``; by default
+    every rank of the process group on the data axis, or one process
+    without one) and ``tensor_parallel`` as in the JAX trainer."""
 
     def __init__(
         self,
@@ -153,6 +174,8 @@ class OpenProvenceTrainer:
         gradient_checkpointing: bool = False,
         gradient_accumulation_steps: int = 1,
         seed: int = 42,
+        mesh: Mesh | None = None,
+        tensor_parallel: bool = False,
         save_total_limit: int = 5,
         device: str | torch.device | None = None,
         log_fn: Callable[[dict[str, Any]], None] | None = None,
@@ -163,8 +186,11 @@ class OpenProvenceTrainer:
             )
         self.config = config
         self.device = resolve_device(params, device)
+        self.mesh = mesh if mesh is not None else create_mesh()
+        self.tensor_parallel = bool(tensor_parallel)
+        self._sharded = self.tensor_parallel and self.mesh.model > 1
         with torch.device("meta"):  # parameters come from self.params at every call
-            self.module = build_module(config)
+            self.module = build_module(config, self.mesh, self.tensor_parallel)
         self.module.ranking_model.model.gradient_checkpointing = gradient_checkpointing
         self.tokenizer = tokenizer
         self.output_dir = Path(output_dir)
@@ -213,9 +239,19 @@ class OpenProvenceTrainer:
         return {k: v if k == "count" else v.to(self.device) for k, v in state.items()}
 
     def _prepare_batch(self, batch: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        """The batch on the device; under a data axis of n, this rank's
+        n-th of its pair rows (``rows[d·P/n:(d+1)·P/n]``)."""
         out = {}
+        parts, index = self.mesh.data, self.mesh.data_rank
         for key, value in batch.items():
             t = torch.as_tensor(np.asarray(value))
+            if parts > 1:
+                if t.shape[0] % parts:
+                    raise ValueError(
+                        f"{key}: {t.shape[0]} pairs do not split over a data axis of {parts}"
+                    )
+                share = t.shape[0] // parts
+                t = t[index * share : (index + 1) * share]
             if key in _INT_KEYS:
                 t = t.long()
             elif t.is_floating_point():
@@ -232,10 +268,11 @@ class OpenProvenceTrainer:
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """The joint loss of one batch under ``params``, computed with a bf16
         copy of every parameter when ``bf16``; dropout (drawn from the
-        trainer's generator) unless ``deterministic``."""
-        compute = params
+        trainer's generator) unless ``deterministic``. Under a mesh, this
+        rank's share of the loss of the global batch."""
+        compute = shard_state_dict(params, self.mesh) if self._sharded else params
         if self.bf16:
-            compute = {k: v.to(torch.bfloat16) for k, v in params.items()}
+            compute = {k: v.to(torch.bfloat16) for k, v in compute.items()}
         self.module.train(not deterministic)
         outputs = functional_call(
             self.module,
@@ -244,14 +281,42 @@ class OpenProvenceTrainer:
             {"generator": None if deterministic else self.generator},
         )
         return joint_loss(
-            outputs, batch, ranking_weight=self.ranking_weight, pruning_weight=self.pruning_weight
+            outputs, batch, ranking_weight=self.ranking_weight,
+            pruning_weight=self.pruning_weight, mesh=self.mesh,
         )
+
+    def _global_metrics(
+        self, loss: torch.Tensor, components: dict[str, torch.Tensor]
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """The loss and components of the global batch from this rank's
+        shares (the sum over the data group, one all-reduce)."""
+        if self.mesh.data == 1:
+            return loss, components
+        values = self.mesh.all_reduce(torch.stack([loss, *components.values()]), DATA_AXIS)
+        return values[0], dict(zip(components, values[1:]))
+
+    def _sum_gradients(self, grads: dict[str, torch.Tensor]) -> None:
+        """Sum the gradients over the mesh, in place: a sharded parameter's
+        (full-size, zero outside this rank's shard) over the whole mesh,
+        the rest over the data group; one all-reduce of a flat buffer each."""
+        sharded = {
+            k for k, g in grads.items()
+            if self._sharded and param_sharding_rules(k, g.shape) is not None
+        }
+        for names, axis in ((sorted(sharded), None), ([k for k in grads if k not in sharded],
+                                                      DATA_AXIS)):
+            if not names or (axis == DATA_AXIS and self.mesh.data == 1):
+                continue
+            flat = self.mesh.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]), axis)
+            for k, piece in zip(names, flat.split([grads[k].numel() for k in names])):
+                grads[k].copy_(piece.view_as(grads[k]))
 
     def loss_and_grads(
         self, batch: Mapping[str, Any] | list[Mapping[str, Any]]
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         """(loss, components, fp32 gradients) of one optimizer step's
-        microbatches, averaged over them, with dropout."""
+        microbatches, averaged over them, with dropout; under a mesh those
+        of the global batch, the same on every rank."""
         accum = self.gradient_accumulation_steps
         if accum > 1:
             if not isinstance(batch, (list, tuple)) or len(batch) != accum:
@@ -289,7 +354,11 @@ class OpenProvenceTrainer:
             grads = [g * inv for g in grads]
             loss = loss * inv
             components = {k: v * inv for k, v in components.items()}
-        return loss, components, dict(zip(names, grads))
+        grads = dict(zip(names, grads))
+        if self.mesh.size > 1:
+            self._sum_gradients(grads)
+            loss, components = self._global_metrics(loss, components)
+        return loss, components, grads
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]) -> None:
         """One optimizer update of the master parameters (in place)."""
@@ -321,9 +390,9 @@ class OpenProvenceTrainer:
         totals: dict[str, float] = {}
         count = 0
         for batch in eval_batches:
-            total, components = self._loss_for_batch(
+            total, components = self._global_metrics(*self._loss_for_batch(
                 self.params, self._prepare_batch(batch), deterministic=True
-            )
+            ))
             for k, v in {"loss": total, **components}.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
             count += 1
@@ -332,8 +401,11 @@ class OpenProvenceTrainer:
         return {f"eval_{k}": v / count for k, v in totals.items()}
 
     def log(self, logs: dict[str, Any]) -> None:
+        """Every rank keeps the history; the main rank alone reports it."""
         logs = {**logs, "step": self.step}
         self.log_history.append(logs)
+        if not self.mesh.is_main:
+            return
         if self.log_fn is not None:
             self.log_fn(logs)
         else:
@@ -400,12 +472,20 @@ class OpenProvenceTrainer:
 
     def save_checkpoint(self) -> Path:
         """checkpoint-N: the HF-layout export, the optimizer state and
-        trainer_state.json (reference trainer.py:415-461)."""
+        trainer_state.json (reference trainer.py:415-461), with the mesh it
+        was written under. Written by the main rank; every rank returns the
+        path once it is complete."""
         ckpt_dir = self.output_dir / f"checkpoint-{self.step}"
+        if self.mesh.is_main:
+            self._write_checkpoint(ckpt_dir)
+        self.mesh.barrier()
+        return ckpt_dir
+
+    def _write_checkpoint(self, ckpt_dir: Path) -> None:
         if ckpt_dir.exists():
             shutil.rmtree(ckpt_dir)
         ckpt_dir.mkdir(parents=True)
-        self.export_model(ckpt_dir)
+        self._export(ckpt_dir)
         safetensors_io.save_file(self.opt_state, ckpt_dir / "optimizer.safetensors")
         (ckpt_dir / "trainer_state.json").write_text(
             json.dumps(
@@ -418,11 +498,12 @@ class OpenProvenceTrainer:
                     # The dropout generator, so a resumed run replays the
                     # same masks (the reference checkpoints torch's RNG).
                     "generator_state": self.generator.get_state().tolist(),
+                    "mesh": list(self.mesh.shape),
+                    "tensor_parallel": self.tensor_parallel,
                 }
             )
         )
         self._rotate_checkpoints()
-        return ckpt_dir
 
     def _rotate_checkpoints(self) -> None:
         if not self.save_total_limit:
@@ -460,6 +541,15 @@ class OpenProvenceTrainer:
                 self.generator.set_state(
                     torch.tensor(payload["generator_state"], dtype=torch.uint8)
                 )
+            saved = (payload.get("mesh"), payload.get("tensor_parallel"))
+            live = (list(self.mesh.shape), self.tensor_parallel)
+            if saved[0] is not None and saved != live:
+                # The tensors are whole, so any mesh resumes them (the JAX
+                # trainer warns across tensor_parallel alike).
+                logger.warning(
+                    "Checkpoint was written under mesh=%s, tensor_parallel=%s; this trainer "
+                    "runs mesh=%s, tensor_parallel=%s", *saved, *live,
+                )
             if restore_opt_state and payload.get("log_history") is not None:
                 # A resumed run's history goes on from the checkpoint's, as
                 # HF's Trainer keeps it (the JAX trainer starts it anew).
@@ -467,9 +557,17 @@ class OpenProvenceTrainer:
 
     def export_model(self, directory: str | Path) -> Path:
         """The self-describing HF-layout artifact: config.json +
-        model.safetensors (ranking_model.* and pruning_head.* in fp32) +
-        tokenizer files (reference encoder.py:1040-1094)."""
+        model.safetensors (ranking_model.* and pruning_head.* in fp32, whole
+        tensors under any mesh) + tokenizer files (reference
+        encoder.py:1040-1094). Written by the main rank while the others
+        wait."""
         directory = Path(directory)
+        if self.mesh.is_main:
+            self._export(directory)
+        self.mesh.barrier()
+        return directory
+
+    def _export(self, directory: Path) -> None:
         directory.mkdir(parents=True, exist_ok=True)
         self.config.save(directory)
         safetensors_io.save_file(self._detached(), directory / "model.safetensors")
@@ -479,4 +577,3 @@ class OpenProvenceTrainer:
                 save_fn(str(directory))
             except Exception:  # tokenizer-specific; the weights are written
                 logger.warning("Failed to save tokenizer files", exc_info=True)
-        return directory

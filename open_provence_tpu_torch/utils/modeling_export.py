@@ -44,6 +44,8 @@ _BUNDLE_INCLUDE = [
     "inference",
     "native",
     "kernels",
+    "parallel/__init__.py",
+    "parallel/mesh.py",
     "utils/__init__.py",
     "utils/convert.py",
     "utils/hf_convert.py",

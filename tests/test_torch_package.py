@@ -1102,3 +1102,62 @@ def test_from_pretrained_serves_on_the_card_through_the_kernels(cuda_device, tmp
     counts = kernels.launch_counts()
     assert min(counts[name] for name in kernels.DEFAULT_PATH_KERNELS[:4]) > 0, counts
     assert not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [8192 - 37, 16384])
+def test_kernels_match_plain_at_the_tensor_parallel_shard(cuda_device, dtype, m):
+    """Kernels 2, 3, 4, 11, 12 and 14 at the widths a rank of a tp = 2 mesh
+    gives them at base width: Wqkv's 1152 rows (6 heads of 64; the wgmma
+    engine's 256-column tiles leave a partial last one), the MLP's 576
+    intermediate columns (Wi's 1152 rows), attention on 6 heads of a
+    [B, S, 1152] packed buffer (B = m // 512 rows, ragged, one padding
+    row), each forward and backward against its plain version; no plain
+    version runs on the card's tensors."""
+    from open_provence_tpu_torch import kernels, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rng.normal(size=shape) * s, dtype=dtype, device=cuda_device)
+
+    tol, grad_tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    x, scale = t(m, 768, s=2.0), t(768, s=0.1) + 1
+    w_qkv, w_i = t(1152, 768, s=768**-0.5), t(1152, 768, s=768**-0.5)
+    g_qkv, g_mlp = t(m, 1152, s=0.1), t(m, 576, s=0.1)
+    kernels.reset_launch_counts()
+    pairs = [(ops.ln_matmul(x, scale, w_qkv), ops.ln_matmul_plain(x, scale, w_qkv)),
+             (ops.ln_geglu(x, scale, w_i, "gelu"), ops.ln_geglu_plain(x, scale, w_i, "gelu"))]
+    grads = [*zip(ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
+                  ops.ln_matmul_bwd_plain(x, scale, w_qkv, g_qkv)),
+             *zip(ops.ln_geglu_bwd(x, scale, w_i, g_mlp, "gelu"),
+                  ops.ln_geglu_bwd_plain(x, scale, w_i, g_mlp, "gelu"))]
+    batch = max(m // 512, 2)
+    qkv = t(batch, 512, 1152)
+    lengths = rng.integers(256, 513, batch)
+    mask = torch.tensor(np.arange(512)[None] < lengths[:, None], dtype=torch.int32,
+                        device=cuda_device)
+    mask[-1] = 0
+    valid = mask.bool()
+    g = t(batch, 512, 384) * mask[..., None].to(dtype)
+    for window, theta in ((None, 160000.0), (64, 10000.0)):
+        kw = dict(num_heads=6, padding_mask=mask, window=window,
+                  rope=ops.rope_tables(512, 64, theta, dtype, cuda_device))
+        out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+        pairs.append((out[valid], ops.attention_packed_plain(qkv, **kw)[valid]))
+        grads.append((ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),
+                      ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    for got, want in grads:
+        want = want.float()
+        torch.testing.assert_close(got.float(), want, rtol=grad_tol,
+                                   atol=grad_tol * want.abs().max().item())
+    launched = kernels.launch_counts()
+    assert all(launched[name] > 0 for name in (
+        "ln_matmul", "ln_geglu", "flash_attention_packed", "ln_matmul_bwd", "ln_geglu_bwd",
+        "flash_attention_packed_bwd"))
+    assert set(kernels.plain_counts().values()) == {0}

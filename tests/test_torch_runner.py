@@ -13,7 +13,8 @@ dropout, on the CPU.
   (``--eval-datasets-model``) rewrites them; the JAX runner's defaults
   (``threadshold``, batch size 256), its skip without a ``config`` and its
   message without settings; ``--eval_datasets none`` clears the hook.
-* What the port refuses: a mesh (A.6), ``device=None`` without a card.
+* What the port refuses: a mesh larger than the run's ranks or one whose
+  model axis does not divide the heads, ``device=None`` without a card.
 * Backbone dropout: the rate and 1/(1 - rate) scaling at each of the JAX
   module's sites, the identity in eval mode, gradients equal with and
   without per-layer recompute, and a bit-exact resume.
@@ -241,14 +242,32 @@ def test_eval_only_mode_without_settings_and_a_hook_without_config(eval_run, toy
 
 
 def test_a_mesh_raises(toy):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        _parse(port_config, toy, "mesh", mesh_model=2)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        _parse(port_config, toy, "mesh", mesh_data=4)
+    """The mesh errors that stay (the JAX create_mesh's): a mesh larger than
+    the ranks of the run, and a head count that the model axis does not
+    divide. The config itself parses: meshes train over torch.distributed
+    (tests/test_torch_parallel.py)."""
+    from open_provence_tpu_torch.models.model import build_module
+    from open_provence_tpu_torch.parallel.mesh import Mesh
+
+    for training, match in (({"mesh_data": 4}, "Mesh 4x1 needs 4 devices, have 1"),
+                            ({"mesh_model": 2}, "Mesh 1x2 needs 2 devices, have 1")):
+        args = _parse(port_config, toy, "mesh", **training)
+        with pytest.raises(ValueError, match=match):
+            port_runner.train(*args, tokenizer=toy["tokenizer"])
     args = _parse(port_config, toy, "mesh")
-    port_runner.apply_cli_overrides(["--mesh_model", "2"], *args)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    port_runner.apply_cli_overrides(["--mesh_data", "2"], *args)
+    with pytest.raises(ValueError, match="needs 2 devices"):
         port_runner.train(*args, tokenizer=toy["tokenizer"])
+    config = port_config_of(toy)
+    assert config.backbone().num_attention_heads == 4
+    with pytest.raises(ValueError, match="num_attention_heads=4 does not divide by model=3"):
+        build_module(config, Mesh(model=3), tensor_parallel=True)
+
+
+def port_config_of(toy):
+    from open_provence_tpu_torch.configs import OpenProvenceConfig
+
+    return OpenProvenceConfig.load(toy["checkpoint"])
 
 
 def test_device_none_without_a_card_raises(toy, monkeypatch):
