@@ -92,7 +92,8 @@ card and check it, in phases:
    of phase 4's weights and two JSON-lines sources (20 bf16 steps of 32
    pairs of 512), its eval_datasets hook evaluating the final model on the
    card after the trainer is released; a resume from checkpoint-10; fp32
-   card against CPU through the runner; every backbone dropout at 0.1;
+   card against CPU through the runner on the backbone's first 3 layers
+   (P14_FP32_LAYERS); every backbone dropout at 0.1; each step timed;
 15. the release surface at base width, bf16: both HF-style wrappers from
    phase 13's trainer export at B=32 S=512, B=1 S=77 and B=3 S=300, their
    logits bit-equal to the engine's forward_logits, and their fp32 losses
@@ -108,14 +109,28 @@ card and check it, in phases:
    (Wqkv's 1152 rows, 6 heads of 64, 576 intermediate columns) against
    their plain versions, with bf16 times; then four ranks spawned on the
    one card over gloo: phase 8's batch trained in fp32 for 3 steps at base
-   width and depth under meshes 2 x 1 and 1 x 2 (side by side on ranks
-   {0, 1} and {2, 3}) and 2 x 2, each held to one process on the same batch
+   width on the first 3 layers (P16_FP32_LAYERS) under meshes 2 x 1 and
+   1 x 2 (side by side on ranks {0, 1} and {2, 3}) and 2 x 2, each held to
+   one process on the same batch
    and weights (losses 1e-4 relative, the update over the run 1e-3 of each
    tensor's largest); 2 bf16 steps under 2 x 2 (every default kernel
    launched on every rank, no plain version); phase 5's 256 pairs served
    under 2 x 1 in bf16 and, on the first 3 layers (CPU_CHECK_LAYERS: gloo
    carries every activation sum through the host), 1 x 2 in fp32, against
-   one process; no rank imports jax; dryrun_multichip(4) on the card.
+   one process; no rank imports jax; dryrun_multichip(4) on the card;
+17. the data factory and the MLDR evaluation at base width, bf16, from
+   phase 14's final model with the char-level tokenizers, on JSON-lines
+   data: datasets_factory/cli.py's generate, frequency_filter,
+   add_context_spans_relevance (the encoder teacher) and
+   add_reranker_teacher_scores on 64 sentence-transformers rows with 8
+   planted duplicates (``factory_512``: the carved splits, the dropped rows,
+   one flag a span, a teacher score a text); eval/mldr_cli.py on 16 MLDR
+   queries of 1 positive and 3 negatives of 4000-8000 characters, half
+   titled, with a stand-in judge, its stage-skip rerun, --text-source
+   original and --threshold 0 (``mldr_512``: 64 records, 16 positives
+   judged, passages/s); each path launches kernels 1-4 and no plain
+   version; fp32 card against CPU at 3 layers (span flags and teacher
+   scores on 8 rows; process() scores and keep flips on 2 queries).
 
 The library's attention (``scaled_dot_product_attention``) is timed beside
 the kernels at every shape of phases 3c and 3d, global and +-64 (a boolean
@@ -2726,6 +2741,9 @@ P14_OVERRIDES = ["--save_total_limit", "2", "--training_args.logging_steps", "10
 # config, its final model and the eval set of its eval_datasets hook.
 P14_CONFIG, P14_FINAL, P15_EVAL_SET = "p14_config.yaml", "p14_final_model", "p14_eval_set"
 P15_EVAL_QUERIES, P15_EVAL_SPANS = 128, 24
+# The depth of phase 14's fp32 runner check against the CPU: the first
+# CPU_CHECK_LAYERS layers of the backbone (PERF.md section 4 has the cut's times).
+P14_FP32_LAYERS = CPU_CHECK_LAYERS
 
 
 def long_rows(assets, n_rows: int, n_texts: int, seed: int, teacher: str,
@@ -2801,6 +2819,26 @@ def phase14_assets(sd, out_dir: Path) -> dict[str, Path]:
     dirs["eval_config"].write_text(
         f'split: test\ndatasets:\n  - dataset_name: "{dirs["eval_set"]}"\n')
     return dirs
+
+
+def cut_backbone_dir(source: Path, target: Path, layers: int) -> Path:
+    """A copy of the ModernBERT backbone directory ``source`` cut to its
+    first ``layers`` layers (config.json and model.safetensors)."""
+    from open_provence_tpu_torch.utils import safetensors_io
+
+    config = json.loads((source / "config.json").read_text())
+    if layers >= config["num_hidden_layers"]:
+        return source
+    target.mkdir(parents=True, exist_ok=True)
+    (target / "config.json").write_text(json.dumps({**config, "num_hidden_layers": layers},
+                                                   indent=2))
+    prefix = "model.layers."
+    weights = safetensors_io.load_file(source / "model.safetensors")
+    safetensors_io.save_file(
+        {k: v for k, v in weights.items()
+         if not (k.startswith(prefix) and int(k[len(prefix):].split(".")[0]) >= layers)},
+        target / "model.safetensors")
+    return target
 
 
 def p14_config(path: Path, dirs: dict, run_dir: Path, backbone: str = "backbone",
@@ -2907,6 +2945,60 @@ def p14_dropout_trainers(directory: Path, run_dir: Path, data_args, pair_tokeniz
     resume_check("phase 14 dropout", plain, make("resumed"), batch)
 
 
+def p14_fp32_check(dirs: dict, out_dir: Path, pair_tokenizer, dev,
+                   layers: int) -> dict[str, float]:
+    """The runner on the card against the runner on the CPU, fp32, 2 pairs a
+    step, 3 steps, from the backbone directory cut to its first ``layers``
+    layers. Returns the walls of the card's and the CPU's side (s)."""
+    from open_provence_tpu_torch.train import init_encoder
+    from open_provence_tpu_torch.utils import safetensors_io
+
+    backbone = cut_backbone_dir(dirs["backbone"], out_dir / f"p14_backbone_{layers}", layers)
+    dirs = {**dirs, "fp32_backbone": backbone}
+    # Step 1 is warmup at lr 0, so step 3's loss and the final weights are the
+    # first to depend on an update: the check holds the card's update over
+    # the run (final weights less init_encoder's, at the runner's seed)
+    # against the CPU's. It runs at phase 7's lr, 1e-2: at 5e-5 a weight's
+    # fp32 ulp, where p + u rounds the other way on one side, reaches ~1e-2
+    # of a tensor's largest update.
+    sides = {}
+    for where in (str(dev), "cpu"):
+        side_dir = out_dir / f"p14_{where.replace(':', '')}"
+        path = p14_config(out_dir / f"p14_{where}.yaml", dirs, side_dir, backbone="fp32_backbone",
+                          bf16=False, per_device_train_batch_size=1, logging_steps=1,
+                          save_steps=3, learning_rate=1e-2, device=where)
+        final, side_args, wall = run_train(f"phase 14 {where}", path, pair_tokenizer,
+                                           max_steps_override=3)
+        sides[where] = (logged_losses(trainer_state(side_dir / "checkpoint-3")["log_history"]),
+                        safetensors_io.load_file(final / "model.safetensors"), wall)
+        shutil.rmtree(side_dir)
+    *_, initial = init_encoder(backbone, max_length=512, classifier_dropout=0.0,
+                               seed=side_args[2].seed)
+    (card_losses, card_w, card_wall), (cpu_losses, cpu_w, cpu_wall) = sides[str(dev)], sides["cpu"]
+    card_delta = {k: w - initial[k] for k, w in card_w.items()}
+    cpu_delta = {k: w - initial[k] for k, w in cpu_w.items()}
+    loss_err = max(abs(a[1] / b[1] - 1) for a, b in zip(card_losses, cpu_losses))
+    update_err = max_rel_err(card_delta, cpu_delta)
+    largest = max(float(d.abs().max()) for d in cpu_delta.values())
+    unchanged_err = max_rel_err({k: torch.zeros_like(d) for k, d in card_delta.items()},
+                                cpu_delta)
+    phase(f"phase 14 fp32 runner.train, {layers} layers, 1 query (2 pairs of 512) a step, 3 "
+          f"steps at lr 1e-2, card vs cpu: losses {card_losses} vs {cpu_losses} "
+          f"(largest rel err {loss_err:.3e}, tol 1e-4); update over the run (largest "
+          f"{largest:.3e}): largest error {update_err:.3e} of each tensor's largest (tol "
+          f"{STEP_UPDATE_TOL}; weights left unchanged would read {unchanged_err:.3e}); wall "
+          f"card {card_wall:.1f} s, cpu {cpu_wall:.1f} s")
+    if len(card_losses) != 3 or [s for s, _ in card_losses] != [s for s, _ in cpu_losses] \
+            or loss_err > 1e-4 or update_err > STEP_UPDATE_TOL:
+        raise AssertionError("phase 14: the runner on the card disagrees with the CPU")
+    if largest == 0.0 or unchanged_err <= STEP_UPDATE_TOL:
+        raise AssertionError("phase 14: the update check cannot tell unchanged weights from "
+                             "the card's")
+    if backbone != dirs["backbone"]:
+        shutil.rmtree(backbone)
+    return {"card": card_wall, "cpu": cpu_wall}
+
+
 def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
                       out_dir: Path) -> dict[str, dict[str, int]]:
     """The training entry point at base width: parse_config_file,
@@ -2919,13 +3011,19 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     from open_provence_tpu_torch import kernels
     from open_provence_tpu_torch.eval import cli as eval_cli
     from open_provence_tpu_torch.train import init_encoder, prepare_dataset
-    from open_provence_tpu_torch.utils import safetensors_io
 
-    began = time.perf_counter()
+    began = mark = time.perf_counter()
+    steps: dict[str, float] = {}
+
+    def lap(name: str) -> None:  # phase 14 timed step by step
+        nonlocal mark
+        steps[name] = time.perf_counter() - mark
+        mark = time.perf_counter()
+
     dirs = phase14_assets(sd, out_dir)
     # The backbone directory loads as a ModernBERT checkpoint: backbone and
     # prediction head from the file, the classifier and pruning head fresh.
-    config, _, loaded = init_encoder(dirs["backbone"], max_length=512, classifier_dropout=0.0)
+    _, _, loaded = init_encoder(dirs["backbone"], max_length=512, classifier_dropout=0.0)
     from_file = [k for k in sd if k.startswith(("ranking_model.model.", "ranking_model.head."))]
     heads = ("ranking_model.classifier.weight", "pruning_head.classifier.weight")
     if not (all(torch.equal(loaded[k], sd[k]) for k in from_file)
@@ -2933,6 +3031,7 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
         raise AssertionError("phase 14: the backbone directory did not load as a ModernBERT "
                              "checkpoint (backbone from the file, heads fresh)")
     del loaded
+    lap("assets and the backbone check")
     run_dir = out_dir / "p14_run"
     config_path = p14_config(out_dir / P14_CONFIG, dirs, run_dir, eval_datasets={
         "config": str(dirs["eval_config"]), "threshold": 0.1, "batch_size": 64})
@@ -2956,6 +3055,7 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     finally:
         eval_cli.main = real_eval
     launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    lap("runner.train with its eval hook")
     _, data_args, training_args = args
     train_rows, eval_rows = prepare_dataset(data_args, seed=training_args.seed)
     sizes = (len(train_rows), len(eval_rows))
@@ -3002,6 +3102,7 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     phase(f"phase 14 checks: {', '.join(checks)} (the card held {held_mb:.1f} MB more than "
           f"before the run when the eval began; the fp32 weights alone are {weights_mb:.1f} MB); "
           "from_pretrained(final_model), 256 pairs: " + serve_final(final, tokenizer_cls, dev))
+    lap("checks and serving final_model")
 
     # Resume: the same run directory from checkpoint-10 to step 20; its
     # history goes on from the checkpoint's.
@@ -3022,48 +3123,10 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
           f"{logged_losses(after[len(before):], 'eval_loss')} (eval) [{card}]")
     shutil.move(final, out_dir / P14_FINAL)
     shutil.rmtree(run_dir)
-
-    # Card against CPU, fp32, 2 pairs a step, 3 steps, at full depth. Step
-    # 1 is warmup at lr 0, so step 3's loss and the final weights are the
-    # first to depend on an update: the check holds the card's update over
-    # the run (final weights less init_encoder's, at the runner's seed)
-    # against the CPU's. It runs at phase 7's lr, 1e-2: at 5e-5 a weight's
-    # fp32 ulp, where p + u rounds the other way on one side, reaches ~1e-2
-    # of a tensor's largest update.
-    sides = {}
-    for where in (str(dev), "cpu"):
-        side_dir = out_dir / f"p14_{where.replace(':', '')}"
-        path = p14_config(out_dir / f"p14_{where}.yaml", dirs, side_dir, bf16=False,
-                          per_device_train_batch_size=1, logging_steps=1, save_steps=3,
-                          learning_rate=1e-2, device=where)
-        final, side_args, wall = run_train(f"phase 14 {where}", path, pair_tokenizer,
-                                           max_steps_override=3)
-        sides[where] = (logged_losses(trainer_state(side_dir / "checkpoint-3")["log_history"]),
-                        safetensors_io.load_file(final / "model.safetensors"), wall)
-        shutil.rmtree(side_dir)
-    *_, initial = init_encoder(dirs["backbone"], max_length=512, classifier_dropout=0.0,
-                               seed=side_args[2].seed)
-    (card_losses, card_w, card_wall), (cpu_losses, cpu_w, cpu_wall) = sides[str(dev)], sides["cpu"]
-    card_delta = {k: w - initial[k] for k, w in card_w.items()}
-    cpu_delta = {k: w - initial[k] for k, w in cpu_w.items()}
-    loss_err = max(abs(a[1] / b[1] - 1) for a, b in zip(card_losses, cpu_losses))
-    update_err = max_rel_err(card_delta, cpu_delta)
-    largest = max(float(d.abs().max()) for d in cpu_delta.values())
-    unchanged_err = max_rel_err({k: torch.zeros_like(d) for k, d in card_delta.items()},
-                                cpu_delta)
-    phase(f"phase 14 fp32 runner.train, {config.backbone().num_hidden_layers} layers, 1 query "
-          f"(2 pairs of 512) a step, 3 steps at lr 1e-2, card vs cpu: losses {card_losses} vs {cpu_losses} "
-          f"(largest rel err {loss_err:.3e}, tol 1e-4); update over the run (largest "
-          f"{largest:.3e}): largest error {update_err:.3e} of each tensor's largest (tol "
-          f"{STEP_UPDATE_TOL}; weights left unchanged would read {unchanged_err:.3e}); wall "
-          f"card {card_wall:.1f} s, cpu {cpu_wall:.1f} s")
-    if len(card_losses) != 3 or [s for s, _ in card_losses] != [s for s, _ in cpu_losses] \
-            or loss_err > 1e-4 or update_err > STEP_UPDATE_TOL:
-        raise AssertionError("phase 14: the runner on the card disagrees with the CPU")
-    if largest == 0.0 or unchanged_err <= STEP_UPDATE_TOL:
-        raise AssertionError("phase 14: the update check cannot tell unchanged weights from "
-                             "the card's")
-    del card_w, cpu_w, card_delta, cpu_delta, initial
+    lap("resume")
+    walls = p14_fp32_check(dirs, out_dir, pair_tokenizer, dev, P14_FP32_LAYERS)
+    lap(f"fp32 check at {P14_FP32_LAYERS} layers (card {walls['card']:.1f} s and cpu "
+        f"{walls['cpu']:.1f} s of runner.train)")
 
     # Every backbone dropout at 0.1: 10 bf16 steps through the runner, then
     # the remat and resume checks on trainers of the same weights.
@@ -3080,9 +3143,12 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     if len(losses) != 10 or not all(np.isfinite([v for _, v in losses])) \
             or any(drop_launches[k] == 0 for k in ("ln_matmul", "ln_geglu")) or any(plain.values()):
         raise AssertionError("phase 14: training with backbone dropout failed its checks")
+    lap("runner.train with dropout")
     p14_dropout_trainers(dirs["dropout"], drop_dir, args[1], pair_tokenizer, dev)
     shutil.rmtree(drop_dir)
-    phase(f"phase 14 took {time.perf_counter() - began:.0f} s")
+    lap("dropout remat and resume")
+    phase(f"phase 14 took {time.perf_counter() - began:.0f} s: "
+          + "; ".join(f"{name} {wall:.1f} s" for name, wall in steps.items()))
     return {"train_cli_512": launches}
 
 
@@ -3379,6 +3445,10 @@ TP_QKV, TP_HEADS, TP_INTER = 3 * HIDDEN // TP, HEADS // TP, INTER // TP
 SHARDED = ("ln_matmul", "flash_attention_packed", "ln_geglu", "ln_geglu_bwd",
            "ln_matmul_bwd", "flash_attention_packed_bwd")
 P16_STEPS, P16_LR, P16_THRESHOLD = 3, 3e-4, 0.1
+# The depth of phase 16's fp32 mesh training against one process: the first
+# CPU_CHECK_LAYERS layers (PERF.md section 4 has the cut's times). The bf16 steps
+# and the bf16 serve stay at 22.
+P16_FP32_LAYERS = CPU_CHECK_LAYERS
 # Phase 14's limits on an fp32 run held to another: losses 1e-4 relative,
 # the update over the run 1e-3 of each tensor's largest.
 P16_LOSS_TOL, P16_UPDATE_TOL = 1e-4, STEP_UPDATE_TOL
@@ -3511,8 +3581,10 @@ def phase16_kernels(dev, stats: dict[str, dict]) -> None:
 
 
 def p16_train(mesh, sd, batches, steps: int, bf16: bool, ref_path: str | None,
-              out_dir: Path, device: torch.device = torch.device("cuda", 0)) -> dict:
-    """``steps`` trainer steps over ``mesh`` on phase 8's batches in turn:
+              out_dir: Path, device: torch.device = torch.device("cuda", 0),
+              config=None) -> dict:
+    """``steps`` trainer steps over ``mesh`` on phase 8's batches in turn
+    (``config`` defaults to base_config()):
     the losses, each parameter's sum (ranks of a mesh must agree), the wall,
     the launches it made and, on the main rank with ``ref_path``, the update
     over the run against one process's."""
@@ -3521,7 +3593,7 @@ def p16_train(mesh, sd, batches, steps: int, bf16: bool, ref_path: str | None,
 
     before = kernels.launch_counts()
     began = time.perf_counter()
-    trainer = OpenProvenceTrainer(base_config(), sd, None, output_dir=out_dir, bf16=bf16,
+    trainer = OpenProvenceTrainer(config or base_config(), sd, None, output_dir=out_dir, bf16=bf16,
                                   learning_rate=P16_LR, total_steps=10, mesh=mesh,
                                   tensor_parallel=True, device=device)
     losses = [trainer.train_one_step(batches[i % len(batches)])["loss"] for i in range(steps)]
@@ -3572,8 +3644,9 @@ def p16_rank(rank: int, sd_path: str, batches: list, ref_path: str, out_dir: str
     every activation sum of tensor parallelism through the host at about
     1 GB/s (phase 16 prints it), so at full depth the fp32 1 x 2 serve
     alone outlasts both pairs' training. Then all four train fp32 and
-    briefly bf16 under 2 x 2. Returns what it measured and the launches of
-    every kernel."""
+    briefly bf16 under 2 x 2. fp32 trains the first P16_FP32_LAYERS layers,
+    bf16 all 22. Returns what it measured and the launches of every
+    kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -3602,10 +3675,12 @@ def p16_rank(rank: int, sd_path: str, batches: list, ref_path: str, out_dir: str
             result[f"serve {label}"] = p16_serve(model, synthetic_pairs(256))
             del model
     label = "2x1" if rank < 2 else "1x2"
-    result[f"fp32 {label}"] = p16_train(pairs[mine, (2, 1) if rank < 2 else (1, 2)], sd, batches,
-                                        P16_STEPS, False, ref_path, out_dir / f"p16_{label}")
-    result["fp32 2x2"] = p16_train(full, sd, batches, P16_STEPS, False, ref_path,
-                                   out_dir / "p16_2x2")
+    cut, cut_sd = cut_depth(base_config(), sd, P16_FP32_LAYERS)
+    result[f"fp32 {label}"] = p16_train(pairs[mine, (2, 1) if rank < 2 else (1, 2)], cut_sd,
+                                        batches, P16_STEPS, False, ref_path,
+                                        out_dir / f"p16_{label}", config=cut)
+    result["fp32 2x2"] = p16_train(full, cut_sd, batches, P16_STEPS, False, ref_path,
+                                   out_dir / "p16_2x2", config=cut)
     result["bf16 2x2"] = p16_train(full, sd, batches, 2, True, None, out_dir / "p16_2x2_bf16")
     result["launches"], result["plain"] = kernels.launch_counts(), kernels.plain_counts()
     result["jax_modules"] = sorted(m for m in sys.modules
@@ -3631,13 +3706,14 @@ def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_
     began = time.perf_counter()
     phase16_kernels(dev, stats)
     batches = [training_batch(pair_tokenizer, 31, 512, seed=s) for s in (80, 81)]
-    one = OpenProvenceTrainer(config, sd, None, output_dir=out_dir / "p16_one", bf16=False,
+    cut, cut_sd = cut_depth(config, sd, P16_FP32_LAYERS)
+    one = OpenProvenceTrainer(cut, cut_sd, None, output_dir=out_dir / "p16_one", bf16=False,
                               learning_rate=P16_LR, total_steps=10, device=dev)
     t0 = time.perf_counter()
     want_losses = [one.train_one_step(batches[i % 2])["loss"] for i in range(P16_STEPS)]
     torch.cuda.synchronize()
     one_wall = time.perf_counter() - t0
-    update = {k: one.params[k].detach().cpu() - sd[k] for k in sd}
+    update = {k: one.params[k].detach().cpu() - cut_sd[k] for k in cut_sd}
     del one
     sd_path, ref_path = out_dir / "p16_weights.pt", out_dir / "p16_update.pt"
     torch.save(sd, sd_path)
@@ -3650,7 +3726,8 @@ def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_
         want_serve[dtype] = p16_serve(model, pairs)
         del model
     torch.cuda.empty_cache()
-    phase(f"phase 16 one process: fp32 {P16_STEPS} steps B=32 S=512, losses "
+    phase(f"phase 16 one process: fp32 {P16_STEPS} steps B=32 S=512 at {P16_FP32_LAYERS} layers, "
+          "losses "
           f"{', '.join(f'{v:.6f}' for v in want_losses)}, wall {one_wall:.1f} s; process() 256 "
           f"pairs bf16 {want_serve[torch.bfloat16]['wall']:.1f} s, fp32 at {CPU_CHECK_LAYERS} "
           f"layers {want_serve[torch.float32]['wall']:.1f} s [{card}]")
@@ -3689,7 +3766,8 @@ def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_
         loss_err = max(abs(a / b - 1) for a, b in zip(main["losses"], want_losses))
         agree = all(run["sums"] == main["sums"] and run["losses"] == main["losses"] for run in runs)
         walls = ", ".join(f"{run['wall']:.1f}" for run in runs)
-        phase(f"phase 16 fp32 {label} mesh, {P16_STEPS} steps B=32 S=512, {layers} layers: losses "
+        phase(f"phase 16 fp32 {label} mesh, {P16_STEPS} steps B=32 S=512, "
+              f"{P16_FP32_LAYERS} layers: losses "
               f"{', '.join(f'{v:.6f}' for v in main['losses'])} (largest rel err {loss_err:.3e}, "
               f"tol {P16_LOSS_TOL}); update over the run: largest error {main['update_err']:.3e} "
               f"of each tensor's largest ({main['worst']}; tol {P16_UPDATE_TOL}); ranks agree "
@@ -3738,6 +3816,384 @@ def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_
     phase(f"phase 16 took {time.perf_counter() - began:.0f} s")
     total = {name: sum(r["launches"][name] for r in ranks) for name in kernels.KERNELS}
     return {"mesh_16": total}
+
+
+# --- phase 17: the data factory and the MLDR evaluation ---------------------
+
+# Phase 17 drives the data factory's commands (datasets_factory/cli.py) and
+# the MLDR evaluation's CLI (eval/mldr_cli.py) through their main() on
+# JSON-lines data, with phase 14's final model (base width, 22 layers, bf16,
+# max_length 512) as the span teacher, the reranker teacher and the pruner.
+# The judge of the MLDR CLI is a stand-in set into eval/mldr_eval.py: the
+# real one needs the network.
+P17_ROWS, P17_PLANTED = 64, 8  # sentence-transformers rows; planted duplicates
+P17_QUERIES, P17_NEGATIVES = 16, 3  # MLDR queries; negatives a query
+P17_CHECK_ROWS, P17_CHECK_QUERIES = 8, 2  # fp32 card against CPU
+P17_WORDS = "sushi ramen kyoto market travel budget deadline plants river temple".split()
+
+
+def p17_text(rng: random.Random, tag: str, low: int, high: int) -> str:
+    """``low``-``high`` sentences that name ``tag``, so that no two texts
+    repeat unless copied."""
+    return " ".join(f"{tag} sentence {i} is about {rng.choice(P17_WORDS)} and "
+                    f"{rng.choice(P17_WORDS)}." for i in range(rng.randint(low, high)))
+
+
+def p17_triplets(seed: int = 170) -> list[dict]:
+    """P17_ROWS rows of (query, positive, negative_1..3) of 8-24 sentences a
+    text; the last P17_PLANTED copy the positive and first negative of
+    earlier rows under new queries, so that two texts of each repeat."""
+    rng = random.Random(seed)
+    rows = []
+    for r in range(P17_ROWS - P17_PLANTED):
+        row = {"query": f"what about {rng.choice(P17_WORDS)} in row {r} ?",
+               "positive": p17_text(rng, f"r{r}p", 8, 24)}
+        for k in range(1, 4):
+            row[f"negative_{k}"] = p17_text(rng, f"r{r}n{k}", 8, 24)
+        rows.append(row)
+    for d in range(P17_PLANTED):
+        original = rows[7 * d]
+        rows.append({"query": f"what about row {7 * d} again ?", "positive": original["positive"],
+                     "negative_1": original["negative_1"],
+                     "negative_2": p17_text(rng, f"d{d}n2", 8, 24),
+                     "negative_3": p17_text(rng, f"d{d}n3", 8, 24)})
+    return rows
+
+
+def p17_mldr_rows(seed: int = 171) -> list[dict]:
+    """An MLDR split: P17_QUERIES queries, each with 1 positive and
+    P17_NEGATIVES negatives of 4000-8000 characters; half the passages
+    titled, half with a None title."""
+    rng = random.Random(seed)
+    rows = []
+    for q in range(P17_QUERIES):
+        topic = rng.choice(P17_WORDS)
+        passages = []
+        for k in range(1 + P17_NEGATIVES):
+            target, text, i = rng.randint(4000, 7900), "", 0
+            while len(text) < target:
+                text += (f"Passage {q}-{k} line {i} tells of {rng.choice(P17_WORDS)} and "
+                         f"{rng.choice(P17_WORDS)}. ")
+                i += 1
+            passages.append({"docid": f"d{q}-{k}", "title": f"On {topic}" if (q + k) % 2 else None,
+                             "text": text.strip()})
+        rows.append({"query_id": f"p17-q{q}", "query": f"what about {topic} ?",
+                     "positive_passages": passages[:1], "negative_passages": passages[1:]})
+    return rows
+
+
+def p17_read(path: Path) -> dict[str, list[dict]]:
+    from open_provence_tpu_torch.train.data import open_splits
+
+    return {name: table.to_list() for name, table in open_splits(str(path))[0].items()}
+
+
+class P17Recording:
+    """An encoder that keeps each ``predict_context`` output."""
+
+    def __init__(self, encoder):
+        self.encoder, self.outputs = encoder, []
+
+    def predict_context(self, *args, **kwargs):
+        out = self.encoder.predict_context(*args, **kwargs)
+        self.outputs.append(out)
+        return out
+
+
+def p17_factory_fp32(teacher: Path, rows: list[dict], pair_tokenizer_cls, dev) -> str:
+    """The encoder teacher in fp32 on the card against fp32 on the CPU, on
+    ``rows`` at CPU_CHECK_LAYERS layers: no span flag flips unless a token
+    of the span lies within KEEP_MARGIN of the token threshold (0.5), and
+    teacher scores within 1e-4."""
+    from open_provence_tpu_torch import OpenProvenceEncoder
+    from open_provence_tpu_torch.datasets_factory import (
+        add_teacher_scores, annotate_span_relevance, make_encoder_annotator)
+    from open_provence_tpu_torch.train.data import RowTable
+    from open_provence_tpu_torch.utils.hf_convert import load_checkpoint
+
+    cut, cut_sd = cut_depth(*load_checkpoint(teacher), CPU_CHECK_LAYERS)
+    table = RowTable.from_list(rows)
+    side = {}
+    for where in (dev, "cpu"):
+        encoder = OpenProvenceEncoder(config=cut, state_dict=cut_sd, tokenizer=pair_tokenizer_cls(),
+                                      device=where, dtype=torch.float32)
+        recorder = P17Recording(encoder)
+        labeled = annotate_span_relevance(table, make_encoder_annotator(recorder))
+        scored = add_teacher_scores(labeled, lambda pairs: encoder.predict(pairs, batch_size=32),
+                                    teacher_name="t", batch_size=32)
+        side[str(where)] = (scored.to_list(), recorder.outputs)
+        del encoder, recorder
+    (card_rows, card_out), (cpu_rows, cpu_out) = side[str(dev)], side["cpu"]
+    outputs = iter(zip(card_out, cpu_out))
+    flips = near = spans_total = 0
+    token_err = 0.0
+    for card_row, cpu_row in zip(card_rows, cpu_rows):
+        for spans, card_flags, cpu_flags in zip(cpu_row["context_spans"],
+                                                card_row["context_spans_relevance"],
+                                                cpu_row["context_spans_relevance"]):
+            card_o, cpu_o = next(outputs)
+            probs = np.asarray(cpu_o.token_scores, dtype=np.float64)
+            token_err = max(token_err, float(np.max(np.abs(
+                np.asarray(card_o.token_scores, dtype=np.float64) - probs))))
+            start = 0  # the annotator's document: the spans joined by one space
+            for (a, b), got, want in zip(spans, card_flags, cpu_flags):
+                close = bool(np.any(np.abs(probs[start:start + b - a] - 0.5) <= KEEP_MARGIN))
+                near += close
+                flips += got != want and not close
+                spans_total += 1
+                start += b - a + 1
+    score_err = max(abs(a - b) for card_row, cpu_row in zip(card_rows, cpu_rows)
+                    for a, b in zip(card_row["teacher_scores.t"], cpu_row["teacher_scores.t"]))
+    note = (f"phase 17 factory fp32 card vs cpu, {len(rows)} rows at {CPU_CHECK_LAYERS} layers: "
+            f"{flips} span flips among {spans_total} spans ({near} hold a token within "
+            f"{KEEP_MARGIN} of the threshold), token-prob max_abs_err {token_err:.3e}, teacher "
+            f"score max_abs_err {score_err:.3e} (tol 1e-4)")
+    if flips or score_err > 1e-4:
+        raise AssertionError(note)
+    return note
+
+
+def p17_factory(pair_tokenizer_cls, dev, card: str, out_dir: Path) -> dict[str, int]:
+    """``factory_512``: generate (--lang en), frequency_filter (threshold 1),
+    add_context_spans_relevance with the encoder teacher and
+    add_reranker_teacher_scores through datasets_factory/cli.py::main on a
+    JSON-lines source; launch counts read around the two teacher commands."""
+    from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.datasets_factory import cli as factory_cli
+    from open_provence_tpu_torch.datasets_factory.converter import _eval_carve_plan
+    from open_provence_tpu_torch.train.data import write_jsonl_splits
+
+    teacher = out_dir / P14_FINAL
+    d = {name: out_dir / f"p17_{name}"
+         for name in ("source", "generated", "filtered", "labeled", "scored")}
+    write_jsonl_splits({"train": p17_triplets()}, d["source"])
+
+    def run(*argv, **kwargs) -> float:
+        began = time.perf_counter()
+        if factory_cli.main([str(a) for a in argv], **kwargs) != 0:
+            raise AssertionError(f"phase 17: datasets_factory.cli {argv[0]} failed")
+        torch.cuda.synchronize()
+        return time.perf_counter() - began
+
+    walls = {"generate": run("generate", "--dataset", d["source"], "--lang", "en",
+                             "--output-dir", d["generated"]),
+             "frequency_filter": run("frequency_filter", "--dataset", d["generated"],
+                                     "--threshold", "1", "--output-dir", d["filtered"])}
+    kernels.reset_launch_counts()
+    walls["add_context_spans_relevance"] = run(
+        "add_context_spans_relevance", "--dataset", d["filtered"], "--teacher-model", teacher,
+        "--device", dev, "--output-dir", d["labeled"], tokenizer=pair_tokenizer_cls())
+    walls["add_reranker_teacher_scores"] = run(
+        "add_reranker_teacher_scores", "--dataset", d["labeled"], "--teacher-model", teacher,
+        "--device", dev, "--batch-size", "32", "--output-dir", d["scored"],
+        tokenizer=pair_tokenizer_cls())
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    require_forward("phase 17 factory_512", launches, plain)
+
+    generated, filtered, scored = (p17_read(d[k]) for k in ("generated", "filtered", "scored"))
+    val, test = _eval_carve_plan(P17_ROWS)
+    stats = json.loads((d["filtered"] / "frequency_filter_stats.json").read_text())["train"]
+    seen, later = set(), set()  # the later row of each planted pair in train
+    for row in generated["train"]:
+        if row["texts"][0] in seen:
+            later.add(row["id"])
+        seen.add(row["texts"][0])
+    dropped = {r["id"] for r in generated["train"]} - {r["id"] for r in filtered["train"]}
+    column = f"teacher_scores.{P14_FINAL}"
+    columns = ["id", "query", "texts", "context_spans", "labels", "context_spans_relevance",
+               column]
+    every = [r for rows in scored.values() for r in rows]
+    flags = [f for r in every for text in r["context_spans_relevance"] for f in text]
+    scores = np.asarray([v for r in every for v in r[column]], dtype=np.float64)
+    checks = {
+        f"carved {val} validation and {test} test rows (_eval_carve_plan({P17_ROWS}))":
+            (len(generated["validation"]), len(generated["test"]), len(generated["train"]))
+            == (val, test, P17_ROWS - val - test),
+        f"dropped the later row of each planted pair in train and no other "
+        f"({len(later)} of {P17_PLANTED})": dropped == later and stats["rows_removed"] == len(later)
+            and len(later) >= P17_PLANTED - val - test,
+        "validation and test pass the filter unchanged": all(
+            filtered[k] == generated[k] for k in ("validation", "test")),
+        "the rows keep their order": [r["id"] for r in scored["train"]]
+            == [r["id"] for r in filtered["train"]],
+        f"columns {columns}": all(list(r) == columns for r in every),
+        "one flag a span": all([len(f) for f in r["context_spans_relevance"]]
+                               == [len(s) for s in r["context_spans"]] for r in every)
+            and set(flags) <= {0, 1},
+        "a finite teacher score a text": all(len(r[column]) == len(r["texts"]) for r in every)
+            and bool(np.isfinite(scores).all()),
+    }
+    pairs = sum(len(r["texts"]) for r in every)
+    phase(f"phase 17 factory_512 bf16 through datasets_factory.cli on {P14_FINAL}: "
+          f"{P17_ROWS} rows -> splits {[len(v) for v in generated.values()]} -> "
+          f"{len(filtered['train'])} train rows after the filter ({stats['rows_removed']} "
+          f"dropped); {pairs} (query, text) pairs labeled one a call and scored 32 a batch: "
+          f"{sum(flags)} of {len(flags)} spans flagged, teacher scores in "
+          f"[{scores.min():.4f}, {scores.max():.4f}]; walls "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f" ({pairs / walls['add_context_spans_relevance']:.1f} pairs/s labeled, loading "
+          f"included) [{card}]; {', '.join(checks)}; launches {json.dumps(launches)}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 17 factory_512: {failed} failed")
+    phase(p17_factory_fp32(teacher, filtered["train"][:P17_CHECK_ROWS], pair_tokenizer_cls, dev))
+    return launches
+
+
+def p17_mldr_fp32(model_dir: Path, rows: list[dict], tokenizer_cls, dev) -> str:
+    """process() as build_records calls it, in fp32 on the card against fp32
+    on the CPU, on ``rows`` at CPU_CHECK_LAYERS layers: scores within 1e-4,
+    no keep/drop flip among sentences further than KEEP_MARGIN from the
+    threshold."""
+    from open_provence_tpu_torch import OpenProvenceModel
+    from open_provence_tpu_torch.eval.mldr_eval import normalize_title
+    from open_provence_tpu_torch.utils.hf_convert import load_checkpoint
+
+    cut, cut_sd = cut_depth(*load_checkpoint(model_dir), CPU_CHECK_LAYERS)
+    passages = [r["positive_passages"] + r["negative_passages"] for r in rows]
+    th = 0.1
+    kw = dict(question=[r["query"] for r in rows],
+              context=[[p["text"] for p in ps] for ps in passages],
+              title=[[normalize_title(p["title"]) for p in ps] for ps in passages], threshold=th,
+              batch_size=32, show_progress=False, return_sentence_texts=True,
+              return_sentence_metrics=True)
+    outs = []
+    for where in (dev, "cpu"):
+        model = OpenProvenceModel(cut, cut_sd, tokenizer_cls(), device=where, dtype=torch.float32)
+        outs.append(model.process(**kw))
+        del model
+
+    def flat(nested) -> np.ndarray:
+        if isinstance(nested, (list, tuple)):
+            parts = [flat(v) for v in nested]
+            return np.concatenate(parts) if parts else np.zeros(0)
+        return np.asarray([nested], dtype=np.float64)
+
+    card_p, cpu_p = (flat(o["sentence_probabilities"]) for o in outs)
+    decided = np.abs(cpu_p - th) > KEEP_MARGIN
+    flips = int(np.sum((card_p > th)[decided] != (cpu_p > th)[decided]))
+    score_err = float(np.max(np.abs(flat(outs[0]["reranking_score"])
+                                    - flat(outs[1]["reranking_score"]))))
+    note = (f"phase 17 mldr fp32 card vs cpu, {len(rows)} queries x {len(passages[0])} passages "
+            f"at {CPU_CHECK_LAYERS} layers: {flips} keep/drop flips among {int(decided.sum())} "
+            f"sentences decided by > {KEEP_MARGIN}, sentence-prob max_abs_err "
+            f"{np.max(np.abs(card_p - cpu_p)):.3e}, score max_abs_err {score_err:.3e} (tol 1e-4)")
+    if flips or score_err > 1e-4 or len(card_p) != len(cpu_p):
+        raise AssertionError(note)
+    return note
+
+
+def p17_mldr(tokenizer_cls, dev, card: str, out_dir: Path) -> dict[str, int]:
+    """``mldr_512``: eval/mldr_cli.py::main on a JSON-lines MLDR split with
+    --threshold 0.1 --batch-size 32 and the stand-in judge (launch counts
+    read around it), then the stage-skip rerun, --text-source original and
+    --threshold 0; the stage-1 rate; fp32 card against CPU."""
+    from open_provence_tpu_torch import OpenProvenceModel, kernels
+    from open_provence_tpu_torch.eval import mldr_cli, mldr_eval
+    from open_provence_tpu_torch.train.data import write_jsonl_splits
+
+    model_dir = out_dir / P14_FINAL
+    rows = p17_mldr_rows()
+    source = write_jsonl_splits({"test": rows}, out_dir / "p17_mldr")
+    run_dir = out_dir / "p17_mldr_run"
+    judged = []
+
+    async def judge(prompt, config):
+        judged.append(prompt)
+        return {"has_answer": int(" tells of sushi " in prompt), "answer_score": 0.5,
+                "reasoning": "stand-in judge"}
+
+    base = ["--model", model_dir, "--dataset", source, "--limit", P17_QUERIES,
+            "--batch-size", 32, "--device", dev, "--no-progress"]
+
+    def run(*argv) -> float:
+        began = time.perf_counter()
+        if mldr_cli.main([str(a) for a in (*base, *argv)], tokenizer=tokenizer_cls()) != 0:
+            raise AssertionError(f"phase 17: eval.mldr_cli {argv} failed")
+        torch.cuda.synchronize()
+        return time.perf_counter() - began
+
+    real_judge, mldr_eval.call_openai_judge = mldr_eval.call_openai_judge, judge
+    try:
+        kernels.reset_launch_counts()
+        wall = run("--output-dir", run_dir, "--threshold", 0.1)
+        launches, plain = kernels.launch_counts(), kernels.plain_counts()
+        require_forward("phase 17 mldr_512", launches, plain)
+        first_judged = len(judged)
+        stamp = (run_dir / "process" / "summary.json").stat().st_mtime_ns
+        rerun = run("--output-dir", run_dir, "--threshold", 0.1)
+        skipped = (len(judged) == first_judged
+                   and (run_dir / "process" / "summary.json").stat().st_mtime_ns == stamp)
+        run("--output-dir", run_dir, "--text-source", "original", "--no-eval")
+        run("--output-dir", out_dir / "p17_mldr_keep_all", "--threshold", 0, "--no-eval")
+    finally:
+        mldr_eval.call_openai_judge = real_judge
+
+    records = mldr_cli.read_records(run_dir / "process" / "dataset")[0]
+    original = mldr_cli.read_records(run_dir / "process_original" / "dataset")[0]
+    keep_all = mldr_cli.read_records(out_dir / "p17_mldr_keep_all" / "process" / "dataset")[0]
+    summary = json.loads((run_dir / "process" / "summary.json").read_text())
+    judge_summary = json.loads((run_dir / "eval_llm" / "summary.json").read_text())
+    n = P17_QUERIES * (1 + P17_NEGATIVES)
+    titles = [p["title"] for r in rows for p in r["positive_passages"] + r["negative_passages"]]
+    scores = np.asarray([r["reranking_score"] for r in records], dtype=np.float64)
+    counts = judge_summary["counts"]
+    checks = {
+        f"{n} records of {P17_QUERIES} queries": len(records) == summary["num_records"] == n
+            and summary["num_queries"] == P17_QUERIES,
+        "the titled passages' titles": all(r["title"] == t for r, t in zip(records, titles) if t),
+        "scores finite in [0, 1]": bool(np.isfinite(scores).all())
+            and bool(((scores >= 0) & (scores <= 1)).all()),
+        "kept and removed sentences listed": all(r["kept_sentences"] or r["removed_sentences"]
+                                                 for r in records),
+        f"the {P17_QUERIES} positives judged": first_judged == P17_QUERIES
+            and judge_summary["records_evaluated"] == P17_QUERIES
+            and counts["has_answer_1"] + counts["has_answer_0"] == P17_QUERIES
+            and counts["failed"] == 0,
+        "summary.json, result.md, eval_llm/summary.md written": all(
+            (run_dir / f).exists() for f in ("process/result.md", "eval_llm/summary.md")),
+        "the rerun skipped both stages": skipped,
+        "--text-source original and --threshold 0 give every passage back": all(
+            r["pruned_text"] == r["original_text"] for r in original + keep_all)
+            and len(original) == len(keep_all) == n,
+    }
+    # The stage-1 rate: build_records on one warm model, as the CLI runs it.
+    model = OpenProvenceModel.from_pretrained(model_dir, tokenizer=tokenizer_cls(), device=dev)
+    times = []
+    for _ in range(2):  # the first call is a warm-up
+        began = time.perf_counter()
+        mldr_eval.build_records(model.process, rows, threshold=0.1, batch_size=32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - began)
+    del model
+    chars = sum(len(r["original_text"]) for r in records)
+    # An untitled passage goes in with the title "None" (ROADMAP C, as in the
+    # JAX package): count the records that carry it.
+    none_titles = sum(r["title"] == "None" for r, t in zip(records, titles) if t is None)
+    phase(f"phase 17 mldr_512 bf16 through eval.mldr_cli on {P14_FINAL}: {n} passages of "
+          f"{chars / n:.0f} characters on average, threshold 0.1: compression pos "
+          f"{summary['avg_pos_compression']:.2f} / neg {summary['avg_neg_compression']:.2f} %, "
+          f"scores pos {summary['avg_pos_score']:.4f} / neg {summary['avg_neg_score']:.4f}; both "
+          f"stages {wall:.1f} s (stage 1 {summary['process_time_seconds']:.1f} s, loading "
+          f"included), the skipping rerun {rerun:.1f} s; build_records alone {times[1]:.3f} s = "
+          f"{n / times[1]:.1f} passages/s [{card}]; {', '.join(checks)} ({none_titles} of "
+          f"{titles.count(None)} untitled passages titled 'None'); launches {json.dumps(launches)}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 17 mldr_512: {failed} failed")
+    phase(p17_mldr_fp32(model_dir, rows[:P17_CHECK_QUERIES], tokenizer_cls, dev))
+    return launches
+
+
+def phase17_factory_and_mldr(tokenizer_cls, pair_tokenizer_cls, dev, card: str,
+                             out_dir: Path) -> dict[str, dict[str, int]]:
+    """The data factory and the MLDR evaluation (see above). Both paths must
+    launch kernels 1-4 and no plain version."""
+    began = time.perf_counter()
+    by_path = {"factory_512": p17_factory(pair_tokenizer_cls, dev, card, out_dir),
+               "mldr_512": p17_mldr(tokenizer_cls, dev, card, out_dir)}
+    phase(f"phase 17 took {time.perf_counter() - began:.0f} s")
+    return by_path
 
 
 def mesh_cards_main(tree: Path) -> int:
@@ -4528,6 +4984,9 @@ def main() -> int:
         by_path.update(phase16_mesh(config, sd, DummyTokenizer, pair_tokenizer, dev, card,
                                     Path(tmp), stats))
         elapsed("the mesh")
+        by_path.update(phase17_factory_and_mldr(DummyTokenizer, PairDummyTokenizer, dev, card,
+                                                Path(tmp)))
+        elapsed("the data factory and the MLDR evaluation")
 
     # Every kernel must have launched on a main path (the comparisons of
     # phase 3 are outside every count), rows 5 and 15 on the long ones.

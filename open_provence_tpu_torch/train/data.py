@@ -21,7 +21,9 @@ operations the pipeline uses, including HF's two permutations
 * a hub name, read with ``datasets.load_dataset``.
 
 The last two import ``datasets`` when they are used and raise
-``ImportError`` where it is missing.
+``ImportError`` where it is missing. ``open_splits`` and ``save_splits``
+read and write whole datasets for the commands of the data factory and the
+MLDR evaluation, in the form they were read.
 """
 
 from __future__ import annotations
@@ -44,8 +46,11 @@ __all__ = [
     "batch_iterator",
     "concatenate_tables",
     "filter_pruning_dataset",
+    "open_splits",
     "prepare_dataset",
     "sample_items_by_label_priority",
+    "save_splits",
+    "to_hf",
     "upsample_dataset",
     "write_jsonl_splits",
 ]
@@ -57,10 +62,11 @@ __all__ = [
 
 class RowTable:
     """Rows as dicts, with the operations of HF ``Dataset`` that the
-    pipeline uses and their semantics (column order, permutations, the
-    ``train_test_split`` sizes). Operations return new tables; ``map``
-    works on copies and ``__getitem__`` returns one, so a row shared by two
-    tables (an upsampled copy) is never edited through either."""
+    pipeline and the data factory use and their semantics (column order,
+    permutations, the ``train_test_split`` sizes, ``from_list``'s columns).
+    Operations return new tables; ``map`` works on copies and
+    ``__getitem__`` returns one, so a row shared by two tables (an upsampled
+    copy) is never edited through either."""
 
     def __init__(self, rows: list[dict[str, Any]], column_names: Iterable[str] | None = None):
         self._rows = rows
@@ -70,6 +76,25 @@ class RowTable:
                 names.update(dict.fromkeys(row))
             column_names = names
         self.column_names = list(column_names)
+
+    @classmethod
+    def from_list(cls, rows: list[dict[str, Any]]) -> RowTable:
+        """HF ``Dataset.from_list``: the columns are the first row's keys, in
+        its order; a row gets None for a column it lacks, and loses a key the
+        first row lacks."""
+        columns = list(rows[0]) if rows else []
+        return cls([{c: row.get(c) for c in columns} for row in rows], columns)
+
+    @classmethod
+    def from_dict(cls, mapping: dict[str, list[Any]]) -> RowTable:
+        """HF ``Dataset.from_dict``: one list a column, all of one length; no
+        rows keeps the column names."""
+        columns = list(mapping)
+        lengths = {len(values) for values in mapping.values()}
+        if len(lengths) > 1:
+            raise ValueError(f"columns of different lengths: {sorted(lengths)}")
+        count = lengths.pop() if lengths else 0
+        return cls([{c: mapping[c][i] for c in columns} for i in range(count)], columns)
 
     def __len__(self) -> int:
         return len(self._rows)
@@ -104,12 +129,40 @@ class RowTable:
         return RowTable(rows, names)
 
     def filter(
-        self, fn: Callable[[dict[str, Any]], bool], *, num_proc: int | None = None
+        self,
+        fn: Callable[..., bool],
+        *,
+        with_indices: bool = False,
+        num_proc: int | None = None,
     ) -> RowTable:
-        return RowTable([r for r in self._rows if fn(copy.deepcopy(r))], self.column_names)
+        """The rows for which ``fn(row[, idx])`` holds, each given as a copy
+        (HF ``Dataset.filter``)."""
+        return RowTable(
+            [r for i, r in enumerate(self._rows)
+             if (fn(copy.deepcopy(r), i) if with_indices else fn(copy.deepcopy(r)))],
+            self.column_names,
+        )
 
     def select(self, indices: Iterable[int]) -> RowTable:
         return RowTable([self._rows[int(i)] for i in indices], self.column_names)
+
+    def add_column(self, name: str, column: list[Any]) -> RowTable:
+        """HF ``Dataset.add_column``: ``column`` becomes the last column."""
+        if name in self.column_names:
+            raise ValueError(f"column {name!r} is already in {self.column_names}")
+        if len(column) != len(self):
+            raise ValueError(f"column {name!r} has {len(column)} values for {len(self)} rows")
+        rows = [{**row, name: value} for row, value in zip(self._rows, column)]
+        return RowTable(rows, [*self.column_names, name])
+
+    def remove_columns(self, column_names: str | list[str]) -> RowTable:
+        """HF ``Dataset.remove_columns`` of one name or a list of them."""
+        names = [column_names] if isinstance(column_names, str) else list(column_names)
+        missing = [c for c in names if c not in self.column_names]
+        if missing:
+            raise ValueError(f"columns {missing} not in {self.column_names}")
+        rows = [{k: v for k, v in row.items() if k not in names} for row in self._rows]
+        return RowTable(rows, [c for c in self.column_names if c not in names])
 
     def select_columns(self, columns: list[str]) -> RowTable:
         missing = [c for c in columns if c not in self.column_names]
@@ -445,10 +498,9 @@ def _open_source(spec: _SourceSpec) -> dict[str | None, RowTable]:
     None."""
     if spec.name and Path(spec.name).expanduser().exists():
         path = Path(spec.name).expanduser()
-        split_files = sorted(path.glob("*.jsonl"))
-        if split_files and not (path / "dataset_dict.json").exists():
+        if _is_jsonl_dir(path):
             logger.info("Loading local JSON-lines dataset from %s", path)
-            return {f.stem: _read_jsonl(f) for f in split_files}
+            return {f.stem: _read_jsonl(f) for f in sorted(path.glob("*.jsonl"))}
         datasets = _import_datasets(f"the save_to_disk directory {path}")
         logger.info("Loading local dataset from %s", path)
         loaded = datasets.load_from_disk(str(path))
@@ -458,6 +510,43 @@ def _open_source(spec: _SourceSpec) -> dict[str | None, RowTable]:
     datasets = _import_datasets(f"the hub dataset {spec.name!r}")
     loaded = datasets.load_dataset(spec.name or "", spec.subset or None)
     return {name: _from_hf(split) for name, split in loaded.items()}
+
+
+def _is_jsonl_dir(path: Path) -> bool:
+    """A directory of ``<split>.jsonl`` files that is no ``save_to_disk``
+    directory."""
+    return any(path.glob("*.jsonl")) and not (path / "dataset_dict.json").exists()
+
+
+def open_splits(name: str, subset: str | None = None) -> tuple[dict[str | None, RowTable], bool]:
+    """The splits of a local directory or a hub dataset, by the training
+    data's rules (``_open_source``: a lone ``save_to_disk`` ``Dataset``
+    under the key None), and whether they came from ``<split>.jsonl``
+    files, so that a command writes its output in the form it read."""
+    path = Path(name).expanduser()
+    spec = _SourceSpec(name=name, subset=subset, teacher_column="teacher_score", items=None,
+                       upsample=None, n_samples=None)
+    return _open_source(spec), path.is_dir() and _is_jsonl_dir(path)
+
+
+def to_hf(table: RowTable) -> Any:
+    """The table as an HF ``Dataset`` with its columns (none of its rows
+    lacking one), for ``save_to_disk`` and ``push_to_hub``."""
+    datasets = _import_datasets("writing a save_to_disk directory")
+    rows = table.to_list()
+    return datasets.Dataset.from_dict(
+        {c: [row.get(c) for row in rows] for c in table.column_names})
+
+
+def save_splits(splits: dict[str, RowTable], directory: str | Path, *, jsonl: bool) -> Path:
+    """Write ``splits`` as ``<split>.jsonl`` files (``write_jsonl_splits``)
+    or, with ``jsonl`` False, as an HF ``DatasetDict`` ``save_to_disk``
+    directory."""
+    if jsonl:
+        return write_jsonl_splits(splits, directory)
+    datasets = _import_datasets("writing a save_to_disk directory")
+    datasets.DatasetDict({k: to_hf(v) for k, v in splits.items()}).save_to_disk(str(directory))
+    return Path(directory)
 
 
 def _refine_split(

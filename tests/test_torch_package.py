@@ -32,10 +32,13 @@ def test_port_imports_no_jax_stack():
         "import open_provence_tpu_torch.train.encoder_init\n"
         "import open_provence_tpu_torch.train.data, open_provence_tpu_torch.train.runner\n"
         "import open_provence_tpu_torch.train.cli\n"
+        "import open_provence_tpu_torch.datasets_factory, open_provence_tpu_torch.datasets_factory.cli\n"
+        "import open_provence_tpu_torch.eval, open_provence_tpu_torch.eval.cli\n"
+        "import open_provence_tpu_torch.eval.mldr_cli, open_provence_tpu_torch.eval.mldr_ignore\n"
         "open_provence_tpu_torch.OpenProvenceEncoder\n"
         "open_provence_tpu_torch.OpenProvenceTrainer, open_provence_tpu_torch.OpenProvenceLoss\n"
         "open_provence_tpu_torch.OpenProvenceDataCollator, open_provence_tpu_torch.runner\n"
-        f"bad = [m for m in {FORBIDDEN + ('yaml', 'datasets')!r} if m in sys.modules]\n"
+        f"bad = [m for m in {FORBIDDEN + ('yaml', 'datasets', 'httpx')!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
