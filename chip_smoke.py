@@ -60,9 +60,9 @@ card and check it, in phases:
    and ``process()`` served from the trained weights;
 9. long context: ``process()`` at max_length 2048 in bf16 on pairs that
    fill the 2048 bucket (launch counts, threshold 0 and 1, pairs/s and
-   tokens/s), fp32 card against CPU on a few pairs; then a trainer at B=8,
-   S=2048: one fp32 step card against CPU at 3 layers, and bf16 steps at
-   22 layers with train pairs/s and tokens/s;
+   tokens/s), fp32 card against CPU on 3 pairs at 3 layers; then a
+   trainer at B=8, S=2048: one fp32 step card against CPU at 3 layers, and
+   bf16 steps at 22 layers with train pairs/s and tokens/s;
 10. the bias-carrying checkpoint layouts (norm_bias; mlp_bias with
    attention_bias) at base width: fp32 card against CPU, ``process()`` and
    20 training steps each, with the launch counts of their kernels;
@@ -113,8 +113,12 @@ card and check it, in phases:
    1 x 2 (side by side on ranks {0, 1} and {2, 3}) and 2 x 2, each held to
    one process on the same batch
    and weights (losses 1e-4 relative, the update over the run 1e-3 of each
-   tensor's largest); 2 bf16 steps under 2 x 2 (every default kernel
-   launched on every rank, no plain version); phase 5's 256 pairs served
+   tensor's largest); 2 bf16 steps at base width and depth under 1 x 1
+   (rank 0) beside 1 x 2 (ranks 2 and 3), then under 2 x 2 (every default
+   kernel launched on every rank, no plain version), each rank's bytes of
+   fp32 masters and optimizer state, its peak allocated memory over the
+   steps and the bytes it all-reduced a step by axis and type, a tp = 2
+   rank held to at most 0.7 of the 1 x 1 bytes; phase 5's 256 pairs served
    under 2 x 1 in bf16 and, on the first 3 layers (CPU_CHECK_LAYERS: gloo
    carries every activation sum through the host), 1 x 2 in fp32, against
    one process; no rank imports jax; dryrun_multichip(4) on the card;
@@ -139,6 +143,10 @@ band-and-padding mask: one dense call for the same function).
 ``python3 chip_smoke.py --rates [TREE]`` measures only the serving and
 training rates at B=32, S=512 of the package under TREE (default: this
 checkout), so that two trees can be compared inside one call.
+``python3 chip_smoke.py --mesh-memory [TREE]`` runs only phase 16's bf16
+steps at 1 x 1, 1 x 2 and 2 x 2 (four gloo ranks on the card) with the
+package under TREE, and prints each rank's bytes held, peak memory and
+bytes all-reduced a step, one JSON line a run.
 ``python3 chip_smoke.py --attention [TREE]`` builds TREE's kernels, prints
 the attention units' ptxas report, a digest of each kernel's machine code
 and the designs, runs the edge cases of phase 3c and times the attention
@@ -1576,19 +1584,21 @@ def fp32_flips(label: str, config, sd, tokenizer_cls, dev, questions, contexts) 
 
     th, margin = 0.1, 1e-4
     kw = dict(threshold=th, show_progress=False, return_sentence_metrics=True)
-    outs = [
-        OpenProvenceModel(config, sd, tokenizer_cls(), device=d, dtype=torch.float32).process(
-            questions, contexts, **kw
-        )
-        for d in (dev, "cpu")
-    ]
+    outs, walls = [], []
+    for d in (dev, "cpu"):
+        began = time.perf_counter()
+        model = OpenProvenceModel(config, sd, tokenizer_cls(), device=d, dtype=torch.float32)
+        outs.append(model.process(questions, contexts, **kw))
+        walls.append(time.perf_counter() - began)
     card, cpu = (np.concatenate([np.asarray(p) for p in o["sentence_probabilities"]]) for o in outs)
     decided = np.abs(cpu - th) > margin
     flips = int(np.sum((card > th)[decided] != (cpu > th)[decided]))
     score_err = float(np.max(np.abs(np.subtract(outs[0]["reranking_score"], outs[1]["reranking_score"]))))
-    phase(f"{label} fp32 card vs cpu, {len(questions)} pairs: {flips} keep/drop flips among "
-          f"{int(decided.sum())} sentences decided by > {margin}, sentence-prob max_abs_err "
-          f"{np.max(np.abs(card - cpu)):.3e}, score max_abs_err {score_err:.3e}")
+    layers = config.backbone().num_hidden_layers
+    phase(f"{label} fp32 card vs cpu, {len(questions)} pairs, {layers} layers: {flips} keep/drop "
+          f"flips among {int(decided.sum())} sentences decided by > {margin}, sentence-prob "
+          f"max_abs_err {np.max(np.abs(card - cpu)):.3e}, score max_abs_err {score_err:.3e}; "
+          f"walls card {walls[0]:.1f} s, cpu {walls[1]:.1f} s")
     if flips:
         raise AssertionError(f"{label}: fp32 keep/drop decisions differ between card and CPU")
 
@@ -1859,7 +1869,7 @@ def phase7_train_step(config, sd, tokenizer, dev, out_dir: Path, batch=None,
     )
     layers = config.backbone().num_hidden_layers
     for step in steps:
-        params_before, state_before = cpu_copy(card.params), cpu_copy(card.opt_state)
+        params_before, state_before = cpu_copy(card.full_state_dict()), cpu_copy(card.opt_state)
         loss_c, _, grads_c = card.loss_and_grads(batch)
         card.apply_gradients(grads_c)
         loss_h, _, grads_h = host.loss_and_grads(batch)
@@ -1873,7 +1883,7 @@ def phase7_train_step(config, sd, tokenizer, dev, out_dir: Path, batch=None,
         # through the same fp32 add.
         ref, _ = host.optimizer.update(grads_c, state_before, params_before)
         delta_ref = {k: (p + ref[k]) - p for k, p in params_before.items()}
-        delta_card = {k: card.params[k].detach().cpu() - p for k, p in params_before.items()}
+        delta_card = {k: v.cpu() - params_before[k] for k, v in card.full_state_dict().items()}
         update_err = max_rel_err(delta_card, delta_ref)
         largest = max(float(d.abs().max()) for d in delta_ref.values())
         faults = {"zeroed": 0.0, "negated": -1.0, "5x": 5.0}
@@ -1966,7 +1976,7 @@ def resume_check(label: str, trainer, fresh, batch) -> Path:
     after = trainer.train_one_step(batch)["loss"]
     fresh.load_checkpoint(ckpt)
     again = fresh.train_one_step(batch)["loss"]
-    diff = max_rel_err(fresh._detached(), trainer._detached())
+    diff = max_rel_err(fresh.full_state_dict(), trainer.full_state_dict())
     phase(f"{label} resume from {ckpt.name}: next step loss {again:.6f} vs {after:.6f} "
           f"without the resume; largest parameter difference {diff:.3e}")
     if again != after or diff != 0.0:
@@ -2097,8 +2107,10 @@ def phase9_long_context(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     forward_ms(model, 8, max_length, "phase 9", card, with_plain=False)
     del model
 
-    fp32_flips(f"phase 9 max_length={max_length}", config, sd, tokenizer_cls, dev, questions[:3],
-               contexts[:3])
+    # On the first CPU_CHECK_LAYERS layers (PERF.md section 4 has the cut's
+    # times).
+    fp32_flips(f"phase 9 max_length={max_length}", *cut_depth(config, sd, CPU_CHECK_LAYERS),
+               tokenizer_cls, dev, questions[:3], contexts[:3])
 
     # Training at B=8, S=2048: 7 real pairs of 1500 to 1950 tokens and a
     # padding pair. One fp32 step, card against CPU, at 3 layers (one global,
@@ -2225,7 +2237,7 @@ def phase10_bias_layouts(tokenizer_cls, pair_tokenizer, dev, out_dir: Path):
         train = train_and_check(f"phase 10 {name}", trainer, batches, 20, train_required)
         pairs_s, _ = train_rate(trainer, batches)
         phase(f"phase 10 {name} train step B=32 S=512 bf16: {pairs_s:.1f} pairs/s")
-        moved = max(float(v.detach().abs().max()) for k, v in trainer.params.items()
+        moved = max(float(v.abs().max()) for k, v in trainer.full_state_dict().items()
                     if k.endswith(".bias"))
         if not np.isfinite(moved):
             raise AssertionError(f"{name}: a bias is not finite after training")
@@ -3455,6 +3467,10 @@ P16_LOSS_TOL, P16_UPDATE_TOL = 1e-4, STEP_UPDATE_TOL
 # bf16 process() under data parallelism against one process: a score moves
 # only where a product's algorithm changes with the rows it is given.
 P16_BF16_TOL = TOL[torch.bfloat16][0]
+# The bf16 steps of each mesh at base width and depth, and the share of the
+# 1 x 1 bytes of fp32 masters and optimizer state a tp = 2 rank may hold:
+# it keeps half of the split tensors (73.7 % of the parameters).
+P16_BF16_STEPS, P16_HELD_SHARE = 2, 0.7
 
 
 def phase16_kernels(dev, stats: dict[str, dict]) -> None:
@@ -3580,11 +3596,11 @@ def phase16_kernels(dev, stats: dict[str, dict]) -> None:
               f"{entry['bound_by']}, {extra}")
 
 
-def p16_train(mesh, sd, batches, steps: int, bf16: bool, ref_path: str | None,
+def p16_train(mesh, sd, batches, steps: int, ref_path: str | None,
               out_dir: Path, device: torch.device = torch.device("cuda", 0),
               config=None) -> dict:
-    """``steps`` trainer steps over ``mesh`` on phase 8's batches in turn
-    (``config`` defaults to base_config()):
+    """``steps`` fp32 trainer steps over ``mesh`` on phase 8's batches in
+    turn (``config`` defaults to base_config()):
     the losses, each parameter's sum (ranks of a mesh must agree), the wall,
     the launches it made and, on the main rank with ``ref_path``, the update
     over the run against one process's."""
@@ -3593,18 +3609,92 @@ def p16_train(mesh, sd, batches, steps: int, bf16: bool, ref_path: str | None,
 
     before = kernels.launch_counts()
     began = time.perf_counter()
-    trainer = OpenProvenceTrainer(config or base_config(), sd, None, output_dir=out_dir, bf16=bf16,
+    trainer = OpenProvenceTrainer(config or base_config(), sd, None, output_dir=out_dir, bf16=False,
                                   learning_rate=P16_LR, total_steps=10, mesh=mesh,
                                   tensor_parallel=True, device=device)
     losses = [trainer.train_one_step(batches[i % len(batches)])["loss"] for i in range(steps)]
     torch.cuda.synchronize()
-    out = {"losses": losses, "wall": time.perf_counter() - began, "device": str(trainer.device),
-           "sums": [float(p.detach().double().sum()) for p in trainer.params.values()],
+    wall = time.perf_counter() - began
+    whole = trainer.full_state_dict()  # collective over the model group
+    out = {"losses": losses, "wall": wall, "device": str(trainer.device),
+           "sums": [float(p.double().sum()) for p in whole.values()],
            "launches": {k: v - before[k] for k, v in kernels.launch_counts().items()}}
     if ref_path is not None and mesh.is_main:
         ref = torch.load(ref_path, mmap=True, weights_only=True)
-        errs = rel_errs({k: trainer.params[k].detach().cpu() - sd[k] for k in sd}, ref)
+        errs = rel_errs({k: whole[k].cpu() - sd[k] for k in sd}, ref)
         out["update_err"], out["worst"] = max(errs.values()), max(errs, key=errs.get)
+    return out
+
+
+@contextlib.contextmanager
+def counted_all_reduces(mesh):
+    """Count the bytes every ``torch.distributed.all_reduce`` inside the
+    block carries, by the mesh axis of its group (``data``, ``model``,
+    ``mesh`` for the whole mesh) and its type: wraps the function the
+    package's ``Mesh.all_reduce`` calls."""
+    import torch.distributed as dist
+
+    axes = {id(g): a for a, g in (("data", mesh.data_group), ("model", mesh.model_group),
+                                  ("mesh", mesh.group)) if g is not None}
+    moved: dict[str, int] = {}
+    real = dist.all_reduce
+
+    def counting(t, *args, group=None, **kwargs):
+        key = f"{axes.get(id(group), 'other')} {str(t.dtype)[6:]}"
+        moved[key] = moved.get(key, 0) + t.numel() * t.element_size()
+        return real(t, *args, group=group, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        yield moved
+    finally:
+        dist.all_reduce = real
+
+
+def p16_bf16_run(mesh, sd, batches, out_dir: Path,
+                 device: torch.device = torch.device("cuda", 0)) -> dict:
+    """P16_BF16_STEPS bf16 trainer steps at base width and depth over
+    ``mesh`` (tensor parallel on its model axis): the losses, the wall, the
+    launches, the bytes of fp32 masters and of optimizer state this rank
+    holds, its peak allocated memory over the steps and the bytes it
+    all-reduced a step (``counted_all_reduces``). Reads only ``params`` and
+    ``opt_state``, so ``--mesh-memory`` runs it on any tree."""
+    from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.train import OpenProvenceTrainer
+
+    torch.cuda.empty_cache()
+    before = kernels.launch_counts()
+    config = base_config()
+    trainer = OpenProvenceTrainer(config, sd, None, output_dir=out_dir, bf16=True,
+                                  learning_rate=P16_LR, total_steps=10, mesh=mesh,
+                                  tensor_parallel=True, device=device)
+    masters = sum(p.numel() * p.element_size() for p in trainer.params.values())
+    state = sum(v.numel() * v.element_size() for v in trainer.opt_state.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    began = time.perf_counter()
+    with counted_all_reduces(mesh) as moved:
+        losses = [trainer.train_one_step(batches[i % len(batches)])["loss"]
+                  for i in range(P16_BF16_STEPS)]
+    torch.cuda.synchronize()
+    return {"losses": losses, "wall": time.perf_counter() - began, "device": str(trainer.device),
+            "layers": config.backbone().num_hidden_layers, "masters": masters, "state": state,
+            "peak": torch.cuda.max_memory_allocated(),
+            "per_step": {k: v / P16_BF16_STEPS for k, v in sorted(moved.items())},
+            "launches": {k: v - before[k] for k, v in kernels.launch_counts().items()}}
+
+
+def p16_memory(rank: int, sd, batches, out_dir: Path, tp_pair, full) -> dict:
+    """Phase 16's bf16 runs: 1 x 1 on rank 0 beside 1 x 2 (``tp_pair``) on
+    ranks 2 and 3, then 2 x 2 (``full``) on all four."""
+    from open_provence_tpu_torch.parallel.mesh import Mesh
+
+    out = {}
+    if rank == 0:
+        out["bf16 1x1"] = p16_bf16_run(Mesh(), sd, batches, out_dir / "p16_1x1_bf16")
+    elif rank >= 2:
+        out["bf16 1x2"] = p16_bf16_run(tp_pair, sd, batches, out_dir / "p16_1x2_bf16")
+    out["bf16 2x2"] = p16_bf16_run(full, sd, batches, out_dir / "p16_2x2_bf16")
     return out
 
 
@@ -3643,10 +3733,10 @@ def p16_rank(rank: int, sd_path: str, batches: list, ref_path: str, out_dir: str
     fp32 under 1 x 2, which evens out the two pairs' walls: gloo carries
     every activation sum of tensor parallelism through the host at about
     1 GB/s (phase 16 prints it), so at full depth the fp32 1 x 2 serve
-    alone outlasts both pairs' training. Then all four train fp32 and
-    briefly bf16 under 2 x 2. fp32 trains the first P16_FP32_LAYERS layers,
-    bf16 all 22. Returns what it measured and the launches of every
-    kernel."""
+    alone outlasts both pairs' training. Then all four train fp32 under
+    2 x 2, and briefly bf16 (``p16_memory``). fp32 trains the first
+    P16_FP32_LAYERS layers, bf16 all 22. Returns what it measured and the
+    launches of every kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -3677,15 +3767,76 @@ def p16_rank(rank: int, sd_path: str, batches: list, ref_path: str, out_dir: str
     label = "2x1" if rank < 2 else "1x2"
     cut, cut_sd = cut_depth(base_config(), sd, P16_FP32_LAYERS)
     result[f"fp32 {label}"] = p16_train(pairs[mine, (2, 1) if rank < 2 else (1, 2)], cut_sd,
-                                        batches, P16_STEPS, False, ref_path,
+                                        batches, P16_STEPS, ref_path,
                                         out_dir / f"p16_{label}", config=cut)
-    result["fp32 2x2"] = p16_train(full, cut_sd, batches, P16_STEPS, False, ref_path,
+    result["fp32 2x2"] = p16_train(full, cut_sd, batches, P16_STEPS, ref_path,
                                    out_dir / "p16_2x2", config=cut)
-    result["bf16 2x2"] = p16_train(full, sd, batches, 2, True, None, out_dir / "p16_2x2_bf16")
+    result.update(p16_memory(rank, sd, batches, out_dir, pairs[(2, 3), (1, 2)], full))
     result["launches"], result["plain"] = kernels.launch_counts(), kernels.plain_counts()
     result["jax_modules"] = sorted(m for m in sys.modules
                                    if m.split(".")[0] in ("jax", "open_provence_tpu"))
     return result
+
+
+def p16_memory_lines(ranks: list[dict]) -> list[tuple[str, int, dict]]:
+    """(mesh, rank, run) of every bf16 run of ``p16_memory``."""
+    return [(key[5:], r["rank"], r[key]) for key in ("bf16 1x1", "bf16 1x2", "bf16 2x2")
+            for r in ranks if key in r]
+
+
+def p16_memory_report(ranks: list[dict], card: str) -> None:
+    """Print each rank's bytes held, peak memory and bytes all-reduced a
+    step in the bf16 runs; raise unless a tp = 2 rank holds at most
+    P16_HELD_SHARE of the 1 x 1 bytes of masters and optimizer state."""
+    runs = p16_memory_lines(ranks)
+    one = next(run for label, _, run in runs if label == "1x1")
+    whole = one["masters"] + one["state"]
+    mb = 1e-6
+    for label, rank, run in runs:
+        held = run["masters"] + run["state"]
+        moved = ", ".join(f"{k} {v * mb:.3f}" for k, v in run["per_step"].items()) or "none"
+        phase(f"phase 16 bf16 {label} rank {rank}, {P16_BF16_STEPS} steps B=32 S=512 at "
+              f"{run['layers']} layers: holds fp32 masters {run['masters'] * mb:.1f} MB + "
+              f"optimizer state {run['state'] * mb:.3f} MB = {held / whole:.4f} of 1 x 1's; peak "
+              f"allocated "
+              f"{run['peak'] * mb:.1f} MB; all-reduced a step (MB by axis and type): {moved}; "
+              f"wall {run['wall']:.1f} s [{card}]")
+        if label != "1x1" and held > P16_HELD_SHARE * whole:
+            raise AssertionError(f"phase 16: a {label} rank holds {held / whole:.3f} of the "
+                                 f"1 x 1 bytes (> {P16_HELD_SHARE})")
+
+
+def p16_memory_rank(rank: int, sd_path: str, batches: list, out_dir: str) -> dict:
+    """A rank of ``--mesh-memory``: ``p16_memory`` alone."""
+    torch.cuda.set_device(0)
+    from open_provence_tpu_torch.parallel.mesh import create_mesh
+
+    sd = torch.load(sd_path, mmap=True, weights_only=True)
+    tp_pair = create_mesh(1, 2, devices=[2, 3])
+    full = create_mesh(2, 2)
+    return {"rank": rank, **p16_memory(rank, sd, batches, Path(out_dir), tp_pair, full)}
+
+
+def mesh_memory_main(tree: Path) -> int:
+    """Phase 16's bf16 runs alone with the package under ``tree`` (four
+    gloo ranks on card 0): one JSON line a run and the phase's report."""
+    sys.path.insert(0, str(tree))
+    from open_provence_tpu_torch import init_params, kernels
+    from open_provence_tpu_torch.parallel.dryrun import run_ranks
+
+    _, PairDummyTokenizer = load_dummy_tokenizers()
+    card = card_line()
+    kernels.library()
+    sd = init_params(base_config(), torch.Generator().manual_seed(0))
+    batches = [training_batch(PairDummyTokenizer(), 31, 512, seed=s) for s in (80, 81)]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(sd, Path(tmp) / "weights.pt")
+        ranks = run_ranks(p16_memory_rank, 4, str(Path(tmp) / "weights.pt"), batches, tmp)
+    for label, rank, run in p16_memory_lines(ranks):
+        print(json.dumps({"tree": str(tree), "mesh": label, "rank": rank, "card": card,
+                          **{k: v for k, v in run.items() if k != "launches"}}), flush=True)
+    p16_memory_report(ranks, card)
+    return 0
 
 
 def p16_flips(got: np.ndarray, want: np.ndarray, margin: float) -> tuple[int, int]:
@@ -3713,7 +3864,7 @@ def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_
     want_losses = [one.train_one_step(batches[i % 2])["loss"] for i in range(P16_STEPS)]
     torch.cuda.synchronize()
     one_wall = time.perf_counter() - t0
-    update = {k: one.params[k].detach().cpu() - cut_sd[k] for k in cut_sd}
+    update = {k: v.cpu() - cut_sd[k] for k, v in one.full_state_dict().items()}
     del one
     sd_path, ref_path = out_dir / "p16_weights.pt", out_dir / "p16_update.pt"
     torch.save(sd, sd_path)
@@ -3774,6 +3925,7 @@ def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_
               f"{agree}; walls {walls} s")
         if not (loss_err <= P16_LOSS_TOL and main["update_err"] <= P16_UPDATE_TOL and agree):
             raise AssertionError(f"phase 16: the {label} mesh's fp32 run is not one process's")
+    p16_memory_report(ranks, card)
     bf16 = [r["bf16 2x2"] for r in ranks]
     for run in bf16:
         missing = [name for name in DEFAULT_EIGHT if run["launches"][name] == 0]
@@ -4247,13 +4399,13 @@ def mesh_cards(tree: Path) -> int:
         want_losses = [one.train_one_step(batches[i % 2])["loss"] for i in range(P16_STEPS)]
         torch.cuda.synchronize()
         one_wall = time.perf_counter() - began
-        torch.save({k: one.params[k].detach().cpu() - sd[k] for k in sd}, ref_path)
+        torch.save({k: v.cpu() - sd[k] for k, v in one.full_state_dict().items()}, ref_path)
         del one
         want = p16_serve(OpenProvenceModel(config, sd, DummyTokenizer(), device=dev,
                                            dtype=torch.float32), pairs)
     mesh.barrier()
     nccl_ms = p16_all_reduce_ms(mesh, dev)
-    got = p16_train(mesh, sd, batches, P16_STEPS, False, str(ref_path), out / "mesh", dev)
+    got = p16_train(mesh, sd, batches, P16_STEPS, str(ref_path), out / "mesh", dev)
     served = p16_serve(OpenProvenceModel(config, sd, DummyTokenizer(), device=dev,
                                          dtype=torch.float32, mesh=mesh, tensor_parallel=True),
                        pairs)
@@ -4906,7 +5058,8 @@ def main() -> int:
     if len(sys.argv) > 1:
         modes = {"--rates": rates_main, "--attention": attention_main, "--gemm": gemm_main,
                  "--layouts": layouts_main, "--same-buffers": same_buffers_main,
-                 "--ln-adjoint": ln_adjoint_main, "--mesh-cards": mesh_cards_main}
+                 "--ln-adjoint": ln_adjoint_main, "--mesh-cards": mesh_cards_main,
+                 "--mesh-memory": mesh_memory_main}
         if sys.argv[1] not in modes or len(sys.argv) > 3:
             print(f"usage: chip_smoke.py [{' | '.join(modes)} [TREE]]", file=sys.stderr)
             return 2

@@ -37,7 +37,12 @@ import torch
 from .configs import OpenProvenceConfig
 from .data_structures import OpenProvenceOutput, RerankingOpenProvenceOutput
 from .inference.batching import bucket_batch, bucket_length, length_buckets, pad_block_batch
-from .inference.engine import check_attention_impl, forward_logits, place_module
+from .inference.engine import (
+    DEFAULT_BUCKET_STEP,
+    check_attention_impl,
+    forward_logits,
+    place_module,
+)
 from .models.hf_wrappers import ARCHITECTURES, AUTO_MAP
 from .utils import safetensors_io
 
@@ -205,7 +210,7 @@ class OpenProvenceEncoder:
         pruning_config: dict[str, Any] | None = None,
         seed: int = 42,
         attention_impl: str = "auto",
-        bucket_step: int = 64,
+        bucket_step: int | None = None,
         device: torch.device | str | None = None,
         dtype: torch.dtype | None = None,
     ):
@@ -217,7 +222,8 @@ class OpenProvenceEncoder:
         on a card and the weights' own dtype on the CPU, as in
         ``OpenProvenceModel``. ``attention_impl`` must be one of ``auto``,
         ``xla``, ``pallas`` and is then ignored: the port runs one attention
-        kernel for every shape. ``bucket_step`` is the length-bucket step."""
+        kernel for every shape. ``bucket_step`` is the length-bucket step
+        (None: ``DEFAULT_BUCKET_STEP``, 64)."""
         check_attention_impl(attention_impl)
         if config is None or state_dict is None:
             if model_name_or_path is None:
@@ -246,7 +252,7 @@ class OpenProvenceEncoder:
             tokenizer = AutoTokenizer.from_pretrained(str(model_name_or_path))
         self.tokenizer = tokenizer
         self.attention_impl = attention_impl
-        self.bucket_step = int(bucket_step)
+        self.bucket_step = int(DEFAULT_BUCKET_STEP if bucket_step is None else bucket_step)
 
     # --- device forward -------------------------------------------------------
 

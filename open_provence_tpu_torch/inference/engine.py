@@ -74,9 +74,15 @@ DEFAULT_BATCH_SIZE = 32
 # The JAX engine's attention routes; the port has one attention kernel for
 # every shape, so it accepts these names and ignores them.
 ATTENTION_IMPLS = ("auto", "xla", "pallas")
+# The length-bucket step that ``bucket_step=None`` means: the JAX engine's
+# choice off the TPU. The kernels take any S, so 64 wastes at most 63 padded
+# positions a row.
+DEFAULT_BUCKET_STEP = 64
 
 
 def check_attention_impl(attention_impl: str) -> None:
+    """Raise unless ``attention_impl`` names one of the JAX engine's
+    attention routes."""
     if attention_impl not in ATTENTION_IMPLS:
         raise ValueError(
             f"attention_impl must be one of {', '.join(ATTENTION_IMPLS)}, not {attention_impl!r}"
@@ -334,7 +340,8 @@ class OpenProvenceModel:
         *,
         dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
-        bucket_step: int = 64,
+        attention_impl: str = "auto",
+        bucket_step: int | None = None,
         mesh: Mesh | None = None,
         tensor_parallel: bool = False,
         device_pooling: bool = True,
@@ -343,12 +350,15 @@ class OpenProvenceModel:
         ``utils/convert.py``). ``device`` defaults to the first CUDA card and
         raises where there is none: the CPU is taken only when asked for with
         ``device="cpu"``. ``dtype`` defaults to bf16 on CUDA and to the
-        weights' own dtype on the CPU. ``bucket_step`` is the length
-        bucket granularity: the kernels take any S, so 64 wastes at most 63
-        padded positions a row. ``mesh`` (``parallel.create_mesh``) splits
-        each forward's rows over its data axis and, with
+        weights' own dtype on the CPU. ``attention_impl`` must be one of
+        ``auto``, ``xla``, ``pallas`` and is then ignored: the port runs one
+        attention kernel for every shape. ``bucket_step`` is the length
+        bucket granularity (None: ``DEFAULT_BUCKET_STEP``). ``mesh``
+        (``parallel.create_mesh``) splits each forward's rows over its data
+        axis and, with
         ``tensor_parallel``, the weights over its model axis; every rank
         calls ``process()`` alike and gets the whole result."""
+        check_attention_impl(attention_impl)
         self.config = config
         self.mesh = mesh
         self._data_axis = mesh.data if mesh is not None else 1
@@ -362,7 +372,8 @@ class OpenProvenceModel:
         )
         self.max_length = int(config.max_length)
         self.default_threshold = config.default_threshold
-        self.bucket_step = int(bucket_step)
+        self.attention_impl = attention_impl
+        self.bucket_step = int(DEFAULT_BUCKET_STEP if bucket_step is None else bucket_step)
         # Device-side fragment mean pooling (ops/segment.py): exact only when
         # no title-prefix offset correction applies; the engine falls back to
         # token-prob transfer otherwise.
@@ -387,10 +398,9 @@ class OpenProvenceModel:
         tokenizer files when ``tokenizer`` is None, read with transformers'
         ``AutoTokenizer``). ``device`` and ``dtype`` as in the constructor:
         the first CUDA card and bf16 there by default. ``attention_impl`` is
-        the JAX engine's choice of attention route: it must be one of
-        ``auto``, ``xla``, ``pallas`` and is then ignored, since the port
-        runs one attention kernel for every shape. ``kwargs`` go to the
-        constructor (``bucket_step``, ``mesh``, ``tensor_parallel``,
+        the JAX engine's choice of attention route, checked (before the
+        weights are read) and ignored as in the constructor. ``kwargs`` go
+        to the constructor (``bucket_step``, ``mesh``, ``tensor_parallel``,
         ``device_pooling``)."""
         from ..utils.hf_convert import load_checkpoint
 
@@ -402,7 +412,8 @@ class OpenProvenceModel:
             from transformers import AutoTokenizer
 
             tokenizer = AutoTokenizer.from_pretrained(str(path))
-        return cls(config, state_dict, tokenizer, dtype=dtype, device=device, **kwargs)
+        return cls(config, state_dict, tokenizer, dtype=dtype, device=device,
+                   attention_impl=attention_impl, **kwargs)
 
     # --- device forward -------------------------------------------------------
 

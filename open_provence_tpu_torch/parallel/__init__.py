@@ -6,6 +6,7 @@ from .mesh import (
     gather_state_dict,
     param_sharding_rules,
     shard_state_dict,
+    state_sharding_rules,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "gather_state_dict",
     "param_sharding_rules",
     "shard_state_dict",
+    "state_sharding_rules",
 ]

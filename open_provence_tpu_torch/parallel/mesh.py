@@ -15,16 +15,24 @@ fp32 reduction order, as on one device.
   shard is its heads' q, k and v rows and its Wi shard pairs input rows
   with their gate rows, each a self-contained piece of the computation.
 
+A trainer under tensor parallelism keeps only its shards of the split
+tensors: the fp32 masters, their gradients and the optimizer state that
+follows them (``state_sharding_rules``). Whole tensors exist only for a
+moment, where a checkpoint or an export is written (``gather_state_dict``,
+collective over the model group) and where one is read
+(``shard_state_dict``, no collective).
+
 Without a process group ``create_mesh()`` is the 1 × 1 mesh of one
 process and every collective here is skipped. Collectives go through
 ``all_reduce`` alone, which ``gloo`` also takes on CUDA tensors (its
-``all_gather`` does not): a gather sums a zero-padded buffer.
+``all_gather`` does not): a gather sums a buffer that holds this rank's
+shard and zeros elsewhere, one tensor at a time.
 """
 
 from __future__ import annotations
 
 import os
-from collections.abc import Mapping, Sequence
+from collections.abc import Callable, Mapping, Sequence
 from dataclasses import dataclass
 from typing import Any
 
@@ -34,6 +42,11 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+
+# A tensor's split over ``model``: (dim, blocks), or None where it is
+# replicated; and a function of (name, shape) that gives it.
+Rule = tuple[int, int] | None
+Rules = Callable[[str, Sequence[int]], Rule]
 
 
 @dataclass(frozen=True, eq=False)
@@ -175,7 +188,7 @@ def init_from_env(device: str | torch.device | None) -> bool:
 # --- sharding rules ---------------------------------------------------------
 
 
-def param_sharding_rules(name: str, shape: Sequence[int]) -> tuple[int, int] | None:
+def param_sharding_rules(name: str, shape: Sequence[int]) -> Rule:
     """How the tensor ``name`` (the port's state-dict names) of ``shape``
     splits over ``model``: (dim, blocks) — the dim is cut into ``blocks``
     equal blocks and a rank takes its part of each — or None (replicated).
@@ -196,6 +209,41 @@ def param_sharding_rules(name: str, shape: Sequence[int]) -> tuple[int, int] | N
     return None
 
 
+def state_sharding_rules(param_shapes: Mapping[str, Sequence[int]]) -> Rules:
+    """The rules of the optimizer's state (``train/optim.py``: keys
+    ``<slot>/<parameter name>``, and ``count``), given each parameter's
+    full shape; the result takes ``(key, shape)`` as
+    ``param_sharding_rules`` does, for ``shard_state_dict`` and
+    ``gather_state_dict``.
+
+    * ``v``, ``mu`` and ``nu`` have their parameter's shape and take its
+      rule;
+    * adafactor's factors of a parameter drop one dim each: ``v_row``
+      averages the largest, ``v_col`` the second largest (the order of
+      ``np.argsort``, as ``train/optim.py::_factored_dims`` takes it). The
+      factor that keeps the split dim takes the rule, re-indexed past the
+      dropped dim; the one that averaged the split dim away is whole, and
+      replicated;
+    * ``count`` is replicated."""
+
+    def rules(key: str, shape: Sequence[int]) -> Rule:
+        slot, _, name = key.partition("/")
+        if not name:
+            return None
+        full = tuple(param_shapes[name])
+        rule = param_sharding_rules(name, full)
+        if rule is None or slot not in ("v_row", "v_col"):
+            return rule
+        order = np.argsort(full)
+        dropped = int(order[-1] if slot == "v_row" else order[-2])
+        dim, blocks = rule
+        if dim == dropped:
+            return None
+        return (dim - (dim > dropped), blocks)
+
+    return rules
+
+
 def _pieces(t: torch.Tensor, rule: tuple[int, int], parts: int, index: int) -> list[torch.Tensor]:
     """Rank ``index``'s piece of each block of ``t`` (views)."""
     dim, blocks = rule
@@ -206,16 +254,18 @@ def _pieces(t: torch.Tensor, rule: tuple[int, int], parts: int, index: int) -> l
     return [t.narrow(dim, b * block + index * width, width) for b in range(blocks)]
 
 
-def shard_state_dict(full_sd: Mapping[str, torch.Tensor], mesh: Mesh) -> dict[str, torch.Tensor]:
+def shard_state_dict(full_sd: Mapping[str, torch.Tensor], mesh: Mesh,
+                     rules: Rules = param_sharding_rules) -> dict[str, torch.Tensor]:
     """This rank's tensors of the full state dict under tensor parallelism
-    over ``mesh.model`` (``param_sharding_rules``); replicated tensors are
-    passed through. Differentiable: a gradient flows back into the full
-    tensors, zero outside this rank's rows or columns."""
+    over ``mesh.model`` (``rules``: the parameters' by default, or
+    ``state_sharding_rules`` for optimizer state); replicated tensors are
+    passed through. No collective. Differentiable: a gradient flows back
+    into the full tensors, zero outside this rank's rows or columns."""
     if mesh.model == 1:
         return dict(full_sd)
     out = {}
     for name, t in full_sd.items():
-        rule = param_sharding_rules(name, t.shape)
+        rule = rules(name, t.shape)
         if rule is not None:
             t = torch.cat(_pieces(t, rule, mesh.model, mesh.model_rank), rule[0])
         out[name] = t
@@ -223,10 +273,10 @@ def shard_state_dict(full_sd: Mapping[str, torch.Tensor], mesh: Mesh) -> dict[st
 
 
 def scatter_into_full(name: str, local: torch.Tensor, full_shape: Sequence[int],
-                      mesh: Mesh) -> torch.Tensor:
+                      mesh: Mesh, rules: Rules = param_sharding_rules) -> torch.Tensor:
     """A zero tensor of ``full_shape`` holding ``local`` at this rank's place
     (``local`` itself for a replicated tensor)."""
-    rule = param_sharding_rules(name, full_shape)
+    rule = rules(name, full_shape)
     if rule is None or mesh.model == 1:
         return local
     full = local.new_zeros(tuple(full_shape))
@@ -236,20 +286,23 @@ def scatter_into_full(name: str, local: torch.Tensor, full_shape: Sequence[int],
     return full
 
 
-def gather_state_dict(local_sd: Mapping[str, torch.Tensor], mesh: Mesh) -> dict[str, torch.Tensor]:
+def gather_state_dict(local_sd: Mapping[str, torch.Tensor], mesh: Mesh,
+                      rules: Rules = param_sharding_rules) -> dict[str, torch.Tensor]:
     """The inverse of ``shard_state_dict``: the full tensors, on every rank
-    of the model group (each shard summed into a zero-padded buffer)."""
+    of the model group, which every rank of it must call (each shard summed
+    into a buffer of zeros, one all-reduce a split tensor)."""
     if mesh.model == 1:
         return dict(local_sd)
     out = {}
     for name, t in local_sd.items():
-        rule = param_sharding_rules(name, t.shape)
+        rule = rules(name, t.shape)
         if rule is None:
             out[name] = t
             continue
         shape = list(t.shape)
         shape[rule[0]] *= mesh.model
-        out[name] = mesh.all_reduce(scatter_into_full(name, t.detach(), shape, mesh), MODEL_AXIS)
+        out[name] = mesh.all_reduce(scatter_into_full(name, t.detach(), shape, mesh, rules),
+                                    MODEL_AXIS)
     return out
 
 

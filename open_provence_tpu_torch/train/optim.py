@@ -14,23 +14,73 @@ Plain functions on tensors, in the shape of an optax transformation:
 ``update(grads, state, params)`` gives ``(updates, new_state)`` and the
 caller adds the updates to the parameters. Parameters, gradients and state
 are dicts of fp32 tensors keyed by parameter name.
+
+Under tensor parallelism both take a ``Sharding``: the parameters, the
+gradients and the state are then this rank's shards of the tensors that
+``parallel.mesh.param_sharding_rules`` splits, and every number the
+optimizer reads of a whole tensor is summed over the model group, so the
+update is the whole-tensor optimizer's, as GSPMD gives the JAX trainer:
+the factored dims come from the full shape; the global norm, the means of
+adafactor's factors over a split dim, its block RMS and parameter scale
+sum over the model group. A step makes at most three all-reduces of flat
+buffers, whatever the number of tensors: the clip norm, the factors'
+partial sums (adafactor, where a split tensor is factored), and the
+squares of each split tensor's update and parameter (adafactor). Without
+a ``Sharding`` nothing of this runs.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import MODEL_AXIS, Mesh
 
 Params = dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
 
 
+class Sharding(NamedTuple):
+    """Tensor parallelism as the optimizer sees it: ``mesh``, whose model
+    group holds the other shards, and each parameter's full shape and rule
+    (``parallel.mesh.param_sharding_rules``; None where it is
+    replicated)."""
+
+    mesh: Mesh
+    shapes: Mapping[str, tuple[int, ...]]
+    rules: Mapping[str, tuple[int, int] | None]
+
+    def split_dim(self, name: str) -> int | None:
+        rule = self.rules[name]
+        return None if rule is None else rule[0]
+
+    def model_sum(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each tensor summed over the model group, in one all-reduce of a
+        flat buffer."""
+        if not tensors:
+            return []
+        flat = self.mesh.all_reduce(torch.cat([t.reshape(-1) for t in tensors]), MODEL_AXIS)
+        return [piece.view_as(t) for piece, t in zip(flat.split([t.numel() for t in tensors]),
+                                                     tensors)]
+
+
+def _full_shape(sharding: Sharding | None, name: str, t: torch.Tensor) -> tuple[int, ...]:
+    return tuple(t.shape) if sharding is None else tuple(sharding.shapes[name])
+
+
+def _split_dim(sharding: Sharding | None, name: str) -> int | None:
+    return None if sharding is None else sharding.split_dim(name)
+
+
 class Optimizer(NamedTuple):
-    init: Callable[[Params], Params]
-    update: Callable[[Params, Params, Params], tuple[Params, Params]]
+    """``init(params, sharding=None)`` and ``update(grads, state, params,
+    sharding=None)``."""
+
+    init: Callable[..., Params]
+    update: Callable[..., tuple[Params, Params]]
 
 
 # --- schedules (optax.linear_schedule / cosine_decay_schedule / join) ------
@@ -73,15 +123,29 @@ def make_schedule(
 # --- transformations ---------------------------------------------------------
 
 
-def global_norm(tensors: Params) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
+def global_norm(tensors: Params, sharding: Sharding | None = None) -> torch.Tensor:
+    """The norm of every tensor together; under ``sharding`` the split
+    tensors' squares summed over the model group, the replicated ones'
+    counted once."""
+    if sharding is None:
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
+    device = next(iter(tensors.values())).device
+
+    def squares(split: bool) -> torch.Tensor:
+        return sum((t.float().square().sum() for k, t in tensors.items()
+                    if (sharding.split_dim(k) is not None) == split),
+                   torch.zeros((), device=device))
+
+    (split_sq,) = sharding.model_sum([squares(True)])
+    return torch.sqrt(split_sq + squares(False))
 
 
-def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        sharding: Sharding | None = None) -> Params:
     """optax.clip_by_global_norm: scale every gradient by max_norm / norm
     when the global norm reaches max_norm. The choice stays on the device
     (no host sync), as ``jax.lax.select`` keeps it."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, sharding)
     keep = norm < max_norm
     return {k: torch.where(keep, g, (g / norm) * max_norm) for k, g in grads.items()}
 
@@ -112,10 +176,10 @@ def adafactor(
     """optax.adafactor(learning_rate=schedule, multiply_by_parameter_scale=
     True, clipping_threshold, decay_rate, eps, factored=True)."""
 
-    def init(params: Params) -> Params:
+    def init(params: Params, sharding: Sharding | None = None) -> Params:
         state = {"count": torch.zeros((), dtype=torch.int64)}
         for name, p in params.items():
-            dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+            dims = _factored_dims(_full_shape(sharding, name, p), min_dim_size_to_factor)
             if dims is None:
                 state[f"v/{name}"] = torch.zeros_like(p)
             else:
@@ -124,33 +188,73 @@ def adafactor(
                 state[f"v_col/{name}"] = torch.zeros_like(p).mean(dim=d1)
         return state
 
-    def update(grads: Params, state: Params, params: Params) -> tuple[Params, Params]:
+    def update(grads: Params, state: Params, params: Params,
+               sharding: Sharding | None = None) -> tuple[Params, Params]:
         count = int(state["count"])
         t = torch.tensor(count + 1, dtype=torch.float32)
         decay = 1.0 - t ** (-decay_rate)
         lr = schedule(count)
         new_state = {"count": state["count"] + 1}
-        updates = {}
+        # 1. The second moments. A mean over a split dim is a local sum
+        # here, summed over the model group below, then divided by the
+        # dim's full size; so is the mean of a v_row that keeps the split.
+        factors, partial, scaled = {}, [], {}
         for name, g in grads.items():
-            p = params[name]
             grad_sqr = g * g + eps
-            dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+            shape = _full_shape(sharding, name, g)
+            dims = _factored_dims(shape, min_dim_size_to_factor)
             if dims is None:
                 v = decay * state[f"v/{name}"] + (1.0 - decay) * grad_sqr
                 new_state[f"v/{name}"] = v
-                u = g * v.rsqrt()
+                scaled[name] = g * v.rsqrt()
+                continue
+            d1, d0 = dims
+            split = _split_dim(sharding, name)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            if split == d0:
+                row, col = grad_sqr.sum(dim=d0), grad_sqr.mean(dim=d1)
+                partial.append(row)
+            elif split == d1:
+                row, col = grad_sqr.mean(dim=d0), grad_sqr.sum(dim=d1)
+                partial.append(col)
             else:
-                d1, d0 = dims
-                v_row = decay * state[f"v_row/{name}"] + (1.0 - decay) * grad_sqr.mean(dim=d0)
-                v_col = decay * state[f"v_col/{name}"] + (1.0 - decay) * grad_sqr.mean(dim=d1)
-                new_state[f"v_row/{name}"], new_state[f"v_col/{name}"] = v_row, v_col
-                reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
-                u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
-            u = u / torch.clamp(_rms(u) / clipping_threshold, min=1.0)  # clip_by_block_rms
+                row, col = grad_sqr.mean(dim=d0), grad_sqr.mean(dim=d1)
+            v_row = decay * state[f"v_row/{name}"] + (1.0 - decay) * row if split != d0 else None
+            if split == d1:
+                partial.append(v_row.sum(dim=reduced_d1, keepdim=True))
+            factors[name] = (dims, split, reduced_d1, row, col, v_row)
+        summed = iter(sharding.model_sum(partial) if partial else ())
+        for name, ((d1, d0), split, reduced_d1, row, col, v_row) in factors.items():
+            shape = _full_shape(sharding, name, grads[name])
+            if split == d0:
+                row = next(summed) / shape[d0]
+                v_row = decay * state[f"v_row/{name}"] + (1.0 - decay) * row
+            elif split == d1:
+                col = next(summed) / shape[d1]
+            v_col = decay * state[f"v_col/{name}"] + (1.0 - decay) * col
+            new_state[f"v_row/{name}"], new_state[f"v_col/{name}"] = v_row, v_col
+            row_mean = (next(summed) / shape[d1] if split == d1
+                        else v_row.mean(dim=reduced_d1, keepdim=True))
+            row_factor = (v_row / row_mean) ** -0.5
+            scaled[name] = grads[name] * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+        # 2. The block RMS of each update and of its parameter; a split
+        # tensor's from its squares summed over the model group.
+        split_names = [k for k in grads if _split_dim(sharding, k) is not None]
+        squares = {}
+        if split_names:
+            squares = dict(zip(split_names, sharding.model_sum(
+                [torch.stack([scaled[k].square().sum(), params[k].square().sum()])
+                 for k in split_names])))
+        updates = {}
+        for name in grads:
+            u, p = scaled[name], params[name]
+            if name in squares:
+                rms_u, rms_p = torch.sqrt(squares[name] / math.prod(sharding.shapes[name]))
+            else:
+                rms_u, rms_p = _rms(u), _rms(p)
+            u = u / torch.clamp(rms_u / clipping_threshold, min=1.0)  # clip_by_block_rms
             u = u * lr
-            rms = _rms(p)
-            u = u * torch.where(rms <= min_param_scale, min_param_scale, rms)
+            u = u * torch.where(rms_p <= min_param_scale, min_param_scale, rms_p)
             updates[name] = -u
         return updates, new_state
 
@@ -168,14 +272,16 @@ def adamw(
     """optax.adamw(schedule, weight_decay=...) with optax's defaults: decay
     on every parameter, added before the learning rate."""
 
-    def init(params: Params) -> Params:
+    def init(params: Params, sharding: Sharding | None = None) -> Params:
         state = {"count": torch.zeros((), dtype=torch.int64)}
         for name, p in params.items():
             state[f"mu/{name}"] = torch.zeros_like(p)
             state[f"nu/{name}"] = torch.zeros_like(p)
         return state
 
-    def update(grads: Params, state: Params, params: Params) -> tuple[Params, Params]:
+    def update(grads: Params, state: Params, params: Params,
+               sharding: Sharding | None = None) -> tuple[Params, Params]:
+        # Element by element: a shard's update is the whole tensor's there.
         count = int(state["count"])
         lr = schedule(count)
         step = count + 1
@@ -205,7 +311,8 @@ def make_optimizer(
     max_grad_norm: float = 1.0,
 ) -> Optimizer:
     """Clipping by global norm (when max_grad_norm > 0), then adafactor or
-    adamw on the schedule — ``make_optimizer`` of the JAX trainer."""
+    adamw on the schedule — ``make_optimizer`` of the JAX trainer. Its
+    ``init`` and ``update`` take an optional ``Sharding``."""
     schedule = make_schedule(learning_rate, total_steps, warmup_ratio, lr_scheduler_type)
     if optim == "adafactor":
         inner = adafactor(schedule)
@@ -216,7 +323,9 @@ def make_optimizer(
     if not (max_grad_norm and max_grad_norm > 0):
         return inner
 
-    def update(grads: Params, state: Params, params: Params) -> tuple[Params, Params]:
-        return inner.update(clip_by_global_norm(grads, max_grad_norm), state, params)
+    def update(grads: Params, state: Params, params: Params,
+               sharding: Sharding | None = None) -> tuple[Params, Params]:
+        return inner.update(clip_by_global_norm(grads, max_grad_norm, sharding), state, params,
+                            sharding)
 
     return Optimizer(inner.init, update)

@@ -25,18 +25,23 @@ runs over its devices:
 
 * a rank computes on its data coordinate's rows of each batch, with loss
   normalizers over the global batch (``losses.py``);
-* with ``tensor_parallel`` the module holds this rank's shards of the
-  attention and MLP weights, sliced from the full master parameters at
-  every step, so their gradients come back full-size and zero outside the
-  shard;
-* the gradients are summed over the mesh (the sharded ones over the whole
-  mesh, the rest over the data group), and every rank then runs the
-  optimizer on the same full tensors: the master parameters and optimizer
-  state stay whole and identical on every rank, and the optimizer reads
-  whole tensors (global norm, factored dims, block RMS) as on one device;
+* with ``tensor_parallel`` over a model axis of more than one rank, a rank
+  holds only its shards of the tensors that ``param_sharding_rules``
+  splits (the attention and MLP weights): the fp32 masters, sharded once
+  at construction, their gradients and the optimizer state that follows
+  them (``state_sharding_rules``), as the JAX trainer shards its
+  parameters before ``optimizer.init``. The replicated tensors are whole
+  and the same on every rank. ``full_state_dict()`` gathers the whole
+  masters;
+* the gradients are summed over the data group only: Megatron's f and g
+  already make a replicated tensor's gradient whole within the model
+  group. The optimizer (``optim.Sharding``) sums over the model group the
+  few numbers it reads of a whole tensor, so the update is one device's;
 * files (checkpoints, exports) and logs are written by data rank 0 of
-  model rank 0 while the others wait; a checkpoint holds whole tensors and
-  resumes under any mesh.
+  model rank 0 while the others wait. The ranks of its model group gather
+  the whole tensors first, so a checkpoint holds whole tensors in one
+  device's key set and resumes under any mesh; a reading rank takes its
+  shards of them.
 """
 
 from __future__ import annotations
@@ -56,11 +61,20 @@ from torch.func import functional_call
 
 from .. import kernels
 from ..configs import OpenProvenceConfig
+from ..inference.engine import check_attention_impl
 from ..models.model import build_module
-from ..parallel.mesh import DATA_AXIS, Mesh, create_mesh, param_sharding_rules, shard_state_dict
+from ..parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    create_mesh,
+    gather_state_dict,
+    param_sharding_rules,
+    shard_state_dict,
+    state_sharding_rules,
+)
 from ..utils import safetensors_io
 from .losses import joint_loss
-from .optim import make_optimizer
+from .optim import Sharding, make_optimizer
 
 logger = logging.getLogger(__name__)
 
@@ -152,7 +166,11 @@ class OpenProvenceTrainer:
     parameters lie, or the first CUDA card for CPU or numpy parameters:
     ``resolve_device``). ``mesh`` (``parallel.create_mesh``; by default
     every rank of the process group on the data axis, or one process
-    without one) and ``tensor_parallel`` as in the JAX trainer."""
+    without one) and ``tensor_parallel`` as in the JAX trainer: then
+    ``params`` and ``opt_state`` hold this rank's shards, and
+    ``full_state_dict()`` the whole parameters. ``attention_impl`` must
+    be one of ``auto``, ``xla``, ``pallas`` and is then ignored: the port
+    runs one attention kernel for every shape."""
 
     def __init__(
         self,
@@ -177,9 +195,11 @@ class OpenProvenceTrainer:
         mesh: Mesh | None = None,
         tensor_parallel: bool = False,
         save_total_limit: int = 5,
+        attention_impl: str = "auto",
         device: str | torch.device | None = None,
         log_fn: Callable[[dict[str, Any]], None] | None = None,
     ):
+        check_attention_impl(attention_impl)
         if gradient_accumulation_steps < 1:
             raise ValueError(
                 f"gradient_accumulation_steps must be >= 1, got {gradient_accumulation_steps}"
@@ -216,14 +236,22 @@ class OpenProvenceTrainer:
                 f"params do not match the module: missing {sorted(names - set(params))}, "
                 f"unexpected {sorted(set(params) - names)}"
             )
+        whole = {k: torch.as_tensor(v).detach() for k, v in params.items()}
+        self._shapes = {k: tuple(v.shape) for k, v in whole.items()}
+        self._sharding = None
+        if self._sharded:
+            # Sliced where the caller's tensors lie: no rank moves a whole
+            # split tensor to its device.
+            whole = shard_state_dict(whole, self.mesh)
+            self._sharding = Sharding(
+                self.mesh, self._shapes,
+                {k: param_sharding_rules(k, shape) for k, shape in self._shapes.items()},
+            )
         self.params = {
-            k: torch.as_tensor(v)
-            .detach()
-            .to(device=self.device, dtype=torch.float32, copy=True)
-            .requires_grad_()
-            for k, v in params.items()
+            k: v.to(device=self.device, dtype=torch.float32, copy=True).requires_grad_()
+            for k, v in whole.items()
         }
-        self.opt_state = self.optimizer.init(self._detached())
+        self.opt_state = self.optimizer.init(self._detached(), self._sharding)
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.best_eval_loss = float("inf")
@@ -233,6 +261,22 @@ class OpenProvenceTrainer:
 
     def _detached(self) -> dict[str, torch.Tensor]:
         return {k: v.detach() for k, v in self.params.items()}
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The whole fp32 master parameters (detached, on the device), in
+        the names and shapes of ``params`` as given. Under tensor
+        parallelism a collective over the model group, which every rank of
+        the group must call; otherwise the masters themselves."""
+        if not self._sharded:
+            return self._detached()
+        return gather_state_dict(self._detached(), self.mesh)
+
+    def _full_opt_state(self) -> dict[str, torch.Tensor]:
+        """The whole optimizer state, as ``full_state_dict`` gathers the
+        masters."""
+        if not self._sharded:
+            return self.opt_state
+        return gather_state_dict(self.opt_state, self.mesh, state_sharding_rules(self._shapes))
 
     def _place_state(self, state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """Optimizer state on the device; the update count stays on the host."""
@@ -266,11 +310,12 @@ class OpenProvenceTrainer:
         *,
         deterministic: bool,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """The joint loss of one batch under ``params``, computed with a bf16
-        copy of every parameter when ``bf16``; dropout (drawn from the
-        trainer's generator) unless ``deterministic``. Under a mesh, this
-        rank's share of the loss of the global batch."""
-        compute = shard_state_dict(params, self.mesh) if self._sharded else params
+        """The joint loss of one batch under ``params`` (this rank's, shards
+        under tensor parallelism), computed with a bf16 copy of every
+        parameter when ``bf16``; dropout (drawn from the trainer's
+        generator) unless ``deterministic``. Under a mesh, this rank's share
+        of the loss of the global batch."""
+        compute = params
         if self.bf16:
             compute = {k: v.to(torch.bfloat16) for k, v in compute.items()}
         self.module.train(not deterministic)
@@ -296,27 +341,24 @@ class OpenProvenceTrainer:
         return values[0], dict(zip(components, values[1:]))
 
     def _sum_gradients(self, grads: dict[str, torch.Tensor]) -> None:
-        """Sum the gradients over the mesh, in place: a sharded parameter's
-        (full-size, zero outside this rank's shard) over the whole mesh,
-        the rest over the data group; one all-reduce of a flat buffer each."""
-        sharded = {
-            k for k, g in grads.items()
-            if self._sharded and param_sharding_rules(k, g.shape) is not None
-        }
-        for names, axis in ((sorted(sharded), None), ([k for k in grads if k not in sharded],
-                                                      DATA_AXIS)):
-            if not names or (axis == DATA_AXIS and self.mesh.data == 1):
-                continue
-            flat = self.mesh.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]), axis)
-            for k, piece in zip(names, flat.split([grads[k].numel() for k in names])):
-                grads[k].copy_(piece.view_as(grads[k]))
+        """Sum the gradients over the data group, in place, in one
+        all-reduce of a flat buffer. A split tensor's gradient is its shard's
+        and a replicated one's is already whole within the model group
+        (Megatron's f and g), so nothing is summed over the model axis."""
+        if self.mesh.data == 1:
+            return
+        names = list(grads)
+        flat = self.mesh.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]), DATA_AXIS)
+        for k, piece in zip(names, flat.split([grads[k].numel() for k in names])):
+            grads[k].copy_(piece.view_as(grads[k]))
 
     def loss_and_grads(
         self, batch: Mapping[str, Any] | list[Mapping[str, Any]]
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         """(loss, components, fp32 gradients) of one optimizer step's
         microbatches, averaged over them, with dropout; under a mesh those
-        of the global batch, the same on every rank."""
+        of the global batch, the same on every rank (a split tensor's: this
+        rank's shard of its gradient)."""
         accum = self.gradient_accumulation_steps
         if accum > 1:
             if not isinstance(batch, (list, tuple)) or len(batch) != accum:
@@ -362,7 +404,9 @@ class OpenProvenceTrainer:
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]) -> None:
         """One optimizer update of the master parameters (in place)."""
-        updates, self.opt_state = self.optimizer.update(dict(grads), self.opt_state, self._detached())
+        updates, self.opt_state = self.optimizer.update(
+            dict(grads), self.opt_state, self._detached(), self._sharding
+        )
         with torch.no_grad():
             for name, update in updates.items():
                 self.params[name].add_(update)
@@ -473,20 +517,25 @@ class OpenProvenceTrainer:
     def save_checkpoint(self) -> Path:
         """checkpoint-N: the HF-layout export, the optimizer state and
         trainer_state.json (reference trainer.py:415-461), with the mesh it
-        was written under. Written by the main rank; every rank returns the
-        path once it is complete."""
+        was written under, in whole tensors: the ranks of the main rank's
+        model group gather them, then the main rank writes; every rank
+        returns the path once it is complete."""
         ckpt_dir = self.output_dir / f"checkpoint-{self.step}"
-        if self.mesh.is_main:
-            self._write_checkpoint(ckpt_dir)
+        if self.mesh.data_rank == 0:
+            weights, opt_state = self.full_state_dict(), self._full_opt_state()
+            if self.mesh.is_main:
+                self._write_checkpoint(ckpt_dir, weights, opt_state)
+            del weights, opt_state
         self.mesh.barrier()
         return ckpt_dir
 
-    def _write_checkpoint(self, ckpt_dir: Path) -> None:
+    def _write_checkpoint(self, ckpt_dir: Path, weights: dict[str, torch.Tensor],
+                          opt_state: dict[str, torch.Tensor]) -> None:
         if ckpt_dir.exists():
             shutil.rmtree(ckpt_dir)
         ckpt_dir.mkdir(parents=True)
-        self._export(ckpt_dir)
-        safetensors_io.save_file(self.opt_state, ckpt_dir / "optimizer.safetensors")
+        self._export(ckpt_dir, weights)
+        safetensors_io.save_file(opt_state, ckpt_dir / "optimizer.safetensors")
         (ckpt_dir / "trainer_state.json").write_text(
             json.dumps(
                 {
@@ -521,8 +570,13 @@ class OpenProvenceTrainer:
                 shutil.rmtree(child, ignore_errors=True)
 
     def load_checkpoint(self, path: str | Path, *, restore_opt_state: bool = True) -> None:
+        """Restore the whole tensors of a checkpoint (written under any
+        mesh); under tensor parallelism this rank takes its shards of the
+        masters and of the optimizer state. No collective."""
         path = Path(path)
         weights = safetensors_io.load_file(path / "model.safetensors")
+        if self._sharded:
+            weights = shard_state_dict(weights, self.mesh)
         with torch.no_grad():
             for name, p in self.params.items():
                 p.copy_(weights[name])
@@ -530,6 +584,8 @@ class OpenProvenceTrainer:
             state = safetensors_io.load_file(path / "optimizer.safetensors")
             if set(state) != set(self.opt_state):
                 raise ValueError(f"{path}: optimizer state does not match this optimizer")
+            if self._sharded:
+                state = shard_state_dict(state, self.mesh, state_sharding_rules(self._shapes))
             self.opt_state = self._place_state(state)
         state_file = path / "trainer_state.json"
         if state_file.exists():
@@ -559,18 +615,22 @@ class OpenProvenceTrainer:
         """The self-describing HF-layout artifact: config.json +
         model.safetensors (ranking_model.* and pruning_head.* in fp32, whole
         tensors under any mesh) + tokenizer files (reference
-        encoder.py:1040-1094). Written by the main rank while the others
+        encoder.py:1040-1094). The ranks of the main rank's model group
+        gather the whole tensors, then the main rank writes while the others
         wait."""
         directory = Path(directory)
-        if self.mesh.is_main:
-            self._export(directory)
+        if self.mesh.data_rank == 0:
+            weights = self.full_state_dict()
+            if self.mesh.is_main:
+                self._export(directory, weights)
+            del weights
         self.mesh.barrier()
         return directory
 
-    def _export(self, directory: Path) -> None:
+    def _export(self, directory: Path, weights: dict[str, torch.Tensor]) -> None:
         directory.mkdir(parents=True, exist_ok=True)
         self.config.save(directory)
-        safetensors_io.save_file(self._detached(), directory / "model.safetensors")
+        safetensors_io.save_file(weights, directory / "model.safetensors")
         save_fn = getattr(self.tokenizer, "save_pretrained", None)
         if callable(save_fn):
             try:

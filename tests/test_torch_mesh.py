@@ -15,6 +15,10 @@
   process draws for the whole activation.
 * The trainer's rows of a batch, the engine's row padding, the optimizer's
   factored dims on a full shape and on a shard.
+* The optimizer state's rules: ``v``, ``mu``, ``nu`` follow their
+  parameter, the adafactor factor that keeps the split dim is split, the
+  other whole; the state the optimizer makes on a rank's shards is the
+  whole state's shards, key for key.
 
 The multi-rank runs are in ``tests/test_torch_parallel.py``.
 """
@@ -37,8 +41,9 @@ from open_provence_tpu_torch.parallel.mesh import (
     param_sharding_rules,
     scatter_into_full,
     shard_state_dict,
+    state_sharding_rules,
 )
-from open_provence_tpu_torch.train.optim import _factored_dims
+from open_provence_tpu_torch.train.optim import Sharding, _factored_dims, make_optimizer
 from open_provence_tpu_torch.train.trainer import OpenProvenceTrainer
 
 H, I, HEADS, D = 64, 96, 4, 16
@@ -248,3 +253,49 @@ def test_factored_dims_read_the_full_shape():
     assert _factored_dims((768, 1152), 128) == (0, 1)
     assert _factored_dims((768, 576), 128) == (1, 0)
     assert _factored_dims((128, 64), 128) is None
+
+
+BASE = {"a.attn.Wqkv.weight": (2304, 768), "a.attn.Wo.weight": (768, 768),
+        "a.mlp.Wi.weight": (2304, 768), "a.mlp.Wo.weight": (768, 1152),
+        "b.mlp.Wi.weight": (128, 256), "a.attn.Wqkv.bias": (2304,), "a.norm.weight": (768,)}
+
+
+@pytest.mark.parametrize("key,rule", [
+    ("v/a.attn.Wqkv.bias", (0, 3)),
+    ("mu/a.mlp.Wi.weight", (0, 2)),
+    ("nu/a.attn.Wo.weight", (1, 1)),
+    ("v/a.norm.weight", None),
+    ("count", None),
+    # Wqkv [2304, 768] splits dim 0, the largest: v_row averages it away.
+    ("v_row/a.attn.Wqkv.weight", None),
+    ("v_col/a.attn.Wqkv.weight", (0, 3)),
+    # Wo [768, 768] and [768, 1152] split dim 1, which v_row averages.
+    ("v_row/a.attn.Wo.weight", None),
+    ("v_col/a.attn.Wo.weight", (0, 1)),
+    ("v_row/a.mlp.Wo.weight", None),
+    ("v_col/a.mlp.Wo.weight", (0, 1)),
+    # Wi [128, 256] splits dim 0, the smaller: v_row keeps it.
+    ("v_row/b.mlp.Wi.weight", (0, 2)),
+    ("v_col/b.mlp.Wi.weight", None),
+])
+def test_state_rules_follow_the_parameter(key, rule):
+    assert state_sharding_rules(BASE)(key, ()) == rule
+
+
+@pytest.mark.parametrize("optim", ["adafactor", "adamw"])
+@pytest.mark.parametrize("model", [2, 4])
+def test_state_made_on_shards_is_the_whole_states_shards(optim, model):
+    """The optimizer's state made on a rank's shards (the factored dims from
+    the full shape) has the whole state's keys and the shapes of its
+    shards."""
+    gen = torch.Generator().manual_seed(7)
+    params = {name: torch.randn(shape, generator=gen) for name, shape in BASE.items()}
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    rules = {k: param_sharding_rules(k, s) for k, s in shapes.items()}
+    opt = make_optimizer(learning_rate=1e-3, total_steps=10, optim=optim)
+    whole = opt.init(params)
+    for r in range(model):
+        mesh = rank_of(model, r)
+        local = opt.init(shard_state_dict(params, mesh), Sharding(mesh, shapes, rules))
+        want = shard_state_dict(whole, mesh, state_sharding_rules(shapes))
+        assert {k: v.shape for k, v in local.items()} == {k: v.shape for k, v in want.items()}

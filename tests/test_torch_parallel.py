@@ -15,13 +15,22 @@ weights:
   4, whose gradients tensor parallelism leaves partial), ``norm_bias``,
   ``mlp_bias`` + ``attention_bias``, the whole-MLP gate at ``1``, every
   dropout at 0.1 (the masks are drawn for the global activation, so the
-  mesh changes no random number), gradient accumulation, and hidden 128
-  (the full Wo is factored by adafactor, its shard would not be);
-* a checkpoint written at 1 x 2 resumes at 2 x 1 and at 1 x 1 on the same
+  mesh changes no random number), gradient accumulation, hidden 128
+  (adafactor factors the full Wo, not its shard), hidden 256 with
+  intermediate 64 (the split dim of Wi is the smaller factored dim, so
+  ``v_row`` is the sharded factor) and adamw;
+* under tensor parallelism a rank holds only its shards of the split
+  tensors (masters, gradients, optimizer state) in one process's state
+  keys; ``full_state_dict()`` gathers the whole masters; gradients are
+  summed over the data group alone and the optimizer makes a few batched
+  all-reduces a step;
+* a checkpoint (whole tensors) written at 1 x 2 resumes at 2 x 1 and at
+  1 x 1, and one written at 1 x 1 resumes at 1 x 2, on the same
   trajectory; ``gather_state_dict`` inverts ``shard_state_dict``;
 * ``process()`` under 2 x 1 and 1 x 2; the YAML runner under
-  ``mesh_data: 2``; ``dryrun_multichip(4, device="cpu")``; and the mesh's
-  loss against the JAX package's single-device trainer.
+  ``mesh_data: 2``; ``dryrun_multichip(4, device="cpu")``; the mesh's loss
+  against the JAX package's single-device trainer, and the 1 x 2 update
+  against the JAX trainer's own tensor parallelism.
 
 Tiny widths: 3 layers, H 64, I 96, 4 heads of 16, S 32, 8 pairs (one a
 padding pair, ragged lengths, so the data ranks hold different numbers of
@@ -46,7 +55,9 @@ from open_provence_tpu_torch.parallel.mesh import (
     Mesh,
     create_mesh,
     gather_state_dict,
+    param_sharding_rules,
     shard_state_dict,
+    state_sharding_rules,
 )
 from open_provence_tpu_torch.train.trainer import OpenProvenceTrainer
 
@@ -56,8 +67,13 @@ LOSS_REL, GRAD_REL, UPDATE_REL = 1e-6, 1e-5, 1e-4
 # unfactored tensor's gradient by its running RMS element by element, and
 # the biases of Wqkv and Wi have elements 1e-5 of their tensor's largest, so
 # fp32 reduction order alone moves their update past 1e-4 of the largest:
-# test_bias_layout_update_floor measures that floor in one process.
-UPDATE_REL_BY_CASE = {"bias": 1e-2}
+# test_bias_layout_update_floor measures that floor in one process. adamw
+# divides every gradient by its running RMS element by element, so an
+# element whose gradient cancels to 1e-5 of its tensor's largest takes a
+# full-size step that fp32 rounding can move: one ulp of the weights moves
+# the update past 1e-4 of the largest in one process
+# (test_adamw_update_floor).
+UPDATE_REL_BY_CASE = {"bias": 1e-2, "adamw": 1e-3}
 GATE = "OPEN_PROVENCE_TPU_FUSED_MLP_TAIL"
 CASES = {
     "base": {},
@@ -67,10 +83,14 @@ CASES = {
     "dropout": {"embedding_dropout": 0.1, "attention_dropout": 0.1, "mlp_dropout": 0.1},
     "accum": {},
     "h128": {"hidden_size": 128, "intermediate_size": 192, "num_hidden_layers": 2},
+    # mlp.Wi [128, 256] splits along dim 0, the smaller of its factored dims.
+    "h256": {"hidden_size": 256, "intermediate_size": 64, "num_hidden_layers": 2},
+    "adamw": {},
     "bf16": {},
 }
+TRAINER_ARGS = {"adamw": {"optim": "adamw"}}
 # (ranks, mesh) of each run: the two pair meshes run side by side.
-PAIR_CASES = {"2x1": ["base"], "1x2": ["base", "h128"]}
+PAIR_CASES = {"2x1": ["base"], "1x2": ["base", "h128", "h256", "adamw"]}
 FULL_CASES = ["base", "norm_bias", "bias", "gate1", "dropout", "accum", "bf16"]
 
 
@@ -138,7 +158,8 @@ def make_trainer(case: str, sd, mesh: Mesh, out_dir, **kwargs) -> OpenProvenceTr
         return OpenProvenceTrainer(
             case_config(case), sd, None, output_dir=out_dir, learning_rate=1e-2,
             total_steps=10, warmup_ratio=0.1, bf16=case == "bf16", mesh=mesh, tensor_parallel=True,
-            gradient_accumulation_steps=2 if case == "accum" else 1, device="cpu", **kwargs,
+            gradient_accumulation_steps=2 if case == "accum" else 1, device="cpu",
+            **TRAINER_ARGS.get(case, {}), **kwargs,
         )
 
 
@@ -146,8 +167,10 @@ def run_case(case: str, sd, mesh: Mesh, out_dir, save_at: int | None = None,
              order: np.ndarray | None = None) -> dict:
     """The loss, components and gradients of the first step, then STEPS
     adafactor steps (the first at learning rate 0): their losses and the
-    final parameters. ``order`` permutes the pairs of every batch."""
+    final parameters, whole (``full_state_dict``); and the shapes this
+    rank held. ``order`` permutes the pairs of every batch."""
     trainer = make_trainer(case, sd, mesh, out_dir)
+    start_whole = all(torch.equal(t, sd[k]) for k, t in trainer.full_state_dict().items())
     batches = [make_batch(seed) for seed in range(STEPS + 1)]
     if order is not None:
         batches = [{k: v if k in ("batch_indices", "doc_indices") else v[order]
@@ -159,6 +182,8 @@ def run_case(case: str, sd, mesh: Mesh, out_dir, save_at: int | None = None,
     state = trainer.generator.get_state()
     loss, components, grads = trainer.loss_and_grads(step_input(0))
     trainer.generator.set_state(state)  # the training steps draw the same masks
+    grad_shapes = {k: tuple(g.shape) for k, g in grads.items()}
+    grads = gather_state_dict(grads, mesh) if trainer.tensor_parallel else grads
     losses = []
     for i in range(STEPS):
         losses.append(trainer.train_one_step(step_input(i))["loss"])
@@ -167,8 +192,11 @@ def run_case(case: str, sd, mesh: Mesh, out_dir, save_at: int | None = None,
     return {
         "loss": float(loss), "components": {k: float(v) for k, v in components.items()},
         "grads": {k: g.clone() for k, g in grads.items()} if mesh.is_main else None,
-        "losses": losses, "params": trainer._detached(),
-        "opt_keys": sorted(trainer.opt_state),
+        "losses": losses, "params": trainer.full_state_dict(),
+        "opt_keys": sorted(trainer.opt_state), "start_whole": start_whole,
+        "shapes": {"params": {k: tuple(p.shape) for k, p in trainer.params.items()},
+                   "grads": grad_shapes,
+                   "state": {k: tuple(v.shape) for k, v in trainer.opt_state.items()}},
     }
 
 
@@ -177,7 +205,38 @@ def resume_case(sd, mesh: Mesh, checkpoint) -> dict:
     trainer = make_trainer("base", sd, mesh, checkpoint.parent)
     trainer.load_checkpoint(checkpoint)
     losses = [trainer.train_one_step(make_batch(seed))["loss"] for seed in range(1, STEPS)]
-    return {"losses": losses, "params": trainer._detached(), "step": trainer.step}
+    return {"losses": losses, "params": trainer.full_state_dict(), "step": trainer.step}
+
+
+@contextlib.contextmanager
+def all_reduces():
+    """Record the element count of every ``torch.distributed.all_reduce``
+    made inside the block."""
+    calls, real = [], dist.all_reduce
+
+    def recording(t, *args, **kwargs):
+        calls.append(t.numel())
+        return real(t, *args, **kwargs)
+
+    dist.all_reduce = recording
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+
+
+def collectives_case(case: str, sd, mesh: Mesh, out_dir) -> dict:
+    """The all-reduces of one step's gradient sum and of its optimizer
+    update (element counts), and the elements of this rank's gradients."""
+    trainer = make_trainer(case, sd, mesh, out_dir)
+    _, _, grads = trainer.loss_and_grads(make_batch(0))
+    with all_reduces() as summed:
+        trainer._sum_gradients({k: g.clone() for k, g in grads.items()})
+    with all_reduces() as optimizer:
+        trainer.apply_gradients(grads)
+    split = sum(param_sharding_rules(k, g.shape) is not None for k, g in grads.items())
+    return {"sum": summed, "optimizer": optimizer, "split": split,
+            "local": sum(g.numel() for g in grads.values())}
 
 
 def _served(model, questions, contexts) -> dict:
@@ -225,8 +284,16 @@ def _mesh_rank(rank: int, weights: dict, out_dir: str) -> dict:
     if pair_meshes["2x1"] is not None:
         results["2x1/resume"] = resume_case(weights["base"], pair_meshes["2x1"],
                                             out_dir / "1x2_base" / "checkpoint-1")
+    else:
+        results["1x2/resume"] = resume_case(weights["base"], pair_meshes["1x2"],
+                                            out_dir / "one_base" / "checkpoint-1")
+        for case in ("base", "h128", "adamw"):
+            results[f"1x2/collectives/{case}"] = collectives_case(
+                case, weights[case], pair_meshes["1x2"], out_dir / f"c_{case}")
     for case in FULL_CASES:
         results[f"2x2/{case}"] = run_case(case, weights[case], full, out_dir / f"2x2_{case}")
+    results["2x2/collectives/h128"] = collectives_case("h128", weights["h128"], full,
+                                                       out_dir / "c_2x2")
     return results
 
 
@@ -235,7 +302,8 @@ def runs(tmp_path_factory):
     """(one process's results by case, each rank's results)."""
     out_dir = tmp_path_factory.mktemp("mesh")
     weights = {case: case_weights(case) for case in CASES}
-    single = {case: run_case(case, weights[case], Mesh(), out_dir / f"one_{case}")
+    single = {case: run_case(case, weights[case], Mesh(), out_dir / f"one_{case}",
+                             save_at=1 if case == "base" else None)
               for case in CASES}
     ranks = run_ranks(_mesh_rank, 4, weights, str(out_dir))
     return single, ranks, weights, out_dir
@@ -315,6 +383,21 @@ def test_bias_layout_update_floor(runs, tmp_path):
     assert floors["base"] < UPDATE_REL, floors
 
 
+def test_adamw_update_floor(runs, tmp_path):
+    """The floor adamw's update tolerance stands on: one process, from the
+    weights moved by one ulp each (seeded directions), moves the 3-step
+    adamw update by more than 1e-4 of a tensor's largest, and by less than
+    the 1e-3 the mesh is held to."""
+    single, _, weights, _ = runs
+    gen = torch.Generator().manual_seed(1)
+    nudged = {k: torch.nextafter(v, torch.where(torch.rand(v.shape, generator=gen) < 0.5,
+                                                -torch.inf, torch.inf))
+              for k, v in weights["adamw"].items()}
+    moved = run_case("adamw", nudged, Mesh(), tmp_path / "adamw")
+    floor = update_error(moved["params"], single["adamw"]["params"], weights["adamw"])
+    assert UPDATE_REL < floor < UPDATE_REL_BY_CASE["adamw"], floor
+
+
 def test_bf16_mesh_step(runs):
     """The bf16 step (each rank's shards cast to bf16) under 2 x 2 against
     one process's bf16 step, the same on every rank. In bf16 the mesh
@@ -366,17 +449,87 @@ def test_optimizer_sees_whole_tensors_at_hidden_128(runs):
     assert _factored_dims((128, 64), 128) is None
 
 
+def shard_shape(shape: tuple, rule) -> tuple:
+    if rule is None:
+        return shape
+    return tuple(n // 2 if d == rule[0] else n for d, n in enumerate(shape))
+
+
+TP_RUNS = [k for k, _ in RUNS if not k.startswith("2x1/")] + ["2x2/bf16"]
+
+
+@pytest.mark.parametrize("key", TP_RUNS)
+def test_tensor_parallel_ranks_hold_shards(runs, key):
+    """Under a model axis of 2 each rank's masters, gradients and optimizer
+    state hold shard shapes for the split tensors (whole shapes for the
+    rest), in one process's state keys; ``full_state_dict()`` gave the
+    whole weights back at the start."""
+    single, ranks, _, _ = runs
+    case = key.split("/")[1]
+    want = single[case]["shapes"]
+    state_rules = state_sharding_rules(want["params"])
+    every = [r[key] for r in ranks if key in r]
+    assert len(every) == (2 if key.startswith("1x2/") else 4)
+    split = 0
+    for got in every:
+        assert got["start_whole"]
+        assert got["opt_keys"] == single[case]["opt_keys"]
+        for what in ("params", "grads"):
+            for name, shape in want[what].items():
+                rule = param_sharding_rules(name, shape)
+                assert got["shapes"][what][name] == shard_shape(shape, rule), (what, name)
+                split += rule is not None and what == "params"
+        for name, shape in want["state"].items():
+            assert got["shapes"]["state"][name] == shard_shape(shape, state_rules(name, shape)), \
+                name
+    assert split > 0
+
+
+def test_gradients_sum_over_the_data_group_alone(runs):
+    """At 1 x 2 no gradient is all-reduced; at 2 x 2 one all-reduce over the
+    data group carries this rank's gradients (shards and replicated tensors,
+    nothing full-size). Adafactor's update makes three flat all-reduces (the
+    clip norm; the factors' partial sums, where a split tensor is factored;
+    the squares of each split tensor's update and parameter), adamw's
+    one."""
+    _, ranks, _, _ = runs
+    for key, sums, optimizer in (("1x2/collectives/base", 0, 2),
+                                 ("1x2/collectives/h128", 0, 3),
+                                 ("1x2/collectives/adamw", 0, 1),
+                                 ("2x2/collectives/h128", 1, 3)):
+        every = [r[key] for r in ranks if key in r]
+        assert every, key
+        for got in every:
+            assert len(got["sum"]) == sums and len(got["optimizer"]) == optimizer, (key, got)
+            if sums:
+                assert got["sum"] == [got["local"]]
+            assert got["optimizer"][0] == 1
+            if optimizer > 1:
+                assert got["optimizer"][-1] == 2 * got["split"]
+            assert sum(got["optimizer"]) < got["local"] // 50, (key, got)
+
+
 def test_resume_across_meshes(runs):
-    """checkpoint-1 written at 1 x 2 (whole tensors, the mesh recorded)
-    resumes at 2 x 1 and at 1 x 1 on one process's trajectory."""
+    """checkpoint-1 written at 1 x 2 holds whole tensors in one process's
+    keys (the mesh recorded) and resumes at 2 x 1 and at 1 x 1 on one
+    process's trajectory; checkpoint-1 written by one process resumes at
+    1 x 2."""
+    from open_provence_tpu_torch.utils import safetensors_io
+
     single, ranks, weights, out_dir = runs
     checkpoint = out_dir / "1x2_base" / "checkpoint-1"
     state = json.loads((checkpoint / "trainer_state.json").read_text())
     assert state["mesh"] == [1, 2] and state["tensor_parallel"] is True
+    for name in ("model.safetensors", "optimizer.safetensors"):
+        got = safetensors_io.load_file(checkpoint / name)
+        want = safetensors_io.load_file(out_dir / "one_base" / "checkpoint-1" / name)
+        assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
     want = single["base"]
     start = weights["base"]
     resumed = [r["2x1/resume"] for r in ranks if "2x1/resume" in r]
     assert len(resumed) == 2
+    resumed += [r["1x2/resume"] for r in ranks if "1x2/resume" in r]
+    assert len(resumed) == 4
     resumed.append(resume_case(start, Mesh(), checkpoint))
     for got in resumed:
         assert got["step"] == STEPS
@@ -435,6 +588,35 @@ def test_mesh_loss_matches_the_jax_trainer(runs, tmp_path):
     )
     want = trainer.train_one_step(make_batch(0))["loss"]
     assert abs(got["losses"][0] - want) <= 1e-4 * abs(want)
+
+
+def test_tensor_parallel_update_matches_the_jax_trainer(runs, tmp_path):
+    """The port's 1 x 2 run against the JAX trainer's own tensor
+    parallelism (``tensor_parallel=True`` on a 1 x 2 mesh of the forced
+    host devices): the same weights and batches, the update over the 3
+    steps within 1e-4 of each tensor's largest, the losses 1e-4 relative."""
+    import jax
+
+    from open_provence_tpu.parallel.mesh import create_mesh as jax_create_mesh
+    from open_provence_tpu.train.trainer import OpenProvenceTrainer as JaxTrainer
+    from open_provence_tpu.utils.hf_convert import hf_to_flax_params
+    from open_provence_tpu_torch.utils.convert import state_dict_from_flax
+
+    _, ranks, weights, _ = runs
+    got, _ = mesh_results(ranks, "1x2/base")
+    start = weights["base"]
+    params = hf_to_flax_params({k: v.numpy() for k, v in start.items()}, jax_config())
+    trainer = JaxTrainer(
+        jax_config(), params, None, output_dir=tmp_path, learning_rate=1e-2, total_steps=10,
+        warmup_ratio=0.1, bf16=False, tensor_parallel=True,
+        mesh=jax_create_mesh(data=1, model=2, devices=jax.devices()[:2]),
+    )
+    losses = [trainer.train_one_step(make_batch(seed))["loss"] for seed in range(STEPS)]
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-4, atol=0)
+    final = state_dict_from_flax(jax.device_get(trainer.state.params), case_config("base"))
+    assert_close_to_scale({k: got["params"][k] - start[k] for k in start},
+                          {k: torch.as_tensor(np.asarray(final[k])) - start[k] for k in start},
+                          UPDATE_REL, "JAX tensor-parallel update")
 
 
 def test_dryrun_multichip_on_four_cpu_ranks(capsys):
@@ -523,3 +705,41 @@ def test_runner_trains_under_mesh_data_2(tmp_path):
                                               device="cpu", bucket_step=16)
     out = model.process("q", "First sentence. Second one.", threshold=0.0, show_progress=False)
     assert out["pruned_context"] == "First sentence. Second one."
+
+
+def test_runner_trains_under_mesh_model_2(tmp_path):
+    """``mesh_model: 2`` from a YAML config on two ranks trains
+    tensor-parallel with each rank's shards, saves whole-tensor checkpoints,
+    reloads the best at the end and exports: the same steps, logged losses
+    and exported weights as one process, and the checkpoint's optimizer
+    state in one process's keys and shapes."""
+    from open_provence_tpu_torch.train import runner
+    from open_provence_tpu_torch.train.encoder_init import init_encoder
+    from open_provence_tpu_torch.utils import safetensors_io
+    from tests.dummy_tokenizers import PairDummyTokenizer
+
+    backbone, data = runner_assets(tmp_path)
+    paths = {}
+    for name, mesh_model in (("mesh", 2), ("one", 1)):
+        paths[name] = runner_yaml(tmp_path / f"{name}.yaml", backbone, data, tmp_path / name,
+                                  per_device_train_batch_size=4, mesh_model=mesh_model,
+                                  load_best_model_at_end=True)
+    run_ranks(_runner_rank, 2, paths["mesh"])
+    runner.main([paths["one"], "--device", "cpu"], tokenizer=PairDummyTokenizer())
+    logs = {k: json.loads((tmp_path / k / "checkpoint-6" / "trainer_state.json").read_text())
+            for k in paths}
+    assert logs["mesh"]["mesh"] == [1, 2] and logs["mesh"]["tensor_parallel"] is True
+    assert logs["mesh"]["global_step"] == logs["one"]["global_step"] == 6
+    got = [h["loss"] for h in logs["mesh"]["log_history"] if "loss" in h]
+    want = [h["loss"] for h in logs["one"]["log_history"] if "loss" in h]
+    np.testing.assert_allclose(got, want, rtol=LOSS_REL, atol=0)
+    state = {k: safetensors_io.load_file(tmp_path / k / "checkpoint-6" / "optimizer.safetensors")
+             for k in paths}
+    assert {k: v.shape for k, v in state["mesh"].items()} == \
+        {k: v.shape for k, v in state["one"].items()}
+    start = init_encoder(backbone, max_length=64, classifier_dropout=0.0, seed=42)[2]
+    weights = {k: safetensors_io.load_file(tmp_path / k / "final_model" / "model.safetensors")
+               for k in paths}
+    assert_close_to_scale({k: weights["mesh"][k] - start[k] for k in start},
+                          {k: weights["one"][k] - start[k] for k in start}, UPDATE_REL,
+                          "runner update")
