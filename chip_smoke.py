@@ -64,18 +64,19 @@ card and check it, in phases:
    trainer at B=8, S=2048: one fp32 step card against CPU at 3 layers, and
    bf16 steps at 22 layers with train pairs/s and tokens/s;
 10. the bias-carrying checkpoint layouts (norm_bias; mlp_bias with
-   attention_bias) at base width: fp32 card against CPU, ``process()`` and
-   20 training steps each, with the launch counts of their kernels;
+   attention_bias) at base width on the first 3 layers (PATH_LAYERS): fp32
+   card against CPU, ``process()`` and 20 training steps each, with the
+   launch counts of their kernels;
 11. head layouts the packed TPU kernel refuses (24 heads of 32; 3 heads of
-   256) at base width: fp32 card against CPU (the model; keep/drop flips
-   and one training step on the first 3 layers), ``process()`` on 256 pairs
-   and 20 bf16 training steps,
+   256) at base width on the first 3 layers: fp32 card against CPU (the
+   model, keep/drop flips and one training step), ``process()`` on 256
+   pairs and 20 bf16 training steps,
    with kernels 9 and 16 launched and no plain version;
 12. the whole-MLP fusion (gate OPEN_PROVENCE_TPU_FUSED_MLP_TAIL): the
    forward with the gate at 0, 1 and bwd in turns, the training step's
-   wall and device time at each once; with 1: ``process()``, fp32 card
-   against CPU (as in 11), training steps and the bit-exact resume; with
-   bwd: the training steps again;
+   wall and device time at each once, at 22 layers; on the first 3 layers,
+   with 1: ``process()``, fp32 card against CPU (as in 11), training steps
+   and the bit-exact resume; with bwd: the training steps again;
 13. the checkpoint and encoder entry points at base width, bf16,
    max_length 512: phase 4's weights written by the trainer's export_model,
    by the encoder's save_pretrained and in the legacy root-level and
@@ -85,7 +86,7 @@ card and check it, in phases:
    prune_texts, predict_context) and the engine's get_raw_predictions_batch
    and predict_with_thresholds on 64 pairs; both paths launch kernels 1-4
    and no plain version; the bf16 encoder against the fp32 CPU encoder on
-   16 of the pairs; fp32 card against CPU on 8 pairs; encoder.predict
+   16 of the pairs; fp32 card against CPU on 8 pairs at 3 layers; encoder.predict
    pairs/s at B=32, S=512;
 14. the training entry point at base width: parse_config_file,
    apply_cli_overrides and runner.train on a ModernBERT backbone directory
@@ -93,7 +94,8 @@ card and check it, in phases:
    pairs of 512), its eval_datasets hook evaluating the final model on the
    card after the trainer is released; a resume from checkpoint-10; fp32
    card against CPU through the runner on the backbone's first 3 layers
-   (P14_FP32_LAYERS); every backbone dropout at 0.1; each step timed;
+   (P14_FP32_LAYERS); every backbone dropout at 0.1 on the first 3 layers
+   (PATH_LAYERS); each step timed;
 15. the release surface at base width, bf16: both HF-style wrappers from
    phase 13's trainer export at B=32 S=512, B=1 S=77 and B=3 S=300, their
    logits bit-equal to the engine's forward_logits, and their fp32 losses
@@ -134,7 +136,23 @@ card and check it, in phases:
    original and --threshold 0 (``mldr_512``: 64 records, 16 positives
    judged, passages/s); each path launches kernels 1-4 and no plain
    version; fp32 card against CPU at 3 layers (span flags and teacher
-   scores on 8 rows; process() scores and keep flips on 2 queries).
+   scores on 8 rows; process() scores and keep flips on 2 queries);
+18. the repo's other shipped checkpoint families at their published widths
+   and depth (``families_512``): xsmall (H 256, I 1024, 10 layers, 4 x 64),
+   base (512, 2048, 19, 8 x 64) and large (768, 3072, 25, 12 x 64), vocab
+   102400, seeded: kernels 1-4, 10-12 and 14 at each family's widths
+   against their plain versions (M = 16384 and 16384 - 37, fp32 and bf16;
+   8 and 13 for xsmall and base; large's tp = 2 shard), timed in bf16
+   beside their bounds and the library's calls; ``process()`` on phase 5's
+   256 pairs; the family's shipped YAML through runner.train with only the
+   backbone, the data sources, the eval config and the output directory
+   replaced (xsmall and base 10 bf16 steps; large as shipped, mesh_model 2
+   with 16 x 4 accumulation, on two gloo ranks of the card for 3 steps,
+   then at mesh_model 1 for 10), each final model served; the whole model
+   on the kernels against the plain versions at full depth, fp32 flips and
+   runner parity card against CPU at 3 layers, and large's fp32 runner at
+   mesh_model 2 against one process. What times nothing on the card (the
+   gloo ranks and these checks) runs beside phase 16's ranks.
 
 The library's attention (``scaled_dot_product_attention``) is timed beside
 the kernels at every shape of phases 3c and 3d, global and +-64 (a boolean
@@ -143,6 +161,8 @@ band-and-padding mask: one dense call for the same function).
 ``python3 chip_smoke.py --rates [TREE]`` measures only the serving and
 training rates at B=32, S=512 of the package under TREE (default: this
 checkout), so that two trees can be compared inside one call.
+``python3 chip_smoke.py --families [TREE]`` runs phase 18 alone on the
+package under TREE (its untimed work after its timed parts).
 ``python3 chip_smoke.py --mesh-memory [TREE]`` runs only phase 16's bf16
 steps at 1 x 1, 1 x 2 and 2 x 2 (four gloo ranks on the card) with the
 package under TREE, and prints each rank's bytes held, peak memory and
@@ -354,11 +374,12 @@ def attention_bound(mask: torch.Tensor, window: int | None, backward: bool,
     return bound((10 if backward else 4) * head_dim * heads * scored_pairs(mask, window), nbytes)
 
 
-def gemm_bounds(rows: int, n: int = 3 * HIDDEN, i: int = INTER) -> dict[str, dict]:
-    """Bounds of the row-wise and GEMM kernels at M = rows, base width, bf16
-    (Wqkv's ``n`` rows and the MLP's ``i`` intermediate columns: a
-    tensor-parallel rank's shard gives less of each)."""
-    m, k, e = rows, HIDDEN, 2
+def gemm_bounds(rows: int, n: int = 3 * HIDDEN, i: int = INTER, k: int = HIDDEN) -> dict[str, dict]:
+    """Bounds of the row-wise and GEMM kernels at M = rows, hidden size
+    ``k`` (base width by default), bf16 (Wqkv's ``n`` rows and the MLP's
+    ``i`` intermediate columns: a tensor-parallel rank's shard gives less of
+    each)."""
+    m, e = rows, 2
     return {
         "layer_norm": bound(8 * m * k, (2 * m * k + k) * e),
         "add_layer_norm": bound(9 * m * k, (4 * m * k + k) * e),
@@ -1511,13 +1532,13 @@ def phase3e_whole_mlp(dev, stats: dict[str, dict]) -> None:
 
 def base_config(max_length: int = 512, **backbone_overrides):
     """ModernBERT-base widths and depth unless overridden (a cut in depth
-    for a CPU comparison, a bias layout)."""
+    for a CPU comparison, a bias layout, a family's widths)."""
     from open_provence_tpu_torch import ModernBertBackboneConfig, OpenProvenceConfig
 
     backbone = ModernBertBackboneConfig(pad_token_id=0, num_labels=1, **backbone_overrides)
     return OpenProvenceConfig(
         base_model_config=backbone.to_dict(), num_labels=1,
-        pruning_config={"hidden_size": HIDDEN, "classifier_dropout": 0.0},
+        pruning_config={"hidden_size": backbone.hidden_size, "classifier_dropout": 0.0},
         max_length=max_length,
     )
 
@@ -2015,8 +2036,8 @@ def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card
           f"({real_pairs / kernel_rate * 1e3:.1f} ms/step) on kernels; {plain_rate:.1f} "
           f"pairs/s ({real_pairs / plain_rate * 1e3:.1f} ms/step) on plain versions [{card}]")
 
-    profile_by_kernel("phase 8 profile of 3 bf16 steps B=32 S=512",
-                      lambda: train_steps(trainer, batches, 1), 3)
+    profile_by_kernel("phase 8 profile of 1 bf16 step B=32 S=512",
+                      lambda: train_steps(trainer, batches, 1), 1)
 
     # Serve the trained weights.
     weights = safetensors_io.load_file(ckpt / "model.safetensors")
@@ -2136,8 +2157,8 @@ def phase9_long_context(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     phase(f"phase 9 train step B={batch_size} S={seq} bf16, rows filled {filled}: "
           f"{pairs_s:.1f} pairs/s, {tokens_s:.0f} tokens/s "
           f"({(batch_size - 1) / pairs_s * 1e3:.1f} ms/step) on kernels [{card}]")
-    profile_by_kernel(f"phase 9 profile of 3 bf16 steps B={batch_size} S={seq}",
-                      lambda: train_steps(trainer, batches, 1), 3)
+    profile_by_kernel(f"phase 9 profile of 1 bf16 step B={batch_size} S={seq}",
+                      lambda: train_steps(trainer, batches, 1), 1)
     del trainer
     # What a step holds on the card, with and without per-layer recompute.
     for remat in (False, True):
@@ -2178,8 +2199,9 @@ BIAS_LAYOUTS = {
 
 
 def phase10_bias_layouts(tokenizer_cls, pair_tokenizer, dev, out_dir: Path):
-    """Each layout at base width and 22 layers, its biases drawn at random
-    (init leaves them 0): the model on the card against the CPU in fp32,
+    """Each layout at base width on its first PATH_LAYERS layers, its biases
+    drawn at random (init leaves them 0): the model on the card against the
+    CPU in fp32,
     ``process()`` on 16 pairs and 20 training steps, with the launch counts
     of the layout's kernels."""
     from open_provence_tpu_torch import OpenProvenceModel, build_module, init_params, kernels
@@ -2194,6 +2216,7 @@ def phase10_bias_layouts(tokenizer_cls, pair_tokenizer, dev, out_dir: Path):
             if key.endswith(".bias"):
                 sd[key] = torch.randn(value.shape, generator=gen) * 0.05
                 n_bias += 1
+        config, sd = cut_depth(config, sd, PATH_LAYERS)
 
         cpu = build_module(config)
         cpu.load_state_dict(sd)
@@ -2207,8 +2230,9 @@ def phase10_bias_layouts(tokenizer_cls, pair_tokenizer, dev, out_dir: Path):
         rank, keep = (t.cpu() for t in scores(card_module, ids.to(dev), mask.to(dev)))
         rank_err = (rank - rank_ref).abs().max().item()
         keep_err = (keep - keep_ref)[mask.bool()].abs().max().item()
-        phase(f"phase 10 {name}: {n_bias} bias tensors; fp32 card vs cpu, B=2 S=512, 22 layers: "
-              f"ranking max_abs_err {rank_err:.3e}, keep-prob max_abs_err {keep_err:.3e} (tol 1e-3)")
+        phase(f"phase 10 {name}: {n_bias} bias tensors at 22 layers; fp32 card vs cpu, B=2 S=512, "
+              f"{PATH_LAYERS} layers: ranking max_abs_err {rank_err:.3e}, keep-prob max_abs_err "
+              f"{keep_err:.3e} (tol 1e-3)")
         if not (rank_err <= 1e-3 and keep_err <= 1e-3):
             raise AssertionError(f"the {name} model on the card disagrees with the CPU")
         del card_module, cpu
@@ -2248,9 +2272,15 @@ def phase10_bias_layouts(tokenizer_cls, pair_tokenizer, dev, out_dir: Path):
 
 # The fp32 card-vs-CPU checks of phases 11 and 12 (drive_path) run on the
 # first 3 layers (one global, two local), where the CPU's share of them
-# takes seconds; phase 4's model check per layout, phase 5's flips and phase
-# 7's steps keep all 22 (a cut that keeps chip_smoke.py under 600 s).
+# takes seconds; phase 4's model check, phase 5's flips and phase 7's steps
+# keep all 22 (a cut that keeps chip_smoke.py under 600 s).
 CPU_CHECK_LAYERS = 3
+# The depth of the paths phases 10-12 and 14 drive end to end at base width
+# beside the main ones (the bias layouts, the head layouts, the whole-MLP
+# gates 1 and bwd, backbone dropout): their first 3 layers, one global and
+# two local, every kernel of the path on them; phase 12 still compares and
+# times the gates at 22 (PERF.md section 4 has the cuts' times).
+PATH_LAYERS = 3
 
 
 def cut_depth(config, sd, layers: int):
@@ -2263,54 +2293,58 @@ def cut_depth(config, sd, layers: int):
     return cut, kept
 
 
-def drive_path(label: str, config, sd, tokenizer_cls, pair_tokenizer, dev, card: str,
-               out_dir: Path, serve_required, train_required, resume: bool = False):
-    """One configuration end to end at base width: the model in fp32 and
-    bf16 on the card against fp32 on the CPU; ``process()`` in bf16 on the 256
-    pairs of phase 5 with the launch counts read around it; fp32 keep/drop
-    flips on 8 of them and one fp32 training step (B=2, S=512) against the
-    CPU, both on the first CPU_CHECK_LAYERS layers; 20 bf16 training steps
-    at B=32, S=512 (phase 8's schedule) whose eval loss must fall and, with
-    ``resume``, phase 8's bit-exact resume.
-    Every kernel in ``serve_required`` / ``train_required`` must have launched
-    and no plain version may have run. Returns (serving launches, training
-    launches)."""
+def served_rate(label: str, config, sd, tokenizer_cls, dev, card: str, required=FORWARD):
+    """``process()`` in bf16 on phase 5's 256 pairs at the config's
+    max_length: the launches around the first call (every kernel in
+    ``required``, no plain version) and phase 5's checks (``check_served``),
+    then pairs/s as the median of 3 calls after a warm-up call. Returns (the
+    model, the launches, pairs/s)."""
     from open_provence_tpu_torch import OpenProvenceModel, kernels
 
-    phase4_model(config, sd, dev, label)
     model = OpenProvenceModel(config, sd, tokenizer_cls(), device=dev)  # bf16 on the card
     questions, contexts = synthetic_pairs(256)
     kernels.reset_launch_counts()
     result = model.process(questions, contexts, threshold=0.1, show_progress=False)
     torch.cuda.synchronize()
-    serve, plain = kernels.launch_counts(), kernels.plain_counts()
-    ranks = np.asarray(result["reranking_score"], dtype=np.float64)
-    phase(f"{label} process() bf16, 256 pairs: scores in [{ranks.min():.4f}, {ranks.max():.4f}]; "
-          f"launches {json.dumps(serve)}; plain versions {json.dumps(plain)}")
-    missing = [name for name in serve_required if serve[name] == 0]
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    missing = [name for name in required if launches[name] == 0]
     if missing or any(plain.values()):
-        raise AssertionError(f"{label}: serving never launched {missing} or ran a plain version")
-    if len(result["pruned_context"]) != 256 or not np.all(np.isfinite(ranks)):
-        raise AssertionError(f"{label}: process() gave the wrong length or non-finite scores")
-    if not np.all((ranks >= 0) & (ranks <= 1)):
-        raise AssertionError(f"{label}: scores outside [0, 1]")
-    keep_all = model.process(questions[:16], contexts[:16], threshold=0.0, show_progress=False)
-    if keep_all["pruned_context"] != contexts[:16]:
-        raise AssertionError(f"{label}: threshold 0.0 did not reproduce the input")
+        raise AssertionError(f"{label}: process() never launched {missing} or ran a plain "
+                             f"version {plain}")
+    ranks = check_served(label, model, questions, contexts, result)
     times = []
     for _ in range(4):  # the first call is a warm-up
         began = time.perf_counter()
         model.process(questions, contexts, threshold=0.1, show_progress=False)
         times.append(time.perf_counter() - began)
     median = statistics.median(times[1:])
-    phase(f"{label} process() 256 pairs bf16: {256 / median:.1f} pairs/s (median of 3 calls: "
-          f"{median:.3f} s) [{card}]")
+    phase(f"{label} process() 256 pairs bf16, max_length {config.max_length}: "
+          f"{256 / median:.1f} pairs/s (median of 3 calls after a warm-up: {median:.3f} s); "
+          f"scores in [{ranks.min():.4f}, {ranks.max():.4f}], threshold 0 exact, 1 empty; "
+          f"launches {json.dumps(launches)}, no plain version [{card}]")
+    return model, launches, 256 / median
+
+
+def drive_path(label: str, config, sd, tokenizer_cls, pair_tokenizer, dev, card: str,
+               out_dir: Path, serve_required, train_required, resume: bool = False):
+    """One configuration end to end at base width: the model in fp32 and
+    bf16 on the card against fp32 on the CPU; ``served_rate``; fp32 keep/drop
+    flips on 8 pairs and one fp32 training step (B=2, S=512) against the
+    CPU, both on the first CPU_CHECK_LAYERS layers; 20 bf16 training steps
+    at B=32, S=512 (phase 8's schedule) whose eval loss must fall and, with
+    ``resume``, phase 8's bit-exact resume.
+    Every kernel in ``serve_required`` / ``train_required`` must have launched
+    and no plain version may have run. Returns (serving launches, training
+    launches)."""
+    phase4_model(config, sd, dev, label)
+    label = f"{label} ({config.backbone().num_hidden_layers} layers)"
+    model, serve, _ = served_rate(label, config, sd, tokenizer_cls, dev, card, serve_required)
     forward_ms(model, 32, 512, label, card, with_plain=False, profile=False)
     del model
     cut, cut_sd = cut_depth(config, sd, CPU_CHECK_LAYERS)
-    fp32_flips(label, cut, cut_sd, tokenizer_cls, dev, questions[:8], contexts[:8])
+    fp32_flips(label, cut, cut_sd, tokenizer_cls, dev, *synthetic_pairs(8))
 
-    tag = label.replace(" ", "_").replace("=", "_")
+    tag = re.sub(r"[^A-Za-z0-9]+", "_", label)
     phase7_train_step(cut, cut_sd, pair_tokenizer, dev, out_dir / f"{tag}_fp32", steps=(1,),
                       label=label)
     batches = [training_batch(pair_tokenizer, 31, 512, seed=s) for s in (110, 111)]
@@ -2345,7 +2379,8 @@ def phase11_head_layouts(tokenizer_cls, pair_tokenizer, dev, card: str, out_dir:
     for heads in (24, 3):
         config = base_config(num_attention_heads=heads)
         head_dim = config.backbone().head_dim
-        sd = init_params(config, torch.Generator().manual_seed(11))
+        config, sd = cut_depth(config, init_params(config, torch.Generator().manual_seed(11)),
+                               PATH_LAYERS)
         serve, train = drive_path(
             f"phase 11 {heads}x{head_dim}", config, sd, tokenizer_cls, pair_tokenizer, dev, card,
             out_dir, serve_required, train_required)
@@ -2416,8 +2451,9 @@ def phase12_whole_mlp(sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir
     the gate beside each other in this process: the forward at B=32, S=512 and
     B=8, S=2048; the fused gates' loss, gradients and first step losses held
     to gate 0's (``gates_agree``); the training step's wall and device time at
-    B=32, S=512, each value once (0, 1, bwd). Then gate 1 end to end
-    (``drive_path``, with the bit-exact resume), and gate bwd's training."""
+    B=32, S=512, each value once (0, 1, bwd). Then, on the first PATH_LAYERS
+    layers, gate 1 end to end (``drive_path``, with the bit-exact resume),
+    and gate bwd's training."""
     from open_provence_tpu_torch import OpenProvenceModel, kernels
     from open_provence_tpu_torch.models.modernbert import MLP_TAIL_DEFAULT
 
@@ -2463,8 +2499,8 @@ def phase12_whole_mlp(sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir
         pairs_s = train_rate(trainers[gate], batches, 4)[0]
         wall[gate].append(31 / pairs_s * 1e3)
         device[gate].append(profile_by_kernel(
-            f"phase 12 profile of 3 bf16 steps B=32 S=512, gate {gate}",
-            lambda: train_steps(trainers[gate], batches, 1), 3))
+            f"phase 12 profile of 1 bf16 step B=32 S=512, gate {gate}",
+            lambda: train_steps(trainers[gate], batches, 1), 1))
     phase("phase 12 train step B=32 S=512 bf16 by gate (once each): "
           + "; ".join(f"{gate}: wall {wall[gate][0]:.1f} ms, device {device[gate][0]:.1f} ms"
                       for gate in gates)
@@ -2475,6 +2511,7 @@ def phase12_whole_mlp(sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir
     fused_serve = (*(k for k in FORWARD if k not in split), "ln_geglu_wo")
     fused_train = (*(k for k in DEFAULT_EIGHT if k not in split), "ln_geglu_wo", "ln_geglu_wo_bwd")
     all_launches = {}
+    config, sd = cut_depth(config, sd, PATH_LAYERS)
     with mlp_tail_gate("1"):
         serve, train = drive_path(
             "phase 12 gate=1", config, sd, tokenizer_cls, pair_tokenizer, dev, card, out_dir,
@@ -2483,8 +2520,8 @@ def phase12_whole_mlp(sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir
             raise AssertionError("gate 1 ran the split MLP kernels")
     all_launches["serve_fused_mlp"], all_launches["train_fused_mlp"] = serve, train
     with mlp_tail_gate("bwd"):
-        trainer = make_trainer(train_config, sd_card, pair_tokenizer, dev, out_dir / "gate_bwd_run",
-                               20)
+        trainer = make_trainer(training_config(config), {k: v.to(dev) for k, v in sd.items()},
+                               pair_tokenizer, dev, out_dir / "gate_bwd_run", 20)
         train = train_and_check(
             "phase 12 gate=bwd", trainer, batches, 20,
             (*(k for k in DEFAULT_EIGHT if k != "ln_geglu_bwd"), "ln_geglu_wo_bwd"))
@@ -2721,8 +2758,11 @@ def phase13_entry_points(config, sd, tokenizer_cls, pair_tokenizer_cls, dev, car
     phase(encoder_bf16_check(dirs["encoder_save"], pair_tokenizer_cls, pairs[:n], chunks[:n],
                              scores[:n], chunked[:n]))
 
-    phase("phase 13 fp32 card vs cpu, 8 pairs: " + encoder_fp32_checks(
-        dirs["encoder_save"], tokenizer_cls, pair_tokenizer_cls, dev))
+    cut, cut_sd = cut_depth(config, sd, CPU_CHECK_LAYERS)
+    cut_dir = OpenProvenceEncoder(config=cut, state_dict=cut_sd, tokenizer=pair_tokenizer_cls(),
+                                  device="cpu").save_pretrained(out_dir / "p13_cut")
+    phase(f"phase 13 fp32 card vs cpu, 8 pairs, {CPU_CHECK_LAYERS} layers: " + encoder_fp32_checks(
+        cut_dir, tokenizer_cls, pair_tokenizer_cls, dev))
 
     questions, contexts = synthetic_pairs(32, seed=15)  # > 512 tokens each: S = 512
     long_pairs = list(zip(questions, contexts))
@@ -2795,42 +2835,66 @@ def long_rows(assets, n_rows: int, n_texts: int, seed: int, teacher: str,
     return rows
 
 
-def phase14_assets(sd, out_dir: Path) -> dict[str, Path]:
-    """A ModernBERT backbone directory (configs.py's defaults as HF's
-    config.json, phase 4's backbone and prediction-head tensors under HF's
-    names), its copy with every backbone dropout at 0.1, two JSON-lines
-    sources: A (2 texts a row) and B (4 texts a row, its teacher column
-    named teacher_scores.base), and the context-relevance eval set of the
-    runner's eval_datasets hook (P15_EVAL_QUERIES queries of 2 texts of
-    P15_EVAL_SPANS spans, a ``test.jsonl``) with its eval config."""
-    from open_provence_tpu_torch import ModernBertBackboneConfig
-    from open_provence_tpu_torch.train.data import write_jsonl_splits
+def backbone_dir(config, sd, directory: Path) -> Path:
+    """A ModernBERT backbone directory: ``config``'s backbone as HF's
+    config.json, and the backbone and prediction-head tensors of ``sd``
+    under HF's names."""
     from open_provence_tpu_torch.utils import safetensors_io
 
+    directory.mkdir(parents=True)
+    (directory / "config.json").write_text(json.dumps(config.backbone().to_dict(), indent=2))
+    safetensors_io.save_file({k.removeprefix("ranking_model."): v for k, v in sd.items()
+                              if k.startswith(("ranking_model.model.", "ranking_model.head."))},
+                             directory / "model.safetensors")
+    return directory
+
+
+def p14_sources(out_dir: Path, teachers=("teacher_score", "teacher_scores.base"),
+                tag: str = "p14") -> dict[str, Path]:
+    """Phase 14's two JSON-lines sources: A (2 texts a row) and B (4 texts a
+    row), their teacher columns named ``teachers``."""
+    from open_provence_tpu_torch.train.data import write_jsonl_splits
+
     assets = load_by_path(REPO / "scripts" / "make_toy_assets.py")
-    dirs = {"backbone": out_dir / "p14_backbone", "dropout": out_dir / "p14_backbone_dropout"}
-    hf = {k.removeprefix("ranking_model."): v for k, v in sd.items()
-          if k.startswith(("ranking_model.model.", "ranking_model.head."))}
-    backbone = ModernBertBackboneConfig(pad_token_id=0, num_labels=1).to_dict()
-    rates = dict(attention_dropout=0.1, embedding_dropout=0.1, mlp_dropout=0.1)
-    for name, config in (("backbone", backbone), ("dropout", {**backbone, **rates})):
-        dirs[name].mkdir(parents=True)
-        (dirs[name] / "config.json").write_text(json.dumps(config, indent=2))
-    safetensors_io.save_file(hf, dirs["backbone"] / "model.safetensors")
-    os.link(dirs["backbone"] / "model.safetensors", dirs["dropout"] / "model.safetensors")
-    for name, texts, teacher, seed in (("a", 2, "teacher_score", 140),
-                                       ("b", 4, "teacher_scores.base", 141)):
+    dirs = {}
+    for name, texts, teacher, seed in (("a", 2, teachers[0], 140), ("b", 4, teachers[1], 141)):
         rows = long_rows(assets, P14_TRAIN_ROWS + P14_EVAL_ROWS, texts, seed, teacher)
         dirs[name] = write_jsonl_splits({"train": rows[:P14_TRAIN_ROWS],
                                          "validation": rows[P14_TRAIN_ROWS:]},
-                                        out_dir / f"p14_source_{name}")
+                                        out_dir / f"{tag}_source_{name}")
+    return dirs
+
+
+def p14_eval_set(out_dir: Path) -> dict[str, Path]:
+    """The context-relevance eval set of the runner's eval_datasets hook
+    (P15_EVAL_QUERIES queries of 2 texts of P15_EVAL_SPANS spans, a
+    ``test.jsonl``) and its eval config."""
+    from open_provence_tpu_torch.train.data import write_jsonl_splits
+
+    assets = load_by_path(REPO / "scripts" / "make_toy_assets.py")
     rows = long_rows(assets, P15_EVAL_QUERIES, 2, 150, "teacher_score",
                      sentences_per_text=(P15_EVAL_SPANS, P15_EVAL_SPANS))
-    dirs["eval_set"] = write_jsonl_splits({"test": rows}, out_dir / P15_EVAL_SET)
-    dirs["eval_config"] = out_dir / "p14_eval.yaml"
+    dirs = {"eval_set": write_jsonl_splits({"test": rows}, out_dir / P15_EVAL_SET),
+            "eval_config": out_dir / "p14_eval.yaml"}
     dirs["eval_config"].write_text(
         f'split: test\ndatasets:\n  - dataset_name: "{dirs["eval_set"]}"\n')
     return dirs
+
+
+def phase14_assets(sd, out_dir: Path) -> dict[str, Path]:
+    """A ModernBERT backbone directory (configs.py's defaults as HF's
+    config.json, phase 4's backbone and prediction-head tensors under HF's
+    names), its copy with every backbone dropout at 0.1, phase 14's two
+    sources (``p14_sources``; B's teacher column named teacher_scores.base)
+    and the eval set of the runner's eval_datasets hook with its config."""
+    dirs = {"backbone": backbone_dir(base_config(), sd, out_dir / "p14_backbone"),
+            "dropout": out_dir / "p14_backbone_dropout"}
+    rates = dict(attention_dropout=0.1, embedding_dropout=0.1, mlp_dropout=0.1)
+    dirs["dropout"].mkdir(parents=True)
+    (dirs["dropout"] / "config.json").write_text(
+        json.dumps({**base_config().backbone().to_dict(), **rates}, indent=2))
+    os.link(dirs["backbone"] / "model.safetensors", dirs["dropout"] / "model.safetensors")
+    return {**dirs, **p14_sources(out_dir), **p14_eval_set(out_dir)}
 
 
 def cut_backbone_dir(source: Path, target: Path, layers: int) -> Path:
@@ -2895,6 +2959,82 @@ def run_train(label: str, config_path: Path, pair_tokenizer, overrides=(), **kwa
     return final, args, time.perf_counter() - began
 
 
+@contextlib.contextmanager
+def timed_steps():
+    """The wall (s, the card synchronised before and after) and the loss of
+    every OpenProvenceTrainer.train_one_step called inside the block: one
+    optimizer step each, its micro-batches included."""
+    from open_provence_tpu_torch.train.trainer import OpenProvenceTrainer
+
+    real, steps = OpenProvenceTrainer.train_one_step, []
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        metrics = real(self, *args, **kwargs)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - began, loss))
+        return metrics
+
+    OpenProvenceTrainer.train_one_step = timed
+    try:
+        yield steps
+    finally:
+        OpenProvenceTrainer.train_one_step = real
+
+
+def timed_train(label: str, path: Path, pair_tokenizer, steps: int) -> dict:
+    """runner.train on the config at ``path`` for ``steps`` steps: its final
+    model, step walls and losses, wall, launches and plain calls."""
+    from open_provence_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    with timed_steps() as walls:
+        final, _, wall = run_train(label, path, pair_tokenizer, max_steps_override=steps)
+    return {"final": str(final), "steps": walls, "wall": wall,
+            "launches": kernels.launch_counts(), "plain": kernels.plain_counts()}
+
+
+def runner_start(backbone: Path, path: Path) -> dict[str, torch.Tensor]:
+    """The weights a run of the config at ``path`` starts from when its
+    model is the ModernBERT directory ``backbone``: init_encoder's at the
+    runner's seed."""
+    from open_provence_tpu_torch.train import init_encoder, parse_config_file
+
+    seed = parse_config_file(str(path))[2].seed
+    return init_encoder(backbone, max_length=512, classifier_dropout=0.0, seed=seed)[2]
+
+
+def runner_agreement(label: str, got: dict, want: dict, initial: dict[str, torch.Tensor],
+                     loss_tol: float = 1e-4) -> None:
+    """Hold one fp32 ``timed_train`` run to another from the same weights
+    ``initial``: the step losses within ``loss_tol`` relative and the update
+    over the run (final weights less ``initial``) within STEP_UPDATE_TOL of
+    each tensor's largest, and the update check must tell weights left
+    unchanged from the run's."""
+    from open_provence_tpu_torch.utils import safetensors_io
+
+    losses = [[loss for _, loss in run["steps"]] for run in (got, want)]
+    deltas = [{k: w - initial[k] for k, w in
+               safetensors_io.load_file(Path(run["final"]) / "model.safetensors").items()}
+              for run in (got, want)]
+    loss_err = max(abs(a / b - 1) for a, b in zip(*losses))
+    update_err = max_rel_err(*deltas)
+    largest = max(float(d.abs().max()) for d in deltas[1].values())
+    unchanged = max_rel_err({k: torch.zeros_like(d) for k, d in deltas[0].items()}, deltas[1])
+    phase(f"{label}: losses {', '.join(f'{v:.6f}' for v in losses[0])} vs "
+          f"{', '.join(f'{v:.6f}' for v in losses[1])} (largest rel err {loss_err:.3e}, tol "
+          f"{loss_tol}); update over the run (largest {largest:.3e}): largest error "
+          f"{update_err:.3e} of each tensor's largest (tol {STEP_UPDATE_TOL}; weights left "
+          f"unchanged would read {unchanged:.3e}); walls {got['wall']:.1f} s vs {want['wall']:.1f} s")
+    if len(losses[0]) != len(losses[1]) or loss_err > loss_tol or update_err > STEP_UPDATE_TOL:
+        raise AssertionError(f"{label}: the runs disagree")
+    if largest == 0.0 or unchanged <= STEP_UPDATE_TOL:
+        raise AssertionError(f"{label}: the update check cannot tell unchanged weights from the "
+                             "run's")
+
+
 def trainer_state(checkpoint: Path) -> dict:
     return json.loads((checkpoint / "trainer_state.json").read_text())
 
@@ -2910,14 +3050,16 @@ def weights_equal(a: Path, b: Path) -> bool:
     return wa.keys() == wb.keys() and all(torch.equal(wa[k], wb[k]) for k in wa)
 
 
-def serve_final(final: Path, tokenizer_cls, dev) -> str:
-    """Phase 5's 256 pairs and checks through from_pretrained(final)."""
+def serve_final(final: Path, tokenizer_cls, dev, label: str = "phase 14 final_model",
+                pairs: int = 256) -> str:
+    """Phase 5's first ``pairs`` pairs and checks through
+    from_pretrained(final)."""
     from open_provence_tpu_torch import OpenProvenceModel
 
     model = OpenProvenceModel.from_pretrained(final, tokenizer=tokenizer_cls(), device=dev)
-    questions, contexts = synthetic_pairs(256)
+    questions, contexts = synthetic_pairs(pairs)
     result = model.process(questions, contexts, threshold=0.1, show_progress=False)
-    ranks = check_served("phase 14 final_model", model, questions, contexts, result)
+    ranks = check_served(label, model, questions, contexts, result)
     return f"scores in [{ranks.min():.4f}, {ranks.max():.4f}]; threshold 0 exact, 1 empty"
 
 
@@ -2961,10 +3103,8 @@ def p14_fp32_check(dirs: dict, out_dir: Path, pair_tokenizer, dev,
                    layers: int) -> dict[str, float]:
     """The runner on the card against the runner on the CPU, fp32, 2 pairs a
     step, 3 steps, from the backbone directory cut to its first ``layers``
-    layers. Returns the walls of the card's and the CPU's side (s)."""
-    from open_provence_tpu_torch.train import init_encoder
-    from open_provence_tpu_torch.utils import safetensors_io
-
+    layers (``runner_agreement``). Returns the walls of the card's and the
+    CPU's side (s)."""
     backbone = cut_backbone_dir(dirs["backbone"], out_dir / f"p14_backbone_{layers}", layers)
     dirs = {**dirs, "fp32_backbone": backbone}
     # Step 1 is warmup at lr 0, so step 3's loss and the final weights are the
@@ -2973,42 +3113,22 @@ def p14_fp32_check(dirs: dict, out_dir: Path, pair_tokenizer, dev,
     # against the CPU's. It runs at phase 7's lr, 1e-2: at 5e-5 a weight's
     # fp32 ulp, where p + u rounds the other way on one side, reaches ~1e-2
     # of a tensor's largest update.
-    sides = {}
-    for where in (str(dev), "cpu"):
-        side_dir = out_dir / f"p14_{where.replace(':', '')}"
-        path = p14_config(out_dir / f"p14_{where}.yaml", dirs, side_dir, backbone="fp32_backbone",
-                          bf16=False, per_device_train_batch_size=1, logging_steps=1,
-                          save_steps=3, learning_rate=1e-2, device=where)
-        final, side_args, wall = run_train(f"phase 14 {where}", path, pair_tokenizer,
-                                           max_steps_override=3)
-        sides[where] = (logged_losses(trainer_state(side_dir / "checkpoint-3")["log_history"]),
-                        safetensors_io.load_file(final / "model.safetensors"), wall)
-        shutil.rmtree(side_dir)
-    *_, initial = init_encoder(backbone, max_length=512, classifier_dropout=0.0,
-                               seed=side_args[2].seed)
-    (card_losses, card_w, card_wall), (cpu_losses, cpu_w, cpu_wall) = sides[str(dev)], sides["cpu"]
-    card_delta = {k: w - initial[k] for k, w in card_w.items()}
-    cpu_delta = {k: w - initial[k] for k, w in cpu_w.items()}
-    loss_err = max(abs(a[1] / b[1] - 1) for a, b in zip(card_losses, cpu_losses))
-    update_err = max_rel_err(card_delta, cpu_delta)
-    largest = max(float(d.abs().max()) for d in cpu_delta.values())
-    unchanged_err = max_rel_err({k: torch.zeros_like(d) for k, d in card_delta.items()},
-                                cpu_delta)
-    phase(f"phase 14 fp32 runner.train, {layers} layers, 1 query (2 pairs of 512) a step, 3 "
-          f"steps at lr 1e-2, card vs cpu: losses {card_losses} vs {cpu_losses} "
-          f"(largest rel err {loss_err:.3e}, tol 1e-4); update over the run (largest "
-          f"{largest:.3e}): largest error {update_err:.3e} of each tensor's largest (tol "
-          f"{STEP_UPDATE_TOL}; weights left unchanged would read {unchanged_err:.3e}); wall "
-          f"card {card_wall:.1f} s, cpu {cpu_wall:.1f} s")
-    if len(card_losses) != 3 or [s for s, _ in card_losses] != [s for s, _ in cpu_losses] \
-            or loss_err > 1e-4 or update_err > STEP_UPDATE_TOL:
-        raise AssertionError("phase 14: the runner on the card disagrees with the CPU")
-    if largest == 0.0 or unchanged_err <= STEP_UPDATE_TOL:
-        raise AssertionError("phase 14: the update check cannot tell unchanged weights from "
-                             "the card's")
+    paths = {where: p14_config(out_dir / f"p14_{where}.yaml", dirs,
+                               out_dir / f"p14_{where.replace(':', '')}",
+                               backbone="fp32_backbone", bf16=False,
+                               per_device_train_batch_size=1, logging_steps=1,
+                               learning_rate=1e-2, device=where)
+             for where in (str(dev), "cpu")}
+    runs = {where: timed_train(f"phase 14 {where}", path, pair_tokenizer, 3)
+            for where, path in paths.items()}
+    runner_agreement(f"phase 14 fp32 runner.train, {layers} layers, 1 query (2 pairs of 512) a "
+                     "step, 3 steps at lr 1e-2, card vs cpu", runs[str(dev)], runs["cpu"],
+                     runner_start(backbone, paths["cpu"]))
+    for run in runs.values():
+        shutil.rmtree(Path(run["final"]).parent)
     if backbone != dirs["backbone"]:
         shutil.rmtree(backbone)
-    return {"card": card_wall, "cpu": cpu_wall}
+    return {"card": runs[str(dev)]["wall"], "cpu": runs["cpu"]["wall"]}
 
 
 def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
@@ -3140,16 +3260,20 @@ def phase14_train_cli(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     lap(f"fp32 check at {P14_FP32_LAYERS} layers (card {walls['card']:.1f} s and cpu "
         f"{walls['cpu']:.1f} s of runner.train)")
 
-    # Every backbone dropout at 0.1: 10 bf16 steps through the runner, then
-    # the remat and resume checks on trainers of the same weights.
+    # Every backbone dropout at 0.1, on the first PATH_LAYERS layers: 10
+    # bf16 steps through the runner, then the remat and resume checks on
+    # trainers of the same weights.
     drop_dir = out_dir / "p14_dropout"
+    dirs["dropout"] = cut_backbone_dir(dirs["dropout"], out_dir / "p14_backbone_dropout_cut",
+                                       PATH_LAYERS)
     path = p14_config(out_dir / "p14_dropout.yaml", dirs, drop_dir, backbone="dropout",
                       logging_steps=1, do_eval=False)
     kernels.reset_launch_counts()
     _, args, wall = run_train("phase 14 dropout", path, pair_tokenizer, max_steps_override=10)
     drop_launches, plain = kernels.launch_counts(), kernels.plain_counts()
     losses = logged_losses(trainer_state(drop_dir / "checkpoint-10")["log_history"])
-    phase(f"phase 14 runner.train bf16, every backbone dropout 0.1, 10 steps: wall {wall:.1f} s; "
+    phase(f"phase 14 runner.train bf16, every backbone dropout 0.1, {PATH_LAYERS} layers, 10 "
+          f"steps: wall {wall:.1f} s; "
           f"losses {losses}; launches {json.dumps(drop_launches)}; plain versions "
           f"{json.dumps(plain)} [{card}]")
     if len(losses) != 10 or not all(np.isfinite([v for _, v in losses])) \
@@ -3848,8 +3972,10 @@ def p16_flips(got: np.ndarray, want: np.ndarray, margin: float) -> tuple[int, in
 
 
 def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_dir: Path,
-                 stats: dict[str, dict]) -> dict[str, dict[str, int]]:
-    """The mesh (see above). Returns the launches of the four ranks, summed."""
+                 stats: dict[str, dict], beside=None) -> dict[str, dict[str, int]]:
+    """The mesh (see above); ``beside``, where given, is called as the four
+    ranks spawn (it starts work of its own that its caller joins). Returns
+    the launches of the four ranks, summed."""
     from open_provence_tpu_torch import OpenProvenceModel, kernels
     from open_provence_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
     from open_provence_tpu_torch.train import OpenProvenceTrainer
@@ -3897,6 +4023,8 @@ def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_
     side = threading.Thread(target=run_dryrun)
     t0 = time.perf_counter()
     side.start()
+    if beside is not None:
+        beside()
     ranks = run_ranks(p16_rank, 4, str(sd_path), batches, str(ref_path), str(out_dir))
     spawn_wall = time.perf_counter() - t0
     side.join()
@@ -3960,8 +4088,9 @@ def phase16_mesh(config, sd, tokenizer_cls, pair_tokenizer, dev, card: str, out_
     gloo_ms = ", ".join(f"{r['gloo_ms']:.1f}" for r in ranks)
     phase(f"phase 16 four ranks on card 0 over gloo: {spawn_wall:.1f} s from spawn to join; one "
           f"all-reduce of 50 MB of fp32 on the card between two ranks {gloo_ms} ms (each rank's "
-          f"lowest of 3) [{card}]; the ranks share one card, so no wall here says anything of "
-          "scaling")
+          f"lowest of 3) [{card}]; the ranks share one card"
+          + (" and the host with phase 18's untimed work" if beside is not None else "")
+          + ", so no wall here says anything of scaling")
 
     phase(f"phase 16 dryrun_multichip(4) on card 0, beside the four ranks: loss "
           f"{dryrun['loss']:.4f}, {dryrun['wall']:.1f} s")
@@ -4346,6 +4475,614 @@ def phase17_factory_and_mldr(tokenizer_cls, pair_tokenizer_cls, dev, card: str,
                "mldr_512": p17_mldr(tokenizer_cls, dev, card, out_dir)}
     phase(f"phase 17 took {time.perf_counter() - began:.0f} s")
     return by_path
+
+
+# --- phase 18: the repo's other shipped checkpoint families -----------------
+
+# The three training configs of configs/ besides the gte ModernBERT-base one
+# that phases 3-17 run, each with the widths of the public backbone it names
+# (that backbone's config.json); every other backbone field is configs.py's
+# ModernBERT default (+-64 on two layers of three, rope 160000 / 10000). The
+# backbones are seeded with init_params: no checkpoint or tokenizer of theirs
+# is in the repository, and DummyTokenizer's ids fit under their vocab.
+FAMILIES = {
+    "xsmall": {"yaml": "configs/open-provence-tpu-reranker-xsmall-v1.yaml",
+               "backbone": "hotchpotch/japanese-reranker-xsmall-v2 (modernbert-ja-30m)",
+               "hidden_size": 256, "intermediate_size": 1024, "num_hidden_layers": 10,
+               "num_attention_heads": 4},
+    "base": {"yaml": "configs/open-provence-tpu-reranker-v1.yaml",
+             "backbone": "hotchpotch/japanese-reranker-base-v2 (modernbert-ja-130m)",
+             "hidden_size": 512, "intermediate_size": 2048, "num_hidden_layers": 19,
+             "num_attention_heads": 8},
+    "large": {"yaml": "configs/open-provence-tpu-reranker-large-v1.yaml",
+              "backbone": "cl-nagoya/ruri-v3-reranker-310m (modernbert-ja-310m)",
+              "hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 25,
+              "num_attention_heads": 12},
+}
+FAMILY_VOCAB = 102400
+# The keys of a shipped config phase 18 replaces (a key path, and all below
+# it); every other key keeps its shipped value.
+P18_REPLACED = (("model_args", "model_name_or_path"), ("data_args", "datasets"),
+                ("training_args", "eval_datasets", "config"), ("training_args", "output_dir"))
+# Steps of each run: the shipped config on one process, large's at
+# mesh_model 2 (two gloo ranks on the card), and the fp32 runner checks.
+P18_STEPS, P18_MESH_STEPS, P18_CHECK_STEPS = 10, 3, 3
+# The fp32 runner checks' changes to the shipped training_args: phase 14's
+# check (one process, one query, 2 pairs a step, at lr 1e-2: see
+# p14_fp32_check), and for large's 1 x 2 against one process one query a
+# micro-batch with the shipped accumulation of 4.
+P18_CHECK = dict(bf16=False, per_device_train_batch_size=1, gradient_accumulation_steps=1,
+                 learning_rate=1e-2, eval_datasets=None)
+P18_MESH_CHECK = dict(bf16=False, per_device_train_batch_size=1, learning_rate=1e-2,
+                      eval_datasets=None)
+P18_ROWS = 16384  # B=32, S=512
+
+
+def family_config(name: str):
+    """Family ``name``'s config at max_length 512."""
+    widths = {k: v for k, v in FAMILIES[name].items() if k not in ("yaml", "backbone")}
+    return base_config(vocab_size=FAMILY_VOCAB, **widths)
+
+
+def turns_ms(kernel_fn, plain_fn) -> tuple[float, float]:
+    """The kernel as CUDA-graph replays and its plain version by CUDA events,
+    in turns (plain, kernel, kernel, plain)."""
+    p1, k1, k2, p2 = cuda_ms(plain_fn), graph_ms(kernel_fn), graph_ms(kernel_fn), cuda_ms(plain_fn)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def p18_kernels(dev, name: str, config, stats: dict[str, dict]) -> dict[str, dict]:
+    """Kernels 1-4, 10-12 and 14 at family ``name``'s widths against their
+    plain versions, fp32 and bf16: the row-wise and GEMM kernels at M = 16384
+    (B=32, S=512) and 16384 - 37, attention at B=32, S=512 under a full mask
+    and a ragged one with a padding row, global (rope 160000) and +-64 (rope
+    10000); kernels 8 and 13 where geglu_wo_supported admits the shape
+    (xsmall, base); for large also kernels 2-4, 11, 12 and 14 at a tp = 2
+    rank's shard. Then each of the eight at M = 16384 in bf16 as CUDA-graph
+    replays, in turns with its plain version, beside its bound and the
+    library's call (torch.matmul on the bare products of the GEMM kernels;
+    F.layer_norm and its backward; scaled_dot_product_attention on
+    pre-rotated q and k). Files each kernel's entry under
+    stats[kernel]["families"][name] (the shard's under name + "_tp2") and
+    returns the eight entries."""
+    from open_provence_tpu_torch import kernels, ops
+
+    bb = config.backbone()
+    k, inter, heads, head_dim = (bb.hidden_size, bb.intermediate_size, bb.num_attention_heads,
+                                 bb.head_dim)
+    # Operands drawn on the card (their count makes the host's draws slow);
+    # the masks' lengths on the host.
+    gen, mask_gen = torch.Generator(device=dev).manual_seed(180), torch.Generator().manual_seed(181)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # (tag, Wqkv rows, intermediate columns, heads): the whole layer, and
+    # for large a tp = 2 rank's shard of it.
+    shapes = [("", 3 * k, inter, heads)]
+    if name == "large":
+        shapes.append(("tp2", 3 * k // TP, inter // TP, heads // TP))
+    errs: dict[str, dict] = {}
+
+    def note(kernel, dtype, *values):
+        by_dtype = errs.setdefault(kernel, {})
+        by_dtype[dtype] = max(by_dtype.get(dtype, 0.0), *values)
+
+    def grads(label, got, want, dtype):
+        return [check_grad(label, a, b, dtype) for a, b in zip(got, want)]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        scale = randn(k, scale=0.1, dtype=dtype) + 1
+        weights = {tag: (randn(n, k, scale=k**-0.5, dtype=dtype),
+                         randn(2 * i, k, scale=k**-0.5, dtype=dtype)) for tag, n, i, _ in shapes}
+        w_o = randn(k, inter, scale=inter**-0.5, dtype=dtype)
+        fused = name != "large" and ops.geglu_wo_supported(k, inter, dtype, "gelu")
+        for m in (P18_ROWS, P18_ROWS - 37):
+            case = f"{name} {str(dtype)[6:]} M={m}"
+            x, g = randn(m, k, scale=2.0, dtype=dtype), randn(m, k, dtype=dtype)
+            note("layer_norm", dtype, check_close(f"layer_norm {case}", ops.layer_norm(x, scale),
+                                                  ops.layer_norm_plain(x, scale), dtype))
+            note("layer_norm_bwd", dtype, *grads(f"layer_norm_bwd {case}",
+                 ops.layer_norm_bwd(x, scale, g), ops.layer_norm_bwd_plain(x, scale, g), dtype))
+            for tag, n, i, _ in shapes:
+                w_qkv, w_i = weights[tag]
+                key = (lambda kernel: f"{kernel} {tag}") if tag else (lambda kernel: kernel)
+                g_qkv, g_mlp = randn(m, n, scale=0.1, dtype=dtype), randn(m, i, scale=0.1,
+                                                                          dtype=dtype)
+                note(key("ln_matmul"), dtype, check_close(
+                    f"ln_matmul {tag} {case}", ops.ln_matmul(x, scale, w_qkv),
+                    ops.ln_matmul_plain(x, scale, w_qkv), dtype))
+                note(key("ln_geglu"), dtype, check_close(
+                    f"ln_geglu {tag} {case}", ops.ln_geglu(x, scale, w_i, "gelu"),
+                    ops.ln_geglu_plain(x, scale, w_i, "gelu"), dtype))
+                note(key("ln_matmul_bwd"), dtype, *grads(
+                    f"ln_matmul_bwd {tag} {case}", ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
+                    ops.ln_matmul_bwd_plain(x, scale, w_qkv, g_qkv), dtype))
+                note(key("ln_geglu_bwd"), dtype, *grads(
+                    f"ln_geglu_bwd {tag} {case}", ops.ln_geglu_bwd(x, scale, w_i, g_mlp, "gelu"),
+                    ops.ln_geglu_bwd_plain(x, scale, w_i, g_mlp, "gelu"), dtype))
+            if fused:
+                w_i = weights[""][1]
+                note("ln_geglu_wo", dtype, check_close(
+                    f"ln_geglu_wo {case}", ops.ln_geglu_wo(x, scale, w_i, w_o, "gelu"),
+                    ops.ln_geglu_wo_plain(x, scale, w_i, w_o, "gelu"), dtype))
+                g_out = randn(m, k, scale=0.1, dtype=dtype)
+                note("ln_geglu_wo_bwd", dtype, *grads(
+                    f"ln_geglu_wo_bwd {case}", ops.ln_geglu_wo_bwd(x, scale, w_i, w_o, g_out, "gelu"),
+                    ops.ln_geglu_wo_bwd_plain(x, scale, w_i, w_o, g_out, "gelu"), dtype))
+            torch.cuda.synchronize()
+        for tag, n, _, h in shapes:
+            key = (lambda kernel: f"{kernel} {tag}") if tag else (lambda kernel: kernel)
+            qkv = randn(32, 512, n, dtype=dtype)
+            for ragged in (False, True):
+                mask = torch.ones(32, 512, dtype=torch.int32, device=dev)
+                if ragged:
+                    mask = ragged_mask(32, 512, mask_gen, dev)
+                    mask[-1] = 0  # a padding pair, as the collator adds
+                valid = mask.bool()
+                g = randn(32, 512, n // 3, dtype=dtype) * mask[..., None].to(dtype)
+                for window, theta in ((None, 160000.0), (64, 10000.0)):
+                    rope = ops.rope_tables(512, head_dim, theta, dtype, dev)
+                    kw = dict(num_heads=h, padding_mask=mask, window=window, rope=rope)
+                    case = f"{name} {tag} {str(dtype)[6:]} ragged={ragged} window={window}"
+                    out, lse = ops.flash_attention_packed_lse(qkv, **kw)
+                    note(key("flash_attention_packed"), dtype, check_close(
+                        f"flash_attention_packed {case}", out[valid],
+                        ops.attention_packed_plain(qkv, **kw)[valid], dtype))
+                    note(key("flash_attention_packed_bwd"), dtype, *grads(
+                        f"flash_attention_packed_bwd {case}",
+                        (ops.flash_attention_packed_bwd(qkv, g, out, lse, **kw),),
+                        (ops.attention_packed_bwd_plain(qkv, g, out, lse, **kw),), dtype))
+            torch.cuda.synchronize()
+    for kernel, by_dtype in errs.items():
+        row, _, tag = kernel.partition(" ")
+        entry = {"max_abs_err": by_dtype[torch.bfloat16],
+                 "max_abs_err_fp32": by_dtype[torch.float32]}
+        stats.setdefault(row, {}).setdefault("families", {})[f"{name}_{tag}" if tag else name] = entry
+    phase(f"phase 18 {name} kernels against their plain versions (M = {P18_ROWS} and "
+          f"{P18_ROWS - 37}; attention B=32 S=512, full and ragged masks, global and +-64), "
+          "max_abs_err fp32 / bf16: "
+          + "; ".join(f"{kernel} {e[torch.float32]:.3e} / {e[torch.bfloat16]:.3e}"
+                      for kernel, e in errs.items())
+          + f" (TOL {TOL[torch.float32]} / {TOL[torch.bfloat16]}, BWD_TOL "
+          f"{BWD_TOL[torch.float32]} / {BWD_TOL[torch.bfloat16]})")
+
+    # bf16 times at M = 16384 (the last dtype above), the whole layer's shapes.
+    w_qkv, w_i = weights[""]
+    x, g = randn(P18_ROWS, k, scale=2.0, dtype=dtype), randn(P18_ROWS, k, dtype=dtype)
+    g_qkv = randn(P18_ROWS, 3 * k, scale=0.1, dtype=dtype)
+    g_mlp = randn(P18_ROWS, inter, scale=0.1, dtype=dtype)
+    qkv = randn(32, 512, 3 * k, dtype=dtype)
+    mask = ragged_mask(32, 512, mask_gen, dev)
+    g_att = randn(32, 512, k, dtype=dtype) * mask[..., None].to(dtype)
+    rope = ops.rope_tables(512, head_dim, 160000.0, dtype, dev)
+    local_rope = ops.rope_tables(512, head_dim, 10000.0, dtype, dev)
+    attn = dict(num_heads=heads, padding_mask=mask, window=None, rope=rope)
+    local = dict(num_heads=heads, padding_mask=mask, window=64, rope=local_rope)
+    out, lse = ops.flash_attention_packed_lse(qkv, **attn)
+    timings = {
+        "layer_norm": turns_ms(lambda: ops.layer_norm(x, scale),
+                               lambda: ops.layer_norm_plain(x, scale)),
+        "ln_matmul": turns_ms(lambda: ops.ln_matmul(x, scale, w_qkv),
+                              lambda: ops.ln_matmul_plain(x, scale, w_qkv)),
+        "flash_attention_packed": turns_ms(lambda: ops.flash_attention_packed(qkv, **attn),
+                                           lambda: ops.attention_packed_plain(qkv, **attn)),
+        "ln_geglu": turns_ms(lambda: ops.ln_geglu(x, scale, w_i, "gelu"),
+                             lambda: ops.ln_geglu_plain(x, scale, w_i, "gelu")),
+        "layer_norm_bwd": turns_ms(lambda: ops.layer_norm_bwd(x, scale, g),
+                                   lambda: ops.layer_norm_bwd_plain(x, scale, g)),
+        "ln_geglu_bwd": turns_ms(lambda: ops.ln_geglu_bwd(x, scale, w_i, g_mlp, "gelu"),
+                                 lambda: ops.ln_geglu_bwd_plain(x, scale, w_i, g_mlp, "gelu")),
+        "flash_attention_packed_bwd": turns_ms(
+            lambda: ops.flash_attention_packed_bwd(qkv, g_att, out, lse, **attn),
+            lambda: ops.attention_packed_bwd_plain(qkv, g_att, out, lse, **attn)),
+        "ln_matmul_bwd": turns_ms(lambda: ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
+                                  lambda: ops.ln_matmul_bwd_plain(x, scale, w_qkv, g_qkv)),
+    }
+    local_ms = turns_ms(lambda: ops.flash_attention_packed(qkv, **local),
+                        lambda: ops.attention_packed_plain(qkv, **local))
+    bounds = gemm_bounds(P18_ROWS, n=3 * k, i=inter, k=k)
+    for kernel, backward in (("flash_attention_packed", False),
+                             ("flash_attention_packed_bwd", True)):
+        bounds[kernel] = attention_bound(mask, None, backward, heads=heads, head_dim=head_dim)
+    xn = ops.layer_norm(x, scale)
+    g_wi = torch.cat([g_mlp, g_mlp], 1)  # the cotangent of Wi's output, [M, 2I]
+    sdpa = library_attention_ms(qkv, rope, mask, g_att, heads=heads, head_dim=head_dim)
+    library = {"layer_norm": graph_ms(lambda: F.layer_norm(x, (k,), scale, None, 1e-5)),
+               "layer_norm_bwd": library_ln_bwd_ms(x, scale, g),
+               "flash_attention_packed": sdpa[0], "flash_attention_packed_bwd": sdpa[1]}
+    matmul = {"ln_matmul": graph_ms(lambda: torch.matmul(xn, w_qkv.t())),
+              "ln_geglu": graph_ms(lambda: torch.matmul(xn, w_i.t())),
+              "ln_matmul_bwd": graph_ms(lambda: (g_qkv @ w_qkv, g_qkv.t() @ xn)),
+              "ln_geglu_bwd": graph_ms(lambda: (xn @ w_i.t(), g_wi @ w_i, g_wi.t() @ xn))}
+    table = {}
+    for kernel, (ms, plain_ms) in timings.items():
+        entry = stats[kernel]["families"][name]
+        entry.update(ms=ms, plain_ms=plain_ms, **bounds[kernel], library_ms=library.get(kernel))
+        if kernel in matmul:
+            entry["matmul_ms"] = matmul[kernel]
+        table[kernel] = entry
+        yardstick = (f"torch.matmul on its products {matmul[kernel]:.4f} ms" if kernel in matmul
+                     else f"library {library[kernel]:.4f} ms")
+        phase(f"phase 18 {name} time {kernel} bf16 M={P18_ROWS}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}, "
+              f"{yardstick}")
+    local_bound = attention_bound(mask, 64, False, heads=heads, head_dim=head_dim)["bound_ms"]
+    table["flash_attention_packed"].update(ms_window64=local_ms[0],
+                                           plain_ms_window64=local_ms[1],
+                                           bound_ms_window64=local_bound)
+    designs = {"ln_adjoint": kernels.built_ln_adjoint_design(P18_ROWS, k),
+               "dw_chunks": {"Wqkv": kernels.dw_chunks(P18_ROWS, 3 * k, k),
+                             "Wi": kernels.dw_chunks(P18_ROWS, 2 * inter, k)}}
+    if name != "large":
+        designs["mlp_tail"] = kernels.built_mlp_tail_design(k)
+    phase(f"phase 18 {name} time flash_attention_packed window=64: kernel {local_ms[0]:.4f} ms, "
+          f"plain {local_ms[1]:.4f} ms, bound {local_bound:.4f} ms; designs at K={k}: "
+          f"{json.dumps(designs)}")
+    return table
+
+
+def p18_model(label: str, config, sd, dev) -> None:
+    """The whole model at full depth, B=2, S=512 (one row padded from 300) on
+    the card: on the kernels against the plain versions (``plain_ops``) on
+    the same card, fp32 within 1e-3 and bf16 within 0.15 (phase 4's
+    tolerances); then phase 4 on the first CPU_CHECK_LAYERS layers (fp32 and
+    bf16 on the card against fp32 on the CPU)."""
+    from open_provence_tpu_torch import build_module, kernels
+
+    module = build_module(config)
+    module.load_state_dict(sd)
+    module.eval()
+    gen = torch.Generator().manual_seed(4)
+    ids = torch.randint(3, config.backbone().vocab_size, (2, 512), generator=gen)
+    mask = torch.ones(2, 512, dtype=torch.int32)
+    mask[1, 300:] = 0
+    ids[mask == 0] = 0
+    valid = mask.bool()
+    ids, mask = ids.to(dev), mask.to(dev)
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 0.15)):
+        card = copy.deepcopy(module).to(device=dev, dtype=dtype)
+        kernels.reset_launch_counts()
+        rank, keep = (t.cpu() for t in scores(card, ids, mask))
+        launched = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        with plain_ops():
+            rank_ref, keep_ref = (t.cpu() for t in scores(card, ids, mask))
+        stray = {k: n for k, n in kernels.launch_counts().items() if n}
+        del card
+        rank_err = (rank - rank_ref).abs().max().item()
+        keep_err = (keep - keep_ref)[valid].abs().max().item()
+        phase(f"{label} model {str(dtype)[6:]} on the kernels vs the plain versions on the card, "
+              f"B=2 S=512, {config.backbone().num_hidden_layers} layers: ranking max_abs_err "
+              f"{rank_err:.3e}, keep-prob max_abs_err {keep_err:.3e} (tol {tol}); kernels 1-4 "
+              f"launched {[launched[k] for k in FORWARD]}")
+        if stray or any(launched[k] == 0 for k in FORWARD):
+            raise AssertionError(f"{label}: the kernels' forward did not launch every forward "
+                                 f"kernel, or the plain one launched {stray}")
+        if not (rank_err <= tol and keep_err <= tol):
+            raise AssertionError(f"{label}: the {dtype} model on the kernels disagrees with the "
+                                 "plain versions")
+    del module
+    phase4_model(*cut_depth(config, sd, CPU_CHECK_LAYERS), dev, label)
+
+
+def flat_keys(tree: dict, prefix: tuple = ()) -> dict[tuple, object]:
+    """{key path: value} of the leaves of nested dicts (a list is a leaf)."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(flat_keys(value, (*prefix, key)))
+        else:
+            out[(*prefix, key)] = value
+    return out
+
+
+def p18_yaml(shipped: dict, path: Path, backbone: Path, sources: dict, eval_config: Path,
+             run_dir: Path, **changed) -> Path:
+    """``shipped`` (a config of configs/ as yaml.safe_load reads it) with
+    P18_REPLACED replaced (the backbone directory; phase 14's sources A and B,
+    B with items 2 and upsample_factor 1.5 as phase 14 has it, each with the
+    config's teacher column; phase 14's eval config; ``run_dir``) and the
+    training_args keys ``changed``, written as YAML. Raises unless every
+    other key keeps its shipped value."""
+    import yaml
+
+    (teacher,) = {spec["teacher_column"] for spec in shipped["data_args"]["datasets"]}
+    config = copy.deepcopy(shipped)
+    config["model_args"]["model_name_or_path"] = str(backbone)
+    config["data_args"]["datasets"] = [
+        {"dataset_name": str(sources["a"]), "teacher_column": teacher},
+        {"dataset_name": str(sources["b"]), "teacher_column": teacher, "items": 2,
+         "upsample_factor": 1.5},
+    ]
+    config["training_args"]["eval_datasets"]["config"] = str(eval_config)
+    config["training_args"]["output_dir"] = str(run_dir)
+    config["training_args"].update(changed)
+    replaced = (*P18_REPLACED, *(("training_args", key) for key in changed))
+
+    def kept(tree):
+        return {k: v for k, v in flat_keys(tree).items()
+                if not any(k[:len(r)] == r for r in replaced)}
+
+    if kept(config) != kept(shipped):
+        raise AssertionError(f"phase 18: {path.name} changed keys besides {replaced}")
+    path.write_text(yaml.safe_dump(config, sort_keys=False))
+    return path
+
+
+def p18_rank(rank: int, runs: list) -> dict:
+    """A rank of large's runs at mesh_model 2, both ranks on card 0 (no
+    LOCAL_RANK: the runner's device is card 0): ``timed_train`` on each
+    (label, config path, steps) in turn; and the modules of jax or the JAX
+    package it imported."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)
+    _, pair_tokenizer_cls = load_dummy_tokenizers()
+    out = {label: timed_train(label, Path(path), pair_tokenizer_cls(), steps)
+           for label, path, steps in runs}
+    out["jax_modules"] = sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "open_provence_tpu"))
+    return out
+
+
+def p18_shipped_run(label: str, run: dict, steps: int, tokenizer_cls, dev, card: str) -> None:
+    """A run of a shipped config: the steps taken, finite losses, kernels
+    1-4, 10-12 and 14 launched and no plain version, the eval_datasets
+    hook's reports; its final model served (``serve_final``)."""
+    final = Path(run["final"])
+    walls = [w for w, _ in run["steps"]]
+    losses = [v for _, v in run["steps"]]
+    missing = [name for name in DEFAULT_EIGHT if run["launches"][name] == 0]
+    checks = {
+        f"{steps} steps": len(walls) == steps,
+        "finite losses": bool(np.all(np.isfinite(losses))),
+        "final_model holds config.json and model.safetensors": all(
+            (final / f).exists() for f in ("config.json", "model.safetensors")),
+        "the eval_datasets hook wrote results.json and results.md": all(
+            (final / "eval_datasets" / f).exists() for f in ("results.json", "results.md")),
+    }
+    phase(f"{label}: {len(walls)} steps, walls (s) {', '.join(f'{w:.3f}' for w in walls)} (median "
+          f"{statistics.median(walls):.3f} s); losses {', '.join(f'{v:.4f}' for v in losses)}; "
+          f"runner.train wall {run['wall']:.1f} s; launches "
+          f"{json.dumps({k: run['launches'][k] for k in DEFAULT_EIGHT})}, plain versions "
+          f"{sum(run['plain'].values())} [{card}]")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed or missing or any(run["plain"].values()):
+        raise AssertionError(f"{label}: {failed} failed; never launched {missing}; plain "
+                             f"versions {run['plain']}")
+    phase(f"{label} checks: {', '.join(checks)}; from_pretrained(final_model), 64 pairs: "
+          + serve_final(final, tokenizer_cls, dev, f"{label} final_model", pairs=64))
+
+
+def p18_family(name: str, out_dir: Path) -> tuple:
+    """Family ``name``: its config, weights from init_params (seed 18) and
+    run directory (a dict): its shipped config (yaml.safe_load), a backbone
+    directory of the weights and its cut to CPU_CHECK_LAYERS layers, phase
+    14's two sources under the config's teacher column and phase 14's eval
+    set and config."""
+    import yaml
+
+    from open_provence_tpu_torch import init_params
+
+    config = family_config(name)
+    sd = init_params(config, torch.Generator().manual_seed(18))
+    fam_dir = out_dir / f"p18_{name}"
+    shipped = yaml.safe_load((REPO / FAMILIES[name]["yaml"]).read_text())
+    (teacher,) = {spec["teacher_column"] for spec in shipped["data_args"]["datasets"]}
+    backbone = backbone_dir(config, sd, fam_dir / "backbone")
+    cut = cut_backbone_dir(backbone, fam_dir / f"backbone_{CPU_CHECK_LAYERS}", CPU_CHECK_LAYERS)
+    return config, sd, {"dir": fam_dir, "shipped": shipped, "backbone": backbone, "cut": cut,
+                        "sources": p14_sources(fam_dir, (teacher, teacher), tag=name),
+                        "eval_config": p14_eval_set(fam_dir)["eval_config"]}
+
+
+def p18_config(assets: dict, label: str, backbone: str = "backbone", **changed) -> Path:
+    """``p18_yaml`` of the family's shipped config into its run directory
+    (``backbone``: "backbone", or "cut" for the first CPU_CHECK_LAYERS)."""
+    return p18_yaml(assets["shipped"], assets["dir"] / f"{label}.yaml", assets[backbone],
+                    assets["sources"], assets["eval_config"], assets["dir"] / label, **changed)
+
+
+def p18_batch_note(shipped: dict) -> str:
+    training = shipped["training_args"]
+    return (f"{training['per_device_train_batch_size']} queries x "
+            f"{training['gradient_accumulation_steps']} micro-batches a step, 2 pairs of 512 a "
+            "query")
+
+
+class Untimed18:
+    """Phase 18's work that times nothing on the card, in two threads:
+    large's runs at mesh_model 2 on two gloo ranks of card 0 (the fp32 check,
+    P18_MESH_CHECK on the cut backbone for P18_CHECK_STEPS steps, then the
+    shipped config for P18_MESH_STEPS steps; the host paces them, as gloo
+    carries every activation sum of tensor parallelism through it) and,
+    beside them, every family's checks (``p18_checks``). The whole script
+    runs them beside phase 16's ranks; ``--families`` after phase 18's
+    timed parts."""
+
+    def __init__(self, families: dict, tokenizer_cls, pair_tokenizer_cls, dev):
+        self.out = {}
+        large = families["large"][2]
+        self.threads = [threading.Thread(target=self._catch, args=(key, fn)) for key, fn in (
+            ("mesh", lambda: run_ranks_18(large)),
+            ("checks", lambda: p18_checks(families, tokenizer_cls, pair_tokenizer_cls, dev)))]
+
+    def _catch(self, key: str, fn) -> None:
+        began = time.perf_counter()
+        try:
+            self.out[key] = fn()
+        except Exception as e:  # raised by join()
+            self.out[f"{key} error"] = e
+        self.out[f"{key} wall"] = time.perf_counter() - began
+
+    def start(self) -> None:
+        for thread in self.threads:
+            thread.start()
+
+    def join(self) -> dict:
+        for thread in self.threads:
+            thread.join()
+        errors = {k: v for k, v in self.out.items() if k.endswith("error")}
+        if errors:
+            raise AssertionError(f"phase 18's untimed work failed: {errors!r}")
+        return self.out
+
+
+def run_ranks_18(assets: dict) -> list[dict]:
+    """Large's runs at mesh_model 2 (``Untimed18``): each rank's ``p18_rank``."""
+    from open_provence_tpu_torch.parallel.dryrun import run_ranks
+
+    return run_ranks(p18_rank, 2, [
+        ("fp32 1x2", str(p18_config(assets, "fp32_mesh", "cut", **P18_MESH_CHECK)),
+         P18_CHECK_STEPS),
+        ("bf16 1x2", str(p18_config(assets, "shipped_mesh")), P18_MESH_STEPS)])
+
+
+def p18_checks(families: dict, tokenizer_cls, pair_tokenizer_cls, dev) -> tuple[dict, Path]:
+    """Every family's model on the kernels against the plain versions
+    (``p18_model``), fp32 flips and the runner against the CPU
+    (``p18_runner_check``); then the one-process run large's fp32 mesh check
+    is held to. Returns that run and its config's path."""
+    for name, (config, sd, assets) in families.items():
+        p18_model(f"phase 18 {name}", config, sd, dev)
+        fp32_flips(f"phase 18 {name}", *cut_depth(config, sd, CPU_CHECK_LAYERS), tokenizer_cls,
+                   dev, *synthetic_pairs(8))
+        p18_runner_check(name, assets, pair_tokenizer_cls(), dev)
+    large = families["large"][2]
+    one_path = p18_config(large, "fp32_one", "cut", **P18_MESH_CHECK, mesh_model=1)
+    return timed_train("phase 18 large fp32 1x1", one_path, pair_tokenizer_cls(),
+                       P18_CHECK_STEPS), one_path
+
+
+def p18_runner_check(name: str, assets: dict, pair_tokenizer, dev) -> None:
+    """The family's config on the cut backbone, fp32, card against CPU
+    (P18_CHECK, one process), held by ``runner_agreement``."""
+    paths = {where: p18_config(assets, f"fp32_{where.replace(':', '')}", "cut", **P18_CHECK,
+                               mesh_model=1, device=where)
+             for where in (str(dev), "cpu")}
+    runs = {where: timed_train(f"phase 18 {name} fp32 {where}", path, pair_tokenizer,
+                             P18_CHECK_STEPS)
+            for where, path in paths.items()}
+    runner_agreement(f"phase 18 {name} fp32 runner.train, {CPU_CHECK_LAYERS} layers, 1 query (2 "
+                     f"pairs of 512) a step, {P18_CHECK_STEPS} steps at lr 1e-2, card vs cpu",
+                     runs[str(dev)], runs["cpu"], runner_start(assets["cut"], paths["cpu"]))
+
+
+def p18_mesh_check(assets: dict, ranks: list[dict], one: dict, one_path: Path,
+                   tokenizer_cls, dev, card: str, spawn_wall: float) -> dict[str, int]:
+    """Large's runs at mesh_model 2 (``Untimed18``): no rank imported
+    jax, both ranks logged the same losses and launched kernels 1-4, 10-12
+    and 14 with no plain version; the fp32 check held to one process's run
+    ``one`` (``runner_agreement``, phase 16's limits); the shipped run's
+    checks and its final model served. Returns the launches, both ranks and
+    runs summed."""
+    leaked = sorted({m for r in ranks for m in r["jax_modules"]})
+    if leaked:
+        raise AssertionError(f"phase 18 large: a rank imported {leaked[:5]}")
+    for key in ("fp32 1x2", "bf16 1x2"):
+        losses = [[v for _, v in r[key]["steps"]] for r in ranks]
+        missing = [k for k in DEFAULT_EIGHT if ranks[1][key]["launches"][k] == 0]
+        if losses[0] != losses[1] or missing or any(ranks[1][key]["plain"].values()):
+            raise AssertionError(f"phase 18 large {key}: the ranks' losses differ {losses}, or "
+                                 f"rank 1 never launched {missing} or ran a plain version")
+    runner_agreement(f"phase 18 large fp32 runner.train, {CPU_CHECK_LAYERS} layers, 1 query (2 "
+                     f"pairs of 512) x 4 micro-batches a step, {P18_CHECK_STEPS} steps at lr "
+                     "1e-2, mesh_model 2 (two gloo ranks on the card) vs one process",
+                     ranks[0]["fp32 1x2"], one, runner_start(assets["cut"], one_path))
+    p18_shipped_run(f"phase 18 large shipped config (mesh_model 2 on two gloo ranks, "
+                    f"{p18_batch_note(assets['shipped'])}), rank 0", ranks[0]["bf16 1x2"],
+                    P18_MESH_STEPS, tokenizer_cls, dev, card)
+    phase(f"phase 18 large two ranks on card 0 over gloo: {spawn_wall:.1f} s from spawn to join; "
+          "the ranks share one card and the host, so no wall here says anything of scaling")
+    return {k: sum(r[key]["launches"][k] for r in ranks for key in ("fp32 1x2", "bf16 1x2"))
+            for k in ranks[0]["bf16 1x2"]["launches"]}
+
+
+def phase18_families(tokenizer_cls, pair_tokenizer_cls, dev, card: str, out_dir: Path,
+                     stats: dict[str, dict], families: dict | None = None,
+                     untimed: Untimed18 | None = None) -> dict[str, dict[str, int]]:
+    """The repo's other shipped checkpoint families at their published widths
+    and depth (``p18_family``, or ``families`` with their ``untimed`` work
+    done, where the whole script ran it beside phase 16). What is timed, on
+    a card nothing else uses: the kernels at each family's widths
+    (``p18_kernels``), ``process()`` (``served_rate``) and its shipped config
+    through the runner on one process (large with mesh_model 1). Then
+    ``Untimed18``'s results: large's runs at mesh_model 2 held to one
+    process's (``p18_mesh_check``). Prints a summary line; returns the
+    launches by path."""
+    began = time.perf_counter()
+    if families is None:
+        families = {name: p18_family(name, out_dir) for name in FAMILIES}
+    by_path, summary = {}, {}
+    for name, family in FAMILIES.items():
+        t0 = time.perf_counter()
+        config, sd, assets = families[name]
+        bb = config.backbone()
+        phase(f"phase 18 {name}: {family['backbone']} widths, H={bb.hidden_size} "
+              f"I={bb.intermediate_size} {bb.num_hidden_layers} layers "
+              f"{bb.num_attention_heads}x{bb.head_dim} vocab {bb.vocab_size}: "
+              f"{sum(t.numel() for t in sd.values()) / 1e6:.1f}M parameters; config "
+              f"{family['yaml']}")
+        table = p18_kernels(dev, name, config, stats)
+        model, serve, pairs_s = served_rate(f"phase 18 {name}", config, sd, tokenizer_cls, dev,
+                                            card)
+        del model
+        label = "mesh_model 1" if name == "large" else "as shipped"
+        run = timed_train(f"phase 18 {name} {label}", p18_config(
+            assets, "shipped_one", **({"mesh_model": 1} if name == "large" else {})),
+            pair_tokenizer_cls(), P18_STEPS)
+        p18_shipped_run(f"phase 18 {name} shipped config ({label}, "
+                        f"{p18_batch_note(assets['shipped'])})", run, P18_STEPS, tokenizer_cls,
+                        dev, card)
+        by_path[f"serve_{name}_512"], by_path[f"train_cli_{name}_512"] = serve, run["launches"]
+        summary[name] = {
+            "process_pairs_per_s": pairs_s, "step_walls_s": {label: [w for w, _ in run["steps"]]},
+            "kernels": {k: {key: e.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "library_ms", "matmul_ms")}
+                        for k, e in table.items()}}
+        phase(f"phase 18 {name} timed parts took {time.perf_counter() - t0:.0f} s")
+
+    if untimed is None:
+        t0 = time.perf_counter()
+        untimed = Untimed18(families, tokenizer_cls, pair_tokenizer_cls, dev)
+        untimed.start()
+        untimed.join()
+        phase(f"phase 18 untimed work took {time.perf_counter() - t0:.0f} s")
+    done = untimed.out
+    (one, one_path), ranks = done["checks"], done["mesh"]
+    phase(f"phase 18 checks took {done['checks wall']:.0f} s beside large's ranks")
+    by_path["mesh_large"] = p18_mesh_check(families["large"][2], ranks, one, one_path,
+                                           tokenizer_cls, dev, card, done["mesh wall"])
+    summary["large"]["step_walls_s"]["mesh_model 2"] = [
+        w for w, _ in ranks[0]["bf16 1x2"]["steps"]]
+    for name in FAMILIES:
+        paths = [p for p in by_path if p.endswith(f"_{name}_512") or p == f"mesh_{name}"]
+        for kernel, entry in summary[name]["kernels"].items():
+            entry["launches"] = sum(by_path[p][kernel] for p in paths)
+        shutil.rmtree(families[name][2]["dir"])
+    phase(f"phase 18 summary [{card}] {json.dumps(summary)}")
+    phase(f"phase 18 took {time.perf_counter() - began:.0f} s")
+    return by_path
+
+
+def families_main(tree: Path) -> int:
+    """Phase 18 alone with the package under ``tree``."""
+    sys.path.insert(0, str(tree))
+    from open_provence_tpu_torch import kernels
+
+    DummyTokenizer, PairDummyTokenizer = load_dummy_tokenizers()
+    card = card_line()
+    phase(card)
+    began = time.perf_counter()
+    kernels.build()
+    kernels.library()
+    phase(f"built {kernels.library_path().name} in {time.perf_counter() - began:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase18_families(DummyTokenizer, PairDummyTokenizer, torch.device("cuda", 0), card,
+                         Path(tmp), {})
+    return 0
 
 
 def mesh_cards_main(tree: Path) -> int:
@@ -5059,7 +5796,7 @@ def main() -> int:
         modes = {"--rates": rates_main, "--attention": attention_main, "--gemm": gemm_main,
                  "--layouts": layouts_main, "--same-buffers": same_buffers_main,
                  "--ln-adjoint": ln_adjoint_main, "--mesh-cards": mesh_cards_main,
-                 "--mesh-memory": mesh_memory_main}
+                 "--mesh-memory": mesh_memory_main, "--families": families_main}
         if sys.argv[1] not in modes or len(sys.argv) > 3:
             print(f"usage: chip_smoke.py [{' | '.join(modes)} [TREE]]", file=sys.stderr)
             return 2
@@ -5134,12 +5871,21 @@ def main() -> int:
         elapsed("the training entry point")
         by_path.update(phase15_release(DummyTokenizer, pair_tokenizer, dev, card, Path(tmp)))
         elapsed("the release surface")
+        # Phase 18's work that times nothing on the card (large's gloo ranks at
+        # mesh_model 2, the families' checks) runs beside phase 16's ranks:
+        # the host paces those, and no wall of them is a rate.
+        families = {name: p18_family(name, Path(tmp)) for name in FAMILIES}
+        untimed = Untimed18(families, DummyTokenizer, PairDummyTokenizer, dev)
         by_path.update(phase16_mesh(config, sd, DummyTokenizer, pair_tokenizer, dev, card,
-                                    Path(tmp), stats))
-        elapsed("the mesh")
+                                    Path(tmp), stats, beside=untimed.start))
+        untimed.join()  # before phase 17 times its host-bound paths
+        elapsed("the mesh and phase 18's untimed work")
         by_path.update(phase17_factory_and_mldr(DummyTokenizer, PairDummyTokenizer, dev, card,
                                                 Path(tmp)))
         elapsed("the data factory and the MLDR evaluation")
+        by_path.update(phase18_families(DummyTokenizer, PairDummyTokenizer, dev, card, Path(tmp),
+                                        stats, families, untimed))
+        elapsed("the shipped checkpoint families")
 
     # Every kernel must have launched on a main path (the comparisons of
     # phase 3 are outside every count), rows 5 and 15 on the long ones.
