@@ -20,7 +20,9 @@ card and check it, in phases:
    width (264), each twice bit-equal; the edge cases of kernels 11 and
    12 (M = 64, 77, 16384 - 37, 16384; dW row counts 256 and ragged 456 /
    464; K = 768 and 200; every GeGLU activation; fp32 and bf16; two bf16
-   launches bit-equal);
+   launches bit-equal), and both at every width of their routes (K = 256,
+   264, 512, 768, 1024 in clusters of one to four CTAs a row, 2056 split;
+   M = 77 and 16384 - 37; the library's route against the wrappers');
 3c. the attention kernels, forward and backward, at S = 1024, 2048, 4096
    and a ragged 1100 (window ±64 and global, ragged masks, a padding row),
    fp32 and bf16; then, for every head layout, what tiles, an asynchronous
@@ -190,9 +192,12 @@ does the same for the GEMM engine: its units' ptxas report, the design of
 every layout, phase 3's GEMM edge cases, kernels 2, 4 and 6 in bf16 at
 M = 16384 beside torch.matmul on the same product, then kernels 12, 11 and
 13: each whole call, each of its launches on its own (normalize, the recomputed
-projection, the GeGLU chain, dW, dW's chunk sum, dy, the LN adjoint; from
-torch.profiler) beside torch.matmul on each bare product, kernel 12 with
-dW cut into 1 to 14 chunks, and phase 3b's backward edge cases.
+projection with the GeGLU chain, dW, dW's chunk sum, dy with the LN adjoint,
+dscale's sum; a parent tree's GeGLU chain, dy and LN adjoint as launches of
+their own; from torch.profiler) beside torch.matmul on each bare product,
+kernel 12 with dW cut into 1 to 14 chunks, and phase 3b's backward edge
+cases and widths. Run it on the parent and this tree in one call to
+compare kernels 11 and 12 launch by launch.
 
 ``python3 -m torch.distributed.run --nproc-per-node 4 chip_smoke.py
 --mesh-cards`` runs the mesh across four cards, one rank a card, under the
@@ -662,6 +667,71 @@ def gemm_bwd_edge_cases(dev, stats: dict[str, dict]) -> None:
           "inp the card and the plain version put on either side of the step")
 
 
+# The widths of kernels 11 and 12's routes: the fused route's clusters of one
+# to four CTAs a row (264: a ragged second tile) and the split route past
+# its widest cluster (2056).
+LN_GEMM_BWD_WIDTHS = (256, 264, 512, 768, 1024, 2056)
+
+
+def ln_gemm_bwd_widths(dev, stats: dict[str, dict]) -> None:
+    """Kernels 12 and 11 against their plain versions at LN_GEMM_BWD_WIDTHS
+    and ragged M (77 rows, part of a row tile; 16384 - 37, a ragged last
+    tile), fp32 and bf16 (gelu; dW rows 456, 2I = 464), each held to
+    BWD_TOL and given twice the same bits; the route the library reports at
+    each width must be the one the wrappers allocated for
+    (kernels.ln_gemm_bwd_fused) and is recorded in ``stats``."""
+    from open_provence_tpu_torch import kernels, ops
+
+    gen = torch.Generator().manual_seed(18)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(device=dev, dtype=dtype)
+
+    worst, cases = {}, 0
+    for name in ("ln_matmul_bwd", "ln_geglu_bwd"):
+        stats.setdefault(name, {"max_abs_err": {}}).setdefault("cases", 0)
+        stats[name]["routes"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in LN_GEMM_BWD_WIDTHS:
+            design = kernels.built_ln_gemm_bwd_design(k, dtype)
+            if (design["route"] == "fused") != kernels.ln_gemm_bwd_fused(k, dtype):
+                raise AssertionError(f"K={k} {dtype}: the library's route {design} is not the "
+                                     "wrappers'")
+            scale = randn(k, scale=0.1, dtype=dtype) + 1
+            w, wi = randn(456, k, scale=k**-0.5, dtype=dtype), randn(464, k, scale=k**-0.5,
+                                                                     dtype=dtype)
+            for m in (77, 16384 - 37):
+                x = randn(m, k, scale=2.0, dtype=dtype)
+                g_mm, g_mlp = randn(m, 456, scale=0.1, dtype=dtype), randn(m, 232, scale=0.1,
+                                                                           dtype=dtype)
+                for name, kernel, plain in (
+                        ("ln_matmul_bwd", lambda: ops.ln_matmul_bwd(x, scale, w, g_mm),
+                         lambda: ops.ln_matmul_bwd_plain(x, scale, w, g_mm)),
+                        ("ln_geglu_bwd", lambda: ops.ln_geglu_bwd(x, scale, wi, g_mlp, "gelu"),
+                         lambda: ops.ln_geglu_bwd_plain(x, scale, wi, g_mlp, "gelu"))):
+                    got = kernel()
+                    err = max(check_grad(f"{name} {out} M={m} K={k} {dtype}", a, b, dtype)
+                              for out, a, b in zip(("dx", "dscale", "dw"), got, plain()))
+                    if not all(torch.equal(a, b) for a, b in zip(got, kernel())):
+                        raise AssertionError(f"{name} M={m} K={k} {dtype}: two launches differ")
+                    by_dtype = stats[name]["max_abs_err"]
+                    by_dtype[dtype] = max(by_dtype.get(dtype, 0.0), err)
+                    stats[name]["cases"] += 1
+                    stats[name]["routes"][f"{k} {str(dtype)[6:]}"] = design["route"]
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    cases += 1
+                torch.cuda.synchronize()
+    base = kernels.built_ln_gemm_bwd_design(HIDDEN, torch.bfloat16)
+    for name in ("ln_matmul_bwd", "ln_geglu_bwd"):
+        stats[name]["fused_design"] = base
+    a32, a16 = BWD_TOL[torch.float32], BWD_TOL[torch.bfloat16]
+    phase(f"phase 3b kernels 11 and 12 at K = {', '.join(map(str, LN_GEMM_BWD_WIDTHS))}: {cases} "
+          f"cases, max_abs_err fp32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e} (tol {a32[0]}·max|plain| + {a32[1]}·|plain|, "
+          f"{a16[0]}·max|plain| + {a16[1]}·|plain|); two launches bit-equal; routes "
+          f"{stats['ln_matmul_bwd']['routes']}; bf16 at K={HIDDEN}: {base}")
+
+
 def off_relu_step(x, scale, w_i, g) -> tuple[torch.Tensor, int]:
     """(g with 0 wherever the card's inp and the plain version's fall on
     either side of relu's step, how many). There relu' is 1 on one side and 0
@@ -682,12 +752,16 @@ def off_relu_step(x, scale, w_i, g) -> tuple[torch.Tensor, int]:
 
 
 # The launches of kernels 11, 12 and 13 by the profiler's kernel names (all
-# the words of an entry in a name). The GEMM kernels of the transposed
-# layouts carry them in their template arguments (<true, true: dW = G^T.xn;
-# <false, true: dy = G.W); the first match names a launch.
+# the words of an entry in a name). The GEMM kernels carry them in their
+# template arguments (<true, true: dW = G^T.xn; <false, true: dy = G.W; the
+# epilogue as (Epi)n: 2 the GeGLU cotangents of the recomputed projection,
+# 3 the LN adjoint on dy); the first match names a launch. A parent tree's
+# launches (the GeGLU chain as a pass of its own) keep their names.
 BWD_LAUNCHES = (
     (("normalize_kernel",), "normalize"),
     (("geglu_grad_kernel",), "GeGLU chain"),
+    (("gemm_wgmma_kernel", "Epi)3"), "dy = G.W + LN adjoint"),
+    (("gemm_wgmma_kernel", "Epi)2"), "projection + GeGLU chain"),
     (("ln_adjoint", "reduce_kernel"), "LN adjoint dscale"),
     (("ln_adjoint",), "LN adjoint rows"),
     (("tail_bwd_rows",), "whole-MLP rows pass"),
@@ -954,6 +1028,7 @@ def phase3b_backward(dev) -> dict[str, dict]:
         report("ln_geglu_bwd", dtype, f"M={rows}", errs)
         if dtype == torch.bfloat16:
             gemm_bwd_edge_cases(dev, stats)
+            ln_gemm_bwd_widths(dev, stats)
             # The LN adjoint's other instances: ModernBERT-large's width and a
             # strided one, fp32 and bf16.
             ln_adjoint_cases(dev, (1024, 264), (rows, rows - 37, batch), lambda *case: report(
@@ -5615,6 +5690,8 @@ def gemm_main(tree: Path) -> int:
         times["dw_split"] = dw_split_sweep(lambda: ops.ln_matmul_bwd(x, scale, w_qkv, g_qkv),
                                            rows, 3 * HIDDEN, HIDDEN)
     gemm_bwd_edge_cases(dev, {})
+    if hasattr(kernels, "ln_gemm_bwd_fused"):  # an older tree has one route
+        ln_gemm_bwd_widths(dev, {})
     print(json.dumps({"tree": str(tree), "card": card, "gemm": times}), flush=True)
     return 0
 

@@ -124,6 +124,18 @@ DW_STEP = 64
 DW_CTAS = 128
 DW_MIN_STEPS = 8
 
+# The bf16 backward LayerNorm→GEMM kernels 11 and 12 (ln_gemm_bwd.cu) apply
+# the LN adjoint to each fp32 tile of dy = G·W in the kernel that sums it
+# (gemm_wgmma.cuh's LN_ADJOINT epilogue, tiles of wgm::BM × BN): a row's
+# tiles are held by ln_gemm_bwd_cluster(K) CTAs, which add their row sums in
+# rank order, and each tile of LN_GEMM_BWD_TILE[0] rows writes one fp32
+# partial row of dscale. A row takes at most LN_GEMM_BWD_MAX_CLUSTER CTAs,
+# so K <= 2048 takes that route; fp32 and wider rows take the split one (dy
+# in fp32 scratch, then ln_adjoint.cuh). The route reads the dtype and K
+# alone.
+LN_GEMM_BWD_TILE = (128, 256)
+LN_GEMM_BWD_MAX_CLUSTER = 8
+
 # The bf16 whole-MLP forward (kernel 8; mlp_tail.cuh, wgf::): a cluster of
 # mlp_tail_cluster(K) CTAs shares each tile of 128 rows, each CTA owning
 # MLP_TAIL_OUT_COLS output columns (64 fp32 sums a consumer thread, within
@@ -196,6 +208,36 @@ def dw_partial(products, device: torch.device) -> torch.Tensor:
     the largest needs."""
     numel = max(dw_chunks(m, n, k) * n * k for m, n, k in products)
     return torch.empty(numel, dtype=torch.float32, device=device)
+
+
+def ln_gemm_bwd_cluster(hidden: int) -> int:
+    """The CTAs that hold a row of kernels 11 and 12's fused dy and LN
+    adjoint at hidden size K: one a tile of 256 columns."""
+    return -(-hidden // LN_GEMM_BWD_TILE[1])
+
+
+def ln_gemm_bwd_fused(hidden: int, dtype: torch.dtype) -> bool:
+    """True where kernels 11 and 12 run dy and the LN adjoint in one launch
+    (bf16, a row in at most LN_GEMM_BWD_MAX_CLUSTER CTAs); False for the
+    split route."""
+    return dtype == torch.bfloat16 and ln_gemm_bwd_cluster(hidden) <= LN_GEMM_BWD_MAX_CLUSTER
+
+
+def ln_gemm_bwd_rows(rows: int, hidden: int) -> int:
+    """fp32 words of the fused route's row scratch (ln_gemm_bwd.cu's
+    RowScratch): each row's mean and rstd (padded to 16 bytes), the row
+    tiles' exchanged sums [ceil(rows / 128)][C][128] float2 and their
+    arrival counts [ceil(rows / 128)] int32."""
+    tiles = -(-rows // LN_GEMM_BWD_TILE[0])
+    stats = -(-2 * rows // 4) * 4
+    return stats + tiles * ln_gemm_bwd_cluster(hidden) * LN_GEMM_BWD_TILE[0] * 2 + tiles
+
+
+def ln_gemm_bwd_partial(rows: int, hidden: int, device: torch.device) -> torch.Tensor:
+    """fp32 scratch for dscale's partial rows on the fused route: one a tile
+    of LN_GEMM_BWD_TILE[0] rows."""
+    parts = -(-rows // LN_GEMM_BWD_TILE[0])
+    return torch.empty((parts, hidden), dtype=torch.float32, device=device)
 
 
 def mlp_tail_cluster(hidden: int) -> int:
@@ -329,8 +371,8 @@ def library() -> ctypes.CDLL:
         "layer_norm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
         "add_layer_norm": [p, p, p, p, p, i, i, f, i, p],
         "geglu": [p, p, p, i, i, i, i, i, p],
-        "ln_matmul_bwd": [p] * 11 + [i, i, i, i, f, i, p],
-        "ln_geglu_bwd": [p] * 12 + [i, i, i, i, f, i, i, p],
+        "ln_matmul_bwd": [p] * 12 + [i, i, i, i, f, i, p],
+        "ln_geglu_bwd": [p] * 13 + [i, i, i, i, f, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, f"opt_{name}")
@@ -342,6 +384,8 @@ def library() -> ctypes.CDLL:
     lib.opt_gemm_design.restype = ctypes.c_int
     lib.opt_ln_adjoint_design.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     lib.opt_ln_adjoint_design.restype = ctypes.c_int
+    lib.opt_ln_gemm_bwd_design.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.opt_ln_gemm_bwd_design.restype = ctypes.c_int
     lib.opt_mlp_tail_design.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
     lib.opt_mlp_tail_design.restype = ctypes.c_int
     lib.opt_error_string.argtypes = [ctypes.c_int]
@@ -426,6 +470,21 @@ def built_ln_adjoint_design(rows: int, hidden: int) -> dict:
     return {"instance": "registers" if registers else "strided", "parts": parts,
             "cta_rows": cta_rows, "warps": warps, "chunks": chunks,
             "reduce_warps": reduce_warps}
+
+
+def built_ln_gemm_bwd_design(hidden: int, dtype: torch.dtype) -> dict:
+    """How kernels 11 and 12 run at hidden size K in ``dtype`` as the library
+    reports it: the route (``fused``: dy and the LN adjoint in one launch;
+    ``split``), the CTAs that hold a row on the fused route (0 when split), the rows of
+    x a partial row of dscale sums, the most CTAs a row takes, and how many
+    groups of ``cluster`` CTAs the fused route's persistent grid holds on
+    the current card (0 when split)."""
+    out = (ctypes.c_int * 5)()
+    if library().opt_ln_gemm_bwd_design(hidden, dtype_code_of(dtype), out) != 0:
+        raise ValueError(f"no backward LN->GEMM kernel for {dtype}")
+    fused, cluster, partial_rows, max_cluster, groups = out
+    return {"route": "fused" if fused else "split", "cluster": cluster,
+            "partial_rows": partial_rows, "max_cluster": max_cluster, "groups": groups}
 
 
 def built_mlp_tail_design(hidden: int) -> dict:

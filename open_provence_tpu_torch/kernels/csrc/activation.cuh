@@ -44,3 +44,26 @@ __device__ __forceinline__ float activation_grad(float x, int act) {
     }
   }
 }
+
+// The activation and its derivative at x, (activation(x, ACT),
+// activation_grad(x, ACT)) to the bit, with the transcendental they share
+// computed once: the GeGLU cotangents' epilogue (gemm_wgmma.cuh) is
+// instantiated for each code, so an unrolled tile holds one activation.
+template <int ACT>
+__device__ __forceinline__ float2 activation_and_grad(float x) {
+  if constexpr (ACT == ACT_GELU) {
+    const float e = erff(x * 0.70710678118654752f);
+    return make_float2(0.5f * x * (1.f + e),
+                       0.5f * (1.f + e) + x * 0.39894228040143268f * expf(-0.5f * x * x));
+  } else if constexpr (ACT == ACT_GELU_TANH) {
+    const float u = 0.79788456080286536f * (x + 0.044715f * (x * x * x));
+    const float t = tanhf(u);
+    const float du = 0.79788456080286536f * (1.f + 3.f * 0.044715f * (x * x));
+    return make_float2(0.5f * x * (1.f + t), 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * du);
+  } else if constexpr (ACT == ACT_RELU) {
+    return make_float2(fmaxf(x, 0.f), x > 0.f ? 1.f : 0.f);
+  } else {  // ACT_SILU
+    const float e = expf(-x), s = 1.f / (1.f + e);
+    return make_float2(x / (1.f + e), s * (1.f + x * (1.f - s)));
+  }
+}

@@ -13,20 +13,26 @@
 // with the TPU kernel's rounding chain (geglu<OutT>, gemm_wgmma.cuh). Its
 // tiles hold the input rows of half as many output columns followed, block
 // by block, by their gate rows, so the thread that holds an input's sum also
-// holds its gate's.
+// holds its gate's. GEGLU_GRAD (the backward's recomputed projection) has
+// GEGLU's tiles and writes the cotangents of inp and gate instead,
+// C[m, n] = gi and C[m, N + n] = gg (geglu_grad<T>), from the upstream
+// cotangent g [M, N] (EpiInputs::tile): the projection never reaches
+// device memory. LN_ADJOINT (bf16, dy = G . W) is the LN adjoint on the
+// fp32 dy tile (gemm_wgmma.cuh): C = dx, and dscale's partial rows.
 //
 // Routes, by type alone, with no fallback between them: fp32 on FMA (true
-// fp32, no TF32); bf16 on wgmma fed by TMA from one producer thread
-// (gemm_wgmma.cuh) for every layout: the forward's xn . W^T and the
-// backward's recomputed projection K-major x K-major, dy = G . W with an
-// MN-major B, and the weight gradients dW = G^T . X (TA) with both operands
-// MN-major. A weight gradient contracts over the M rows of activations
-// (16384 at B=32, S=512) into few output tiles (54 of 128 x 256 at base
-// width), so its bf16 depth is cut into chunks of rows: each chunk's CTAs
-// write fp32 partial sums into scratch the wrapper allocates, and
-// dw_sum_kernel adds them in chunk order and rounds once. The chunk length
-// is the caller's, a function of the shape alone (kernels.dw_chunk_rows), so
-// every launch sums in the same order; no atomics.
+// fp32, no TF32; STORE, GEGLU and GEGLU_GRAD); bf16 on wgmma fed by TMA from
+// one producer thread (gemm_wgmma.cuh) for every layout: the forward's
+// xn . W^T and the backward's recomputed projection K-major x K-major,
+// dy = G . W with an MN-major B, and the weight gradients dW = G^T . X (TA)
+// with both operands MN-major. A weight gradient contracts over the M rows
+// of activations (16384 at B=32, S=512) into few output tiles (54 of
+// 128 x 256 at base width), so its bf16 depth is cut into chunks of rows:
+// each chunk's CTAs write fp32 partial sums into scratch the wrapper
+// allocates, and dw_sum_kernel adds them in chunk order and rounds once. The
+// chunk length is the caller's, a function of the shape alone
+// (kernels.dw_chunk_rows), so every launch sums in the same order; no
+// atomics.
 #pragma once
 
 #include "activation.cuh"
@@ -47,11 +53,14 @@ namespace gemm_engine {
 namespace {
 
 // xn = T(h * s), h = (x - mean) * rstd from fp32 E[x^2] - E[x]^2: the
-// rounding point of the TPU kernels' _ln_rows. One warp a row.
-template <typename T>
+// rounding point of the TPU kernels' _ln_rows. One warp a row. STATS (the
+// backward's LN_ADJOINT route) also writes each row's (mean, rstd) and
+// clears the arrival count of each tile of wgm::BM rows.
+template <typename T, bool STATS>
 __global__ void __launch_bounds__(256)
     normalize_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ xn,
-                     int M, int K, float eps) {
+                     float2* __restrict__ stats, int* __restrict__ arrivals, int M, int K,
+                     float eps) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= M) return;
   const T* xr = x + (size_t)row * K;
@@ -60,20 +69,32 @@ __global__ void __launch_bounds__(256)
   warp_row_stats(xr, K, eps, &mean, &rstd);
   for (int c = threadIdx.x & 31; c < K; c += 32)
     out[c] = from_f32<T>(((to_f32(xr[c]) - mean) * rstd) * to_f32(scale[c]));
+  if constexpr (STATS) {
+    if ((threadIdx.x & 31) == 0) {
+      stats[row] = make_float2(mean, rstd);
+      if (row % wgm::BM == 0) arrivals[row / wgm::BM] = 0;
+    }
+  }
 }
 
 template <typename T>
-int normalize(const T* x, const T* scale, T* xn, int M, int K, float eps, cudaStream_t s) {
-  normalize_kernel<T><<<(M + 7) / 8, 256, 0, s>>>(x, scale, xn, M, K, eps);
+int normalize(const T* x, const T* scale, T* xn, int M, int K, float eps, cudaStream_t s,
+              float2* stats = nullptr, int* arrivals = nullptr) {
+  if (stats != nullptr)
+    normalize_kernel<T, true><<<(M + 7) / 8, 256, 0, s>>>(x, scale, xn, stats, arrivals, M, K,
+                                                          eps);
+  else
+    normalize_kernel<T, false><<<(M + 7) / 8, 256, 0, s>>>(x, scale, xn, stats, arrivals, M, K,
+                                                           eps);
   return (int)cudaGetLastError();
 }
 
-// Row r of a tile's B rows: its row of B and whether it exists. GEGLU
-// tiles take blocks of 2H rows: H input rows, then the same columns' gate
-// rows.
+// Row r of a tile's B rows: its row of B and whether it exists. GEGLU and
+// GEGLU_GRAD tiles take blocks of 2H rows: H input rows, then the same
+// columns' gate rows.
 template <Epi E, int H>
 __device__ __forceinline__ int b_row(int n0, int r, int N, bool* ok) {
-  if constexpr (E == Epi::GEGLU) {
+  if constexpr (gated(E)) {
     const int col = n0 + (r / (2 * H)) * H + r % H;
     *ok = col < N;
     return r % (2 * H) < H ? col : N + col;
@@ -89,13 +110,16 @@ namespace simt {
 constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256, PAD = 4;
 }
 
+// g: GEGLU_GRAD's upstream cotangent [M, N], else unused.
 template <bool TA, bool TB, Epi E>
 __global__ void __launch_bounds__(simt::THREADS)
     gemm_fma_kernel(const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb,
-                    float* __restrict__ C, int ldc, int M, int N, int K, int act) {
+                    float* __restrict__ C, int ldc, int M, int N, int K, int act,
+                    const float* __restrict__ g) {
   using namespace simt;
-  static_assert(E == Epi::STORE || !TB, "GEGLU reads Wi in torch's [out, in] layout");
-  constexpr int OUT_N = E == Epi::GEGLU ? BN / 2 : BN;  // output columns a tile
+  static_assert(!gated(E) || !TB, "GEGLU reads Wi in torch's [out, in] layout");
+  static_assert(E != Epi::LN_ADJOINT, "fp32 runs the LN adjoint as a pass of its own");
+  constexpr int OUT_N = gated(E) ? BN / 2 : BN;  // output columns a tile
   __shared__ float As[BK][BM + PAD];
   __shared__ float Bs[BK][BN + PAD];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -132,20 +156,26 @@ __global__ void __launch_bounds__(simt::THREADS)
     }
     __syncthreads();
   }
-  // Thread (ty, tx) holds tile columns tx + 16 j; under GEGLU, j = 0, 1 are
-  // inputs and j + 2 their gates.
+  // Thread (ty, tx) holds tile columns tx + 16 j; under GEGLU and
+  // GEGLU_GRAD, j = 0, 1 are inputs and j + 2 their gates.
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gm = m0 + ty + 16 * i;
     if (gm >= M) continue;
 #pragma unroll
-    for (int j = 0; j < (E == Epi::GEGLU ? 2 : 4); ++j) {
+    for (int j = 0; j < (gated(E) ? 2 : 4); ++j) {
       const int gn = n0 + tx + 16 * j;
       if (gn >= N) continue;
-      if constexpr (E == Epi::GEGLU)
-        C[(size_t)gm * ldc + gn] = geglu<float>(acc[i][j], acc[i][j + 2], act);
+      float* out = C + (size_t)gm * ldc + gn;
+      if constexpr (E == Epi::GEGLU_GRAD) {
+        const float2 cot =
+            geglu_grad<float>(acc[i][j], acc[i][j + 2], g[(size_t)gm * N + gn], act);
+        out[0] = cot.x;
+        out[N] = cot.y;
+      } else if constexpr (E == Epi::GEGLU)
+        *out = geglu<float>(acc[i][j], acc[i][j + 2], act);
       else
-        C[(size_t)gm * ldc + gn] = acc[i][j];
+        *out = acc[i][j];
     }
   }
 }
@@ -177,18 +207,23 @@ __global__ void __launch_bounds__(256)
 }
 
 // C = A . B on the caller's stream, by the routes above. N is C's column
-// count (under GEGLU half of B's rows); act is GEGLU's activation code. A
-// bf16 weight gradient (TA) takes `partial`, fp32 scratch of ceil(K /
-// chunk_rows) x M x N, and chunk_rows, a multiple of 64; fp32 ignores them.
+// count (under GEGLU half of B's rows; GEGLU_GRAD writes 2N columns); act
+// is the GeGLU activation code. A bf16 weight gradient (TA) takes
+// `partial`, fp32 scratch of ceil(K / chunk_rows) x M x N, and chunk_rows,
+// a multiple of 64; fp32 ignores them. `epi`: GEGLU_GRAD's g, LN_ADJOINT's
+// operands (gemm_wgmma.cuh).
 template <bool TA, bool TB, Epi E = Epi::STORE, typename T, typename OutT>
 int gemm(const T* A, int lda, const T* B, int ldb, OutT* C, int ldc, int M, int N, int K,
-         cudaStream_t s, int act = 0, float* partial = nullptr, int chunk_rows = 0) {
+         cudaStream_t s, int act = 0, float* partial = nullptr, int chunk_rows = 0,
+         const EpiInputs& epi = {}) {
   if (M <= 0 || N <= 0) return 0;
   if constexpr (sizeof(T) == 4) {
-    constexpr int out_n = E == Epi::GEGLU ? simt::BN / 2 : simt::BN;
+    constexpr int out_n = gated(E) ? simt::BN / 2 : simt::BN;
     const dim3 grid((N + out_n - 1) / out_n, (M + simt::BM - 1) / simt::BM);
+    const float* g = static_cast<const float*>(epi.tile);
+    if (E == Epi::GEGLU_GRAD && g == nullptr) return (int)cudaErrorInvalidValue;
     gemm_fma_kernel<TA, TB, E><<<grid, simt::THREADS, 0, s>>>(A, lda, B, ldb, C, ldc, M, N, K,
-                                                              act);
+                                                              act, g);
     return (int)cudaGetLastError();
   } else if constexpr (TA) {
     if (partial == nullptr || chunk_rows <= 0 || K <= 0 || N % 4) return (int)cudaErrorInvalidValue;
@@ -198,7 +233,7 @@ int gemm(const T* A, int lda, const T* B, int ldb, OutT* C, int ldc, int M, int 
         partial, (K + chunk_rows - 1) / chunk_rows, M, N, C, ldc);
     return (int)cudaGetLastError();
   } else {
-    return gemm_wgmma<TA, TB, E>(A, lda, B, ldb, C, ldc, M, N, K, s, act);
+    return gemm_wgmma<TA, TB, E>(A, lda, B, ldb, C, ldc, M, N, K, s, act, 0, epi);
   }
 }
 

@@ -227,6 +227,14 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
   }
 }
 
+// A load with acquire semantics at GPU scope: what the writer did before the
+// release that this load observes is seen after it.
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
 __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
@@ -261,11 +269,15 @@ struct Tile {
 };
 
 // A matrix descriptor: start address, leading and stride byte offsets (all in
-// 16-byte units) and the swizzle. Shared-memory addresses stay under 2^18, so
-// the start field needs no mask and a k-step is one add of a constant.
+// 16-byte units) and the swizzle. The start field holds the address's low 18
+// bits (PTX: (addr & 0x3FFFF) >> 4): in a CTA of a cluster launch the bits
+// above them give the CTA's place in the cluster's window and, unmasked, would
+// run into the leading byte offset (which a K-major swizzled operand ignores
+// and an MN-major one reads). The mask is of the base, so a k-step stays one
+// add of a constant.
 __device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t offset, uint32_t lbo_bytes,
                                                uint32_t sbo_bytes, uint64_t layout) {
-  const uint32_t lo = (addr >> 4) + (offset >> 4) + ((lbo_bytes >> 4) << 16);
+  const uint32_t lo = ((addr & 0x3FFFFu) >> 4) + (offset >> 4) + ((lbo_bytes >> 4) << 16);
   const uint32_t hi = (sbo_bytes >> 4) | (uint32_t)(layout << 30);
   return ((uint64_t)hi << 32) | lo;
 }

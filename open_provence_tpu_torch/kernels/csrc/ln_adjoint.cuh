@@ -1,6 +1,7 @@
 // The LayerNorm adjoint row body shared by kernels 10, 11, 12 and 13: the LN
 // backward (layer_norm.cu) and the tails of the LN->GEMM backwards
-// (ln_gemm_bwd.cu, mlp_tail_bwd.cu).
+// (mlp_tail_bwd.cu; ln_gemm_bwd.cu on its split route, fp32 and K > 2048,
+// and the second pass, reduce, of its fused one).
 //
 // Given x [M, K], the scale s [K] and the cotangent of LN(x)*s, dy [M, K]
 // (g itself for the plain LN, in x's type; g.W in fp32 for an LN folded into
@@ -349,6 +350,16 @@ __global__ void __launch_bounds__(REDUCE_WARPS * 32)
   }
 }
 
+// The second pass on `stream`: dscale [K] from n_parts partial rows [n_parts,
+// K] fp32 (this file's row kernels write parts(M); kernels 11 and 12's fused
+// route one a tile of 128 rows).
+template <typename T>
+int reduce(const float* partial, int n_parts, int K, void* dscale, cudaStream_t stream) {
+  reduce_kernel<T><<<(K + 31) / 32, REDUCE_WARPS * 32, 0, stream>>>(partial, n_parts, K,
+                                                                    static_cast<T*>(dscale));
+  return (int)cudaGetLastError();
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T, typename DY, bool ADD_GH, int NCH>
@@ -397,9 +408,7 @@ int launch(const void* x, const void* scale, const void* dy, void* dx, void* dsc
   const int rows_err =
       launch_rows<T, DY, ADD_GH>(x, scale, dy, gh, dx, partial, M, K, eps, stream);
   if (rows_err != 0) return rows_err;
-  reduce_kernel<T><<<(K + 31) / 32, REDUCE_WARPS * 32, 0, stream>>>(partial, parts(M), K,
-                                                                    static_cast<T*>(dscale));
-  return (int)cudaGetLastError();
+  return reduce<T>(partial, parts(M), K, dscale, stream);
 }
 
 // What a launch over M x K runs: {instance (1 registers, 0 strided), partial

@@ -346,6 +346,27 @@ def _bwd_scratch(x2d, *dw_products):
     )
 
 
+def _ln_gemm_bwd_scratch(x2d, n):
+    """The scratch of kernels 12 and 11 (dW [n, k]), by route
+    (``kernels.ln_gemm_bwd_fused``), a function of the shape and dtype
+    alone: (xn, rows, dy, partial, dw_partial). Fused: rows, fp32
+    ``kernels.ln_gemm_bwd_rows(m, k)`` words (each row's mean and rstd, the
+    row tiles' exchanged sums and arrival counts), and dscale's partial rows
+    [ceil(m / 128), k], no dy. Split: ``_bwd_scratch``'s dy [m, k] fp32 and
+    partial rows, no rows."""
+    m, k = x2d.shape
+    if not kernels.ln_gemm_bwd_fused(k, x2d.dtype):
+        xn, dy, partial, dw_partial = _bwd_scratch(x2d, (m, n, k))
+        return xn, None, dy, partial, dw_partial
+    return (
+        torch.empty_like(x2d),
+        torch.empty(kernels.ln_gemm_bwd_rows(m, k), dtype=torch.float32, device=x2d.device),
+        None,
+        kernels.ln_gemm_bwd_partial(m, k, x2d.device),
+        kernels.dw_partial([(m, n, k)], x2d.device),
+    )
+
+
 def _check_bwd(x2d, g, n):
     if g.shape != (x2d.shape[0], n) or g.dtype != x2d.dtype:
         raise ValueError(f"cotangent must be [{x2d.shape[0]}, {n}] {x2d.dtype}")
@@ -360,10 +381,10 @@ def _matmul_bwd_kernel(x2d, scale, w, g, eps):
     n = w.shape[0]
     _check_bwd(x2d, g, n)
     dx, dw, dscale = torch.empty_like(x2d), torch.empty_like(w), torch.empty_like(scale)
-    xn, dy, partial, dw_partial = _bwd_scratch(x2d, (m, n, k))
+    xn, rows, dy, partial, dw_partial = _ln_gemm_bwd_scratch(x2d, n)
     with torch.cuda.device(x2d.device):
         code = kernels.library().opt_ln_matmul_bwd(
-            *(kernels.ptr(t) for t in (x2d, scale, w, g, dx, dw, dscale, xn, dy, partial,
+            *(kernels.ptr(t) for t in (x2d, scale, w, g, dx, dw, dscale, xn, rows, dy, partial,
                                        dw_partial)),
             m, k, n, kernels.dw_chunk_rows(m, n, k), float(eps), kernels.dtype_code(x2d),
             kernels.stream(x2d),
@@ -377,12 +398,12 @@ def _geglu_bwd_kernel(x2d, scale, wi, g, act_code, eps):
     intermediate = wi.shape[0] // 2
     _check_bwd(x2d, g, intermediate)
     dx, dwi, dscale = torch.empty_like(x2d), torch.empty_like(wi), torch.empty_like(scale)
-    xn, dy, partial, dw_partial = _bwd_scratch(x2d, (m, 2 * intermediate, k))
-    pre = torch.empty((m, 2 * intermediate), dtype=x2d.dtype, device=x2d.device)
+    xn, rows, dy, partial, dw_partial = _ln_gemm_bwd_scratch(x2d, 2 * intermediate)
+    cot = torch.empty((m, 2 * intermediate), dtype=x2d.dtype, device=x2d.device)  # [gi | gg]
     with torch.cuda.device(x2d.device):
         code = kernels.library().opt_ln_geglu_bwd(
-            *(kernels.ptr(t) for t in (x2d, scale, wi, g, dx, dwi, dscale, xn, pre, dy, partial,
-                                       dw_partial)),
+            *(kernels.ptr(t) for t in (x2d, scale, wi, g, dx, dwi, dscale, xn, cot, rows, dy,
+                                       partial, dw_partial)),
             m, k, intermediate, kernels.dw_chunk_rows(m, 2 * intermediate, k), float(eps),
             act_code, kernels.dtype_code(x2d), kernels.stream(x2d),
         )

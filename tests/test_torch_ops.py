@@ -8,6 +8,8 @@ package's own kernel tests run it. Inputs come from numpy seeds; fp32;
 tolerance atol = rtol = 1e-5 (different summation orders in fp32).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -296,6 +298,123 @@ def test_bwd_scratch_holds_the_chunks(m, n, k):
     both = geglu._bwd_scratch(x2d, (m, n, k), wo)[3]
     assert both.numel() == max(kernels.dw_chunks(m, n, k) * n * k,
                                kernels.dw_chunks(*wo) * k * (n // 2))
+
+
+# The bf16 fused route of kernels 12 and 11 (dy and the LN adjoint in one
+# launch) restructures the adjoint's sums: the GeGLU cotangents come from the
+# projection's tile, a row's sums of dh and dh·h from its 256-column tiles
+# (one CTA of a cluster each) added in rank order, dscale from the partial
+# sums of 128-row tiles added in row order. _fused_bwd_mirror writes that
+# decomposition out in plain PyTorch (fp32); the tests hold it against the
+# JAX Pallas kernels, _ln_matmul_bwd_kernel and _ln_geglu_bwd_kernel, run in
+# interpret mode on row tiles of their own (the JAX dispatch takes the
+# kernels only where K % 128 == 0 and M % 128 == 0), fp32, 1e-5.
+
+
+def _fused_bwd_mirror(x, scale, w, g, activation=None, eps=1e-5):
+    """(dx, dscale, dw) of LN(x)·scale @ wᵀ (or, with ``activation``, the
+    GeGLU of it, w = Wi [2I, K]) for the cotangent g, as the fused route
+    decomposes it."""
+    from open_provence_tpu_torch import kernels
+    from open_provence_tpu_torch.ops.geglu import ACTIVATION_GRADS, ACTIVATIONS
+
+    m, k = x.shape
+    tile_rows, tile_cols = kernels.LN_GEMM_BWD_TILE
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0) + eps)
+    h = (x - mean) * rstd
+    xn = h * scale
+    if activation is None:
+        cot = g
+    else:  # the cotangents of the projection's tiles of 128 output columns
+        act, act_grad = ACTIVATIONS[activation][1], ACTIVATION_GRADS[activation]
+        inter = w.shape[0] // 2
+        cot = torch.empty((m, 2 * inter))
+        for n0 in range(0, inter, tile_cols // 2):
+            cols = torch.arange(n0, min(inter, n0 + tile_cols // 2))
+            inp, gate = xn @ w[cols].t(), xn @ w[inter + cols].t()
+            cot[:, cols] = g[:, cols] * act_grad(inp) * gate
+            cot[:, inter + cols] = g[:, cols] * act(inp)
+    dw = cot.t() @ xn
+    dy = cot @ w
+    dh = dy * scale
+    sums = torch.zeros((m, 2))
+    for rank in range(kernels.ln_gemm_bwd_cluster(k)):  # the cluster's tiles, in rank order
+        cols = slice(rank * tile_cols, (rank + 1) * tile_cols)
+        sums = sums + torch.stack([dh[:, cols].sum(-1), (dh * h)[:, cols].sum(-1)], dim=-1)
+    dx = rstd * (dh - sums[:, :1] / k - h * sums[:, 1:] / k)
+    dscale = torch.zeros(k)
+    for r0 in range(0, m, tile_rows):  # dscale's partial rows, in row order
+        dscale = dscale + (dy * h)[r0:r0 + tile_rows].sum(0)
+    return dx, dscale, dw
+
+
+def _pallas_ln_bwd(kernel, x, scale, g, weights, dw_shape, accumulators, tiles, **kw):
+    """The JAX package's Pallas backward body ``kernel`` in interpret mode
+    over ``tiles`` row tiles of x (grid and block specs written for the
+    shape, since its own dispatch refuses most of these): (dx, dscale, dw)."""
+    from jax.experimental import pallas as pl
+
+    from open_provence_tpu.ops.attention import pallas_call
+
+    m, k = x.shape
+    bm = m // tiles
+
+    def rows(a):
+        return pl.BlockSpec((bm, a.shape[1]), lambda i: (i, 0))
+
+    def whole(shape):
+        return pl.BlockSpec(shape, lambda i: (0,) * len(shape))
+
+    args = [jnp.asarray(x), jnp.asarray(scale).reshape(1, k), jnp.asarray(g),
+            *(jnp.asarray(w) for w in weights)]
+    with pltpu.force_tpu_interpret_mode():
+        dx, dw, dscale = pallas_call(
+            functools.partial(kernel, num_tiles=tiles, **kw),
+            grid=(tiles,),
+            in_specs=[rows(args[0]), whole((1, k)), rows(args[2]),
+                      *(whole(w.shape) for w in args[3:])],
+            out_specs=[rows(args[0]), whole(dw_shape), whole((1, k))],
+            out_shape=[jax.ShapeDtypeStruct((m, k), jnp.float32),
+                       jax.ShapeDtypeStruct(dw_shape, jnp.float32),
+                       jax.ShapeDtypeStruct((1, k), jnp.float32)],
+            scratch_shapes=[pltpu.VMEM(shape, jnp.float32) for shape in accumulators],
+        )(*args)
+    return np.asarray(dx), np.asarray(dscale).reshape(k), np.asarray(dw)
+
+
+@pytest.mark.parametrize("rows", [64, 130])
+@pytest.mark.parametrize("hidden", [256, 264, 768])
+@pytest.mark.parametrize("which", ["ln_matmul_bwd", "ln_geglu_bwd"])
+def test_fused_ln_gemm_bwd_decomposition_matches_pallas(which, hidden, rows):
+    """The fused route's decomposition of kernels 12 and 11 (one, two and
+    three 256-column tiles a row; one and two 128-row tiles) against the
+    TPU kernels' bodies: dx, dscale and dW within 1e-5."""
+    from open_provence_tpu.ops import geglu as jax_geglu
+
+    x, scale = _ln_inputs(rows, hidden, seed=hidden + rows)
+    rng = np.random.default_rng(hidden * rows)
+    tiles = 2 if rows % 16 == 0 else 1
+    if which == "ln_matmul_bwd":
+        n = 384
+        w_kn = (rng.normal(size=(hidden, n)) * hidden**-0.5).astype(np.float32)
+        g = (rng.normal(size=(rows, n)) * 0.1).astype(np.float32)
+        ref = _pallas_ln_bwd(jax_geglu._ln_matmul_bwd_kernel, x, scale, g, (w_kn,),
+                             (hidden, n), [(hidden, n), (1, hidden)], tiles, eps=1e-5)
+        got = _fused_bwd_mirror(_t(x), _t(scale), _t(w_kn.T), _t(g))
+    else:
+        inter = 160  # two projection tiles of 128 columns, the second ragged
+        wi_kn = (rng.normal(size=(hidden, 2 * inter)) * hidden**-0.5).astype(np.float32)
+        g = (rng.normal(size=(rows, inter)) * 0.1).astype(np.float32)
+        ref = _pallas_ln_bwd(jax_geglu._ln_geglu_bwd_kernel, x, scale, g,
+                             (wi_kn[:, :inter], wi_kn[:, inter:]), (hidden, 2 * inter),
+                             [(hidden, inter), (hidden, inter), (1, hidden)], tiles,
+                             activation="gelu", eps=1e-5)
+        got = _fused_bwd_mirror(_t(x), _t(scale), _t(wi_kn.T), _t(g), "gelu")
+    (dx, dscale, dw), (ref_dx, ref_ds, ref_dw) = got, ref
+    np.testing.assert_allclose(dx.numpy(), ref_dx, **TOL)
+    np.testing.assert_allclose(dscale.numpy(), ref_ds, **TOL)
+    np.testing.assert_allclose(dw.numpy(), ref_dw.T, **TOL)
 
 
 @pytest.mark.parametrize("window", [None, 32])

@@ -373,6 +373,93 @@ def test_mlp_tail_cluster_mirrors_the_source():
     assert not ops.geglu_wo_supported(1040, 1152, torch.bfloat16, "gelu")
 
 
+def test_ln_gemm_bwd_cluster_mirrors_the_source():
+    """kernels.LN_GEMM_BWD_TILE and LN_GEMM_BWD_MAX_CLUSTER are the GEMM
+    engine's tile (wgm::BM, BN) and the most CTAs an LN_ADJOINT row takes
+    (wgm::ADJ_MAX_CLUSTER) as gemm_wgmma.cuh defines them, so kernels 11 and
+    12 hold a row in ceil(K / 256) CTAs: one at 256, two at 264 and 512,
+    three at the base width, eight at 2048; past 2048 columns, and in fp32,
+    they take the split route. (The cuda-marked
+    test_ln_gemm_bwd_design_is_reported reads the built library's report.)"""
+    import re
+
+    from open_provence_tpu_torch import kernels
+
+    source = (kernels.CSRC / "gemm_wgmma.cuh").read_text()
+    bm, bn = re.search(r"constexpr int BM = (\d+), BN = (\d+),", source).groups()
+    assert kernels.LN_GEMM_BWD_TILE == (int(bm), int(bn))
+    assert kernels.LN_GEMM_BWD_MAX_CLUSTER == int(
+        re.search(r"constexpr int ADJ_MAX_CLUSTER = (\d+);", source)[1])
+    widths = {256: 1, 264: 2, 512: 2, 768: 3, 1024: 4, 2048: 8}
+    assert {k: kernels.ln_gemm_bwd_cluster(k) for k in widths} == widths
+    assert all(kernels.ln_gemm_bwd_fused(k, torch.bfloat16) for k in (8, 200, *widths))
+    assert not any(kernels.ln_gemm_bwd_fused(k, torch.bfloat16) for k in (2056, 3072, 4096))
+    assert not any(kernels.ln_gemm_bwd_fused(k, torch.float32) for k in (256, 768, 2048))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(16384, 768), (16347, 264), (77, 256), (1, 2048), (130, 2056)])
+def test_ln_gemm_bwd_scratch_is_a_function_of_the_shape(m, k, dtype):
+    """The scratch the wrappers of kernels 12 and 11 allocate, by route: the
+    fused one (bf16, K <= 2048) gets one fp32 row scratch (each row's mean
+    and rstd [m, 2], then the ceil(m / 128) row tiles' exchanged sums [C,
+    128, 2] and arrival counts) and dscale's partial rows [ceil(m / 128),
+    k], and no fp32 dy; the split one dy [m, k] fp32 and the LN adjoint's
+    partial rows [ceil(m / 64), k], and no row scratch. Both get xn in x's
+    dtype, and bf16 dW's chunk sums. The same shape and dtype always give
+    the same scratch."""
+    import importlib
+
+    from open_provence_tpu_torch import kernels
+
+    geglu = importlib.import_module("open_provence_tpu_torch.ops.geglu")  # the module, not the op
+    n = 2304
+
+    def layout(scratch):
+        return [None if t is None else (tuple(t.shape), t.dtype) for t in scratch]
+
+    xn, rows, dy, partial, dw_partial = scratch = geglu._ln_gemm_bwd_scratch(
+        torch.empty((m, k), dtype=dtype), n)
+    assert xn.shape == (m, k) and xn.dtype == dtype
+    if kernels.ln_gemm_bwd_fused(k, dtype):
+        tiles, ctas = -(-m // 128), -(-k // 256)
+        assert dy is None and rows.dtype == torch.float32 and rows.dim() == 1
+        assert rows.numel() == -(-2 * m // 4) * 4 + tiles * ctas * 128 * 2 + tiles
+        assert partial.shape == (tiles, k)
+    else:
+        assert rows is None and dy.shape == (m, k) and dy.dtype == torch.float32
+        assert partial.shape == (-(-m // kernels.LN_ADJOINT_ROWS), k)
+    assert partial.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        assert dw_partial.numel() == kernels.dw_chunks(m, n, k) * n * k
+    else:
+        assert dw_partial is None
+    again = geglu._ln_gemm_bwd_scratch(torch.zeros((m, k), dtype=dtype), n)
+    assert layout(again) == layout(scratch)
+
+
+@pytest.mark.cuda
+def test_ln_gemm_bwd_design_is_reported(cuda_device):
+    """The library's route for kernels 11 and 12 at each width, as the
+    wrappers allocate for it (kernels.ln_gemm_bwd_fused): bf16 fused with a
+    row in kernels.ln_gemm_bwd_cluster(K) CTAs, of which the persistent grid
+    holds whole groups (as many as the card's SMs take), with a partial row
+    of dscale a 128-row tile, up to K = 2048; split past it and in fp32."""
+    from open_provence_tpu_torch import kernels
+
+    for k in (256, 264, 512, 768, 1024, 2048, 2056, 3072):
+        for dtype in (torch.bfloat16, torch.float32):
+            built = kernels.built_ln_gemm_bwd_design(k, dtype)
+            fused = kernels.ln_gemm_bwd_fused(k, dtype)
+            assert built["route"] == ("fused" if fused else "split")
+            assert built["cluster"] == (kernels.ln_gemm_bwd_cluster(k) if fused else 0)
+            assert built["partial_rows"] == (kernels.LN_GEMM_BWD_TILE[0] if fused
+                                             else kernels.LN_ADJOINT_ROWS)
+            assert built["max_cluster"] == kernels.LN_GEMM_BWD_MAX_CLUSTER
+            sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+            assert built["groups"] == (sms // built["cluster"] if fused else 0)
+
+
 @pytest.mark.cuda
 def test_mlp_tail_design_is_reported(cuda_device):
     """The library's bf16 whole-MLP design at each hidden size the wrappers
@@ -755,6 +842,45 @@ def test_backward_kernels_match_plain_on_cuda(cuda_device, dtype):
     assert counts["layer_norm_bwd"] == counts["ln_matmul_bwd"] == counts["ln_geglu_bwd"] == 2
     assert counts["flash_attention_packed_bwd"] == 2
     assert not any(kernels.plain_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [256, 264, 512, 768, 1024, 2056])
+def test_ln_gemm_backward_widths_match_plain_on_cuda(cuda_device, dtype, k):
+    """Kernels 12 and 11 against their plain versions at every width of the
+    fused route's clusters (one to four CTAs a row; 264 a ragged second
+    tile) and past it (2056: the split route), at ragged M (77 rows: a part
+    of one row tile; 16347: a ragged last tile), the tolerance a share of
+    each output's largest value; each call one launch of its kernel, no
+    plain version; two launches give the same bits."""
+    from open_provence_tpu_torch import kernels, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(k)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rng.normal(size=shape) * s, dtype=dtype, device=cuda_device)
+
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    scale, w, wi = t(k, s=0.1) + 1, t(456, k, s=k**-0.5), t(464, k, s=k**-0.5)
+    for m in (77, 16347):
+        x = t(m, k, s=2.0)
+        g_mm, g_mlp = t(m, 456, s=0.1), t(m, 232, s=0.1)
+        for name, kernel, want in (
+            ("ln_matmul_bwd", lambda: ops.ln_matmul_bwd(x, scale, w, g_mm),
+             ops.ln_matmul_bwd_plain(x, scale, w, g_mm)),
+            ("ln_geglu_bwd", lambda: ops.ln_geglu_bwd(x, scale, wi, g_mlp, "gelu"),
+             ops.ln_geglu_bwd_plain(x, scale, wi, g_mlp, "gelu")),
+        ):
+            kernels.reset_launch_counts()
+            got = kernel()
+            assert kernels.launch_counts()[name] == 1 and not any(kernels.plain_counts().values())
+            for a, b in zip(got, want):
+                assert torch.isfinite(a).all()
+                torch.testing.assert_close(a.float(), b.float(), rtol=rel,
+                                           atol=rel * b.float().abs().max().item())
+            assert all(torch.equal(a, b) for a, b in zip(got, kernel()))
 
 
 # |kernel - plain| <= a·max|plain| + r·|plain| for the LN adjoint (as
