@@ -1,0 +1,19 @@
+"""device_wait_share.batch: Share of the window's process() seconds in which the host
+was blocked on the card, copying the forwards' results back, from the
+program's spans of every call in the window."""
+
+LAYER = "engine"
+UNIT = "%"
+SOURCE = "program_span"
+MOVES = "pairs_per_s"
+
+
+def read(run):
+    """Seconds of the program's ``engine.fetch`` span over those of its root
+    ``engine.process``, summed over the window's calls; None where the
+    program reports no such span."""
+    traces = [t for t in run.host_traces if "engine.fetch_seconds" in t]
+    total = sum(t["engine.process_seconds"] for t in traces)
+    if total <= 0:
+        return None
+    return 100.0 * sum(t["engine.fetch_seconds"] for t in traces) / total

@@ -33,7 +33,6 @@ import logging
 import os
 from collections.abc import Callable, Mapping, Sequence
 from pathlib import Path
-from time import perf_counter
 from typing import Any
 
 import numpy as np
@@ -58,7 +57,7 @@ from ..text.fragmentation import (
 )
 from ..text.splitters import SentenceSplitter, resolve_sentence_splitter
 from ..text.tokenizer import TokenizerAdapter
-from ..utils.tracing import ProcessPerformanceTrace
+from ..utils.tracing import FRAGMENT_STAGES, ProcessPerformanceTrace, Spans
 from .batching import bucket_batch, bucket_length, length_buckets, pad_block_batch
 from .inputs import normalize_inputs, resolve_prefix_sentences, resolve_titles
 from .postprocess import (
@@ -129,41 +128,6 @@ def forward_logits(
     return out["ranking_logits"].float(), keep_probs_from_logits(out["pruning_logits"])
 
 
-class _Stopwatch:
-    """Accumulates wall-clock seconds per named phase.
-
-    ``with watch("preprocess"): ...`` adds the block's duration to that
-    phase; ``watch["preprocess"]`` reads the total. Re-entrant per phase.
-    """
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self._stack: list[tuple[str, float]] = []
-
-    def begin(self, phase: str) -> None:
-        self._stack.append((phase, perf_counter()))
-
-    def end(self) -> None:
-        phase, began = self._stack.pop()
-        self.totals[phase] = self.totals.get(phase, 0.0) + perf_counter() - began
-
-    def __call__(self, phase: str) -> "_Stopwatch":
-        self.begin(phase)
-        return self
-
-    def __enter__(self) -> "_Stopwatch":
-        return self
-
-    def __exit__(self, *exc: Any) -> None:
-        self.end()
-
-    def __getitem__(self, phase: str) -> float:
-        return self.totals.get(phase, 0.0)
-
-    def add(self, phase: str, seconds: float) -> None:
-        self.totals[phase] = self.totals.get(phase, 0.0) + seconds
-
-
 def _debug_emitter(
     debug_messages: bool | Callable[[str], None],
 ) -> Callable[[str], None] | None:
@@ -187,7 +151,10 @@ class _BlockDispatcher:
 
     The first batch flushes at half size to put the device to work early.
     With ``pipeline=False`` (one preprocessing slice, so nothing to overlap)
-    buckets are dispatched only at ``finish()``.
+    buckets are dispatched only at ``finish()``. Its phases are spans of the
+    call's ``spans`` (``engine.pad``, ``engine.dispatch``, ``engine.fetch``,
+    ``engine.attach``), and it counts ``blocks``, ``forwards``,
+    ``token_slots`` and ``valid_tokens`` there.
     """
 
     FETCH_WINDOW = 256
@@ -199,7 +166,7 @@ class _BlockDispatcher:
         *,
         use_device_pooling: bool,
         cell_table: dict[tuple[int, int], dict[str, Any]],
-        watch: _Stopwatch,
+        spans: Spans,
         progress: Any = None,
         pipeline: bool = True,
     ):
@@ -207,14 +174,13 @@ class _BlockDispatcher:
         self.batch_size = batch_size
         self.pooling = use_device_pooling
         self.cell_table = cell_table
-        self.watch = watch
+        self.spans = spans
         self.progress = progress
         self.pipeline = pipeline
         self._buckets = length_buckets(model.max_length, model.bucket_step)
         self._buffers: dict[int, list[dict[str, Any]]] = {}
         self._pending: list[tuple[list[dict[str, Any]], Any]] = []
         self._dispatched = 0
-        self.total_blocks = 0
 
     def add(self, entry: dict[str, Any]) -> None:
         blen = bucket_length(
@@ -222,7 +188,7 @@ class _BlockDispatcher:
         )
         buf = self._buffers.setdefault(blen, [])
         buf.append(entry)
-        self.total_blocks += 1
+        self.spans.count("blocks")
         if not self.pipeline:
             return
         # Half-size first flush, never above batch_size — a chunk larger
@@ -246,12 +212,15 @@ class _BlockDispatcher:
         self._drain()
 
     def _dispatch(self, seq_len: int, chunk: list[dict[str, Any]]) -> None:
-        model = self.model
-        n_rows = model._bucket_rows(len(chunk), self.batch_size)
-        batch_arrays = pad_block_batch(
-            chunk, seq_len, n_rows, model.tokenizer.pad_token_id
-        )
-        with self.watch("inference"):
+        model, spans = self.model, self.spans
+        with spans("engine.pad"):
+            n_rows = model._bucket_rows(len(chunk), self.batch_size)
+            batch_arrays = pad_block_batch(
+                chunk, seq_len, n_rows, model.tokenizer.pad_token_id
+            )
+            spans.count("forwards")
+            spans.count("token_slots", n_rows * seq_len)
+            spans.count("valid_tokens", batch_arrays["attention_mask"].sum())
             if self.pooling:
                 f_cap = model._frag_cap(max(len(e["ranges"]) for e in chunk))
                 frag_starts = np.zeros((n_rows, f_cap), dtype=np.int32)
@@ -260,6 +229,8 @@ class _BlockDispatcher:
                     for j, (frag_lo, frag_hi) in enumerate(entry["ranges"]):
                         frag_starts[row, j] = frag_lo
                         frag_ends[row, j] = frag_hi
+        with spans("engine.dispatch"):
+            if self.pooling:
                 res = model._forward_pooled(
                     batch_arrays["input_ids"], batch_arrays["attention_mask"],
                     frag_starts, frag_ends,
@@ -278,34 +249,35 @@ class _BlockDispatcher:
     def _drain(self) -> None:
         if not self._pending:
             return
-        with self.watch("inference"):
+        with self.spans("engine.fetch"):
             # The first copy waits for the device; the rest are already done.
             fetched = [
                 tuple(t.cpu().numpy() for t in res) for _, res in self._pending
             ]
-        for (chunk, _), (rank, values) in zip(self._pending, fetched):
-            for row, entry in enumerate(chunk):
-                work = entry["job"]
-                spans = np.asarray(entry["ranges"], dtype=np.int64).reshape(-1, 2)
-                if self.pooling:
-                    scores = BlockScores(
-                        order=work["block_idx"],
-                        rank=float(rank[row]),
-                        fragment_gids=entry["gids"],
-                        fragment_spans=spans,
-                        fragment_means=values[row][: len(entry["ranges"])],
-                    )
-                else:
-                    scores = BlockScores(
-                        order=work["block_idx"],
-                        rank=float(rank[row]),
-                        fragment_gids=entry["gids"],
-                        fragment_spans=spans,
-                        token_probs=values[row][: len(entry["input_ids"])],
-                    )
-                self.cell_table[(work["query_idx"], work["context_idx"])][
-                    "raw_blocks"
-                ].append(scores)
+        with self.spans("engine.attach"):
+            for (chunk, _), (rank, values) in zip(self._pending, fetched):
+                for row, entry in enumerate(chunk):
+                    work = entry["job"]
+                    ranges = np.asarray(entry["ranges"], dtype=np.int64).reshape(-1, 2)
+                    if self.pooling:
+                        scores = BlockScores(
+                            order=work["block_idx"],
+                            rank=float(rank[row]),
+                            fragment_gids=entry["gids"],
+                            fragment_spans=ranges,
+                            fragment_means=values[row][: len(entry["ranges"])],
+                        )
+                    else:
+                        scores = BlockScores(
+                            order=work["block_idx"],
+                            rank=float(rank[row]),
+                            fragment_gids=entry["gids"],
+                            fragment_spans=ranges,
+                            token_probs=values[row][: len(entry["input_ids"])],
+                        )
+                    self.cell_table[(work["query_idx"], work["context_idx"])][
+                        "raw_blocks"
+                    ].append(scores)
         self._pending.clear()
 
 
@@ -812,178 +784,169 @@ class OpenProvenceModel:
         accepted for drop-in compatibility but unused (a warning says so
         unless ``enable_warnings=False``).
         """
-        warn: Callable[[str], None] = _LOG.warning if enable_warnings else (lambda _msg: None)
-        if torch_dataloader_kwargs:
-            warn(
-                "torch_dataloader_kwargs is accepted for reference "
-                "compatibility but has no effect (no torch DataLoader here)."
-            )
-        batch_size = DEFAULT_BATCH_SIZE if batch_size is None else max(batch_size, 1)
-        threshold = self.config.resolve_threshold(threshold)
-        watch = _Stopwatch()
-        began = perf_counter()
-
-        splitter = resolve_sentence_splitter(sentence_splitter, language)
-        emit_debug = _debug_emitter(debug_messages)
-        if show_inference_progress is None:
-            show_inference_progress = bool(show_progress)
-
-        queries, contexts, structure = normalize_inputs(question, context)
-        contexts, titles = resolve_titles(
-            queries, contexts, title, first_line_as_title=first_line_as_title
-        )
-        max_fragment_tokens = max_fragment_tokens_for(
-            self.max_length, respect_sentence_boundaries
-        )
-        sep_ids = self.tokenizer.sep_token_ids()
-
-        watch.begin("prep")
-        prep_jobs, encoded_queries = self._plan_preprocessing(queries, contexts, titles)
-
-        def _fragmentize_chunk(jobs: list[dict[str, Any]]) -> list[dict[str, Any]]:
-            return fragmentize_jobs(
-                self.tokenizer,
-                jobs,
-                max_fragment_tokens=max_fragment_tokens,
-                splitter=splitter,
-                strip_sentences=strip_sentences,
-                respect_sentence_boundaries=respect_sentence_boundaries,
-                # Applies the empty-decode filter the keep decisions depend
-                # on while decoding only undecidable fragments.
-                decode_fragments="filter_only",
-            )
-
-        from .preprocess_tuning import (
-            auto_tune_preprocess_loader,
-            estimate_device_memory_bytes,
-            resolve_preprocess_workers,
-        )
-
-        workers, chunk_size, _prefetch = auto_tune_preprocess_loader(
-            total_jobs=len(prep_jobs),
-            inference_batch_size=batch_size,
-            current_workers=resolve_preprocess_workers(preprocess_workers),
-            current_preprocess_batch=preprocess_batch_size,
-            device_memory_bytes=estimate_device_memory_bytes(self.device),
-        )
-        span = max(1, int(chunk_size or 1))
-        slices = [prep_jobs[i : i + span] for i in range(0, len(prep_jobs), span)]
-
-        def _entries():
-            """Fragmentized entries in job order, yielded lazily so the
-            dispatcher can put the device to work while later cells are
-            still being tokenized."""
-            if workers > 0 and len(slices) > 1:
-                from concurrent.futures import ThreadPoolExecutor
-
-                with ThreadPoolExecutor(max_workers=workers) as pool:
-                    for batch in pool.map(_fragmentize_chunk, slices):
-                        yield from batch
-            else:
-                for jobs in slices:
-                    yield from _fragmentize_chunk(jobs)
-
-        # Device pooling is exact only when the title-prefix offset
-        # correction never applies (standalone:3075-3081).
-        use_device_pooling = self.device_pooling and all(
-            not job["prefix_sentences"] for job in prep_jobs
-        )
-        progress = None
-        if show_inference_progress:
-            try:
-                from tqdm import tqdm
-
-                progress = tqdm(desc="Model inference", unit="batch", leave=False)
-            except ImportError:
-                progress = None
-
-        # The half-size early flush only pays when later chunks are still
-        # fragmentizing while the device works; OPEN_PROVENCE_TPU_PIPELINE=0
-        # turns it off, as in the JAX engine.
-        dispatcher = _BlockDispatcher(
-            self,
-            batch_size,
-            use_device_pooling=use_device_pooling,
-            cell_table=(cell_table := {}),
-            watch=watch,
-            progress=progress,
-            pipeline=(
-                os.environ.get("OPEN_PROVENCE_TPU_PIPELINE", "1") != "0" and len(slices) > 1
-            ),
-        )
-        context_start_cache: dict[int, int] = {}
-        for job, entry in zip(prep_jobs, _entries()):
-            for stage in ("sentence_collect", "sentence_normalize", "tokenize",
-                          "fragment_split", "fragment_decode"):
-                watch.add(stage, entry.pop(f"timing_{stage}", 0.0))
-            with watch("assembly"):
-                key, info, works = self._cell_blocks(job, entry, encoded_queries, sep_ids)
-                cell_table[key] = info
-                prepared = [
-                    self._prepare_block(
-                        work,
-                        encoded_queries[key[0]],
-                        info["blocks"][work["block_idx"]],
-                        start_cache=context_start_cache,
+        spans = Spans()
+        with spans("engine.process"):
+            with spans("engine.plan"):
+                warn: Callable[[str], None] = (
+                    _LOG.warning if enable_warnings else (lambda _msg: None)
+                )
+                if torch_dataloader_kwargs:
+                    warn(
+                        "torch_dataloader_kwargs is accepted for reference "
+                        "compatibility but has no effect (no torch DataLoader here)."
                     )
-                    for work in works
-                ]
-            for block_entry in prepared:
-                dispatcher.add(block_entry)
-        dispatch_during_prep = watch["inference"]
-        watch.end()  # close "prep"
+                batch_size = DEFAULT_BATCH_SIZE if batch_size is None else max(batch_size, 1)
+                threshold = self.config.resolve_threshold(threshold)
+                splitter = resolve_sentence_splitter(sentence_splitter, language)
+                emit_debug = _debug_emitter(debug_messages)
+                if show_inference_progress is None:
+                    show_inference_progress = bool(show_progress)
 
-        dispatcher.finish()
-        if progress is not None:
-            progress.close()
-        device_seconds = watch["inference"]
+                queries, contexts, structure = normalize_inputs(question, context)
+                contexts, titles = resolve_titles(
+                    queries, contexts, title, first_line_as_title=first_line_as_title
+                )
+                max_fragment_tokens = max_fragment_tokens_for(
+                    self.max_length, respect_sentence_boundaries
+                )
+                sep_ids = self.tokenizer.sep_token_ids()
+                prep_jobs, encoded_queries = self._plan_preprocessing(queries, contexts, titles)
 
-        if show_progress and dispatcher.total_blocks:
-            note = (
-                f"[OpenProvenceModel] Model inference time: {device_seconds:.2f}s "
-                f"({dispatcher.total_blocks} blocks)"
-            )
-            (emit_debug or (lambda m: print(m, flush=True)))(note)
+                def _fragmentize_chunk(jobs: list[dict[str, Any]]) -> list[dict[str, Any]]:
+                    return fragmentize_jobs(
+                        self.tokenizer,
+                        jobs,
+                        max_fragment_tokens=max_fragment_tokens,
+                        splitter=splitter,
+                        strip_sentences=strip_sentences,
+                        respect_sentence_boundaries=respect_sentence_boundaries,
+                        # Applies the empty-decode filter the keep decisions
+                        # depend on while decoding only undecidable fragments.
+                        decode_fragments="filter_only",
+                    )
 
-        with watch("post"):
-            outcomes = summarize_contexts(
-                queries,
-                contexts,
-                cell_table,
-                threshold=threshold,
-                always_select_title=always_select_title,
-                use_best_reranker_score=use_best_reranker_score,
-                first_line_as_title=first_line_as_title,
-                zero_score_when_empty=zero_score_when_empty,
-            )
-            if reorder:
-                outcomes = reorder_outcomes(outcomes, top_k=top_k)
+                from .preprocess_tuning import (
+                    auto_tune_preprocess_loader,
+                    estimate_device_memory_bytes,
+                    resolve_preprocess_workers,
+                )
 
-        trace = ProcessPerformanceTrace(
-            # "prep" wraps the pipelined loop, so dispatch time that landed
-            # inside it is excluded along with assembly.
-            preprocess_seconds=max(
-                0.0, watch["prep"] - watch["assembly"] - dispatch_during_prep
-            ),
-            assembly_seconds=watch["assembly"],
-            inference_seconds=watch["inference"],
-            postprocess_seconds=watch["post"],
-            total_seconds=perf_counter() - began,
-            sentence_collect_seconds=watch["sentence_collect"],
-            sentence_normalize_seconds=watch["sentence_normalize"],
-            tokenize_seconds=watch["tokenize"],
-            fragment_split_seconds=watch["fragment_split"],
-            fragment_decode_seconds=watch["fragment_decode"],
-        )
+                workers, chunk_size, _prefetch = auto_tune_preprocess_loader(
+                    total_jobs=len(prep_jobs),
+                    inference_batch_size=batch_size,
+                    current_workers=resolve_preprocess_workers(preprocess_workers),
+                    current_preprocess_batch=preprocess_batch_size,
+                    device_memory_bytes=estimate_device_memory_bytes(self.device),
+                )
+                span = max(1, int(chunk_size or 1))
+                slices = [prep_jobs[i : i + span] for i in range(0, len(prep_jobs), span)]
+
+                def _entries():
+                    """Fragmentized entries in job order, yielded lazily so
+                    the dispatcher can put the device to work while later
+                    cells are still being tokenized."""
+                    if workers > 0 and len(slices) > 1:
+                        from concurrent.futures import ThreadPoolExecutor
+
+                        with ThreadPoolExecutor(max_workers=workers) as pool:
+                            for batch in pool.map(_fragmentize_chunk, slices):
+                                yield from batch
+                    else:
+                        for jobs in slices:
+                            yield from _fragmentize_chunk(jobs)
+
+                # Device pooling is exact only when the title-prefix offset
+                # correction never applies (standalone:3075-3081).
+                use_device_pooling = self.device_pooling and all(
+                    not job["prefix_sentences"] for job in prep_jobs
+                )
+                progress = None
+                if show_inference_progress:
+                    try:
+                        from tqdm import tqdm
+
+                        progress = tqdm(desc="Model inference", unit="batch", leave=False)
+                    except ImportError:
+                        progress = None
+
+                # The half-size early flush only pays when later chunks are
+                # still fragmentizing while the device works;
+                # OPEN_PROVENCE_TPU_PIPELINE=0 turns it off, as in the JAX
+                # engine.
+                dispatcher = _BlockDispatcher(
+                    self,
+                    batch_size,
+                    use_device_pooling=use_device_pooling,
+                    cell_table=(cell_table := {}),
+                    spans=spans,
+                    progress=progress,
+                    pipeline=(
+                        os.environ.get("OPEN_PROVENCE_TPU_PIPELINE", "1") != "0"
+                        and len(slices) > 1
+                    ),
+                )
+                context_start_cache: dict[int, int] = {}
+                entries = _entries()
+
+            for job in prep_jobs:
+                with spans("engine.fragments"):
+                    entry = next(entries)
+                    for stage in FRAGMENT_STAGES:
+                        spans.add(stage, entry.pop(f"timing_{stage}", 0.0))
+                with spans("engine.assembly"):
+                    key, info, works = self._cell_blocks(job, entry, encoded_queries, sep_ids)
+                    cell_table[key] = info
+                    prepared = [
+                        self._prepare_block(
+                            work,
+                            encoded_queries[key[0]],
+                            info["blocks"][work["block_idx"]],
+                            start_cache=context_start_cache,
+                        )
+                        for work in works
+                    ]
+                for block_entry in prepared:
+                    dispatcher.add(block_entry)
+            with spans("engine.fragments"):
+                entries.close()  # shuts the worker pool down
+
+            dispatcher.finish()
+            if progress is not None:
+                progress.close()
+            blocks = spans.counts.get("blocks", 0)
+            if show_progress and blocks:
+                host_seconds = spans.seconds["engine.dispatch"] + spans.seconds["engine.fetch"]
+                note = (
+                    "[OpenProvenceModel] Host time launching the forwards and waiting "
+                    f"for the device (not device time): {host_seconds:.2f}s ({blocks} blocks)"
+                )
+                (emit_debug or (lambda m: print(m, flush=True)))(note)
+
+            with spans("engine.post"):
+                outcomes = summarize_contexts(
+                    queries,
+                    contexts,
+                    cell_table,
+                    threshold=threshold,
+                    always_select_title=always_select_title,
+                    use_best_reranker_score=use_best_reranker_score,
+                    first_line_as_title=first_line_as_title,
+                    zero_score_when_empty=zero_score_when_empty,
+                )
+                if reorder:
+                    outcomes = reorder_outcomes(outcomes, top_k=top_k)
+
+            with spans("engine.payload"):
+                payload = build_payload(
+                    structure,
+                    outcomes,
+                    include_sentence_texts=return_sentence_texts,
+                    include_sentence_probs=return_sentence_metrics,
+                )
+
+        trace = ProcessPerformanceTrace.from_spans(spans)
         if emit_debug is not None:
             emit_debug(f"[OpenProvenceModel] {trace.timing_line()}")
-
-        payload = build_payload(
-            structure,
-            outcomes,
-            include_sentence_texts=return_sentence_texts,
-            include_sentence_probs=return_sentence_metrics,
-        )
         payload["timing"] = trace.as_dict()
         payload["performance_trace"] = trace
         return payload

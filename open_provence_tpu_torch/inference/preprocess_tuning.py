@@ -15,6 +15,7 @@ Env overrides (reference names):
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -50,8 +51,8 @@ def resolve_preprocess_workers(override: int | None) -> int | None:
 
 def estimate_device_memory_bytes(device=None) -> int | None:
     """Device memory size: env override, then ``torch.cuda.mem_get_info``
-    for a CUDA ``device`` (reference :2536-2564 queries torch.cuda too).
-    None for a CPU device."""
+    for a CUDA ``device`` (reference :2536-2564 queries torch.cuda too),
+    asked once a card. None for a CPU device."""
     override_gb = os.getenv("OPEN_PROVENCE_DEVICE_MEMORY_GB")
     if override_gb:
         try:
@@ -67,7 +68,18 @@ def estimate_device_memory_bytes(device=None) -> int | None:
     device = torch.device("cuda" if device is None else device)
     if device.type != "cuda" or not torch.cuda.is_available():
         return None
-    _free, total = torch.cuda.mem_get_info(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _cuda_total_bytes(index)
+
+
+@functools.cache
+def _cuda_total_bytes(index: int) -> int:
+    """A card's memory size, which does not change. The query is a driver
+    call whose time has a tail of tens of milliseconds; ``process()`` plans
+    with it on every call."""
+    import torch
+
+    _free, total = torch.cuda.mem_get_info(index)
     return int(total)
 
 

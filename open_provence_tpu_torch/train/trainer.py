@@ -73,6 +73,7 @@ from ..parallel.mesh import (
     state_sharding_rules,
 )
 from ..utils import safetensors_io
+from ..utils.tracing import Spans
 from .losses import joint_loss
 from .optim import Sharding, make_optimizer
 
@@ -256,6 +257,10 @@ class OpenProvenceTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.best_eval_loss = float("inf")
         self.best_checkpoint: Path | None = None
+        # The step's phases as profiler ranges while a capture records
+        # (train.step, .prepare, .forward_backward, .allreduce, .optimizer;
+        # train.collate in train()); their seconds are not read.
+        self._spans = Spans()
 
     # --- one step -------------------------------------------------------------
 
@@ -377,20 +382,24 @@ class OpenProvenceTrainer:
         else:
             micro = [batch]
         names = list(self.params)
+        spans = self._spans
         grads = loss = components = None
         for mb in micro:
-            mb_loss, mb_comps = self._loss_for_batch(
-                self.params, self._prepare_batch(mb), deterministic=False
-            )
-            mb_grads = torch.autograd.grad(mb_loss, [self.params[k] for k in names])
-            if grads is None:
-                grads, loss, components = list(mb_grads), mb_loss.detach(), {
-                    k: v.detach() for k, v in mb_comps.items()
-                }
-            else:
-                grads = [a + b for a, b in zip(grads, mb_grads)]
-                loss = loss + mb_loss.detach()
-                components = {k: components[k] + v.detach() for k, v in mb_comps.items()}
+            with spans("train.prepare"):
+                prepared = self._prepare_batch(mb)
+            with spans("train.forward_backward"):
+                mb_loss, mb_comps = self._loss_for_batch(
+                    self.params, prepared, deterministic=False
+                )
+                mb_grads = torch.autograd.grad(mb_loss, [self.params[k] for k in names])
+                if grads is None:
+                    grads, loss, components = list(mb_grads), mb_loss.detach(), {
+                        k: v.detach() for k, v in mb_comps.items()
+                    }
+                else:
+                    grads = [a + b for a, b in zip(grads, mb_grads)]
+                    loss = loss + mb_loss.detach()
+                    components = {k: components[k] + v.detach() for k, v in mb_comps.items()}
         if len(micro) > 1:
             inv = 1.0 / len(micro)
             grads = [g * inv for g in grads]
@@ -398,8 +407,9 @@ class OpenProvenceTrainer:
             components = {k: v * inv for k, v in components.items()}
         grads = dict(zip(names, grads))
         if self.mesh.size > 1:
-            self._sum_gradients(grads)
-            loss, components = self._global_metrics(loss, components)
+            with spans("train.allreduce"):
+                self._sum_gradients(grads)
+                loss, components = self._global_metrics(loss, components)
         return loss, components, grads
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]) -> None:
@@ -422,12 +432,14 @@ class OpenProvenceTrainer:
         ``batch`` must be a list of exactly that many microbatches.
         ``sync=False`` returns the metrics as device tensors, without waiting
         for the card."""
-        loss, components, grads = self.loss_and_grads(batch)
-        self.apply_gradients(grads)
-        metrics = {"loss": loss, **components}
-        if not sync:
-            return metrics
-        return {k: float(v) for k, v in metrics.items()}
+        with self._spans("train.step"):
+            loss, components, grads = self.loss_and_grads(batch)
+            with self._spans("train.optimizer"):
+                self.apply_gradients(grads)
+            metrics = {"loss": loss, **components}
+            if not sync:
+                return metrics
+            return {k: float(v) for k, v in metrics.items()}
 
     @torch.no_grad()
     def evaluate(self, eval_batches: Iterator[Mapping[str, Any]]) -> dict[str, float]:
@@ -484,11 +496,12 @@ class OpenProvenceTrainer:
 
         def next_microbatch():
             nonlocal iterator
-            try:
-                return next(iterator)
-            except StopIteration:
-                iterator = train_batches()
-                return next(iterator, None)
+            with self._spans("train.collate"):
+                try:
+                    return next(iterator)
+                except StopIteration:
+                    iterator = train_batches()
+                    return next(iterator, None)
 
         per_step = self.gradient_accumulation_steps
         while self.step < total_steps:

@@ -1,9 +1,9 @@
 from .convert import init_params, state_dict_from_flax
-from .tracing import ProcessPerformanceTrace, profiler_trace
+from .tracing import ProcessPerformanceTrace, Spans
 
 __all__ = [
     "init_params",
     "state_dict_from_flax",
     "ProcessPerformanceTrace",
-    "profiler_trace",
+    "Spans",
 ]

@@ -498,17 +498,6 @@ def test_ln_adjoint_aligned_copies_only_for_the_register_instance(hidden):
         assert got is misaligned
 
 
-def test_profiler_trace_writes_chrome_trace(tmp_path):
-    from open_provence_tpu_torch.utils.tracing import profiler_trace
-
-    with profiler_trace(None) as prof:
-        assert prof is None
-    with profiler_trace(str(tmp_path)) as prof:
-        torch.ones(8) @ torch.ones(8)
-    assert (tmp_path / "trace.json").stat().st_size > 0
-    assert any("matmul" in e.key or "dot" in e.key for e in prof.key_averages())
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
