@@ -2127,21 +2127,26 @@ def phase8_train_then_serve(config, sd, tokenizer_cls, pair_tokenizer, dev, card
     return launches
 
 
-def count_forwards(model):
-    """Wrap the engine's bucketed forward to count what it is given: rows,
-    valid tokens and rows by bucket length. Returns the counters."""
-    seen = {"rows": 0, "tokens": 0, "by_length": {}}
-    inner = model._forward
+def count_forwards():
+    """Wrap the engine's batch padding to count what each forward is given:
+    rows, valid tokens and rows by bucket length (a CUDA graph's replay runs
+    no Python forward to wrap). Returns the counters."""
+    from open_provence_tpu_torch.inference import engine
 
-    def counted(input_ids, attention_mask):
+    seen = {"rows": 0, "tokens": 0, "by_length": {}}
+    inner = engine.pad_block_batch
+
+    def counted(*args):
+        out = inner(*args)
+        input_ids, attention_mask = out["input_ids"], out["attention_mask"]
         rows = int((attention_mask.sum(axis=1) > 0).sum())
         seen["rows"] += rows
         seen["tokens"] += int(attention_mask.sum())
         by = seen["by_length"]
         by[input_ids.shape[1]] = by.get(input_ids.shape[1], 0) + rows
-        return inner(input_ids, attention_mask)
+        return out
 
-    model._forward = counted
+    engine.pad_block_batch = counted
     return seen
 
 
@@ -2159,7 +2164,7 @@ def phase9_long_context(sd, tokenizer_cls, pair_tokenizer, dev, card: str,
     questions, contexts = synthetic_pairs(64, sentences_per_doc=48, seed=9)
     model = OpenProvenceModel(config, sd, tokenizer_cls(), device=dev)  # bf16 on the card
     shapes = model.warmup(batch_size=1, lengths=[1024, max_length])
-    seen = count_forwards(model)
+    seen = count_forwards()
 
     kernels.reset_launch_counts()
     result = model.process(questions, contexts, threshold=0.1, show_progress=False)

@@ -5,9 +5,11 @@ reference's flagship artifact, modeling_open_provence_standalone.py:
 1467-3805): ``process()`` with the same input-shape contract and output
 payload, over the port's module:
 
-* one eager forward per (batch, length) bucket (inference/batching.py); on a
+* one forward per (batch, length) bucket (inference/batching.py); on a
   CUDA device the forward runs the port's hand-written kernels, on the CPU
-  their plain versions;
+  their plain versions; on one card without a mesh each bucket's forward is
+  captured once as a CUDA graph and replayed (``_ForwardGraphs``), so a
+  forward costs the host one graph launch, not one launch a kernel;
 * fp32 sigmoid/softmax of the logits on the device (standalone:2900-2924);
 * fragment mean pooling on the device when no title prefix applies, so only
   [B] scores and [B, F] fragment means come back to the host.
@@ -33,7 +35,7 @@ import logging
 import os
 from collections.abc import Callable, Mapping, Sequence
 from pathlib import Path
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -45,6 +47,8 @@ from ..models.model import (
     keep_probs_from_logits,
     ranking_score_from_logits,
 )
+from ..models.modernbert import ModernBertAttention
+from ..ops.rotary import rope_tables
 from ..ops.segment import fragment_mean_pool_ranges
 from ..parallel.mesh import DATA_AXIS, Mesh, shard_state_dict
 from ..text.fragmentation import (
@@ -124,8 +128,121 @@ def forward_logits(
     ids, mask = (
         torch.from_numpy(a).to(device, non_blocking=True) for a in (input_ids, attention_mask)
     )
+    return device_logits(module, ids, mask)
+
+
+def device_logits(
+    module: OpenProvenceModule, ids: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``forward_logits`` on inputs that already lie on the device."""
     out = module(ids.long(), mask)
     return out["ranking_logits"].float(), keep_probs_from_logits(out["pruning_logits"])
+
+
+def fragment_means(
+    keep: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor
+) -> torch.Tensor:
+    """[B, F] fragment means of the [B, S] keep probabilities; empty slots
+    (start == end) read 1.0, the keep-everything sentinel the postprocess
+    expects."""
+    means, counts = fragment_mean_pool_ranges(keep, starts, ends)
+    return torch.where(counts > 0, means, 1.0)
+
+
+def graph_route(device: torch.device, mesh: Mesh | None, tensor_parallel: bool) -> bool:
+    """Whether the engine replays its forwards as CUDA graphs: on a CUDA
+    card where a forward is this process's alone. A mesh's row gather and
+    its tensor-parallel sums are collectives that a graph cannot hold, and
+    the CPU has no graphs."""
+    if device.type != "cuda":
+        return False
+    return mesh is None or (mesh.data == 1 and not (tensor_parallel and mesh.model > 1))
+
+
+def _rope_tables_read(module: OpenProvenceModule, seq_len: int) -> list[torch.Tensor]:
+    """The cached rope tables a forward of ``module`` at ``seq_len`` reads."""
+    return [
+        t
+        for m in module.modules()
+        if isinstance(m, ModernBertAttention)
+        for t in rope_tables(seq_len, m.head_dim, m.theta, m.Wqkv.weight.dtype,
+                             m.Wqkv.weight.device)
+    ]
+
+
+class _Graph(NamedTuple):
+    """One captured forward: the graph, its static inputs and outputs, the
+    kernel launches it replays, and the rope tables it reads (held here, so
+    the tables' cache cannot free memory a replay reads)."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list[torch.Tensor]
+    outputs: tuple[torch.Tensor, ...]
+    launches: dict[str, int]
+    tables: list[torch.Tensor]
+
+
+class _ForwardGraphs:
+    """The bucketed forward as one CUDA graph per input shape, on one card
+    without a mesh: (rows, length), or (rows, length, fragment cap) pooled.
+
+    A shape's first forward runs eagerly and its result is returned: that
+    builds the kernels, sets their attributes and caches the rope tables.
+    Its inputs then become the graph's static inputs, and the forward is
+    captured on a side stream. Every later forward of the shape copies its
+    host arrays into those inputs, replays the graph on the current stream
+    and returns clones of the graph's outputs, so that results held until a
+    fetch stay apart. All the graphs share one memory pool: replays run one
+    after another on one stream, and nothing of a replay outlives it but the
+    clones. The capture calls ``CUDAGraph.capture_begin`` / ``capture_end``
+    itself, because ``torch.cuda.graph`` synchronises the device and empties
+    the allocator's caches on every capture, which would stall a call's
+    pipeline. ``counts`` holds the replays and the captures so far; each
+    replay adds the kernel launches its capture recorded
+    (``kernels.add_launches``).
+    """
+
+    def __init__(self, module: OpenProvenceModule, device: torch.device):
+        self.module = module
+        self.device = device
+        self.counts = {"graph_replays": 0, "graph_captures": 0}
+        self._graphs: dict[tuple, _Graph] = {}
+        self._pool = None
+        self._stream: torch.cuda.Stream | None = None
+
+    def run(
+        self, fn: Callable[..., tuple[torch.Tensor, ...]], *arrays: np.ndarray
+    ) -> tuple[torch.Tensor, ...]:
+        """``fn`` of the device copies of ``arrays`` (int32, [rows, ...]):
+        eagerly for a shape's first forward, then as the graph's replay."""
+        key = (fn.__name__, *(a.shape for a in arrays))
+        graph = self._graphs.get(key)
+        with torch.cuda.device(self.device):
+            if graph is None:
+                inputs = [torch.from_numpy(a).to(self.device, non_blocking=True) for a in arrays]
+                out = fn(*inputs)
+                self._graphs[key] = self._capture(fn, inputs, arrays[0].shape[1])
+                return out
+            for buf, a in zip(graph.inputs, arrays):
+                buf.copy_(torch.from_numpy(a), non_blocking=True)
+            graph.graph.replay()
+        kernels.add_launches(graph.launches)
+        self.counts["graph_replays"] += 1
+        return tuple(t.clone() for t in graph.outputs)
+
+    def _capture(self, fn, inputs: list[torch.Tensor], seq_len: int) -> _Graph:
+        if self._stream is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with kernels.recorded_launches() as launches, torch.cuda.stream(self._stream):
+            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                outputs = fn(*inputs)
+            finally:
+                graph.capture_end()
+        self.counts["graph_captures"] += 1
+        return _Graph(graph, inputs, outputs, launches, _rope_tables_read(self.module, seq_len))
 
 
 def _debug_emitter(
@@ -154,7 +271,8 @@ class _BlockDispatcher:
     buckets are dispatched only at ``finish()``. Its phases are spans of the
     call's ``spans`` (``engine.pad``, ``engine.dispatch``, ``engine.fetch``,
     ``engine.attach``), and it counts ``blocks``, ``forwards``,
-    ``token_slots`` and ``valid_tokens`` there.
+    ``token_slots``, ``valid_tokens``, and the model's ``graph_replays`` and
+    ``graph_captures`` in the call, there.
     """
 
     FETCH_WINDOW = 256
@@ -181,6 +299,7 @@ class _BlockDispatcher:
         self._buffers: dict[int, list[dict[str, Any]]] = {}
         self._pending: list[tuple[list[dict[str, Any]], Any]] = []
         self._dispatched = 0
+        self._graph_counts = model.graph_counts()
 
     def add(self, entry: dict[str, Any]) -> None:
         blen = bucket_length(
@@ -210,6 +329,8 @@ class _BlockDispatcher:
                 self._dispatch(blen, buf[lo : lo + self.batch_size])
             buf.clear()
         self._drain()
+        for name, n in self.model.graph_counts().items():
+            self.spans.count(name, n - self._graph_counts[name])
 
     def _dispatch(self, seq_len: int, chunk: list[dict[str, Any]]) -> None:
         model, spans = self.model, self.spans
@@ -337,6 +458,11 @@ class OpenProvenceModel:
         self.device, self.module = place_module(
             config, state_dict, device, dtype, mesh, tensor_parallel
         )
+        self._graphs = (
+            _ForwardGraphs(self.module, self.device)
+            if graph_route(self.device, mesh, tensor_parallel)
+            else None
+        )
         self.tokenizer = (
             tokenizer
             if isinstance(tokenizer, TokenizerAdapter)
@@ -421,16 +547,35 @@ class OpenProvenceModel:
             out.append(self.mesh.all_reduce(full, DATA_AXIS))
         return tuple(out)
 
+    def graph_counts(self) -> dict[str, int]:
+        """The forwards served by a CUDA graph's replay and the graphs
+        captured so far (none off the graph route)."""
+        return dict(self._graphs.counts) if self._graphs is not None else {}
+
     @torch.inference_mode()
     def _forward(
         self, input_ids: np.ndarray, attention_mask: np.ndarray
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One bucketed forward: ([B] ranking scores, [B, S] keep probs),
         fp32, left on the device (under a mesh, every data rank's rows)."""
+        if self._graphs is not None:
+            return self._graphs.run(self._scores_on_device, input_ids, attention_mask)
         ranking, keep = forward_logits(
             self.module, self.device, *self._my_rows(input_ids, attention_mask)
         )
         return self._gather_rows(ranking_score_from_logits(ranking), keep)
+
+    def _scores_on_device(
+        self, ids: torch.Tensor, mask: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        ranking, keep = device_logits(self.module, ids, mask)
+        return ranking_score_from_logits(ranking), keep
+
+    def _pooled_on_device(
+        self, ids: torch.Tensor, mask: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        rank, keep = self._scores_on_device(ids, mask)
+        return rank, fragment_means(keep, starts, ends)
 
     @staticmethod
     def _frag_cap(n_frags: int) -> int:
@@ -452,10 +597,12 @@ class OpenProvenceModel:
         """Forward + on-device fragment mean pooling: ([B] scores, [B, F]
         fragment means). Empty slots (start == end) come back as 1.0 — the
         keep-everything sentinel the postprocess expects."""
+        if self._graphs is not None:
+            return self._graphs.run(
+                self._pooled_on_device, input_ids, attention_mask, frag_starts, frag_ends
+            )
         rank, keep = self._forward(input_ids, attention_mask)
-        starts, ends = self._inputs(frag_starts, frag_ends)
-        means, counts = fragment_mean_pool_ranges(keep, starts, ends)
-        return rank, torch.where(counts > 0, means, 1.0)
+        return rank, fragment_means(keep, *self._inputs(frag_starts, frag_ends))
 
     def warmup(
         self,
@@ -471,9 +618,11 @@ class OpenProvenceModel:
         default), its rows padded by the dispatcher's rule, and, when
         ``include_pooled`` and device pooling is on, the pooled forward at
         each of ``fragment_caps`` rounded as the dispatcher rounds a row's
-        fragment count. ``batch_size=None`` is ``process()``'s default.
-        Returns the (rows, length) and (rows, length, fragment cap) shapes
-        run, as the JAX engine's ``warmup`` returns its compiled keys."""
+        fragment count. ``batch_size=None`` is ``process()``'s default. On
+        the graph route each shape's forward is also captured as its CUDA
+        graph. Returns the (rows, length) and (rows, length, fragment cap)
+        shapes run, as the JAX engine's ``warmup`` returns its compiled
+        keys."""
         if batch_size is None:
             batch_size = DEFAULT_BATCH_SIZE
         if lengths is None:

@@ -16,8 +16,11 @@ read-only ``site-packages``).
 Importing this module builds nothing and needs neither ``nvcc`` nor a card.
 
 Every wrapper in ``ops/`` adds one to its kernel's launch count right after
-a successful launch, and nowhere else, so a run can show that the main path
-went through the kernels (``reset_launch_counts`` / ``launch_counts``). A
+a successful launch, so a run can show that the main path went through the
+kernels (``reset_launch_counts`` / ``launch_counts``). A CUDA graph's capture
+launches nothing, so the launches its wrappers counted are taken back out
+(``recorded_launches``), and each replay of the graph adds them once
+(``add_launches``): the kernels ran, without their wrappers. A
 wrapper that takes its plain version (a CPU tensor) adds one to that
 kernel's plain count instead (``plain_counts``). A tensor on a CUDA card
 never takes the plain version: the library is built for ``sm_90a`` alone,
@@ -28,6 +31,7 @@ moves the tensors to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import functools
@@ -36,6 +40,7 @@ import os
 import shutil
 import stat
 import subprocess
+from collections.abc import Iterator
 from pathlib import Path
 
 import torch
@@ -165,6 +170,27 @@ def plain_counts() -> dict[str, int]:
 
 def count_launch(name: str) -> None:
     _launches[name] += 1
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[dict[str, int]]:
+    """Launches counted inside the block, taken back out of the counts and
+    left in the dict it yields (by kernel, those that launched): what a CUDA
+    graph's capture recorded, which runs only when the graph is replayed."""
+    before = dict(_launches)
+    recorded: dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        recorded.update({k: n - before[k] for k, n in _launches.items() if n != before[k]})
+        _launches.update(before)
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count the launches of a CUDA graph's replay: ``counts`` as
+    ``recorded_launches`` gave them at its capture."""
+    for name, n in counts.items():
+        _launches[name] += n
 
 
 def count_plain(name: str) -> None:

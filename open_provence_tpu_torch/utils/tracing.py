@@ -33,9 +33,12 @@ PROCESS_SPANS = (
     "engine.post",  # contexts summarized and reordered
     "engine.payload",  # the output payload built
 )
-# Its counters: blocks packed, forwards run, and the token positions of the
-# forwards' padded [rows, length] against those holding a real token.
-PROCESS_COUNTERS = ("blocks", "forwards", "token_slots", "valid_tokens")
+# Its counters: blocks packed, forwards run, the token positions of the
+# forwards' padded [rows, length] against those holding a real token, and the
+# forwards served by a CUDA graph's replay and the graphs captured.
+PROCESS_COUNTERS = (
+    "blocks", "forwards", "token_slots", "valid_tokens", "graph_replays", "graph_captures",
+)
 # The fragmentation stages whose seconds the workers report per entry; the
 # engine adds them to its spans under these names (``Spans.add``).
 FRAGMENT_STAGES = (
